@@ -1,0 +1,641 @@
+"""Chip smoke test of the PyTorch/CUDA port (``ydb_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py [--sf 1] [--profile]
+
+Phases, each printing its own line(s):
+
+1. the card's name and power limit, as ``nvidia-smi`` prints them;
+2. the build of the four CUDA kernels from ``ydb_tpu_torch/ops/cuda/csrc``
+   (one ``nvcc`` per source, in parallel), with its seconds;
+3. generation of TPC-H at ``--sf`` and its load into ``QueryEngine()``
+   (no device argument: it must land on ``cuda``);
+4. the kernel phase: each kernel against its plain PyTorch version on the
+   card, on seeded random inputs at the shapes TPC-H Q1/Q6/Q14 give it at
+   this scale (nulls, an all-null bucket, LUT misses and a forced compact
+   overflow included), plus ``bucket_agg`` at 512 buckets and 16
+   aggregates (the most the small-domain lane sends it) and keyless, and
+   each wrapper's multi-launch form (more operands than one launch
+   takes).
+   Ints, masks and permutations must match exactly, float sums to rtol
+   1e-9 (another summation order). Times: device time between CUDA
+   events (a spin kernel ahead hides the host's launch work), median of
+   15 calls after warm-up, for the kernel, its plain version and one
+   PyTorch library call computing the same function; the bound is the
+   bytes of the distinct input and output tensors over 3.35 TB/s;
+5. the slice phase: Q1, Q6 and Q14 through ``QueryEngine.query`` with
+   ``YDB_TPU_LATE_MAT`` on, and Q1 and Q14 again with it off (Q14 then
+   gathers its payload inside the probe kernel); every answer must
+   equal a pandas oracle (rtol 1e-9 for floats, exact otherwise), every
+   query must take the fused path, and every kernel's launch counter
+   (reset just before this phase) must have risen.
+
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+QUERIES = {
+    "q1": """
+select l_returnflag, l_linestatus,
+  sum(l_quantity) as sum_qty,
+  sum(l_extendedprice) as sum_base_price,
+  sum(l_extendedprice*(1-l_discount)) as sum_disc_price,
+  sum(l_extendedprice*(1-l_discount)*(1+l_tax)) as sum_charge,
+  avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
+  avg(l_discount) as avg_disc, count(*) as count_order
+from lineitem
+where l_shipdate <= date '1998-12-01' - interval '90' day
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus""",
+    "q6": """
+select sum(l_extendedprice*l_discount) as revenue
+from lineitem
+where l_shipdate >= date '1994-01-01'
+  and l_shipdate < date '1994-01-01' + interval '1' year
+  and l_discount between 0.05 and 0.07
+  and l_quantity < 24""",
+    "q14": """
+select 100.00 * sum(case when p_type like 'PROMO%'
+    then l_extendedprice*(1-l_discount) else 0 end)
+  / sum(l_extendedprice*(1-l_discount)) as promo_revenue
+from lineitem, part
+where l_partkey = p_partkey
+  and l_shipdate >= date '1995-09-01'
+  and l_shipdate < date '1995-09-01' + interval '1' month""",
+}
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+RTOL = 1e-9
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond, msg) -> None:
+    """A check that holds under ``python -O`` too."""
+    if not cond:
+        raise AssertionError(msg)
+
+
+# --------------------------------------------------------------------------
+# oracle (the q1/q6/q14 branches of the repo's TPC-H test oracle)
+# --------------------------------------------------------------------------
+
+
+def oracle(name: str, tables: dict, date32):
+    import pandas as pd
+    li = tables["lineitem"]
+    if name == "q1":
+        d = li[li.l_shipdate <= date32(1998, 12, 1) - 90]
+        disc = d.l_extendedprice * (1 - d.l_discount)
+        d = d.assign(dp=disc, ch=disc * (1 + d.l_tax))
+        return d.groupby(["l_returnflag", "l_linestatus"], sort=True).agg(
+            sum_qty=("l_quantity", "sum"),
+            sum_base_price=("l_extendedprice", "sum"),
+            sum_disc_price=("dp", "sum"), sum_charge=("ch", "sum"),
+            avg_qty=("l_quantity", "mean"),
+            avg_price=("l_extendedprice", "mean"),
+            avg_disc=("l_discount", "mean"),
+            count_order=("l_orderkey", "count"),
+        ).reset_index()
+    if name == "q6":
+        d = li[(li.l_shipdate >= date32(1994, 1, 1))
+               & (li.l_shipdate < date32(1995, 1, 1))
+               & (li.l_discount >= 0.05 - 1e-12)
+               & (li.l_discount <= 0.07 + 1e-12)
+               & (li.l_quantity < 24)]
+        return pd.DataFrame(
+            {"revenue": [(d.l_extendedprice * d.l_discount).sum()]})
+    if name == "q14":
+        pa = tables["part"]
+        l = li[(li.l_shipdate >= date32(1995, 9, 1))
+               & (li.l_shipdate < date32(1995, 10, 1))]
+        j = l.merge(pa, left_on="l_partkey", right_on="p_partkey")
+        rev = j.l_extendedprice * (1 - j.l_discount)
+        promo = rev.where(j.p_type.str.startswith("PROMO"), 0.0)
+        return pd.DataFrame({"promo_revenue":
+                             [100.0 * promo.sum() / rev.sum()]})
+    raise KeyError(name)
+
+
+def assert_frames_match(got, want, name: str) -> None:
+    import numpy as np
+    import pandas as pd
+    want = want.copy()
+    want.columns = list(got.columns)          # labels match by position
+    check(len(got) == len(want), f"{name}: rows {len(got)} != {len(want)}")
+    for col in got.columns:
+        g = got[col].to_numpy()
+        w = want[col].to_numpy()
+        gn, wn = pd.isna(g), pd.isna(w)
+        check((gn == wn).all(), f"{name}.{col}: null mismatch")
+        g, w = g[~gn], w[~wn]
+        if np.issubdtype(np.asarray(w).dtype, np.floating) or \
+                np.issubdtype(np.asarray(g).dtype, np.floating):
+            np.testing.assert_allclose(g.astype(np.float64),
+                                       w.astype(np.float64), rtol=RTOL,
+                                       err_msg=f"{name}.{col}")
+        elif np.issubdtype(np.asarray(w).dtype, np.integer):
+            check((g.astype(np.int64) == w.astype(np.int64)).all(),
+                  f"{name}.{col}")
+        else:
+            check(list(g) == list(w), f"{name}.{col}")
+
+
+# --------------------------------------------------------------------------
+# timing
+# --------------------------------------------------------------------------
+
+
+SPIN_CYCLES = 20_000_000           # ~10 ms: outlasts any wrapper's host work
+
+
+def time_ms(fn, iters: int = 15, warmup: int = 3) -> float:
+    """Median per-call device time: CUDA events around each call, with a
+    spin kernel queued ahead of the first event, so the host work of the
+    wrapper (checks, allocations, launches) is done before the card
+    reaches the events and they bracket the device work alone."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def distinct_bytes(tensors) -> int:
+    """Bytes of the distinct tensors among `tensors` (None skipped): a
+    tensor that several operands share is read once."""
+    seen = {}
+    for t in tensors:
+        if t is not None:
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def agg_bytes(kid, nb: int, active, aggs) -> int:
+    """bucket_agg's distinct input bytes plus its outputs (a value and a
+    count per aggregate and bucket, a row count per bucket)."""
+    ins = [kid, active] + [t for (_f, d, v, _u) in aggs for t in (d, v)]
+    return distinct_bytes(ins) + nb * 8 * (2 * len(aggs) + 1)
+
+
+def check_bucket_agg(B, kid, nb: int, active, aggs, sync, tag) -> float:
+    """bucket_agg against its plain version: counts, present rows and
+    integer results exactly, float sums to RTOL. Returns the largest
+    absolute difference of a float sum."""
+    import torch
+    kv, kc, kp = B.bucket_agg(kid, nb, active, aggs)
+    pv, pc, pp = B.bucket_agg_plain(kid, nb, active, aggs)
+    sync()
+    check(torch.equal(kp, pp), f"bucket_agg {tag} present")
+    err = 0.0
+    for i, (f, d, _v, _u) in enumerate(aggs):
+        check(torch.equal(kc[i], pc[i]), f"bucket_agg {tag} count {i}")
+        if f == "sum" and d.dtype == torch.float64:
+            torch.testing.assert_close(kv[i], pv[i], rtol=RTOL, atol=0)
+            err = max(err, float((kv[i] - pv[i]).abs().max()))
+        else:
+            check(torch.equal(kv[i], pv[i]), f"bucket_agg {tag} {f} {i}")
+    return err
+
+
+# --------------------------------------------------------------------------
+# kernel phase
+# --------------------------------------------------------------------------
+
+
+def kernel_phase(B, n: int, q6_compact_cap: int, n_part: int,
+                 lut_span: int, device: str = "cuda") -> list:
+    """Each kernel (bindings module `B`) vs its plain version at the
+    slice's shapes."""
+    import torch
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1234)
+    rows = []
+
+    def sync():
+        # a fault inside a kernel surfaces here, where it happened
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def rand(shape, dtype=torch.float64):
+        return torch.rand(shape, generator=g, device=dev, dtype=dtype)
+
+    def randint(lo, hi, shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    # -- bucket_agg at Q1's partial shape and skew: n rows, 12 buckets
+    #    ((l_returnflag, l_linestatus) with their NULL slots), of which
+    #    TPC-H fills four with about 49%, 25%, 25% and 0.7% of the rows;
+    #    the 10 kernel aggregates Q1 asks for (7 float64 sums, 3 counts,
+    #    no NULLs: lineitem's columns are NOT NULL; count(*) is the
+    #    per-bucket row count the kernel always returns)
+    u = rand((n,))
+    kid = torch.where(u < 0.49, 10, torch.where(
+        u < 0.74, 5, torch.where(u < 0.993, 7, 6))).to(torch.int32)
+    active = rand((n,)) < 0.98
+    aggs = [("sum", rand((n,)) * 1e5, None, False) for _ in range(7)] \
+        + [("count", None, None, False) for _ in range(3)]
+    run_k = lambda: B.bucket_agg(kid, 12, active, aggs)           # noqa: E731
+    run_p = lambda: B.bucket_agg_plain(kid, 12, active, aggs)     # noqa: E731
+    err = check_bucket_agg(B, kid, 12, active, aggs, sync, "Q1")
+    # every func on the same rows with NULLs, bucket 6 all NULL, checked
+    # (not timed): float sums, counts, min / max / first, integer sums,
+    # signed and unsigned min / max
+    v = rand((n,)) > 0.05
+    v[kid == 6] = False
+    extras = [("sum", aggs[0][1], v, False), ("count", None, v, False),
+              ("min", aggs[0][1], v, False), ("max", aggs[1][1], v, False),
+              ("first", None, v, False),
+              ("sum", randint(-(1 << 40), 1 << 40, (n,)), v, False),
+              ("min", randint(-(1 << 62), 1 << 62, (n,)), None, False),
+              ("max", randint(-(1 << 62), 1 << 62, (n,)), v, True),
+              ("min", randint(-(1 << 62), 1 << 62, (n,)), None, True)]
+    check_bucket_agg(B, kid, 12, active, extras, sync, "funcs")
+    kid_l = torch.where(active, kid.to(torch.int64),
+                        torch.full_like(kid, 12, dtype=torch.int64))
+    stacked = torch.stack(
+        [torch.where(active if v is None else (active & v), d, 0.0)
+         for (f, d, v, _u) in aggs if f == "sum"]
+        + [active.to(torch.float64) for (f, *_r) in aggs if f == "count"],
+        dim=1)
+    def lib():
+        return torch.zeros(13, stacked.shape[1], dtype=torch.float64,
+                           device=dev).index_add_(0, kid_l, stacked)
+    rows.append(dict(
+        name="bucket_agg", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/bucket_agg.cu",
+        replaces="ydb_tpu/ops/xla_exec.py:352",
+        shape=f"n={n} nb=12 aggs={len(aggs)} (Q1 partial)",
+        max_abs_err=err, ms=time_ms(run_k), plain_ms=time_ms(run_p),
+        library_ms=time_ms(lib),
+        bound_ms=bound_ms(agg_bytes(kid, 12, active, aggs)),
+        bound_by="bytes"))
+
+    # -- bucket_agg at the most the small-domain lane routes to it:
+    #    512 buckets (a few empty), 16 aggregates, n rows; checked and
+    #    timed, printed on a line of its own
+    kid5 = randint(0, 512, (n,), torch.int32)
+    kid5[(kid5 % 97) == 5] = 4                 # buckets 5, 102, ... empty
+    wide = []
+    for a in range(16):
+        f = ("sum", "sum", "count", "min", "max", "first")[a % 6]
+        d = None if f in ("count", "first") else (
+            rand((n,)) * 1e5 if a % 4 else randint(-(1 << 40), 1 << 40,
+                                                   (n,)))
+        wide.append((f, d, rand((n,)) > 0.05 if a % 3 else None, False))
+    check_bucket_agg(B, kid5, 512, active, wide, sync, "nb=512")
+    wide_bound = bound_ms(agg_bytes(kid5, 512, active, wide))
+    log(f"kernel bucket_agg at nb=512: n={n} aggs={len(wide)} "
+        f"kernel_ms={time_ms(lambda: B.bucket_agg(kid5, 512, active, wide)):.4f} "
+        f"plain_ms={time_ms(lambda: B.bucket_agg_plain(kid5, 512, active, wide)):.4f} "
+        f"bound_us={wide_bound * 1e3:.2f} (bytes)")
+
+    # -- bucket_agg keyless (Q6, Q14: no ids, one bucket; the kernel
+    #    takes its own path for it): every func with nulls checked, and
+    #    Q14's two float64 sums over the whole scan (late
+    #    materialization off) timed, printed on a line of its own
+    check_bucket_agg(B, None, 1, active, wide, sync, "keyless")
+    two = aggs[:2]
+    log(f"kernel bucket_agg keyless: n={n} aggs={len(two)} "
+        f"kernel_ms={time_ms(lambda: B.bucket_agg(None, 1, active, two)):.4f} "
+        f"plain_ms={time_ms(lambda: B.bucket_agg_plain(None, 1, active, two)):.4f} "
+        f"bound_us={bound_ms(agg_bytes(None, 1, active, two)) * 1e3:.2f} "
+        "(bytes)")
+
+    # -- compact at Q6's shape: n rows → the sized compact capacity,
+    #    4 columns of the filtered env; then a forced overflow
+    sel = rand((n,)) < 0.8 * q6_compact_cap / n      # live fits the cap
+    length = torch.tensor(n - 12345, dtype=torch.int32, device=dev)
+    cols = [rand((n,)), rand((n,)), randint(0, 1 << 30, (n,), torch.int32),
+            rand((n,)) > 0.5]
+    for new_cap, tag in ((q6_compact_cap, "fit"), (1024, "overflow")):
+        ko, kl, kn, kf = B.compact(cols, sel, length, n, new_cap)
+        po, pl, pn, pf = B.compact_plain(cols, sel, length, n, new_cap)
+        sync()
+        check(int(kl) == int(pl) and int(kn) == int(pn)
+              and bool(kf) == bool(pf), f"compact {tag} scalars")
+        check(bool(kf) == (tag == "overflow"), f"compact {tag} overflow")
+        for a, b in zip(ko, po):
+            check(torch.equal(a, b), f"compact {tag} column")
+    nlive = int(kl)
+    def run_k():
+        return B.compact(cols, sel, length, n, q6_compact_cap)
+
+    def run_p():
+        return B.compact_plain(cols, sel, length, n, q6_compact_cap)
+    width = sum(c.element_size() for c in cols)
+
+    def lib():
+        idx = torch.nonzero(sel).reshape(-1)
+        return [c.index_select(0, idx) for c in cols]
+    rows.append(dict(
+        name="compact", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/compact.cu",
+        replaces="ydb_tpu/ops/xla_exec.py:1041",
+        shape=f"n={n} new_cap={q6_compact_cap} cols={len(cols)}",
+        max_abs_err=0.0, ms=time_ms(run_k), plain_ms=time_ms(run_p),
+        library_ms=time_ms(lib),
+        bound_ms=bound_ms(n + 2 * nlive * width), bound_by="bytes"))
+
+    # -- probe at Q14's shape: n probe rows of l_partkey into a
+    #    200,000-key LUT (late: row id + found), with misses and NULLs
+    nb_build = n_part
+    lut = torch.full((lut_span,), -1, dtype=torch.int32, device=dev)
+    perm = torch.randperm(nb_build, generator=g, device=dev)
+    lut[:nb_build] = perm.to(torch.int32)
+    key = randint(1, nb_build + 5000, (n,))    # keys past the span miss
+    kvalid = rand((n,)) > 0.01
+    psel = rand((n,)) < 0.0125
+    keys_sorted = torch.arange(1, lut_span + 1, device=dev,
+                               dtype=torch.int64)
+    args = dict(lut=lut, lut_base=1, keys_sorted=keys_sorted,
+                n_build=nb_build, pcap=lut_span, kind="inner", not_in=False,
+                has_null=False, payloads=[])
+    run_k = lambda: B.probe(key, kvalid, psel, **args)          # noqa: E731
+    run_p = lambda: B.probe_plain(key, kvalid, psel, **args)    # noqa: E731
+    kf_, ks_, ko_, _ = run_k()
+    pf_, ps_, po_, _ = run_p()
+    sync()
+    check(torch.equal(kf_, pf_) and torch.equal(ks_, ps_)
+          and torch.equal(ko_, po_), "probe")
+    # the kernel's other forms, checked (not timed) on the same probes:
+    # payload gathers (non-late joins), the sorted-keys lower_bound for
+    # sparse int keys and for float keys, and the anti / NOT IN rules
+    pay = [(randint(0, 1 << 40, (lut_span,)), rand((lut_span,)) > 0.3),
+           (rand((lut_span,)), None)]
+    sparse = torch.sort(torch.randperm(1 << 22, generator=g, device=dev)
+                        [:4096] * 977).values
+    pad = torch.full((8192 - 4096,), torch.iinfo(torch.int64).max,
+                     dtype=torch.int64, device=dev)
+    fkeys = torch.cat([torch.sort(rand((3000,)) * 100 - 50).values,
+                       torch.full((1096,), float("inf"), device=dev,
+                                  dtype=torch.float64)])
+    fprobe = torch.where(rand((n,)) < 0.5,
+                         fkeys[randint(0, 3000, (n,))], rand((n,)) * 100)
+    variants = [
+        ("lut payloads", key, dict(args, kind="left", payloads=pay)),
+        ("bsearch anti not_in", sparse[randint(0, 4096, (n,))] +
+         randint(0, 2, (n,)), dict(args, lut=None, n_build=4096,
+                                   keys_sorted=torch.cat([sparse, pad]),
+                                   pcap=8192, kind="left_anti",
+                                   not_in=True)),
+        ("bsearch float mark", fprobe, dict(
+            args, lut=None, keys_sorted=fkeys, n_build=3000, pcap=lut_span,
+            kind="mark", payloads=pay)),
+    ]
+    for tag, k_, kw in variants:
+        got = B.probe(k_, kvalid, psel, **kw)
+        want = B.probe_plain(k_, kvalid, psel, **kw)
+        sync()
+        check(all(torch.equal(x, y) for x, y in zip(got[:3], want[:3])),
+              f"probe {tag}")
+        for (gd, gv), (wd, wv) in zip(got[3], want[3]):
+            check(torch.equal(gd, wd) and torch.equal(gv, wv),
+                  f"probe {tag} payload")
+    rows.append(dict(
+        name="probe", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/probe.cu",
+        replaces="ydb_tpu/ops/join.py:218",
+        shape=f"n={n} lut={lut_span}", max_abs_err=0.0,
+        ms=time_ms(run_k), plain_ms=time_ms(run_p),
+        library_ms=time_ms(lambda: torch.searchsorted(keys_sorted, key)),
+        bound_ms=bound_ms(n * (8 + 1 + 1) + n * (1 + 4 + 1)
+                          + lut_span * 4), bound_by="bytes"))
+
+    # -- the wrappers' multi-launch forms (more aggregates, compacted
+    #    columns or gathered payloads than one launch takes), checked at
+    #    a small size against the plain versions
+    m = min(1 << 17, n)
+    many = [("sum", rand((m,)), rand((m,)) > 0.1, False) if a % 2 else
+            ("count", None, rand((m,)) > 0.1, False)
+            for a in range(B._MAX_AGGS + 4)]
+    check_bucket_agg(B, randint(0, 12, (m,), torch.int32), 12,
+                     rand((m,)) < 0.9, many, sync, "chunked")
+    ccols = [rand((m,)) if i % 2 else randint(0, 1 << 30, (m,), torch.int32)
+             for i in range(B._MAX_COLS + 6)]
+    csel = rand((m,)) < 0.3
+    for new_cap, tag in ((1 << 16, "fit"), (1024, "overflow")):
+        got = B.compact(ccols, csel, m - 77, m, new_cap)
+        want = B.compact_plain(ccols, csel, m - 77, m, new_cap)
+        sync()
+        check(all(int(x) == int(y) for x, y in zip(got[1:], want[1:]))
+              and all(torch.equal(x, y) for x, y in zip(got[0], want[0])),
+              f"compact chunked {tag}")
+    pays = [(randint(0, 1 << 40, (lut_span,)),
+             rand((lut_span,)) > 0.3 if i % 2 else None)
+            for i in range(B._MAX_PAYLOADS + 2)]
+    kw = dict(args, kind="left", payloads=pays)
+    csel = rand((m,)) < 0.5
+    got = B.probe(key[:m], kvalid[:m], csel, **kw)
+    want = B.probe_plain(key[:m], kvalid[:m], csel, **kw)
+    sync()
+    check(all(torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
+          and all(torch.equal(gd, wd) and torch.equal(gv, wv)
+                  for (gd, gv), (wd, wv) in zip(got[3], want[3])),
+          "probe chunked")
+
+    # -- sort at Q1's ORDER BY shape: 128 rows, dropped rank + 2 keys
+    from ydb_tpu_torch.ops.sort import encode_key
+    m = 128
+    dropped = (torch.arange(m, device=dev) >= 4).to(torch.int64)
+    keys = [encode_key(dropped), encode_key(randint(0, 3, (m,))),
+            encode_key(randint(0, 2, (m,)))]
+    run_k = lambda: B.sort_perm(keys, m, dev)                   # noqa: E731
+    run_p = lambda: B.sort_perm_plain(keys, m, dev)             # noqa: E731
+    check(torch.equal(run_k(), run_p()), "sort")
+    # a scan-capacity sort as well: merge passes across tiles
+    big = [encode_key(randint(-5, 5, (1 << 16,))),
+           encode_key(rand((1 << 16,)) - 0.5)]
+    check(torch.equal(B.sort_perm(big, 1 << 16, dev),
+                      B.sort_perm_plain(big, 1 << 16, dev)), "sort 64K")
+    rows.append(dict(
+        name="sort", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/sort.cu",
+        replaces="ydb_tpu/ops/sort.py:32", shape=f"n={m} keys={len(keys)}",
+        max_abs_err=0.0, ms=time_ms(run_k), plain_ms=time_ms(run_p),
+        library_ms=time_ms(lambda: torch.sort(keys[1], stable=True)),
+        bound_ms=bound_ms(m * 8 * len(keys) + m * 4), bound_by="bytes"))
+    return rows
+
+
+# --------------------------------------------------------------------------
+# main
+# --------------------------------------------------------------------------
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one warm run of each query with "
+                    "torch.profiler and print where its time goes")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device")
+        return 2
+    sys.path.insert(0, HERE)
+    import pandas as pd
+
+    from ydb_tpu_torch.bench.tpch_gen import date32, load_tpch
+    from ydb_tpu_torch.ops.cuda import bindings, build
+    from ydb_tpu_torch.ops.device import bucket_capacity
+    from ydb_tpu_torch.progstore.buckets import bucket_segment, bucket_sources
+    from ydb_tpu_torch.query import QueryEngine
+    from ydb_tpu_torch.sql import parse
+
+    # 1. the card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+
+    # 2. build
+    t0 = time.perf_counter()
+    built = build.build_all(verbose=True)
+    build_s = time.perf_counter() - t0
+    log(f"build: {len(built)} kernels in {build_s:.2f} s "
+        + " ".join(f"{k}={v['seconds']}s" for k, v in built.items()))
+    for k, v in built.items():
+        for line in v["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {k}: {line.strip()}")
+
+    # 3. data
+    t0 = time.perf_counter()
+    eng = QueryEngine()
+    check(eng.device.type == "cuda", eng.device)
+    data = load_tpch(eng.catalog, sf=args.sf)
+    li = eng.catalog.table("lineitem")
+    portions = [p for s in li.shards for p in s.portions]
+    K = bucket_sources(len(portions))
+    CAP = max(bucket_capacity(max(p.num_rows, 1)) for p in portions)
+    n = K * CAP
+    tables = {t: pd.DataFrame(cols) for t, cols in data.tables.items()
+              if t in ("lineitem", "part")}
+    log(f"data: sf={args.sf} lineitem={li.num_rows} rows, superblock "
+        f"K={K} CAP={CAP} n={n}, {time.perf_counter() - t0:.1f} s")
+
+    # 4. kernels vs plain at the slice's shapes: Q6's compact capacity
+    # is sized as the executor sizes it (CBO estimate, 25% headroom, the
+    # segment ladder); Q14's LUT spans part's dense p_partkey range
+    q6 = eng.planner.plan_select(parse(QUERIES["q6"]))
+    est_q6 = min(float(li.num_rows), float(q6.pipeline.scan.est_rows))
+    q6_cap = bucket_segment(max(int(est_q6 * 1.25) + 1, 1024))
+    n_part = eng.catalog.table("part").num_rows
+    lut_span = bucket_capacity(n_part, minimum=1024)
+    rows = kernel_phase(bindings, n, q6_cap, n_part, lut_span)
+    for r in rows:
+        log(f"kernel {r['name']}: {r['shape']} kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"bound_us={r['bound_ms'] * 1e3:.2f} "
+            f"max_abs_err={r['max_abs_err']:.3g}")
+
+    # 5. the slice through QueryEngine.query
+    launches = slice_phase(eng, bindings, tables, date32)
+    if args.profile:
+        profile_phase(eng)
+    os.environ.pop("YDB_TPU_LATE_MAT", None)
+
+    table = [{k: r[k] for k in ("name", "route", "source", "replaces")}
+             | {"launches": launches[r["name"]],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+             for r in rows]
+    log(json.dumps({"kernels": table}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def slice_phase(eng, bindings, tables: dict, date32) -> dict:
+    """Q1/Q6/Q14 (and Q1, Q14 without late materialization) through the
+    engine, each checked against the oracle; returns the launch counts
+    of exactly this phase."""
+    bindings.reset_launches()
+    runs = [("q1", "1"), ("q6", "1"), ("q14", "1"), ("q1", "0"),
+            ("q14", "0")]
+    for name, late in runs:
+        os.environ["YDB_TPU_LATE_MAT"] = late
+        walls = []
+        for _ in range(3):
+            before = dict(bindings.LAUNCHES)
+            t0 = time.perf_counter()
+            got = eng.query(QUERIES[name])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        per_query = {k: v - before[k] for k, v in bindings.LAUNCHES.items()}
+        check(eng.executor.last_path == "fused", eng.executor.last_path)
+        assert_frames_match(got, oracle(name, tables, date32), name)
+        log(f"query {name} late_mat={late}: cold_ms={walls[0]:.2f} "
+            f"warm_ms={min(walls[1:]):.2f} rows={len(got)} fused ok "
+            f"warm_launches={json.dumps(per_query)}")
+    launches = dict(bindings.LAUNCHES)
+    log(f"launches: {json.dumps(launches)}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    check(not missing, f"kernels not launched on the main path: {missing}")
+    return launches
+
+
+def profile_phase(eng) -> None:
+    """One warm run per query under torch.profiler: host wall time, the
+    summed device time of its kernels, the device's idle share of the
+    wall, and the kernels that took most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for name, late in (("q1", "1"), ("q6", "1"), ("q14", "1")):
+        os.environ["YDB_TPU_LATE_MAT"] = late
+        eng.query(QUERIES[name])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.query(QUERIES[name])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        def dev_us(e) -> float:
+            return float(getattr(e, "self_device_time_total", None)
+                         or getattr(e, "self_cuda_time_total", 0) or 0)
+        evs = [e for e in prof.key_averages() if dev_us(e) > 0]
+        dev_ms = sum(dev_us(e) for e in evs) / 1e3
+        top = sorted(evs, key=lambda e: -dev_us(e))[:8]
+        log(f"profile {name}: wall_ms={wall:.3f} device_ms={dev_ms:.3f} "
+            f"idle_share={max(0.0, 1 - dev_ms / wall):.3f} kernels="
+            f"{sum(e.count for e in evs)} top: "
+            + "; ".join(f"{e.key[:48]}={dev_us(e) / 1e3:.3f}ms x{e.count}"
+                        for e in top))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,62 @@
+"""The port stands alone: no jax and nothing of ydb_tpu at run time, and
+no silent CPU fallback."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+# `ydb_tpu_torch` starts with `ydb_tpu`: match the reference package only
+_BAD_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax\b|jaxlib\b|ydb_tpu(?!_torch)\b)",
+    re.MULTILINE)
+
+
+def _port_sources():
+    files = sorted(p for p in (ROOT / "ydb_tpu_torch").rglob("*.py")
+                   if "_build" not in p.parts)
+    assert files
+    return files + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_or_jax_import(path):
+    hits = _BAD_IMPORT.findall(path.read_text())
+    assert not hits, f"{path}: {hits}"
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = ("import sys, ydb_tpu_torch, ydb_tpu_torch.query, "
+            "ydb_tpu_torch.interop, ydb_tpu_torch.ops.cuda.bindings\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
+            "m == 'ydb_tpu' or m.startswith('ydb_tpu.')]\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_engine_without_cuda_raises_instead_of_running_on_cpu():
+    import torch
+    from ydb_tpu_torch.query import QueryEngine
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        QueryEngine()
+    assert QueryEngine(device="cpu").device.type == "cpu"
+
+
+def test_cuda_tensor_never_takes_the_plain_version():
+    """The wrappers choose the plain version by the device alone: asked
+    for CUDA, a wrapper checks its inputs for the kernel launch and
+    raises on CPU tensors instead of running the plain version."""
+    import torch
+    from ydb_tpu_torch.ops.cuda import bindings
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(ValueError, match="expected cuda"):
+        bindings.sort_perm([torch.zeros(4, dtype=torch.int64)], 4, "cuda")

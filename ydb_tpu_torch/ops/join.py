@@ -1,0 +1,196 @@
+"""Broadcast join (port of ``ydb_tpu/ops/join.py``).
+
+The build side is sorted on the host once per build (``build``) and
+placed on the engine's device: sorted keys padded to a power-of-two
+capacity with a +inf / INT64_MAX sentinel, the payload columns in key
+order, and — for integral keys with a bounded span — a direct-address
+LUT (key − lut_base → sorted build row, −1 = absent). The probe runs
+inside the fused query as the ``probe`` CUDA kernel: a LUT lookup or a
+branchless lower_bound, the join-kind selection with the NOT IN rule,
+and the payload gathers (or, under late materialization, the
+(row id, found) pair the fused body gathers from later).
+
+Duplicate-key (expanding) probes, GraceJoin partitions and the
+portioned-path ``probe`` are not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ydb_tpu_torch.core.block import HostBlock
+from ydb_tpu_torch.core.schema import Schema
+from ydb_tpu_torch.ops.cuda import bindings as K
+from ydb_tpu_torch.ops.device import bucket_capacity
+from ydb_tpu_torch.ops.torch_ns import to_tensor
+
+
+def _host_key(block: HostBlock, name: str) -> tuple[np.ndarray, Optional[np.ndarray]]:
+    """Key in its search domain: float keys stay float64, the rest int64."""
+    cd = block.columns[name]
+    d = cd.data
+    if np.issubdtype(d.dtype, np.floating):
+        return d.astype(np.float64), cd.valid
+    return d.astype(np.int64), cd.valid
+
+
+_LUT_SPAN_BUDGET = 1 << 26         # max direct-address entries (256MB int32)
+_FD_BUDGET = 1 << 28               # max host bytes retained for FD checks
+
+
+@dataclass
+class BuildTable:
+    """Sorted build side, resident on the engine's device (see module
+    doc). With duplicate keys the LUT holds the FIRST sorted row of the
+    key run (existence checks — semi/anti/mark — stay LUT-probeable)."""
+    keys_sorted: object            # int64 / float64 tensor (sentinel-padded)
+    n: int                         # real build rows
+    payload: dict                  # name -> tensor (sorted by key)
+    payload_valid: dict            # name -> bool tensor
+    schema: Schema                 # payload schema
+    dictionaries: dict
+    unique: bool
+    lut: object = None             # int32 tensor (span,) or None
+    lut_base: int = 0              # key value of lut[0]
+    # NOT IN: the build side contained a NULL key — x NOT IN S is then
+    # never TRUE for any x, so a not_in anti probe must select nothing
+    anti_has_null: bool = False
+    # bounds lattice: the HOST build block (post null-key drop), retained
+    # so the executor's carry rewrite can VERIFY functional dependencies
+    fd_block: object = None
+    fd_memo: object = None         # {cols tuple: distinct count} cache
+
+
+@dataclass
+class PartitionedBuild:
+    """GraceJoin-partitioned build side. The port never makes one (the
+    executor raises NotPorted above the grace budget); the type exists
+    for the build cache's accounting."""
+    tables: list
+    n_partitions: int
+    key: str
+
+
+def build(block: HostBlock, key: str, payload_names: list[str], device,
+          keep_fd: bool = False) -> BuildTable:
+    enc, valid = _host_key(block, key)
+    if valid is not None:
+        # null build keys never match; drop them
+        keep = np.nonzero(valid)[0]
+        block = block.take(keep)
+        enc = enc[keep]
+    order = np.argsort(enc, kind="stable")
+    enc = enc[order]
+    unique = bool(np.all(np.diff(enc) != 0)) if len(enc) > 1 else True
+    cap = bucket_capacity(max(len(enc), 1), minimum=128)
+    sentinel = np.inf if enc.dtype == np.float64 else np.iinfo(np.int64).max
+    keys_pad = np.full(cap, sentinel, dtype=enc.dtype)
+    keys_pad[:len(enc)] = enc
+
+    lut = None
+    lut_base = 0
+    if enc.dtype != np.float64 and len(enc):
+        lo, hi = int(enc[0]), int(enc[-1])
+        span = hi - lo + 1
+        # density cap 64x (see the reference): the absolute budget still
+        # bounds device memory
+        if 0 < span <= max(1 << 12, min(_LUT_SPAN_BUDGET, 64 * len(enc))):
+            span_cap = bucket_capacity(span, minimum=1024)
+            lut_np = np.full(span_cap, -1, np.int32)
+            offs = (enc - lo).astype(np.int64)
+            # first sorted row of each key run wins (reversed assignment:
+            # numpy keeps the last write, which is the run's first row)
+            lut_np[offs[::-1]] = np.arange(len(enc) - 1, -1, -1,
+                                           dtype=np.int32)
+            lut = to_tensor(lut_np, device)
+            lut_base = lo
+
+    payload, payload_valid, dicts = {}, {}, {}
+    for name in payload_names:
+        cd = block.columns[name]
+        d = cd.data[order]
+        pad = np.zeros(cap - len(d), dtype=d.dtype)
+        payload[name] = to_tensor(np.concatenate([d, pad]), device)
+        if cd.valid is not None:
+            v = np.concatenate([cd.valid[order],
+                                np.zeros(cap - len(d), np.bool_)])
+            payload_valid[name] = to_tensor(v, device)
+        if cd.dictionary is not None:
+            dicts[name] = cd.dictionary
+    from ydb_tpu_torch.query.bounds import bounds_enabled
+    fd_block = block if keep_fd and unique and bounds_enabled() \
+        and block.length \
+        and sum(cd.data.nbytes
+                for cd in block.columns.values()) <= _FD_BUDGET \
+        else None
+    return BuildTable(to_tensor(keys_pad, device), len(enc), payload,
+                      payload_valid, block.schema.select(payload_names),
+                      dicts, unique, lut, lut_base, fd_block=fd_block)
+
+
+def _probe_enc(d: torch.Tensor) -> torch.Tensor:
+    if d.dtype.is_floating_point:
+        return d.to(torch.float64).contiguous()
+    return d.to(torch.int64).contiguous()
+
+
+def probe_lut_traced(env: dict, sel, bt_arrays: dict, meta: dict):
+    """Build-probe inside a fused query (`ops/fused.py`) through the
+    `probe` kernel: a direct-address LUT lookup when the build has one,
+    a lower_bound on the sorted keys otherwise (sparse key spans, float
+    keys).
+
+    env: {name: (data, valid|None)}; sel: bool selection mask — REQUIRED,
+    already including the row-activity mask; bt_arrays: build inputs
+    {lut, lut_base, n, has_null, keys, payload, pvalid} (`fused.
+    build_traced_inputs`); meta (static): probe_key, kind, payload_names,
+    src_names, mark_col, not_in, bsearch, late, row_col, found_col.
+
+    Returns (env', sel'). Selection: matched rows for inner/semi,
+    unmatched for anti, all for left/mark."""
+    if sel is None:
+        raise ValueError("probe_lut_traced needs the row-activity mask")
+    d, v = env[meta["probe_key"]]
+    kind = meta["kind"]
+    if not meta.get("bsearch") and d.dtype.is_floating_point:
+        # LUTs address integer keys; truncating a float probe would
+        # mis-match (10.5 → 10) — floats must take the bsearch path
+        raise TypeError("LUT probe requires an integral probe key")
+    enc = _probe_enc(d)
+    pcap = next(iter(bt_arrays["payload"].values())).shape[0] \
+        if bt_arrays["payload"] else d.shape[0]
+    late = bool(meta.get("late")) and kind in ("inner", "left")
+    gather = () if late or kind not in ("inner", "left", "mark") \
+        else meta["src_names"]
+    keys = bt_arrays["keys"]
+    if meta.get("bsearch") and keys.dtype != enc.dtype:
+        if not keys.dtype.is_floating_point:
+            from ydb_tpu_torch.errors import NotPorted
+            raise NotPorted("float probe key against an integral build")
+        enc = enc.to(keys.dtype)           # the reference's promotion
+    found, safe, out_sel, gathered = K.probe(
+        enc, None if v is None else v.contiguous(), sel.contiguous(),
+        lut=None if meta.get("bsearch") else bt_arrays["lut"],
+        lut_base=bt_arrays["lut_base"], keys_sorted=keys,
+        n_build=bt_arrays["n"], pcap=pcap, kind=kind,
+        not_in=meta["not_in"], has_null=bt_arrays["has_null"],
+        payloads=[(bt_arrays["payload"][s], bt_arrays["pvalid"].get(s))
+                  for s in gather])
+
+    env2 = dict(env)
+    if late:
+        env2[meta["row_col"]] = (safe, None)
+        env2[meta["found_col"]] = (found, None)
+    else:
+        for (src, out), (gd, gv) in zip(
+                [(s, o) for s, o in zip(meta["src_names"],
+                                        meta["payload_names"])
+                 if s in gather], gathered):
+            env2[out] = (gd, gv)
+    if kind == "mark":
+        env2[meta["mark_col"] or "__mark"] = (found, None)
+    return env2, out_sel

@@ -1,0 +1,81 @@
+"""Device sort (port of ``ydb_tpu/ops/sort.py``).
+
+The reference sorts (dropped rank, [null rank, key]..., iota) with
+``lax.sort`` and gathers every column by the sorted iota. Here each
+operand is first encoded, in plain torch, as an order-preserving
+unsigned 64-bit key held in int64 storage — with ``lax.sort``'s float
+total order (−0.0 equals 0.0, every NaN equal and after +inf) and the
+reference's DESC rule (``-x`` for floats, ``~x`` for integers) — and the
+``sort`` CUDA kernel returns the permutation. Columns follow by gather.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ydb_tpu_torch.ops.cuda import bindings as K
+
+_SIGN = -(1 << 63)
+
+
+def _sort_operand(x: torch.Tensor) -> torch.Tensor:
+    """The reference's comparable operand: floats as float64 (float32
+    widens exactly), bool and narrower ints as int64; int64 storage of
+    uint64 stays as it is (it is encoded as unsigned below)."""
+    if x.dtype.is_floating_point:
+        return x.to(torch.float64)
+    return x.to(torch.int64)
+
+
+def encode_key(enc: torch.Tensor, unsigned: bool = False) -> torch.Tensor:
+    """Order-preserving unsigned 64-bit key (int64 storage) of a sort
+    operand: floats in lax.sort's total order, signed ints by flipping
+    the sign bit, unsigned bit patterns as they are."""
+    if enc.dtype.is_floating_point:
+        x = torch.where(enc == 0, torch.zeros_like(enc), enc)
+        x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+        bits = x.view(torch.int64)
+        return torch.where(bits < 0, ~bits, bits ^ _SIGN)
+    if unsigned:
+        return enc
+    return enc ^ _SIGN
+
+
+def sort_env(arrays, valids, length, sel, keys: tuple, names: tuple,
+             unsigned: frozenset = frozenset()):
+    """keys: tuple of (col_name, ascending, nulls_first); `unsigned`:
+    key columns whose int64 storage holds uint64 values."""
+    return _sort_impl(arrays, valids, length, sel, keys, names, unsigned)
+
+
+def _sort_impl(arrays, valids, length, sel, keys: tuple, names: tuple,
+               unsigned: frozenset = frozenset()):
+    first = arrays[names[0]]
+    cap = first.shape[0]
+    device = first.device
+    iota = torch.arange(cap, dtype=torch.int32, device=device)
+    active = iota < length
+    if sel is not None:
+        active = active & sel
+
+    sort_keys = [encode_key((~active).to(torch.int64))]  # dropped rows last
+    for (name, asc, nulls_first) in keys:
+        d = arrays[name]
+        v = valids.get(name)
+        enc = _sort_operand(d)
+        if not asc:
+            enc = -enc if enc.dtype.is_floating_point else ~enc
+        if v is not None:
+            nullrank = (~v) if not nulls_first else v
+            sort_keys.append(encode_key(nullrank.to(torch.int64)))
+            enc = torch.where(v, enc, torch.zeros_like(enc))
+        sort_keys.append(encode_key(enc, unsigned=name in unsigned))
+
+    perm = K.sort_perm([k.contiguous() for k in sort_keys], cap, device)
+    new_arrays, new_valids = {}, {}
+    for name in names:
+        new_arrays[name] = arrays[name][perm]
+        if name in valids:
+            new_valids[name] = valids[name][perm]
+    new_len = active.to(torch.int32).sum()
+    return new_arrays, new_valids, new_len

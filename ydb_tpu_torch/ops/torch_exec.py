@@ -1,0 +1,412 @@
+"""Eager torch lowering of SSA programs (port of ``ydb_tpu/ops/xla_exec.py``).
+
+The reference traces each program into one XLA computation; torch runs
+eagerly, so here a program is executed command by command over
+(data, valid) tensor pairs on one device. The shapes stay the
+reference's: blocks are padded to power-of-two capacities, the live row
+count rides as a 0-d tensor, filters keep selection masks instead of
+gathering, and every reduction masks by ``row < length``.
+
+The non-elementwise work goes through the hand-written CUDA kernels
+(``ops/cuda``): grouped and keyless aggregation (``bucket_agg``) and
+compaction (``compact``). Elementwise expressions (K1 of the kernel
+table) are plain torch over ``ops/kernels.py``'s lowerings.
+
+Ported group-by lanes: keyless and small bounded domains (≤ 512
+buckets). Medium domains (scatter-reduce) and unbounded domains (the
+sort-based lowering) raise ``NotPorted``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ydb_tpu_torch.core.block import HostBlock
+from ydb_tpu_torch.core.dtypes import Kind
+from ydb_tpu_torch.core.schema import Column, Schema
+from ydb_tpu_torch.errors import NotPorted
+from ydb_tpu_torch.ops import ir
+from ydb_tpu_torch.ops.cuda import bindings as K
+from ydb_tpu_torch.ops.device import (
+    DeviceBlock, bucket_capacity, to_device, to_host,
+)
+from ydb_tpu_torch.ops.kernels import KERNELS
+from ydb_tpu_torch.ops.torch_ns import TXP, to_tensor, torch_dtype
+from ydb_tpu_torch.utils.metrics import GLOBAL
+
+_SMALL_DOMAIN_BUCKETS = 1 << 9     # bounded-domain bucket_agg lane bound
+_SCATTER_MAX_BUCKETS = 1 << 16     # reference's medium-domain lane bound
+
+
+def late_mat_enabled() -> bool:  # lint: tuning-provider
+    """YDB_TPU_LATE_MAT — default ON (the reference's lever, same name):
+    the fused path carries row-id vectors instead of payload columns
+    through the middle of a plan and may compact intermediates to a
+    ladder-quantized bound (`ir.Compact`). `=0` restores eager gathers."""
+    return os.environ.get("YDB_TPU_LATE_MAT", "") not in ("0",)
+
+
+def groupby_tuning() -> tuple:  # lint: tuning-provider
+    """The levers that change plan or program structure, as a cache-key
+    component (the port keeps the reference's key discipline even though
+    nothing is compiled per key: the compact-sizing memo keys on it)."""
+    from ydb_tpu_torch.query.bounds import bounds_enabled
+    return (bounds_enabled(), late_mat_enabled())
+
+
+def _b_inc(name: str, by: int = 1) -> None:
+    GLOBAL.inc(f"bounds/{name}", by)
+
+
+# --------------------------------------------------------------------------
+# expressions
+# --------------------------------------------------------------------------
+
+
+def _full(cap: int, value, np_dtype, device) -> torch.Tensor:
+    dt = torch_dtype(np_dtype)
+    if np.dtype(np_dtype) == np.uint64:
+        value = int(np.uint64(value).view(np.int64))
+    return torch.full((cap,), value, dtype=dt, device=device)
+
+
+def _eval(expr, env, params, cap, device):
+    if isinstance(expr, ir.Col):
+        return env[expr.name]
+    if isinstance(expr, ir.Const):
+        return _full(cap, expr.value, expr.dtype.np, device), None
+    if isinstance(expr, ir.Param):
+        val = params[expr.name]
+        if expr.is_array:
+            return val, None
+        return _full(cap, val, expr.dtype.np, device), None
+    if isinstance(expr, ir.Call):
+        k = KERNELS[expr.op]
+        args = [_eval(a, env, params, cap, device) for a in expr.args]
+        extra = expr.extra_dict()
+        if k.null_mode == "custom":
+            return k.impl_nv(TXP, args, extra)
+        data = k.impl(TXP, [a[0] for a in args], extra)
+        valid = None
+        for _, v in args:
+            if v is not None:
+                valid = v if valid is None else (valid & v)
+        return data, valid
+    raise TypeError(f"bad expr {expr!r}")
+
+
+# --------------------------------------------------------------------------
+# group-by
+# --------------------------------------------------------------------------
+
+
+def _agg_operand(d: torch.Tensor) -> torch.Tensor:
+    """8-byte kernel operand: floats widen to float64, everything else to
+    int64 (sums accumulate in f64 / i64 like the reference's
+    `_acc_dtype`; min/max results narrow back to the column dtype)."""
+    if d.dtype.is_floating_point:
+        return d.to(torch.float64).contiguous()
+    return d.to(torch.int64).contiguous()
+
+
+def _run_aggs(cmd: ir.GroupBy, env, schema: Schema, kid, nb: int, active,
+              cap: int, device, want_first: bool):
+    """Every aggregate of `cmd` (plus, when asked, the first active row
+    per bucket for carried keys) through ONE bucket_agg call. Returns
+    (new_env, present bool (nb,), firstpos int64 (nb,) | None)."""
+    specs, slots = [], []
+    for a in cmd.aggs:
+        if a.func == "count_all":
+            slots.append(None)
+            continue
+        d, v = env[a.arg]
+        v = None if v is None else v.contiguous()
+        if a.func == "count":
+            specs.append(("count", None, v, False))
+        elif a.func in ("sum", "min", "max"):
+            unsigned = schema.has(a.arg) \
+                and schema.dtype(a.arg).kind == Kind.UINT64
+            specs.append((a.func, _agg_operand(d), v, unsigned))
+        elif a.func == "some":
+            specs.append(("first", None, v, False))
+        else:
+            raise ValueError(a.func)
+        slots.append(len(specs) - 1)
+    if want_first:
+        specs.append(("first", None, None, False))
+    vals, cnts, present_cnt = K.bucket_agg(kid, nb, active, specs)
+
+    new_env = {}
+    for a, slot in zip(cmd.aggs, slots):
+        if slot is None:                       # count_all
+            new_env[a.out] = (present_cnt, None)
+            continue
+        d, _v = env[a.arg]
+        val, cnt = vals[slot], cnts[slot]
+        if a.func == "count":
+            new_env[a.out] = (val, None)
+            continue
+        any_valid = cnt > 0
+        if a.func == "sum":
+            new_env[a.out] = (val, any_valid)
+        elif a.func in ("min", "max"):
+            new_env[a.out] = (val.to(d.dtype), any_valid)
+        else:                                  # some: first valid row
+            new_env[a.out] = (d[torch.clamp(val, 0, cap - 1)], any_valid)
+    firstpos = vals[-1] if want_first else None
+    return new_env, present_cnt > 0, firstpos
+
+
+def _active(length, sel, cap: int, device) -> torch.Tensor:
+    iota = torch.arange(cap, dtype=torch.int32, device=device)
+    active = iota < length
+    return active if sel is None else (active & sel)
+
+
+def _groupby_global(cmd: ir.GroupBy, env, schema: Schema, active, cap: int,
+                    device):
+    """Keyless GROUP BY: one bucket, one output row."""
+    new_env, _present, _first = _run_aggs(cmd, env, schema, None, 1, active,
+                                          cap, device, want_first=False)
+    return new_env, torch.tensor(1, dtype=torch.int32, device=device)
+
+
+def _bucket_ids(cmd: ir.GroupBy, env, cap: int, device):
+    """Mixed-radix bucket id per row for bounded key domains (+1 slot per
+    key for NULL)."""
+    kid = torch.zeros((cap,), dtype=torch.int32, device=device)
+    stride = 1
+    strides = []
+    for kname, dom in zip(cmd.keys, cmd.key_domains):
+        d, v = env[kname]
+        code = d.to(torch.int32) + 1           # -1 (null string code) → 0
+        if v is not None:
+            code = torch.where(v, code, torch.zeros_like(code))
+        code = torch.clamp(code, 0, dom)
+        kid = kid + code * stride
+        strides.append(stride)
+        stride *= dom + 1
+    return kid, stride, strides
+
+
+def _groupby_small_domain(cmd: ir.GroupBy, env, schema: Schema, sel,
+                          length, cap: int, device):
+    """Bounded-domain aggregation: bucket ids in torch, every aggregate
+    in one `bucket_agg` launch, then the shared epilogue."""
+    active = _active(length, sel, cap, device)
+    kid, nbuckets, strides = _bucket_ids(cmd, env, cap, device)
+    new_env, present, firstpos = _run_aggs(
+        cmd, env, schema, kid, nbuckets, active, cap, device,
+        want_first=bool(cmd.carry_keys))
+    return _emit_bucket_groups(cmd, env, schema, new_env, present, nbuckets,
+                               strides, cap, device, firstpos)
+
+
+def _pad(t: torch.Tensor, pad: int) -> torch.Tensor:
+    return torch.cat([t, torch.zeros(pad, dtype=t.dtype, device=t.device)])
+
+
+def _emit_bucket_groups(cmd: ir.GroupBy, env, schema: Schema, new_env,
+                        present, nbuckets: int, strides, cap: int, device,
+                        firstpos=None):
+    """Shared bounded-domain epilogue: rebuild key columns from bucket ids,
+    then compact non-empty buckets to the front of a small capacity
+    bucket. `firstpos`: leader row per bucket, for carried keys."""
+    _b_inc("proven_rows", bucket_capacity(nbuckets, minimum=128))
+    _b_inc("capacity_rows", cap)
+    _b_inc("bounded_groupbys")
+    if cmd.carry_keys:
+        _b_inc("carried_keys", len(cmd.carry_keys))
+    bucket_ids = torch.arange(nbuckets, dtype=torch.int32, device=device)
+    for kname, dom, st in zip(cmd.keys, cmd.key_domains, strides):
+        code = torch.div(bucket_ids, st, rounding_mode="floor") \
+            % (dom + 1) - 1
+        d, _v = env[kname]
+        kd = code.to(d.dtype)
+        kv = code >= 0
+        dt = schema.dtype(kname)
+        new_env[kname] = (kd, kv if dt.nullable else None)
+    for kname in cmd.carry_keys:
+        d, v = env[kname]
+        safe = torch.clamp(firstpos, 0, cap - 1)
+        kd = d[safe]
+        dt = schema.dtype(kname)
+        if dt.nullable:
+            kv = (v[safe] if v is not None
+                  else torch.ones((nbuckets,), dtype=torch.bool,
+                                  device=device))
+            new_env[kname] = (kd, kv & present)
+        else:
+            new_env[kname] = (kd, None)
+
+    out_cap = bucket_capacity(nbuckets, minimum=128)
+    pad = out_cap - nbuckets
+    padded = {}
+    for name, (d, v) in new_env.items():
+        dp = _pad(d, pad) if pad > 0 else d[:out_cap]
+        vp = None
+        if v is not None:
+            vp = _pad(v, pad) if pad > 0 else v[:out_cap]
+        padded[name] = (dp, vp)
+    present_p = _pad(present, pad) if pad > 0 else present[:out_cap]
+    return compress(padded, nbuckets, present_p, out_cap, device)
+
+
+def _trace_group_by(cmd: ir.GroupBy, env, schema: Schema, sel, length,
+                    cap: int, device):
+    """GroupBy dispatch: keyless → one bucket; small bounded domains →
+    bucket_agg; medium bounded and unbounded domains are not ported.
+    Returns (new_env, new_length)."""
+    if not cmd.keys:
+        return _groupby_global(cmd, env, schema,
+                               _active(length, sel, cap, device), cap,
+                               device)
+    if cmd.key_domains and all(d > 0 for d in cmd.key_domains):
+        nb = 1
+        for d in cmd.key_domains:
+            nb *= d + 1
+        if nb <= _SMALL_DOMAIN_BUCKETS:
+            return _groupby_small_domain(cmd, env, schema, sel, length, cap,
+                                         device)
+        if nb + 1 <= _SCATTER_MAX_BUCKETS:
+            raise NotPorted("medium-domain group-by (K4)")
+    raise NotPorted("sort-based group-by over an unbounded key domain (K5)")
+
+
+# --------------------------------------------------------------------------
+# programs
+# --------------------------------------------------------------------------
+
+
+def _trace_program(program: ir.Program, in_schema_cols, cap, env, length,
+                   params, device, sel=None, aux=None, passthrough=()):
+    """env: name -> (data, valid|None); returns (env, length, sel, schema).
+    `sel` seeds the selection mask (fused pipelines thread it between
+    programs instead of compressing). `aux` receives an `ir.Compact`'s
+    live count and overflow flag; `passthrough` names helper columns
+    (late-materialization row ids) that survive Projections."""
+    schema = Schema(list(in_schema_cols))
+    for cmd in program.commands:
+        if isinstance(cmd, ir.Assign):
+            data, valid = _eval(cmd.expr, env, params, cap, device)
+            env[cmd.name] = (data, valid)
+            dt = ir.infer_expr(cmd.expr, schema)
+            schema = Schema([c for c in schema.columns if c.name != cmd.name]
+                            + [Column(cmd.name, dt)])
+        elif isinstance(cmd, ir.Filter):
+            data, valid = _eval(cmd.pred, env, params, cap, device)
+            mask = data if valid is None else (data & valid)
+            sel = mask if sel is None else (sel & mask)
+        elif isinstance(cmd, ir.GroupBy):
+            env, length = _trace_group_by(cmd, env, schema, sel, length, cap,
+                                          device)
+            if env:
+                cap = next(iter(env.values()))[0].shape[0]
+            schema = ir.infer_schema(ir.Program([cmd]), schema)
+            sel = None
+        elif isinstance(cmd, ir.Projection):
+            schema = schema.select(list(cmd.names))
+            if passthrough:
+                new_env = {nm: env[nm] for nm in cmd.names if nm in env}
+                for h in passthrough:
+                    if h in env:
+                        new_env[h] = env[h]
+                env = new_env
+            else:
+                env = {nm: env[nm] for nm in cmd.names}
+        elif isinstance(cmd, ir.Compact):
+            env, length, sel, live, ovf = compact_env(env, length, sel,
+                                                      cap, cmd.cap, device)
+            cap = cmd.cap
+            if aux is not None:
+                aux["compact_live"] = live
+                aux["compact_ovf"] = ovf
+        else:
+            raise TypeError(f"bad command {cmd!r}")
+    return env, length, sel, schema
+
+
+def _compact_cols(env, length, sel, cap: int, new_cap: int):
+    names = list(env)
+    cols, where = [], []
+    for nm in names:
+        d, v = env[nm]
+        cols.append(d.contiguous())
+        where.append((nm, "d"))
+        if v is not None:
+            cols.append(v.contiguous())
+            where.append((nm, "v"))
+    outs, live, new_len, ovf = K.compact(
+        cols, None if sel is None else sel.contiguous(), length, cap,
+        new_cap)
+    new_env = {nm: [None, None] for nm in names}
+    for (nm, part), o in zip(where, outs):
+        new_env[nm][0 if part == "d" else 1] = o
+    return {nm: (d, v) for nm, (d, v) in new_env.items()}, live, new_len, \
+        ovf
+
+
+def compress(env, length, sel, cap: int, device):
+    """BlockCompress: the selected rows, in order, at the front of the
+    same capacity (the `compact` kernel). The port defines only the live
+    prefix [0, length'); the reference also keeps the dropped rows after
+    it."""
+    new_env, live, _new_len, _ovf = _compact_cols(env, length, sel, cap,
+                                                  cap)
+    return new_env, live
+
+
+def compact_env(env, length, sel, cap: int, new_cap: int, device):
+    """`ir.Compact` lowering: stable-compress selected rows to the front
+    of a `new_cap`-row buffer. Returns (env', length', sel', live,
+    overflow): `live` is the true selected count and `overflow = live >
+    new_cap` — the executor's loud-rerun signal; rows beyond `new_cap`
+    are dropped, so a result produced under overflow must be discarded."""
+    new_env, live, new_len, ovf = _compact_cols(env, length, sel, cap,
+                                                new_cap)
+    new_sel = torch.arange(new_cap, dtype=torch.int32,
+                           device=device) < new_len
+    return new_env, new_len, new_sel, live, ovf
+
+
+# --------------------------------------------------------------------------
+# single-program entry points
+# --------------------------------------------------------------------------
+
+
+def run_on_device(program: ir.Program, dblock: DeviceBlock,
+                  params: Optional[dict] = None) -> DeviceBlock:
+    """Run a program over a device-resident block."""
+    params = params or {}
+    device = dblock.length.device
+    dev_params = {k: (to_tensor(v, device) if isinstance(v, np.ndarray)
+                      else v) for k, v in params.items()}
+    in_cols = list(dblock.schema.columns)
+    env = {c.name: (dblock.arrays[c.name], dblock.valids.get(c.name))
+           for c in in_cols}
+    cap = dblock.capacity
+    env, length, sel, schema = _trace_program(
+        program, in_cols, cap, env, dblock.length, dev_params, device)
+    if sel is not None:
+        out_cap = next(iter(env.values()))[0].shape[0] if env else cap
+        env, length = compress(env, length, sel, out_cap, device)
+    out_d = {nm: env[nm][0] for nm in schema.names}
+    out_v = {nm: env[nm][1] for nm in schema.names if env[nm][1] is not None}
+    out_schema = ir.infer_schema(program, dblock.schema)
+    dicts = {n: d for n, d in dblock.dictionaries.items() if out_schema.has(n)}
+    out_cap = (next(iter(out_d.values())).shape[0] if out_d
+               else dblock.capacity)
+    return DeviceBlock(out_schema, out_d, out_v, length, out_cap, dicts)
+
+
+def run_program(program: ir.Program, block: HostBlock,
+                params: Optional[dict] = None, device=None) -> HostBlock:
+    """Host-convenience entry: pad → device → program → HostBlock. Runs
+    on ``cuda`` unless `device` says otherwise."""
+    from ydb_tpu_torch.device import resolve_device
+    dev = resolve_device(device)
+    return to_host(run_on_device(program, to_device(block, dev), params))

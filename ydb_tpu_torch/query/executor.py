@@ -1,0 +1,706 @@
+"""Physical plan executor, single node (port of ``ydb_tpu/query/executor.py``).
+
+The port carries the reference's fused whole-query path: the scan's
+(K, CAP) superblock on the engine's device, the join builds prepared on
+the host and placed on the device, and the query body (`ops/fused.py`)
+launched once, with the result read back in one copy when the returned
+future is consumed. Plans the fused path declines — an empty scan, a
+scan above the scan budget (tiled), duplicate-key or partitioned builds
+— and the mesh, batched and portioned lanes raise ``NotPorted``.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Optional
+
+import numpy as np
+
+from ydb_tpu_torch.core.block import ColumnData, HostBlock
+from ydb_tpu_torch.core.schema import Column, Schema
+from ydb_tpu_torch.errors import NotPorted
+from ydb_tpu_torch.ops import ir
+from ydb_tpu_torch.ops import join as J
+from ydb_tpu_torch.ops.device import (
+    DeviceResultFuture, batched_to_host, bucket_capacity,
+)
+from ydb_tpu_torch.ops.torch_ns import to_tensor
+from ydb_tpu_torch.progstore import buckets as shape_buckets
+from ydb_tpu_torch.query.plan import JoinStep, Pipeline, QueryPlan
+from ydb_tpu_torch.storage.mvcc import MAX_SNAPSHOT, Snapshot
+from ydb_tpu_torch.utils.metrics import GLOBAL
+
+class Executor:
+    def __init__(self, catalog, device):
+        from ydb_tpu_torch.query.build_cache import BuildCache
+        from ydb_tpu_torch.storage.device_cache import DeviceColumnCache
+        self.catalog = catalog
+        self.device = device
+        self.device_cache = DeviceColumnCache(device)
+        self._tls = threading.local()
+        # build sides above this estimate would hash-partition into a
+        # GraceJoin in the reference — not ported (NotPorted)
+        self.grace_budget_bytes = int(
+            os.environ.get("YDB_TPU_GRACE_BUDGET", 1 << 29))
+        # scans whose stacked superblock estimate exceeds this would
+        # stream through the reference's tiled lane — not ported
+        self.fused_scan_budget_bytes = int(
+            os.environ.get("YDB_TPU_FUSED_SCAN_BUDGET", 6 << 30))
+        self.fuse_max_joins = int(
+            os.environ.get("YDB_TPU_FUSE_MAX_JOINS", 6))
+        self.build_cache = BuildCache(int(
+            os.environ.get("YDB_TPU_BUILD_CACHE_BUDGET", 2 << 30)),
+            device_cache=self.device_cache)
+        # bound-sized compaction: measured live counts per compact-free
+        # query identity (monotone max) and the chosen capacities
+        self._compact_memo: dict = {}
+        self._compact_caps: dict = {}
+
+    @property
+    def last_path(self) -> str:
+        return getattr(self._tls, "last_path", "")
+
+    @last_path.setter
+    def last_path(self, v: str):
+        self._tls.last_path = v
+
+    # -- entry -------------------------------------------------------------
+
+    def execute(self, plan: QueryPlan,
+                snapshot: Snapshot = MAX_SNAPSHOT) -> HostBlock:
+        return self.execute_async(plan, snapshot).result()
+
+    def execute_async(self, plan: QueryPlan,
+                      snapshot: Snapshot = MAX_SNAPSHOT
+                      ) -> DeviceResultFuture:
+        """Dispatch phase of a SELECT: the query's kernels are enqueued
+        on the current stream and a future is returned whose `result()`
+        performs the single device→host readout."""
+        params = dict(plan.params)
+        # precompute stage: uncorrelated scalar subqueries → params
+        for (pname, subplan) in plan.init_subplans:
+            sub = self.execute(subplan, snapshot)
+            if sub.length > 1:
+                raise RuntimeError("scalar subquery produced more than one row")
+            col = sub.columns[sub.schema.names[0]]
+            if sub.length == 0 or (col.valid is not None
+                                   and not col.valid[0]):
+                params[pname] = np.zeros((), col.data.dtype)[()]
+                params[pname + "__valid"] = False
+            else:
+                params[pname] = col.data[0]
+                params[pname + "__valid"] = True
+        fused = self._try_execute_fused(plan, params, snapshot, defer=True)
+        self.last_path = "fused"
+        return fused.map(lambda b: self._project_output(b, plan.output))
+
+    # -- fused whole-query path --------------------------------------------
+
+    def _try_execute_fused(self, plan: QueryPlan, params: dict,
+                           snapshot: Snapshot, defer: bool = False,
+                           _no_compact: bool = False):
+        """Run the query as one fused device function (`ops/fused.py`).
+        Returns the HostBlock (`defer=True`: a `DeviceResultFuture`
+        deferring the single readout). Shapes the reference streams
+        through another lane raise NotPorted."""
+        from ydb_tpu_torch.ops import fused as F
+        from ydb_tpu_torch.storage.device_cache import (
+            enumerate_scan_sources, estimate_scan_bytes,
+        )
+
+        pipe = plan.pipeline
+        table = self.catalog.table(pipe.scan.table)
+        join_steps = [step for kind, step in pipe.steps if kind == "join"]
+        if len(join_steps) > self.fuse_max_joins:
+            raise NotPorted("portioned path (join count above the fuse cap)")
+        builds = self._prepare_builds(pipe, params, snapshot)
+        for step, bt in zip(join_steps, builds):
+            if not bt.unique and step.kind in ("inner", "left", "mark"):
+                raise NotPorted("duplicate-key (expanding) join probe (K8)")
+
+        plan0 = plan            # pre-rewrite plan (the overflow-rerun input)
+        (plan, pipe, scan_cols, schema, partial_schema, dicts,
+         join_metas, late_scan) = self._fused_plan_setup(plan, builds)
+
+        storage_names = [s for (s, _i) in pipe.scan.columns]
+        rename = {s: i for (s, i) in pipe.scan.columns}
+        sources, src_ids = enumerate_scan_sources(table, snapshot,
+                                                  pipe.scan.prune or None)
+        Kb = shape_buckets.bucket_sources(len(sources))
+        if sources and estimate_scan_bytes(sources, storage_names,
+                                           pad_to=Kb) \
+                > self.fused_scan_budget_bytes:
+            raise NotPorted("tiled scan above the fused scan budget (K11)")
+        sb = self.device_cache.superblock(table, storage_names, rename,
+                                          snapshot, pipe.scan.prune or None,
+                                          sources, src_ids, pad_to=Kb)
+        if sb is None:
+            raise NotPorted("portioned path (empty scan)")
+        arrays, valids, lengths, K, CAP, sb_dicts = sb
+        sb_valid_names = frozenset(valids.keys())
+        dicts.update(sb_dicts)
+
+        sort_params, sort_spec, rank_assigns = self._sort_setup_fused(
+            plan, schema, dicts)
+        all_params = {**params, **sort_params}
+        lift_limit, lim_key = self._lift_limit_setup(plan, all_params)
+
+        builds_sig = tuple(F.build_inputs_sig(bt) for bt in builds)
+        base_key = F.fused_cache_key(plan, scan_cols, K, CAP,
+                                     sb_valid_names, builds_sig, sort_spec,
+                                     rank_assigns,
+                                     tuple(sorted(all_params)),
+                                     lim_key=lim_key)
+        # bound-sized device compaction: sized from CBO + FK selectivities
+        # plus the measured-live memo; an underestimate trips the device
+        # overflow flag in `fetch` and the statement reruns WITHOUT the
+        # compact — loud and counted, never a silent truncation
+        compact_cap = None if _no_compact else self._compact_sizing(
+            base_key, pipe, builds, sources, K * CAP)
+        compact_prog = None
+        if compact_cap:
+            compact_prog = ir.Program([ir.Compact(compact_cap)])
+            GLOBAL.inc("latemat/compact_plans")
+            GLOBAL.inc("latemat/compact_capacity_rows", compact_cap)
+        ndeferred = len(late_scan) + sum(
+            len(m["payload_names"]) for m in join_metas if m["late"])
+        if ndeferred:
+            GLOBAL.inc("latemat/deferred_cols", ndeferred)
+
+        fn, layout_box = F.build_fused_fn(
+            pipe, plan.final_program, scan_cols, K, CAP, sb_valid_names,
+            join_metas, rank_assigns, sort_spec, plan.limit, plan.offset,
+            tuple(dict.fromkeys(n for (n, _lbl) in plan.output)),
+            lift_limit=lift_limit, late_scan=late_scan,
+            compact_prog=compact_prog)
+        keep = list(dict.fromkeys(n for (n, _lbl) in plan.output))
+        out_schema = Schema([c for c in schema.columns if c.name in keep]
+                            or list(schema.columns))
+
+        dev_params = {k: (to_tensor(v, self.device)
+                          if isinstance(v, np.ndarray) else v)
+                      for k, v in all_params.items()}
+        build_inputs = [F.build_traced_inputs(bt) for bt in builds]
+        data_stacks, valid_stack, length, aux = fn(
+            arrays, valids, lengths, build_inputs, dev_params)
+
+        out_dicts = {n2: d for n2, d in dicts.items() if out_schema.has(n2)}
+        out_dicts.update({n2: d for n2, d in plan.result_dicts.items()
+                          if out_schema.has(n2)})
+        lo = plan.offset or 0
+        limit = plan.limit
+
+        def fetch() -> HostBlock:
+            if aux:
+                # compact live/overflow: two scalars the loud-rerun
+                # decision needs on the host
+                live, ovf = (int(x[0]) for x in batched_to_host(
+                    [aux["compact_live"].reshape(1),
+                     aux["compact_ovf"].reshape(1)]))
+                GLOBAL.inc("latemat/compact_live_rows", live)
+                if live > self._compact_memo.get(base_key, 0):
+                    self._compact_memo[base_key] = live
+                if ovf:
+                    # the bound was forged low — rows past compact_cap
+                    # were dropped on the device. Discard this result and
+                    # rerun without the compact. Never serve a truncation.
+                    GLOBAL.inc("latemat/compact_overflow_reruns")
+                    return self._try_execute_fused(plan0, params, snapshot,
+                                                   _no_compact=True)
+            block = F.fetch_fused_result(data_stacks, valid_stack, length,
+                                         layout_box, out_schema, out_dicts)
+            return _apply_offset(block, lo, limit)
+
+        fut = DeviceResultFuture(fetch)
+        return fut if defer else fut.result()
+
+    def _sort_setup_fused(self, plan: QueryPlan, schema: Schema,
+                          dicts: dict):
+        """Rank-LUT sort params against the fused pipeline's final schema."""
+        from ydb_tpu_torch.core import dtypes as dt
+        sort_params, rank_assigns, spec = {}, [], []
+        dicts = {**dicts, **plan.result_dicts}
+        for j, sk in enumerate(plan.sort):
+            dtype = schema.dtype(sk.name)
+            dic = dicts.get(sk.name)
+            if dtype.is_string and dic is not None:
+                ranks = dic.sort_ranks()
+                pname = f"__rank{j}"
+                sort_params[pname] = ranks
+                rank_col = f"__sortrank{j}"
+                rank_assigns.append(ir.Assign(rank_col, ir.call(
+                    "take_lut", ir.Col(sk.name),
+                    ir.Param(pname, dt.DType(dt.Kind.INT32, False),
+                             is_array=True))))
+                spec.append((rank_col, sk.ascending, sk.nulls_first))
+            else:
+                spec.append((sk.name, sk.ascending, sk.nulls_first))
+        return sort_params, tuple(spec), rank_assigns
+
+    def _fused_plan_setup(self, plan: QueryPlan, builds: list):
+        """One schema walk over the pipeline collecting join metas (incl.
+        the LUT-vs-bsearch probe choice per build) and landing on the
+        final schema, plus the join-derived group-bound rewrite. Returns
+        (plan, pipe, scan_cols, schema, partial_schema, dicts, join_metas,
+        late_scan)."""
+        from ydb_tpu_torch.core.dtypes import DType, Kind as _K
+        from ydb_tpu_torch.ops import fused as F
+        from ydb_tpu_torch.ops.torch_exec import late_mat_enabled
+        from ydb_tpu_torch.query import latemat
+
+        late = late_mat_enabled()
+        pipe = plan.pipeline
+        table = self.catalog.table(pipe.scan.table)
+        scan_cols = [Column(i, table.schema.dtype(s))
+                     for (s, i) in pipe.scan.columns]
+
+        dicts = {}
+        join_metas = []
+        bi = 0
+        schema = Schema(list(scan_cols))
+        if pipe.pre_program is not None:
+            schema = ir.infer_schema(pipe.pre_program, schema)
+        for kind, step in pipe.steps:
+            if kind != "join":
+                schema = ir.infer_schema(step, schema)
+                continue
+            bt = builds[bi]
+            bi += 1
+            payload_cols = []
+            for name in bt.schema.names:
+                payload_cols.append(
+                    Column(name, bt.schema.dtype(name).with_nullable(True)))
+                if name in bt.dictionaries:
+                    dicts[name] = bt.dictionaries[name]
+            if step.kind == "mark":
+                payload_cols.append(Column(step.mark_col or "__mark",
+                                           DType(_K.BOOL, False)))
+            join_metas.append({
+                "probe_key": step.probe_key,
+                "kind": step.kind,
+                "src_names": tuple(bt.schema.names),
+                "payload_names": tuple(bt.schema.names),
+                "mark_col": step.mark_col,
+                "not_in": step.not_in,
+                "payload_cols": payload_cols,
+                # sparse key spans have no LUT; float probes must not
+                # truncate through an integer LUT
+                "bsearch": bt.lut is None
+                or schema.dtype(step.probe_key).kind in (_K.FLOAT64,
+                                                         _K.FLOAT32),
+                "late": late and step.kind in ("inner", "left")
+                and bool(bt.schema.names),
+                "row_col": f"__lmr{bi - 1}",
+                "found_col": f"__lmf{bi - 1}",
+            })
+            schema = F.apply_join_schema(schema, payload_cols)
+        if pipe.partial is not None:
+            schema = ir.infer_schema(pipe.partial, schema)
+        partial_schema = schema
+        if plan.final_program is not None:
+            schema = ir.infer_schema(plan.final_program, schema)
+        plan, pipe = self._bounded_groupby_rewrite(plan, builds, join_metas)
+        late_scan = latemat.deferrable_scan(
+            pipe, [c.name for c in scan_cols]) if late else frozenset()
+        return plan, pipe, scan_cols, schema, partial_schema, dicts, \
+            join_metas, late_scan
+
+    @staticmethod
+    def _lift_limit_setup(plan: QueryPlan, all_params=None):
+        """(lift_limit, lim_key): lifted plans with a LIMIT pass
+        limit+offset as the __lim2 input and key on its capacity bucket."""
+        from ydb_tpu_torch.ops.fused import LIMIT_PARAM
+        if plan.limit is None or not getattr(plan, "lift_names", ()):
+            return False, None
+        lim2 = plan.limit + (plan.offset or 0)
+        if all_params is not None:
+            all_params[LIMIT_PARAM] = np.int32(lim2)
+        return True, ("limB", bucket_capacity(lim2, minimum=128))
+
+    def _compact_sizing(self, base_key, pipe, builds, sources,
+                        cap0: int) -> Optional[int]:
+        """Ladder-quantized capacity the fused pipeline compacts to after
+        its join steps, or None when compaction isn't worth a shape. The
+        estimate (the reference's, unchanged): live scan rows tightened by
+        the CBO's post-predicate estimate, FK selectivities of inner and
+        declared-unique semi joins, the plan's proven bound, the measured
+        live memo, 25% headroom, floor 1024, quantized up on the segment
+        ladder, sticky per shape; only capacities under cap0/2 are worth
+        it. The device overflow flag catches every underestimate."""
+        from ydb_tpu_torch.ops.torch_exec import late_mat_enabled
+        if not late_mat_enabled():
+            return None
+        live = float(sum(b.length for b in sources)) if sources else 0.0
+        if pipe.scan.est_rows >= 0:
+            live = min(live, float(pipe.scan.est_rows))
+        est = live
+        bi = 0
+        for kind, step in pipe.steps:
+            if kind != "join":
+                continue
+            bt = builds[bi]
+            bi += 1
+            if step.not_in:
+                continue
+            if step.kind == "inner":
+                base = self._build_base_rows(step)
+                if base > 0:
+                    est *= min(1.0, float(int(bt.n)) / base)
+            elif step.kind == "left_semi":
+                dom = self._semi_key_domain(step)
+                if dom > 0:
+                    est *= min(1.0, float(int(bt.n)) / dom)
+        if pipe.out_bound and not (
+                pipe.partial is not None
+                and any(isinstance(c, ir.GroupBy)
+                        for c in pipe.partial.commands)):
+            est = min(est, float(pipe.out_bound))
+        est = max(est, float(self._compact_memo.get(base_key, 0)))
+        prev = self._compact_caps.get(base_key)
+        if prev is not None and est <= prev:
+            return prev
+        cand = shape_buckets.bucket_segment(
+            max(int(est * 1.25) + 1, 1024))
+        if cand >= cap0 // 2:
+            self._compact_caps.pop(base_key, None)
+            return None
+        self._compact_caps[base_key] = cand
+        return cand
+
+    def _build_base_rows(self, step: JoinStep) -> int:
+        """Unfiltered base-table row count of a join's build side (the
+        FK-selectivity denominator); 0 = unknown."""
+        build = step.build
+        pipe = getattr(build, "pipeline", build)   # QueryPlan | Pipeline
+        scan = getattr(pipe, "scan", None)
+        if scan is None:
+            return 0
+        try:
+            tbl = self.catalog.table(scan.table)
+        except Exception:              # noqa: BLE001 — sizing, not law
+            return 0
+        return int(getattr(tbl, "num_rows", 0))
+
+    def _semi_key_domain(self, step: JoinStep) -> int:
+        """Key-domain denominator for a semi join's coverage estimate, or
+        0 when the build key isn't declared-unique (see the reference)."""
+        from ydb_tpu_torch.query import bounds
+        if not bounds._build_key_unique_declared(step, self.catalog):
+            return 0
+        if "." in step.probe_key:
+            alias, col = step.probe_key.split(".", 1)
+            try:
+                tbl = self.catalog.table(alias)
+                if list(tbl.key_columns) == [col]:
+                    return int(getattr(tbl, "num_rows", 0))
+            except Exception:          # noqa: BLE001 — sizing, not law
+                pass
+        if not isinstance(step.build, QueryPlan):
+            return self._build_base_rows(step)
+        return 0
+
+    def _bounded_groupby_rewrite(self, plan: QueryPlan, builds: list,
+                                 join_metas: list):
+        """The executor half of the bounds lattice (the reference's,
+        unchanged): a PROVEN `out_bound` on the partial (and merge)
+        GroupBy from inner/semi joins against unique-keyed builds, and
+        CARRY keys for grouping columns a verified determinant fixes.
+        Returns the (possibly rewritten, copied) plan and pipeline."""
+        import dataclasses as _dc
+
+        from ydb_tpu_torch.query.bounds import bounds_enabled
+        pipe = plan.pipeline
+        if pipe.partial is None or not pipe.partial.commands:
+            return plan, pipe
+        gb = pipe.partial.commands[-1]
+        if not isinstance(gb, ir.GroupBy) or not gb.keys:
+            return plan, pipe
+        keys = set(gb.keys)
+        partial_assigned = {c.name for c in pipe.partial.commands[:-1]
+                            if isinstance(c, ir.Assign)}
+        best = None
+        cands = []     # (step, bt, allowed, has_payload)
+        bi = 0
+        for si, (kind, step) in enumerate(pipe.steps):
+            if kind != "join":
+                continue
+            bt = builds[bi]
+            meta = join_metas[bi]
+            bi += 1
+            if step.not_in:
+                continue
+            if step.kind == "inner" and getattr(bt, "unique", False):
+                allowed = {step.probe_key} | set(meta["payload_names"])
+                has_payload = True
+            elif step.kind == "left_semi":
+                allowed = {step.probe_key}
+                has_payload = False
+            else:
+                continue
+            later = set(partial_assigned)
+            bj = bi
+            for sj in range(si + 1, len(pipe.steps)):
+                k2, s2 = pipe.steps[sj]
+                if k2 == "join":
+                    later |= set(join_metas[bj]["payload_names"])
+                    if s2.kind == "mark":
+                        later.add(s2.mark_col or "__mark")
+                    bj += 1
+                else:
+                    later |= {c.name for c in s2.commands
+                              if isinstance(c, ir.Assign)}
+            allowed -= later
+            cands.append((step, bt, allowed, has_payload))
+            if keys <= allowed:
+                n = max(int(bt.n), 1)
+                best = n if best is None else min(best, n)
+
+        carry: list = []
+        claimed: set = set()
+        if bounds_enabled():
+            for (step, bt, allowed, has_payload) in cands:
+                if not has_payload:
+                    continue
+                gj = [k for k in gb.keys
+                      if k in allowed and k not in claimed
+                      and k not in carry]
+                if len(gj) < 2:
+                    continue
+                det, measured = self._fd_determinant(step, bt, gj)
+                if det is None:
+                    continue
+                claimed.add(det)
+                for k in gj:
+                    if k != det:
+                        carry.append(k)
+                if measured is not None and keys <= allowed:
+                    best = measured if best is None \
+                        else min(best, measured)
+
+        bound = gb.out_bound
+        if best is not None:
+            cand = bucket_capacity(max(best, 1), minimum=128)
+            rows = max(int(getattr(self.catalog.table(pipe.scan.table),
+                                   "num_rows", 0)), 1)
+            if cand < bucket_capacity(rows) \
+                    and (not bound or int(bound) > cand):
+                bound = cand
+        if bound == gb.out_bound and not carry:
+            return plan, pipe
+
+        kept = tuple(k for k in gb.keys if k not in carry)
+        domains = gb.key_domains
+        if carry and domains and len(domains) == len(gb.keys):
+            domains = tuple(d for k, d in zip(gb.keys, domains)
+                            if k not in carry)
+        elif carry:
+            domains = ()
+        new_carry = tuple(gb.carry_keys) + tuple(carry)
+        gb2 = _dc.replace(gb, keys=kept, key_domains=domains,
+                          out_bound=bound, carry_keys=new_carry)
+        pipe = _dc.replace(pipe, partial=ir.Program(
+            list(pipe.partial.commands[:-1]) + [gb2]))
+        fp = plan.final_program
+        if fp is not None and fp.commands \
+                and isinstance(fp.commands[0], ir.GroupBy) \
+                and fp.commands[0].keys == gb.keys:
+            fgb0 = fp.commands[0]
+            fgb = _dc.replace(
+                fgb0, keys=kept, key_domains=domains,
+                carry_keys=tuple(fgb0.carry_keys) + tuple(carry),
+                out_bound=bound if (not fgb0.out_bound
+                                    or (bound and int(fgb0.out_bound)
+                                        > int(bound)))
+                else fgb0.out_bound)
+            fp = ir.Program([fgb] + list(fp.commands[1:]))
+        plan = _dc.replace(plan, pipeline=pipe, final_program=fp)
+        GLOBAL.inc("groupby/join_bounded_plans")
+        if carry:
+            GLOBAL.inc("bounds/carry_rewrites")
+        return plan, pipe
+
+    def _fd_determinant(self, step: JoinStep, bt, gj: list):
+        """One grouping column that provably determines all of `gj`,
+        verified on the materialized build block (the reference's rule).
+        Returns (determinant | None, measured distinct count | None)."""
+        from ydb_tpu_torch.query.bounds import dataset_distinct
+        if step.probe_key in gj:
+            return step.probe_key, None
+        if step.build_key in gj:
+            return step.build_key, None
+        fdb = getattr(bt, "fd_block", None)
+        if fdb is None:
+            return None, None
+        mcols = [step.build_key if k == step.probe_key else k for k in gj]
+        if any(c not in fdb.columns for c in mcols):
+            return None, None
+        memo = getattr(bt, "fd_memo", None)
+        if memo is None:
+            memo = bt.fd_memo = {}
+
+        def distinct(cols: tuple) -> int:
+            got = memo.get(cols)
+            if got is None:
+                got = memo[cols] = dataset_distinct(fdb, list(cols))
+            return got
+
+        GLOBAL.inc("bounds/fd_checks")
+        total = distinct(tuple(sorted(mcols)))
+        order = sorted(zip(gj, mcols),
+                       key=lambda km: (fdb.columns[km[1]].data.itemsize,
+                                       km[0]))
+        for (k, m) in order:
+            if distinct((m,)) == total:
+                GLOBAL.inc("bounds/fd_verified")
+                return k, total
+        return None, None
+
+    # -- join builds -------------------------------------------------------
+
+    def _prepare_builds(self, pipe: Pipeline, params: dict,
+                        snapshot: Snapshot) -> list:
+        """Prepare every join build of a pipeline in order, threading the
+        probe side's string dictionaries so cross-dictionary string keys
+        remap to probe codes."""
+        probe_dicts = dict(self.catalog.table(pipe.scan.table).dictionaries)
+        for (storage, internal) in pipe.scan.columns:
+            if storage in probe_dicts:
+                probe_dicts[internal] = probe_dicts[storage]
+        keep_fd = (pipe.partial is not None and pipe.partial.commands
+                   and isinstance(pipe.partial.commands[-1], ir.GroupBy)
+                   and len(pipe.partial.commands[-1].keys) >= 2)
+        builds = []
+        for kind, step in pipe.steps:
+            if kind != "join":
+                continue
+            bt = self._prepare_join(step, params, snapshot,
+                                    probe_dict=probe_dicts.get(
+                                        step.probe_key),
+                                    keep_fd=keep_fd)
+            builds.append(bt)
+            probe_dicts.update(getattr(bt, "dictionaries", None) or {})
+        return builds
+
+    def _prepare_join(self, step: JoinStep, params: dict,
+                      snapshot: Snapshot, probe_dict=None,
+                      keep_fd: bool = False) -> J.BuildTable:
+        from ydb_tpu_torch.query.build_cache import build_plan_fingerprint
+        cache_key = build_plan_fingerprint(
+            step, params, snapshot, self.catalog,
+            extra=(True, self.grace_budget_bytes, keep_fd))
+        if cache_key is not None:
+            hit = self.build_cache.lookup(cache_key, probe_dict)
+            if hit is not None:
+                return hit
+        bt = self._prepare_join_uncached(step, params, snapshot, probe_dict,
+                                         keep_fd=keep_fd)
+        if cache_key is not None:
+            self.build_cache.insert(cache_key, bt, probe_dict)
+        return bt
+
+    def _prepare_join_uncached(self, step: JoinStep, params: dict,
+                               snapshot: Snapshot, probe_dict=None,
+                               keep_fd: bool = False) -> J.BuildTable:
+        if isinstance(step.build, QueryPlan):
+            built = self.execute(step.build, snapshot)
+        else:
+            # the build PIPELINE runs through the fused path too. Empty
+            # output = keep every column (composite-key builds carry
+            # internal hash columns a projection would drop)
+            bplan = QueryPlan(pipeline=step.build, params=dict(params))
+            built = self._try_execute_fused(bplan, params, snapshot)
+        kcd = built.columns.get(step.build_key)
+        if kcd is not None and kcd.dictionary is not None \
+                and probe_dict is not None \
+                and kcd.dictionary is not probe_dict:
+            built = _remap_build_codes(built, step.build_key, probe_dict)
+        if step.build_hash_keys:
+            built = _add_hash_column(built, step.build_hash_keys,
+                                     step.build_key)
+        anti_has_null = False
+        if step.anti_null_check:
+            cd = built.columns[step.anti_null_col or step.build_key]
+            if cd.valid is not None and not cd.valid.all():
+                if step.kind == "left_anti":
+                    anti_has_null = True
+                else:
+                    raise NotImplementedError(
+                        "correlated NOT IN over a subquery producing NULLs "
+                        "is not supported yet")
+        if not step.not_in and built.length:
+            cols = list(dict.fromkeys([step.build_key] + list(step.payload)))
+            row_bytes = sum(built.columns[n].data.itemsize for n in cols)
+            if built.length * row_bytes > self.grace_budget_bytes:
+                raise NotPorted("GraceJoin partitioned build")
+        bt = J.build(built, step.build_key, list(step.payload), self.device,
+                     keep_fd=keep_fd)
+        bt.anti_has_null = anti_has_null
+        return bt
+
+    # -- output ------------------------------------------------------------
+
+    def _project_output(self, block: HostBlock, output: list) -> HostBlock:
+        cols = {}
+        schema_cols = []
+        used = set()
+        for (internal, label) in output:
+            lbl = label
+            k = 2
+            while lbl in used:
+                lbl = f"{label}_{k}"
+                k += 1
+            used.add(lbl)
+            cd = block.columns[internal]
+            cols[lbl] = ColumnData(cd.data, cd.valid, cd.dictionary)
+            schema_cols.append(Column(lbl, block.schema.dtype(internal)))
+        return HostBlock(Schema(schema_cols), cols, block.length)
+
+
+def _apply_offset(block: HostBlock, lo: int, limit) -> HostBlock:
+    """OFFSET/LIMIT tail slice of the deferred readout."""
+    if lo:
+        hi = lo + limit if limit is not None else block.length
+        block = block.slice(lo, min(hi, block.length))
+    return block
+
+
+def _remap_build_codes(built: HostBlock, key: str, probe_dict) -> HostBlock:
+    """Translate a build block's dictionary-encoded key codes into the
+    PROBE side's dictionary (values absent from the probe dictionary →
+    -2, the never-match code; the -1 NULL slot passes through)."""
+    kcd = built.columns[key]
+    src = kcd.dictionary.values_array()
+    lut = np.full(max(len(src), 1), -2, dtype=np.int32)
+    for i, v in enumerate(src):
+        lut[i] = probe_dict.encode_existing(v)
+    codes = kcd.data
+    remapped = np.where(codes >= 0, lut[np.clip(codes, 0, None)],
+                        codes).astype(codes.dtype)
+    return HostBlock(
+        built.schema,
+        {**built.columns, key: ColumnData(remapped, kcd.valid, probe_dict)},
+        built.length)
+
+
+def _add_hash_column(block: HostBlock, key_cols: list, out: str) -> HostBlock:
+    """Host-side composite-key hash column (`hash_combine(hash64(c0),
+    hash64(c1), ...)`, `utils/hashing.py`)."""
+    from ydb_tpu_torch.core.dtypes import DType, Kind
+    from ydb_tpu_torch.utils.hashing import hash_combine, splitmix64
+
+    if out in block.columns:
+        return block
+    h = None
+    valid = None
+    for name in key_cols:
+        cd = block.columns[name]
+        x = splitmix64(np, cd.data.astype(np.int64))
+        h = x if h is None else hash_combine(np, h, x)
+        if cd.valid is not None:
+            valid = cd.valid if valid is None else (valid & cd.valid)
+    cols = dict(block.columns)
+    cols[out] = ColumnData(h, valid, None)
+    schema = block.schema.extend([Column(out, DType(Kind.UINT64,
+                                                    valid is not None))])
+    return HostBlock(schema, cols, block.length)

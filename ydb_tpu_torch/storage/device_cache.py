@@ -1,0 +1,184 @@
+"""Device-resident column cache (port of ``ydb_tpu/storage/device_cache.py``).
+
+Immutable portion columns are stacked into (K, CAP) superblocks and
+uploaded to the engine's device once per data version, then reused
+across queries, LRU-evicted under a byte budget. The port carries the
+fused path's ``superblock`` only: per-portion device blocks belong to
+the portioned path, and device-resident (stage-spine) sources to the DQ
+runtime, neither of which this slice runs.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+
+from ydb_tpu_torch.ops.device import bucket_capacity
+from ydb_tpu_torch.ops.torch_ns import to_tensor
+
+import os as _os
+
+# bytes of device memory for cached columns (an 80 GB card keeps room
+# for the working sets of the query beside them)
+DEFAULT_BUDGET = int(_os.environ.get("YDB_TPU_HBM_BUDGET", 40 << 30))
+
+
+def enumerate_scan_sources(table, snapshot, prune):
+    """Every visible scan source of a table: (HostBlocks, source ids).
+    Source ids key superblock cache entries (write id, not list position:
+    two snapshots seeing different insert subsets must not collide).
+    Portions with MVCC delete marks visible at the snapshot contribute
+    their filtered view under an id that carries the visible mark set."""
+    sources, src_ids = [], []
+    for shard in table.shards:
+        portions, insert_entries = shard.scan_sources(snapshot, prune)
+        for p in portions:
+            sig = p.delete_sig(snapshot) if p.deletes else ()
+            if sig:
+                sources.append(p.visible_block(snapshot))
+                src_ids.append(("pv", p.id, sig))
+            else:
+                sources.append(p.block)
+                src_ids.append(("p", p.id))
+        for e in insert_entries:
+            sources.append(e.block)
+            src_ids.append(("i", shard.shard_id, e.write_id))
+    return sources, src_ids
+
+
+def _source_cap(b) -> int:
+    return bucket_capacity(max(b.length, 1))
+
+
+def estimate_scan_bytes(sources, storage_names: list,
+                        pad_to: int = 0) -> int:
+    """Superblock device footprint of a scan: K stacked sources at the
+    max capacity bucket, per column data + validity — the fused-path
+    admission estimate (no upload happens to find out it didn't fit).
+    `pad_to`: the shape-bucketed row count (padded rows allocate real
+    memory, so the estimate must charge them)."""
+    if not sources:
+        return 0
+    K = max(len(sources), pad_to)
+    CAP = max(_source_cap(b) for b in sources)
+    total = 0
+    for s in storage_names:
+        total += K * CAP * sources[0].columns[s].data.itemsize
+        if any(b.columns[s].valid is not None for b in sources):
+            total += K * CAP
+    return total
+
+
+class DeviceColumnCache:
+    def __init__(self, device, budget_bytes: int = DEFAULT_BUDGET):
+        import threading
+        self.device = device
+        self.budget = budget_bytes
+        self._entries: OrderedDict = OrderedDict()  # key -> (data, valid, nbytes)
+        self.bytes = 0
+        # device bytes held by OTHER long-lived caches sharing this
+        # budget (the cross-query BuildCache registers here)
+        self.foreign_bytes = 0
+        self.hits = 0
+        self.misses = 0
+        self._mu = threading.RLock()
+
+    def _evict(self):
+        while self.bytes + self.foreign_bytes > self.budget \
+                and self._entries:
+            _key, (_d, _v, nbytes) = self._entries.popitem(last=False)
+            self.bytes -= nbytes
+
+    def acquire_foreign(self, nbytes: int) -> None:
+        with self._mu:
+            self.foreign_bytes += nbytes
+            self._evict()
+
+    def release_foreign(self, nbytes: int) -> None:
+        with self._mu:
+            self.foreign_bytes = max(0, self.foreign_bytes - nbytes)
+
+    def _lookup(self, key):
+        with self._mu:
+            hit = self._entries.get(key)
+            if hit is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+            else:
+                self.misses += 1
+            return hit
+
+    def _insert(self, key, data, valid, nbytes):
+        with self._mu:
+            hit = self._entries.get(key)
+            if hit is not None:
+                return hit[0], hit[1]
+            self._entries[key] = (data, valid, nbytes)
+            self.bytes += nbytes
+            self._evict()
+            return data, valid
+
+    def superblock(self, table, storage_names: list, rename: dict,
+                   snapshot, prune, sources=None, src_ids=None,
+                   pad_to: int = 0):
+        """Stacked (K, CAP) tensors on the cache's device covering every
+        visible scan source of `table` — the input of the fused query
+        (`ops/fused.py`), one upload per column per data version. Rows
+        beyond the real source count (`pad_to`, the shape bucket) are
+        zero-filled with length 0, masked out like a short source.
+
+        Returns (arrays {internal: (K,CAP)}, valids {internal: (K,CAP)},
+        lengths (K,) int32, K, CAP, dicts) or None when the table has no
+        visible sources."""
+        if sources is None:
+            sources, src_ids = enumerate_scan_sources(table, snapshot, prune)
+        if not sources:
+            return None
+        K = max(len(sources), pad_to)
+        CAP = max(_source_cap(b) for b in sources)
+        src_key = (table.uid, table.data_version, tuple(src_ids), CAP, K)
+
+        lengths_np = np.zeros(K, np.int32)
+        lengths_np[:len(sources)] = [b.length for b in sources]
+        arrays, valids, dicts = {}, {}, {}
+        for s in storage_names:
+            out = rename.get(s, s)
+            key = ("sbc", src_key, s)
+            hit = self._lookup(key)
+            if hit is not None:
+                arrays[out] = hit[0]
+                if hit[1] is not None:
+                    valids[out] = hit[1]
+            else:
+                dtype = sources[0].columns[s].data.dtype
+                stack = np.zeros((K, CAP), dtype=dtype)
+                has_valid = any(b.columns[s].valid is not None
+                                for b in sources)
+                vstack = np.zeros((K, CAP), np.bool_) if has_valid else None
+                for k, b in enumerate(sources):
+                    cd = b.columns[s]
+                    stack[k, :b.length] = cd.data
+                    if vstack is not None:
+                        vstack[k, :b.length] = (cd.valid if cd.valid is not None
+                                                else True)
+                d = to_tensor(stack, self.device)
+                v = to_tensor(vstack, self.device) \
+                    if vstack is not None else None
+                nbytes = d.nbytes + (v.nbytes if v is not None else 0)
+                d, v = self._insert(key, d, v, nbytes)
+                arrays[out] = d
+                if v is not None:
+                    valids[out] = v
+            dic = sources[0].columns[s].dictionary
+            if dic is not None:
+                dicts[out] = dic
+
+        lkey = ("sbl", src_key)
+        lhit = self._lookup(lkey)
+        if lhit is None:
+            lengths = to_tensor(lengths_np, self.device)
+            lengths, _ = self._insert(lkey, lengths, None, lengths.nbytes)
+        else:
+            lengths = lhit[0]
+        return arrays, valids, lengths, K, CAP, dicts
