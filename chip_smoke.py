@@ -5,29 +5,37 @@
 Phases, each printing its own line(s):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. the build of the four CUDA kernels from ``ydb_tpu_torch/ops/cuda/csrc``
+2. the build of the six CUDA kernels from ``ydb_tpu_torch/ops/cuda/csrc``
    (one ``nvcc`` per source, in parallel), with its seconds;
 3. generation of TPC-H at ``--sf`` and its load into ``QueryEngine()``
    (no device argument: it must land on ``cuda``);
 4. the kernel phase: each kernel against its plain PyTorch version on the
-   card, on seeded random inputs at the shapes TPC-H Q1/Q6/Q14 give it at
-   this scale (nulls, an all-null bucket, LUT misses and a forced compact
-   overflow included), plus ``bucket_agg`` at 512 buckets and 16
-   aggregates (the most the small-domain lane sends it) and keyless, and
-   each wrapper's multi-launch form (more operands than one launch
-   takes).
-   Ints, masks and permutations must match exactly, float sums to rtol
-   1e-9 (another summation order). Times: device time between CUDA
-   events (a spin kernel ahead hides the host's launch work), median of
-   15 calls after warm-up, for the kernel, its plain version and one
-   PyTorch library call computing the same function; the bound is the
-   bytes of the distinct input and output tensors over 3.35 TB/s;
-5. the slice phase: Q1, Q6 and Q14 through ``QueryEngine.query`` with
-   ``YDB_TPU_LATE_MAT`` on, and Q1 and Q14 again with it off (Q14 then
-   gathers its payload inside the probe kernel); every answer must
-   equal a pandas oracle (rtol 1e-9 for floats, exact otherwise), every
-   query must take the fused path, and every kernel's launch counter
-   (reset just before this phase) must have risen.
+   card, on seeded random inputs at the shapes the TPC-H queries give it
+   at this scale. ``bucket_agg``, ``compact``, ``probe`` and ``sort`` at
+   Q1/Q6/Q14's shapes (nulls, an all-null bucket, LUT misses and a
+   forced compact overflow included), ``bucket_agg`` at 512 buckets and
+   16 aggregates and keyless, and each wrapper's multi-launch form;
+   ``sort`` at scan capacity (the sorted group-by's sort);
+   ``segment_agg`` at q18's subquery shape (timed), q3's (a filter,
+   groups of at most 7 rows, an output bound), one group holding half
+   the rows, the medium-domain lane's sort and fold over 60,000 bucket
+   ids, nullable int keys, NaN and -0.0 float keys with every
+   aggregate function, and 0 rows; ``hash64`` over two int64 columns at
+   lineitem's rows (half the hashes >= 2^63); a probe of u64 keys
+   >= 2^63. Ints, masks, counts and permutations must match exactly,
+   float sums to rtol 1e-9 (another summation order). Times: device time
+   between CUDA events (a spin kernel ahead hides the host's launch
+   work), median of 15 calls after warm-up, for the kernel, its plain
+   version and one PyTorch library call computing the same function
+   where there is one; the bound is the bytes of the distinct input and
+   output tensors over 3.35 TB/s;
+5. the slice phase: all 22 TPC-H queries through ``QueryEngine.query``
+   with ``YDB_TPU_LATE_MAT`` on, and Q1 and Q14 again with it off, path
+   by path (``PATHS``): every answer must equal the pandas oracle
+   (``ydb_tpu_torch/bench/tpch_oracle.py``: rtol 1e-9 for floats, exact
+   otherwise, row order included), every query must take the fused
+   path, and each path's kernels must have launched in that path's own
+   run (the counters are reset just before it and read just after).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -45,36 +53,6 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-QUERIES = {
-    "q1": """
-select l_returnflag, l_linestatus,
-  sum(l_quantity) as sum_qty,
-  sum(l_extendedprice) as sum_base_price,
-  sum(l_extendedprice*(1-l_discount)) as sum_disc_price,
-  sum(l_extendedprice*(1-l_discount)*(1+l_tax)) as sum_charge,
-  avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
-  avg(l_discount) as avg_disc, count(*) as count_order
-from lineitem
-where l_shipdate <= date '1998-12-01' - interval '90' day
-group by l_returnflag, l_linestatus
-order by l_returnflag, l_linestatus""",
-    "q6": """
-select sum(l_extendedprice*l_discount) as revenue
-from lineitem
-where l_shipdate >= date '1994-01-01'
-  and l_shipdate < date '1994-01-01' + interval '1' year
-  and l_discount between 0.05 and 0.07
-  and l_quantity < 24""",
-    "q14": """
-select 100.00 * sum(case when p_type like 'PROMO%'
-    then l_extendedprice*(1-l_discount) else 0 end)
-  / sum(l_extendedprice*(1-l_discount)) as promo_revenue
-from lineitem, part
-where l_partkey = p_partkey
-  and l_shipdate >= date '1995-09-01'
-  and l_shipdate < date '1995-09-01' + interval '1' month""",
-}
-
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 RTOL = 1e-9
 
@@ -87,71 +65,6 @@ def check(cond, msg) -> None:
     """A check that holds under ``python -O`` too."""
     if not cond:
         raise AssertionError(msg)
-
-
-# --------------------------------------------------------------------------
-# oracle (the q1/q6/q14 branches of the repo's TPC-H test oracle)
-# --------------------------------------------------------------------------
-
-
-def oracle(name: str, tables: dict, date32):
-    import pandas as pd
-    li = tables["lineitem"]
-    if name == "q1":
-        d = li[li.l_shipdate <= date32(1998, 12, 1) - 90]
-        disc = d.l_extendedprice * (1 - d.l_discount)
-        d = d.assign(dp=disc, ch=disc * (1 + d.l_tax))
-        return d.groupby(["l_returnflag", "l_linestatus"], sort=True).agg(
-            sum_qty=("l_quantity", "sum"),
-            sum_base_price=("l_extendedprice", "sum"),
-            sum_disc_price=("dp", "sum"), sum_charge=("ch", "sum"),
-            avg_qty=("l_quantity", "mean"),
-            avg_price=("l_extendedprice", "mean"),
-            avg_disc=("l_discount", "mean"),
-            count_order=("l_orderkey", "count"),
-        ).reset_index()
-    if name == "q6":
-        d = li[(li.l_shipdate >= date32(1994, 1, 1))
-               & (li.l_shipdate < date32(1995, 1, 1))
-               & (li.l_discount >= 0.05 - 1e-12)
-               & (li.l_discount <= 0.07 + 1e-12)
-               & (li.l_quantity < 24)]
-        return pd.DataFrame(
-            {"revenue": [(d.l_extendedprice * d.l_discount).sum()]})
-    if name == "q14":
-        pa = tables["part"]
-        l = li[(li.l_shipdate >= date32(1995, 9, 1))
-               & (li.l_shipdate < date32(1995, 10, 1))]
-        j = l.merge(pa, left_on="l_partkey", right_on="p_partkey")
-        rev = j.l_extendedprice * (1 - j.l_discount)
-        promo = rev.where(j.p_type.str.startswith("PROMO"), 0.0)
-        return pd.DataFrame({"promo_revenue":
-                             [100.0 * promo.sum() / rev.sum()]})
-    raise KeyError(name)
-
-
-def assert_frames_match(got, want, name: str) -> None:
-    import numpy as np
-    import pandas as pd
-    want = want.copy()
-    want.columns = list(got.columns)          # labels match by position
-    check(len(got) == len(want), f"{name}: rows {len(got)} != {len(want)}")
-    for col in got.columns:
-        g = got[col].to_numpy()
-        w = want[col].to_numpy()
-        gn, wn = pd.isna(g), pd.isna(w)
-        check((gn == wn).all(), f"{name}.{col}: null mismatch")
-        g, w = g[~gn], w[~wn]
-        if np.issubdtype(np.asarray(w).dtype, np.floating) or \
-                np.issubdtype(np.asarray(g).dtype, np.floating):
-            np.testing.assert_allclose(g.astype(np.float64),
-                                       w.astype(np.float64), rtol=RTOL,
-                                       err_msg=f"{name}.{col}")
-        elif np.issubdtype(np.asarray(w).dtype, np.integer):
-            check((g.astype(np.int64) == w.astype(np.int64)).all(),
-                  f"{name}.{col}")
-        else:
-            check(list(g) == list(w), f"{name}.{col}")
 
 
 # --------------------------------------------------------------------------
@@ -325,9 +238,11 @@ def kernel_phase(B, n: int, q6_compact_cap: int, n_part: int,
     #    materialization off) timed, printed on a line of its own
     check_bucket_agg(B, None, 1, active, wide, sync, "keyless")
     two = aggs[:2]
+    masked2 = stacked[:, :2].contiguous()    # the two sums, pre-masked
     log(f"kernel bucket_agg keyless: n={n} aggs={len(two)} "
         f"kernel_ms={time_ms(lambda: B.bucket_agg(None, 1, active, two)):.4f} "
         f"plain_ms={time_ms(lambda: B.bucket_agg_plain(None, 1, active, two)):.4f} "
+        f"library_ms={time_ms(lambda: masked2.sum(0)):.4f} "
         f"bound_us={bound_ms(agg_bytes(None, 1, active, two)) * 1e3:.2f} "
         "(bytes)")
 
@@ -487,6 +402,256 @@ def kernel_phase(B, n: int, q6_compact_cap: int, n_part: int,
     return rows
 
 
+def segment_agg_bytes(perm, keys, active, aggs, oc: int) -> int:
+    """segment_agg's distinct input bytes plus its outputs at `oc` slots
+    (lead, present, and a value and a count per aggregate)."""
+    ins = [perm, active] + list(keys) \
+        + [t for (_f, d, v, _u) in aggs for t in (d, v)]
+    return distinct_bytes(ins) + oc * (4 + 8 + 16 * len(aggs))
+
+
+def check_segment_agg(B, perm, keys, active, aggs, oc: int, sync,
+                      tag) -> float:
+    """segment_agg against its plain version: ngroups, leaders, counts
+    and integer results exactly, float sums to RTOL. Returns the largest
+    absolute difference of a float sum."""
+    import torch
+    got = B.segment_agg(perm, keys, active, aggs, oc)
+    want = B.segment_agg_plain(perm, keys, active, aggs, oc)
+    sync()
+    check(int(got[0]) == int(want[0]),
+          f"segment_agg {tag} ngroups {int(got[0])} != {int(want[0])}")
+    check(torch.equal(got[1], want[1]), f"segment_agg {tag} lead")
+    check(torch.equal(got[2], want[2]), f"segment_agg {tag} present")
+    err = 0.0
+    for i, (f, d, _v, _u) in enumerate(aggs):
+        check(torch.equal(got[4][i], want[4][i]),
+              f"segment_agg {tag} count {i}")
+        kv, pv = got[3][i], want[3][i]
+        if f == "sum" and d.dtype == torch.float64:
+            torch.testing.assert_close(kv, pv, rtol=RTOL, atol=0)
+            err = max(err, float((kv - pv).abs().max())) if kv.numel() \
+                else err
+        else:
+            check(torch.equal(kv, pv), f"segment_agg {tag} {f} {i}")
+    return err
+
+
+def sorted_lane_phase(B, n: int, cap: int, live: int,
+                      device: str = "cuda") -> list:
+    """The sorted group-by's kernels (``sort`` at scan capacity,
+    ``segment_agg``) and ``hash64`` against their plain versions, and a
+    probe of u64 keys >= 2^63. `n` rows in portions of `cap` rows of
+    which `live` are real, as the lineitem superblock holds them."""
+    import numpy as np
+    import torch
+
+    from ydb_tpu_torch.core.block import HostBlock
+    from ydb_tpu_torch.core.dtypes import DType, Kind
+    from ydb_tpu_torch.core.schema import Column, Schema
+    from ydb_tpu_torch.ops import join as J
+    from ydb_tpu_torch.ops.sort import encode_key, group_key_words
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    rows = []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def rand(shape, dtype=torch.float64):
+        return torch.rand(shape, generator=g, device=dev, dtype=dtype)
+
+    def randint(lo, hi, shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    def perm_of(words, active):
+        return B.sort_perm([encode_key((~active).to(torch.int64))] + words,
+                           active.shape[0], dev)
+
+    # -- q18's subquery: group lineitem by l_orderkey (1 to 7 lines per
+    #    order, keys ascending in each portion as the generator writes
+    #    them), sum(l_quantity); no output bound, so oc = n
+    iota = torch.arange(n, device=dev)
+    active = (iota % cap) < live
+    lines = randint(1, 8, (n // 3 + 8,))
+    okey = torch.repeat_interleave(
+        torch.arange(lines.shape[0], device=dev) * 4 + 1, lines)[:n]
+    qty = randint(1, 51, (n,)).to(torch.float64)
+    words = [encode_key(okey)]
+    sort_keys = [encode_key((~active).to(torch.int64))] + words
+    perm = B.sort_perm(sort_keys, n, dev)
+    check(torch.equal(perm, B.sort_perm_plain(sort_keys, n, dev)),
+          "sort at scan capacity")
+    sort_bound = bound_ms(n * 8 * len(sort_keys) + n * 4)
+    log(f"kernel sort at scan capacity: n={n} keys={len(sort_keys)} "
+        f"kernel_ms={time_ms(lambda: B.sort_perm(sort_keys, n, dev)):.4f} "
+        f"plain_ms={time_ms(lambda: B.sort_perm_plain(sort_keys, n, dev)):.4f} "
+        f"library_ms={time_ms(lambda: torch.sort(okey, stable=True)):.4f} "
+        f"bound_us={sort_bound * 1e3:.2f} (bytes)")
+    aggs = [("sum", qty, None, False)]
+    err = check_segment_agg(B, perm, words, active, aggs, n, sync, "q18")
+    ng = int(B.segment_agg_plain(perm, words, active, aggs, n)[0])
+    # the library call: one scatter_reduce of the sums over group ids
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = okey[1:] != okey[:-1]
+    gid = torch.cumsum(first.to(torch.int64), 0) - 1
+    gid = torch.where(active, gid, torch.full_like(gid, n))
+
+    def lib():
+        return torch.zeros(n + 1, dtype=torch.float64, device=dev) \
+            .scatter_reduce_(0, gid, qty, "sum")
+    rows.append(dict(
+        name="segment_agg", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/segment_agg.cu",
+        replaces="ydb_tpu/ops/xla_exec.py:599",
+        shape=f"n={n} groups={ng} aggs=1 oc={n} (q18 subquery)",
+        max_abs_err=err,
+        ms=time_ms(lambda: B.segment_agg(perm, words, active, aggs, n)),
+        plain_ms=time_ms(lambda: B.segment_agg_plain(perm, words, active,
+                                                     aggs, n)),
+        library_ms=time_ms(lib),
+        bound_ms=bound_ms(segment_agg_bytes(perm, words, active, aggs, n)),
+        bound_by="bytes"))
+
+    # -- q3's shape: a shipdate filter and a join keep a few orders' lines
+    #    (groups of at most 7 rows), under the join's output bound
+    chosen = rand((lines.shape[0],)) < 0.02
+    keep = torch.repeat_interleave(chosen, lines)[:n]
+    active3 = active & keep & (rand((n,)) < 0.54)
+    oc3 = 1 << 17
+    rev = rand((n,)) * 1e5
+    aggs3 = [("sum", rev, None, False), ("count", None, None, False)]
+    perm3 = perm_of(words, active3)
+    check_segment_agg(B, perm3, words, active3, aggs3, oc3, sync, "q3")
+    log(f"kernel segment_agg q3 shape: n={n} "
+        f"groups={int(B.segment_agg_plain(perm3, words, active3, aggs3, oc3)[0])} "
+        f"oc={oc3} kernel_ms={time_ms(lambda: B.segment_agg(perm3, words, active3, aggs3, oc3)):.4f} "
+        f"plain_ms={time_ms(lambda: B.segment_agg_plain(perm3, words, active3, aggs3, oc3)):.4f} "
+        f"bound_us={bound_ms(segment_agg_bytes(perm3, words, active3, aggs3, oc3)) * 1e3:.2f} (bytes)")
+
+    # -- one group holding half the rows (Q1's skew), the rest in groups
+    #    of about ten
+    skey = torch.where(rand((n,)) < 0.5, 0, randint(1, n // 10, (n,)))
+    swords = [encode_key(skey)]
+    sperm = perm_of(swords, active)
+    aggs_s = [("sum", rev, None, False), ("count", None, None, False),
+              ("max", qty, None, False)]
+    check_segment_agg(B, sperm, swords, active, aggs_s, n, sync, "skew")
+    log(f"kernel segment_agg one group of half the rows: n={n} "
+        f"kernel_ms={time_ms(lambda: B.segment_agg(sperm, swords, active, aggs_s, n)):.4f} "
+        f"plain_ms={time_ms(lambda: B.segment_agg_plain(sperm, swords, active, aggs_s, n)):.4f} "
+        f"bound_us={bound_ms(segment_agg_bytes(sperm, swords, active, aggs_s, n)) * 1e3:.2f} (bytes)")
+
+    # -- the medium-domain lane's kernels (K4): rows sorted by a bucket
+    #    id (60,000 buckets, as q10 groups customers at SF 0.05), then
+    #    folded per bucket; the reference scatter-reduces instead, which
+    #    is the library call here
+    kid = randint(0, 60_000, (n,))
+    kwords = [encode_key(kid)]
+    kaggs = [("sum", rev, None, False), ("count", None, None, False)]
+
+    def run_k4(sort, seg):
+        kperm = sort([encode_key((~active).to(torch.int64))] + kwords, n,
+                     dev)
+        return seg(kperm, kwords, active, kaggs, 65536)
+    got = run_k4(B.sort_perm, B.segment_agg)
+    want = run_k4(B.sort_perm_plain, B.segment_agg_plain)
+    sync()
+    check(int(got[0]) == int(want[0]) and torch.equal(got[1], want[1])
+          and torch.equal(got[4][1], want[4][1]), "medium domain")
+    torch.testing.assert_close(got[3][0], want[3][0], rtol=RTOL, atol=0)
+    kid_l = torch.where(active, kid, torch.full_like(kid, 60_000))
+
+    def lib4():
+        return torch.zeros(60_001, dtype=torch.float64, device=dev) \
+            .scatter_reduce_(0, kid_l, rev, "sum")
+    log(f"kernel sort+segment_agg medium domain: n={n} buckets=60000 "
+        f"kernel_ms={time_ms(lambda: run_k4(B.sort_perm, B.segment_agg)):.4f} "
+        f"plain_ms={time_ms(lambda: run_k4(B.sort_perm_plain, B.segment_agg_plain)):.4f} "
+        f"library_ms={time_ms(lib4):.4f} "
+        f"bound_us={bound_ms(distinct_bytes([kid, active, rev]) + 65536 * (4 + 8 + 32)) * 1e3:.2f} (bytes)")
+
+    # -- nullable int keys, NaN and -0.0 float keys, every aggregate
+    #    function over float, signed and unsigned values with NULLs, the
+    #    multi-launch form (at a row count that ends in a partial
+    #    tile), and 0 rows; checked, not timed
+    m = (1 << 20) + 333
+    am = rand((m,)) < 0.9
+    ki = randint(-3, 300, (m,))
+    kf = torch.tensor([0.5, -1.25, float("nan"), 2.0, 0.0, -0.0],
+                      device=dev, dtype=torch.float64)[randint(0, 6, (m,))]
+    env = {"ki": (ki, rand((m,)) > 0.2), "kf": (kf, None)}
+    ewords = group_key_words(["ki", "kf"], env)
+    eperm = perm_of(ewords, am)
+    vf, vv = rand((m,)) * 100 - 50, rand((m,)) > 0.1
+    every = [("count", None, vv, False), ("sum", vf, vv, False),
+             ("min", vf, vv, False), ("max", vf, None, False),
+             ("first", None, vv, False),
+             ("sum", randint(-(1 << 40), 1 << 40, (m,)), vv, False),
+             ("min", randint(-(1 << 62), 1 << 62, (m,)), None, False),
+             ("max", randint(-(1 << 62), 1 << 62, (m,)), vv, True),
+             ("min", randint(-(1 << 62), 1 << 62, (m,)), None, True)]
+    check_segment_agg(B, eperm, ewords, am, every, m, sync, "every func")
+    check_segment_agg(B, eperm, ewords, am, every * 2, m, sync, "chunked")
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    got = B.segment_agg(torch.zeros(0, dtype=torch.int32, device=dev),
+                        [empty], torch.zeros(0, dtype=torch.bool,
+                                             device=dev),
+                        [("sum", empty.to(torch.float64), None, False)], 128)
+    sync()
+    check(int(got[0]) == 0 and int(got[2].sum()) == 0, "segment_agg 0 rows")
+
+    # -- hash64: hash_combine(hash64(a), hash64(b)) over lineitem's rows
+    ha = randint(-(1 << 62), 1 << 62, (n,)) * 2 + randint(0, 2, (n,))
+    hb = randint(1, 10001, (n,))
+    hk = B.hash64([ha, hb])
+    hp = B.hash64_plain([ha, hb], [True, True])
+    sync()
+    check(torch.equal(hk, hp), "hash64")
+    top = float((hk < 0).to(torch.float64).mean())
+    check(top > 0.4, f"hash64: {top} of the hashes >= 2^63")
+    rows.append(dict(
+        name="hash64", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/hash64.cu",
+        replaces="ydb_tpu/utils/hashing.py:17",
+        shape=f"n={n} cols=2 (q9 partsupp key)", max_abs_err=0.0,
+        ms=time_ms(lambda: B.hash64([ha, hb])),
+        plain_ms=time_ms(lambda: B.hash64_plain([ha, hb], [True, True])),
+        # no PyTorch call computes a 64-bit splitmix hash
+        library_ms=None, bound_ms=bound_ms(3 * 8 * n), bound_by="bytes"))
+
+    # -- a probe of u64 keys >= 2^63: about as many hashed keys as
+    #    partsupp holds at SF1 (800,000) as the build, half the probes
+    #    hitting
+    nb_ = n // 8
+    bkeys = torch.unique(B.hash64([randint(0, 1 << 40, (nb_,))]))
+    bblock = HostBlock.from_arrays(
+        Schema([Column("bk", DType(Kind.UINT64, False)),
+                Column("p", DType(Kind.INT64, False))]),
+        {"bk": bkeys.cpu().numpy().view(np.uint64),
+         "p": np.arange(bkeys.shape[0])}, {})
+    bt = J.build(bblock, "bk", ["p"], dev)
+    hit = rand((n,)) < 0.5
+    pk = torch.where(hit, bkeys[randint(0, bkeys.shape[0], (n,))],
+                     B.hash64([randint(1 << 41, 1 << 42, (n,))]))
+    kw = dict(lut=None, lut_base=0, keys_sorted=bt.keys_sorted,
+              n_build=bt.n, pcap=bt.keys_sorted.shape[0], kind="inner",
+              not_in=False, has_null=False,
+              payloads=[(bt.payload["p"], None)])
+    got = B.probe(pk, None, active, **kw)
+    want = B.probe_plain(pk, None, active, **kw)
+    sync()
+    check(all(torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
+          and torch.equal(got[3][0][0], want[3][0][0]), "probe u64")
+    check(torch.equal(got[0], hit & active), "probe u64: every hit found")
+    check(torch.equal(bkeys[got[3][0][0]][got[0]], pk[got[0]]),
+          "probe u64: payload row")
+    return rows
+
+
 # --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
@@ -505,9 +670,9 @@ def main() -> int:
         log("chip_smoke: no CUDA device")
         return 2
     sys.path.insert(0, HERE)
-    import pandas as pd
 
-    from ydb_tpu_torch.bench.tpch_gen import date32, load_tpch
+    from ydb_tpu_torch.bench.tpch_gen import load_tpch
+    from ydb_tpu_torch.bench.tpch_oracle import QUERIES
     from ydb_tpu_torch.ops.cuda import bindings, build
     from ydb_tpu_torch.ops.device import bucket_capacity
     from ydb_tpu_torch.progstore.buckets import bucket_segment, bucket_sources
@@ -541,12 +706,10 @@ def main() -> int:
     K = bucket_sources(len(portions))
     CAP = max(bucket_capacity(max(p.num_rows, 1)) for p in portions)
     n = K * CAP
-    tables = {t: pd.DataFrame(cols) for t, cols in data.tables.items()
-              if t in ("lineitem", "part")}
     log(f"data: sf={args.sf} lineitem={li.num_rows} rows, superblock "
         f"K={K} CAP={CAP} n={n}, {time.perf_counter() - t0:.1f} s")
 
-    # 4. kernels vs plain at the slice's shapes: Q6's compact capacity
+    # 4. kernels vs plain at the queries' shapes: Q6's compact capacity
     # is sized as the executor sizes it (CBO estimate, 25% headroom, the
     # segment ladder); Q14's LUT spans part's dense p_partkey range
     q6 = eng.planner.plan_select(parse(QUERIES["q6"]))
@@ -555,16 +718,19 @@ def main() -> int:
     n_part = eng.catalog.table("part").num_rows
     lut_span = bucket_capacity(n_part, minimum=1024)
     rows = kernel_phase(bindings, n, q6_cap, n_part, lut_span)
+    rows += sorted_lane_phase(bindings, n, CAP,
+                              max(p.num_rows for p in portions))
     for r in rows:
+        lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"kernel {r['name']}: {r['shape']} kernel_ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
             f"bound_us={r['bound_ms'] * 1e3:.2f} "
             f"max_abs_err={r['max_abs_err']:.3g}")
 
-    # 5. the slice through QueryEngine.query
-    launches = slice_phase(eng, bindings, tables, date32)
+    # 5. the 22 queries through QueryEngine.query
+    launches = slice_phase(eng, bindings, data, QUERIES)
     if args.profile:
-        profile_phase(eng)
+        profile_phase(eng, QUERIES)
     os.environ.pop("YDB_TPU_LATE_MAT", None)
 
     table = [{k: r[k] for k in ("name", "route", "source", "replaces")}
@@ -580,54 +746,77 @@ def main() -> int:
     return 0
 
 
-def slice_phase(eng, bindings, tables: dict, date32) -> dict:
-    """Q1/Q6/Q14 (and Q1, Q14 without late materialization) through the
-    engine, each checked against the oracle; returns the launch counts
-    of exactly this phase."""
-    bindings.reset_launches()
-    runs = [("q1", "1"), ("q6", "1"), ("q14", "1"), ("q1", "0"),
-            ("q14", "0")]
-    for name, late in runs:
-        os.environ["YDB_TPU_LATE_MAT"] = late
-        walls = []
-        for _ in range(3):
-            before = dict(bindings.LAUNCHES)
-            t0 = time.perf_counter()
-            got = eng.query(QUERIES[name])
-            walls.append((time.perf_counter() - t0) * 1e3)
-        per_query = {k: v - before[k] for k, v in bindings.LAUNCHES.items()}
-        check(eng.executor.last_path == "fused", eng.executor.last_path)
-        assert_frames_match(got, oracle(name, tables, date32), name)
-        log(f"query {name} late_mat={late}: cold_ms={walls[0]:.2f} "
-            f"warm_ms={min(walls[1:]):.2f} rows={len(got)} fused ok "
-            f"warm_launches={json.dumps(per_query)}")
-    launches = dict(bindings.LAUNCHES)
-    log(f"launches: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v <= 0]
-    check(not missing, f"kernels not launched on the main path: {missing}")
-    return launches
+# The main path, slice by slice: each slice's queries run with the
+# launch counters set to 0 just before and read just after, and each of
+# the kernels it names must have launched in that run.
+PATHS = (
+    ("q1 q6 q14, late materialization on and off",
+     [("q1", "1"), ("q6", "1"), ("q14", "1"), ("q1", "0"), ("q14", "0")],
+     ("bucket_agg", "compact", "probe", "sort")),
+    ("the other 19 queries: sorted and medium-domain group-by, hashing, "
+     "CTEs and derived tables",
+     [(f"q{i}", "1") for i in range(2, 23) if i not in (6, 14)],
+     ("bucket_agg", "compact", "probe", "sort", "segment_agg", "hash64")),
+)
 
 
-def profile_phase(eng) -> None:
+def slice_phase(eng, bindings, data, queries: dict) -> dict:
+    """Every path of `PATHS` through the engine, each query checked
+    against the oracle; returns each kernel's launches summed over the
+    paths' runs (and nothing else)."""
+    from ydb_tpu_torch.bench.tpch_oracle import assert_frames_match, oracle
+    total = {k: 0 for k in bindings.LAUNCHES}
+    for label, runs, kernels in PATHS:
+        bindings.reset_launches()
+        for name, late in runs:
+            os.environ["YDB_TPU_LATE_MAT"] = late
+            walls = []
+            for _ in range(3):
+                before = dict(bindings.LAUNCHES)
+                t0 = time.perf_counter()
+                got = eng.query(queries[name])
+                walls.append((time.perf_counter() - t0) * 1e3)
+            per_query = {k: v - before[k]
+                         for k, v in bindings.LAUNCHES.items()}
+            check(eng.executor.last_path == "fused", eng.executor.last_path)
+            assert_frames_match(got, oracle(name, data), ordered=True)
+            log(f"query {name} late_mat={late}: cold_ms={walls[0]:.2f} "
+                f"warm_ms={min(walls[1:]):.2f} rows={len(got)} fused ok "
+                f"warm_launches={json.dumps(per_query)}")
+        launches = dict(bindings.LAUNCHES)
+        log(f"launches ({label}): {json.dumps(launches)}")
+        missing = [k for k in kernels if launches[k] <= 0]
+        check(not missing, f"kernels not launched on {label}: {missing}")
+        for k, v in launches.items():
+            total[k] += v
+    log(f"launches: {json.dumps(total)}")
+    return total
+
+
+def profile_phase(eng, queries: dict) -> None:
     """One warm run per query under torch.profiler: host wall time, the
     summed device time of its kernels, the device's idle share of the
     wall, and the kernels that took most of it."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for name, late in (("q1", "1"), ("q6", "1"), ("q14", "1")):
-        os.environ["YDB_TPU_LATE_MAT"] = late
-        eng.query(QUERIES[name])
+    os.environ["YDB_TPU_LATE_MAT"] = "1"
+    for name in (f"q{i}" for i in range(1, 23)):
+        eng.query(queries[name])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            eng.query(QUERIES[name])
+            eng.query(queries[name])
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         def dev_us(e) -> float:
             return float(getattr(e, "self_device_time_total", None)
                          or getattr(e, "self_cuda_time_total", 0) or 0)
-        evs = [e for e in prof.key_averages() if dev_us(e) > 0]
+        # device-side events only: an operator's own row repeats the
+        # time of the kernels it launched
+        evs = [e for e in prof.key_averages() if dev_us(e) > 0
+               and e.device_type == DeviceType.CUDA]
         dev_ms = sum(dev_us(e) for e in evs) / 1e3
         top = sorted(evs, key=lambda e: -dev_us(e))[:8]
         log(f"profile {name}: wall_ms={wall:.3f} device_ms={dev_ms:.3f} "

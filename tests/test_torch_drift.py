@@ -7,6 +7,7 @@ Any other difference fails: a change to the reference must be carried
 into the port (or listed here), and the port must not drift on its own.
 """
 
+import ast
 import re
 from pathlib import Path
 
@@ -30,18 +31,29 @@ _NOT_PORTED_ROWS = """            from ydb_tpu_torch.errors import NotPorted
 
 # module -> [(reason, reference text after the prefix rewrite, port text)]
 EDITS = {
-    "utils/hashing": [(
-        "jax-only branch removed: device-side u64 hashing is Queue 2 K12",
-        """    if xp is np:
+    "utils/hashing": [
+        ("torch branch: the hash64 kernel (K12) in place of jax's astype",
+         """    if xp is np:
         u = np.ascontiguousarray(x.astype(np.int64)).view(np.uint64).copy()
     else:
         u = x.astype(xp.int64).astype(xp.uint64)
 """,
-        """    if xp is not np:
-        from ydb_tpu_torch.errors import NotPorted
-        raise NotPorted("device-side u64 hashing (K12)")
-    u = np.ascontiguousarray(x.astype(np.int64)).view(np.uint64).copy()
-""")],
+         """    if xp is np:
+        u = np.ascontiguousarray(x.astype(np.int64)).view(np.uint64).copy()
+    else:
+        from ydb_tpu_torch.ops.cuda.bindings import hash64
+        return hash64([x])
+"""),
+        ("torch branch: torch has no uint64 shifts or wrapping adds; the "
+         "hash64 kernel combines already-hashed inputs",
+         """def hash_combine(xp, h, x):
+    return h""",
+         """def hash_combine(xp, h, x):
+    if xp is not np:
+        from ydb_tpu_torch.ops.cuda.bindings import hash64
+        return hash64([h, x], pre=[False, False])
+    return h"""),
+    ],
     "scheme/catalog": [(
         "NotPorted stub: row tables are outside the slice",
         """            from ydb_tpu_torch.storage.rowtable import RowTable
@@ -136,6 +148,181 @@ def expected_port_text(module: str) -> str:
     return text
 
 
+# port module -> the repo file it copies (import prefix rewritten), for
+# copies of files outside the reference package
+COPIED_FROM = {
+    # the TPC-H oracle, so the chip smoke test checks answers on a
+    # machine without jax (the test helper imports the reference's
+    # generator; the port's is bit-identical, test_torch_slice.py)
+    "bench/tpch_oracle": "tests/tpch_util.py",
+}
+
+# QueryEngine methods the port's slim engine copies from the reference
+# engine, each with its listed edits
+ENGINE_METHODS = ("_needs_materialize", "_execute_materialized",
+                  "_rewrite_sel", "_materialize", "_register_temp")
+
+_NO_SYSVIEW = "no system views or materialized views in the port"
+_NO_SETOP = "set operations are not ported: NotPorted"
+
+ENGINE_EDITS = {
+    "_needs_materialize": [(
+        _NO_SYSVIEW + "; a `.sys` name still routes to materialization, "
+        "which raises",
+        """        from ydb_tpu_torch.scheme import sysview as SV
+        refs = self._referenced_tables(sel)
+        if any(SV.is_sysview(n) for n in refs):
+            return True               # `.sys/...` materializes at plan time
+        if any(self.views.has(n) for n in refs):
+            return True               # view reads serve from folded state
+""",
+        """        if any(n.startswith(".sys") for n in self._referenced_tables(sel)):
+            return True               # `.sys/...` materializes at plan time
+""")],
+    "_rewrite_sel": [
+        (_NO_SETOP,
+         """            cte_map = dict(cte_map)
+            for (name, body) in sel.ctes:
+                cte_map[name] = self._materialize(
+                    self._rewrite_sel(body, cte_map, temps, snap), temps,
+                    snap)
+            out = ast.SetOp(
+                sel.op,
+                self._rewrite_sel(sel.left, cte_map, temps, snap),
+                self._rewrite_sel(sel.right, cte_map, temps, snap),
+                sel.order_by, sel.limit, sel.offset)
+            return out
+""",
+         """            raise NotPorted("set operations")
+"""),
+        (_NO_SYSVIEW,
+         """                view = self.views.get(r.name)
+                if view is not None:
+                    vsnap = snap or self.snapshot()
+                    blk, mode = view.serve(vsnap)
+                    notes = getattr(self._view_tls, "notes", None)
+                    if notes is not None:
+                        notes.append({"view": r.name, "mode": mode,
+                                      "watermark": view.watermark})
+                    if blk is not None:
+                        tname = self._register_temp(blk, temps, vsnap)
+                        return ast.TableRef(tname, r.alias or r.name)
+                    # base-query fallback: materialize the defining
+                    # SELECT at this read's snapshot
+                    from ydb_tpu_torch.sql.parser import parse
+                    sub = self._rewrite_sel(parse(view.vp.sql), {},
+                                            temps, vsnap)
+                    tname = self._materialize(sub, temps, vsnap)
+                    return ast.TableRef(tname, r.alias or r.name)
+                from ydb_tpu_torch.scheme import sysview as SV
+                if SV.is_sysview(r.name):
+                    try:
+                        blk = SV.sysview_block(self, r.name)
+                    except KeyError as e:
+                        raise QueryError(str(e.args[0])) from e
+                    tname = self._register_temp(blk, temps, snap)
+                    return ast.TableRef(tname, r.alias or "sys")
+""",
+         """                if r.name.startswith(".sys"):
+                    raise NotPorted("system views")
+"""),
+        (_NO_SETOP + " (a subquery body is always a Select)",
+         "                return ast.TableRef(t, r.alias)   "
+         "# Select OR SetOp body\n",
+         "                return ast.TableRef(t, r.alias)\n"),
+        (_NO_SETOP + " (a subquery body is always a Select)",
+         """                if isinstance(q, ast.SetOp):
+                    # plan over a materialized temp: the planner only
+                    # decorrelates plain selects (explicit column items —
+                    # Star would lose the planner's naming contract)
+                    tname = self._materialize(q, temps, snap)
+                    cols = self.catalog.table(tname).schema.names
+                    q = ast.Select(
+                        items=[ast.SelectItem(ast.Name((c,)), c)
+                               for c in cols],
+                        relation=ast.TableRef(tname))
+""", ""),
+    ],
+    "_materialize": [
+        (_NO_SETOP,
+         """        \"\"\"Materialize an already-rewritten Select or SetOp into a
+        transient table; returns its name.\"\"\"
+        from ydb_tpu_torch.query import window as W
+""",
+         """        \"\"\"Materialize an already-rewritten Select into a transient
+        table; returns its name.\"\"\"
+"""),
+        (_NO_SETOP + "; windows (K13) are not ported: NotPorted",
+         """        if isinstance(sel, ast.SetOp):
+            df = self._eval_setop_df(sel, snap)
+            try:
+                df = W.apply_order_limit(df, sel.order_by, sel.limit,
+                                         sel.offset)
+            except ValueError as e:
+                raise QueryError(str(e)) from e
+            block = HostBlock.from_pandas(df)
+        elif W.has_window(sel):
+            block = self._execute_windowed(sel, snap)
+        else:
+            block = self.executor.execute(self.planner.plan_select(sel),
+                                          snap)
+""",
+         """        if any(_has_window(i.expr) for i in sel.items):
+            raise NotPorted("window functions (K13)")
+        block = self.executor.execute(self.planner.plan_select(sel), snap)
+"""),
+    ],
+    "_register_temp": [(
+        "nothing is jit-compiled in the port; the block size is the "
+        "temp's scan capacity",
+        """        # temps inherit the engine's block size: the default (1<<20) would
+        # jit-compile every downstream program at 1M-row capacity even for
+        # tiny CTE results
+""",
+        """        # temps take the engine's block size, not the 1M-row default
+""")],
+}
+
+
+def _rewrite_imports(text: str) -> str:
+    return _IMPORT.sub(r"\1\2 ydb_tpu_torch", text)
+
+
+def _engine_methods(path: Path) -> dict:
+    src = path.read_text()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.ClassDef) and node.name == "QueryEngine":
+            return {f.name: ast.get_source_segment(src, f)
+                    for f in node.body if isinstance(f, ast.FunctionDef)
+                    and f.name in ENGINE_METHODS}
+    raise AssertionError(f"{path}: no QueryEngine")
+
+
+def _apply(text: str, edits, what: str) -> str:
+    for reason, old, new in edits:
+        assert text.count(old) == 1, \
+            f"{what}: listed edit ({reason}) no longer matches the reference"
+        text = text.replace(old, new)
+    return text
+
+
+@pytest.mark.parametrize("method", ENGINE_METHODS)
+def test_engine_method_matches_reference(method):
+    ref = _engine_methods(ROOT / "ydb_tpu" / "query" / "engine.py")
+    port = _engine_methods(ROOT / "ydb_tpu_torch" / "query" / "engine.py")
+    want = _apply(_rewrite_imports(ref[method]), ENGINE_EDITS.get(method, ()),
+                  f"QueryEngine.{method}")
+    assert port[method] == want, (
+        f"QueryEngine.{method} drifted from the reference beyond the edits "
+        "listed in tests/test_torch_drift.py")
+
+
+@pytest.mark.parametrize("module", sorted(COPIED_FROM))
+def test_copy_of_repo_file_matches(module):
+    port = (ROOT / "ydb_tpu_torch" / f"{module}.py").read_text()
+    assert port == _rewrite_imports((ROOT / COPIED_FROM[module]).read_text())
+
+
 @pytest.mark.parametrize("module", COPIED)
 def test_copy_matches_reference(module):
     port = (ROOT / "ydb_tpu_torch" / f"{module}.py").read_text()
@@ -147,5 +334,9 @@ def test_copy_matches_reference(module):
 def test_every_edit_has_a_reason():
     for module, edits in EDITS.items():
         assert module in COPIED
+        for reason, old, new in edits:
+            assert reason and old != new
+    for method, edits in ENGINE_EDITS.items():
+        assert method in ENGINE_METHODS
         for reason, old, new in edits:
             assert reason and old != new

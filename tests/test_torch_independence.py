@@ -31,7 +31,8 @@ def test_no_reference_or_jax_import(path):
 
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, ydb_tpu_torch, ydb_tpu_torch.query, "
-            "ydb_tpu_torch.interop, ydb_tpu_torch.ops.cuda.bindings\n"
+            "ydb_tpu_torch.interop, ydb_tpu_torch.ops.cuda.bindings, "
+            "ydb_tpu_torch.utils.hashing, ydb_tpu_torch.bench.tpch_oracle\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m == 'ydb_tpu' or m.startswith('ydb_tpu.')]\n"
             "print(bad)\n")
@@ -60,3 +61,21 @@ def test_cuda_tensor_never_takes_the_plain_version():
         pytest.skip("a GPU is present")
     with pytest.raises(ValueError, match="expected cuda"):
         bindings.sort_perm([torch.zeros(4, dtype=torch.int64)], 4, "cuda")
+
+
+def test_hashing_on_tensors_goes_through_the_kernel_wrapper(monkeypatch):
+    """The port's hashing has no jax branch left: on tensors it calls the
+    hash64 wrapper (which launches the kernel for CUDA tensors), never a
+    jax.numpy path."""
+    import torch
+    from ydb_tpu_torch.ops.cuda import bindings
+    from ydb_tpu_torch.ops.torch_ns import TXP
+    from ydb_tpu_torch.utils import hashing
+    seen = []
+    real = bindings.hash64
+    monkeypatch.setattr(bindings, "hash64",
+                        lambda cols, pre=None: seen.append(pre)
+                        or real(cols, pre))
+    x = torch.arange(8, dtype=torch.int64)
+    hashing.hash_combine(TXP, hashing.splitmix64(TXP, x), x)
+    assert seen == [None, [False, False]]

@@ -95,6 +95,14 @@ GROUPINGS = {
     "one_key": dict(keys=["k"], key_domains=(7,)),
     "two_keys": dict(keys=["k", "c"], key_domains=(7, 50)),
     "carry": dict(keys=["k"], key_domains=(7,), carry_keys=("kk",)),
+    # 601 × 4 buckets: the medium-domain lane (K4)
+    "medium": dict(keys=["c", "j"], key_domains=(600, 3)),
+    "medium_carry": dict(keys=["c", "k"], key_domains=(600, 7),
+                         carry_keys=("kk",)),
+    # no domains: the sorted lane (K5)
+    "sorted": dict(keys=["k", "c"]),
+    "sorted_carry_bound": dict(keys=["k"], carry_keys=("kk",),
+                               out_bound=8),
 }
 
 
@@ -117,15 +125,60 @@ def test_run_program_groupby(grouping, filtered):
     _assert_same_block(got, want)
 
 
-def test_run_program_medium_domain_is_not_ported():
-    from ydb_tpu_torch.errors import NotPorted
-    rng = np.random.default_rng(1)
-    spec, arrays, valids = _data(rng, 100)
-    _jb, pb = _blocks(spec, arrays, valids)
-    p = pir.Program().group_by(["a", "c"], [pir.Agg("n", "count_all")],
-                               key_domains=(1000, 50))
-    with pytest.raises(NotPorted):
-        torch_exec.run_program(p, pb, device="cpu")
+# --------------------------------------------------------------------------
+# hashing (K12)
+# --------------------------------------------------------------------------
+
+
+def _hash_inputs(rng, n=4096):
+    a = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    b = rng.integers(0, 1 << 20, n).astype(np.int32)
+    return a, b
+
+
+def test_hash64_equals_the_numpy_branch_bit_for_bit():
+    from ydb_tpu_torch.ops.torch_ns import TXP
+    from ydb_tpu_torch.utils import hashing as ph
+    from ydb_tpu.utils import hashing as jh
+    rng = np.random.default_rng(9)
+    a, b = _hash_inputs(rng)
+    ha, hb = jh.splitmix64(np, a), jh.splitmix64(np, b)
+    want = jh.hash_combine(np, ha, hb)
+    assert (want >= 1 << 63).mean() > 0.4          # the top bit is used
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got_a = ph.splitmix64(TXP, ta)
+    np.testing.assert_array_equal(_np(got_a).view(np.uint64), ha)
+    got = ph.hash_combine(TXP, got_a, ph.splitmix64(TXP, tb))
+    np.testing.assert_array_equal(_np(got).view(np.uint64), want)
+    # the fused form: hash_combine(f(a), f(b)) in one launch
+    np.testing.assert_array_equal(
+        _np(bindings.hash64([ta, tb])).view(np.uint64), want)
+    # three columns, the last already a hash
+    want3 = jh.hash_combine(np, want, ha)
+    got3 = bindings.hash64([ta, tb, torch.from_numpy(ha.view(np.int64))],
+                           pre=[True, True, False])
+    np.testing.assert_array_equal(_np(got3).view(np.uint64), want3)
+
+
+def test_hashed_composite_key_matches_the_reference():
+    """`hash_combine(hash64(a), hash64(b))` as a program assign (the
+    fused hash64 launch) against the reference's device hashing; NULL
+    where either column is NULL."""
+    rng = np.random.default_rng(10)
+    a, b = _hash_inputs(rng, 3000)
+    spec = [("a", "int64", True), ("b", "int32", False)]
+    arrays = {"a": a, "b": b}
+    valids = {"a": rng.random(3000) > 0.1}
+    jb, pb = _blocks(spec, arrays, valids)
+
+    def prog(ir):
+        return ir.Program().assign("h", ir.call(
+            "hash_combine", ir.call("hash64", ir.Col("a")),
+            ir.call("hash64", ir.Col("b")))).assign(
+            "h1", ir.call("hash64", ir.Col("b"))).project(["h", "h1"])
+    want = xla_exec.run_program(prog(jir), jb)
+    got = torch_exec.run_program(prog(pir), pb, device="cpu")
+    _assert_same_block(got, want)
 
 
 # --------------------------------------------------------------------------
@@ -272,6 +325,47 @@ def test_probe_lut_traced(build_kind, kind, not_in, has_null, late):
         assert (jv is None) == (pv_ is None), name
         if jv is not None:
             np.testing.assert_array_equal(_np(pv_), _np(jv), err_msg=name)
+
+
+@pytest.mark.parametrize("late", [False, True])
+@pytest.mark.parametrize("kind", ["inner", "left_semi", "left_anti"])
+def test_probe_u64_keys_past_two_to_the_63(kind, late):
+    """Composite-key hashes are uint64, about half of them >= 2^63. The
+    build sorts their int64 bits and the probe searches the same bits
+    (the reference's order too): every key of the build is found, and
+    the row ids equal the reference's."""
+    rng = np.random.default_rng(12)
+    bkeys = rng.integers(0, 2 ** 64 - 1, 500, dtype=np.uint64)
+    assert (bkeys >= 2 ** 63).sum() > 100
+    spec = [("bk", "uint64", False), ("pi", "int64", False)]
+    jb, pb = _blocks(spec, {"bk": bkeys, "pi": np.arange(500)}, {})
+    jbt = jjoin.build(jb, "bk", ["pi"])
+    pbt = pjoin.build(pb, "bk", ["pi"], CPU)
+    assert jbt.lut is None and pbt.lut is None
+    n = 2048
+    hit = rng.random(n) > 0.3
+    pk = np.where(hit, bkeys[rng.integers(0, 500, n)],
+                  rng.integers(0, 2 ** 64 - 1, n, dtype=np.uint64))
+    meta = {"probe_key": "x", "kind": kind, "src_names": ("pi",),
+            "payload_names": ("pi",), "mark_col": None, "not_in": False,
+            "bsearch": True, "late": late, "row_col": "__lmr0",
+            "found_col": "__lmf0"}
+    sel = np.ones(n, bool)
+    jenv, jsel = jjoin.probe_lut_traced(
+        {"x": (jnp.asarray(pk), None)}, jnp.asarray(sel),
+        jfused.build_traced_inputs(jbt), meta)
+    penv, psel = pjoin.probe_lut_traced(
+        {"x": (torch.from_numpy(pk.view(np.int64)), None)},
+        torch.from_numpy(sel), pfused.build_traced_inputs(pbt), meta)
+    found = np.isin(pk, bkeys)
+    np.testing.assert_array_equal(_np(psel),
+                                  ~found if kind == "left_anti" else found)
+    np.testing.assert_array_equal(_np(psel), _np(jsel))
+    for name in jenv:
+        if name == "x":
+            continue
+        np.testing.assert_array_equal(_np(penv[name][0]),
+                                      _np(jenv[name][0]), err_msg=name)
 
 
 def test_probe_float_key_never_takes_the_lut():

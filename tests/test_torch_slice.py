@@ -2,10 +2,10 @@
 
 `ydb_tpu.query.QueryEngine` and `ydb_tpu_torch.query.QueryEngine(
 device="cpu")` load the same TPC-H data (SF 0.002, two shards, 8192-row
-portions, so scans stack several portions) and answer Q1, Q6 and Q14;
-the answers must agree under the repo's TPC-H checker (rtol 1e-9 for
-floats, exact otherwise), with late materialization on and off, and the
-port must take its fused path.
+portions, so scans stack several portions) and answer all 22 TPC-H
+queries; the answers must agree under the repo's TPC-H checker (rtol
+1e-9 for floats, exact otherwise, row order included), with late
+materialization on and off, and the port must take its fused path.
 """
 
 import numpy as np
@@ -22,24 +22,24 @@ from ydb_tpu_torch.utils.metrics import GLOBAL
 from tests.tpch_util import QUERIES, assert_frames_match
 
 SF = 0.002
-SLICE = ("q1", "q6", "q14")
-# plans made only of the slice's operators already (LUT joins, small
-# domain group-bys, keyless aggregates): held too, so a later change to
-# a shared operator shows on more than the three slice queries
-ALSO = ("q5", "q10", "q12", "q19")
+SLICE = tuple(f"q{i}" for i in range(1, 23))
+
+
+def _engines(sf: float):
+    je = JaxEngine(block_rows=1 << 13)
+    jax_load_tpch(je.catalog, sf=sf, shards=2, portion_rows=1 << 13)
+    pe = PortEngine(device="cpu", block_rows=1 << 13)
+    port_gen.load_tpch(pe.catalog, sf=sf, shards=2, portion_rows=1 << 13)
+    return je, pe
 
 
 @pytest.fixture(scope="module")
 def engines():
-    je = JaxEngine(block_rows=1 << 13)
-    jax_load_tpch(je.catalog, sf=SF, shards=2, portion_rows=1 << 13)
-    pe = PortEngine(device="cpu")
-    port_gen.load_tpch(pe.catalog, sf=SF, shards=2, portion_rows=1 << 13)
-    return je, pe
+    return _engines(SF)
 
 
 @pytest.mark.parametrize("late", ["1", "0"])
-@pytest.mark.parametrize("name", SLICE + ALSO)
+@pytest.mark.parametrize("name", SLICE)
 def test_slice_query_matches_reference(engines, monkeypatch, name, late):
     monkeypatch.setenv("YDB_TPU_LATE_MAT", late)
     je, pe = engines
@@ -47,6 +47,36 @@ def test_slice_query_matches_reference(engines, monkeypatch, name, late):
     got = pe.query(QUERIES[name])
     assert pe.executor.last_path == "fused"
     assert_frames_match(got, want, ordered=True)
+
+
+@pytest.mark.parametrize("late", ["1", "0"])
+def test_q10_medium_domain_lane_matches_reference(monkeypatch, late):
+    """At SF 0.01 q10's group key domain (customers) lies between 513
+    and 65,535 buckets, so its group-by takes the medium-domain lane
+    (K4) in both packages."""
+    from ydb_tpu_torch.ops import torch_exec
+    monkeypatch.setenv("YDB_TPU_LATE_MAT", late)
+    je, pe = _engines(0.01)
+    calls = []
+    lane = torch_exec._groupby_medium_domain
+
+    def counted(*a, **k):
+        calls.append(1)
+        return lane(*a, **k)
+    monkeypatch.setattr(torch_exec, "_groupby_medium_domain", counted)
+    want = je.query(QUERIES["q10"])
+    got = pe.query(QUERIES["q10"])
+    assert calls, "q10 did not take the medium-domain lane"
+    assert pe.executor.last_path == "fused"
+    assert_frames_match(got, want, ordered=True)
+
+
+def test_materialized_temps_are_dropped(engines):
+    _je, pe = engines
+    before = set(pe.catalog.tables)
+    pe.query(QUERIES["q15"])      # WITH revenue
+    pe.query(QUERIES["q13"])      # a derived table
+    assert set(pe.catalog.tables) == before
 
 
 def test_compact_overflow_reruns_with_the_same_answer(engines, monkeypatch):

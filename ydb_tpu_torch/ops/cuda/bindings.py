@@ -1,5 +1,5 @@
-"""ctypes bindings of the four CUDA kernels, each beside its plain
-PyTorch version.
+"""ctypes bindings of the CUDA kernels, each beside its plain PyTorch
+version.
 
 Every wrapper takes the plain version only for tensors that lie on the
 CPU (the tests run there); for CUDA tensors it launches its kernel on
@@ -17,6 +17,9 @@ a non-zero code raises.
 | probe        | ops/join.py probe_lut_traced, bsearch_traced,             |
 |              | _select_and_gather                                        |
 | sort         | ops/sort.py _sort_impl (the lax.sort of the operands)     |
+| segment_agg  | ops/xla_exec.py _trace_group_by_sorted (boundaries, group |
+|              | starts, per-group folds), _groupby_medium_domain          |
+| hash64       | utils/hashing.py splitmix64, hash_combine (device side)   |
 
 What bounds each on the H100 and what its design does about it is at the
 top of its source in ``csrc/``.
@@ -55,6 +58,11 @@ _SIGS = {
                _I64, _I32, _I32, _I32, _P, _P, _P, _I32, _PI64, _PI64, _PI64,
                _PI64, _PI32, _P]),
     "sort": ("sort_launch", [_I64, _I32, _PI64, _P, _P, _P]),
+    "segment_agg": ("segment_agg_launch",
+                    [_I64, _P, _I32, _PI64, _P, _I32, _PI64, _PI64, _PI32,
+                     _PI32, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _P, _P, _I32, _P]),
+    "hash64": ("hash64_launch", [_I64, _I32, _PI64, _PI32, _P, _P]),
 }
 
 
@@ -455,3 +463,183 @@ def sort_perm_plain(keys: list, n: int, device) -> torch.Tensor:
         order = torch.sort((k ^ _I64_MIN)[perm], stable=True).indices
         perm = perm[order]
     return perm.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# segment_agg
+# --------------------------------------------------------------------------
+
+_SEG_TILE = 1024                 # sorted rows per block (segment_agg.cu)
+
+
+def segment_agg(perm: torch.Tensor, keys: list, active: torch.Tensor,
+                aggs: list, oc: int):
+    """Per-group aggregation of rows taken in sorted order.
+
+    perm: int32 permutation that puts the active rows first, ordered by
+    key (`sort_perm`); keys: int64 key words in original row order —
+    rows whose words are all equal form one group — read through `perm`;
+    active: bool per original row; aggs: as `bucket_agg`'s; oc: output
+    capacity (at least the number of groups; groups past it are dropped).
+
+    Returns (ngroups, lead, present, vals, cnts): ngroups a 0-d int32;
+    per group slot (oc,): lead the original id of the group's first row
+    (int32), present its active row count (int64), and per aggregate its
+    value (as `bucket_agg`: `first` is the smallest original row id among
+    the valid rows, n when none) and the count of rows that fed it. Slots
+    past ngroups hold zeros."""
+    n = perm.shape[0]
+    dev = perm.device
+    if dev.type != "cuda":
+        return segment_agg_plain(perm, keys, active, aggs, oc)
+    _check(perm, "perm", dev, n, (torch.int32,))
+    _check(active, "active", dev, n, (torch.bool,))
+    if not 1 <= len(keys) <= _MAX_KEYS:
+        raise ValueError(f"{len(keys)} key words (1 to {_MAX_KEYS})")
+    for i, k in enumerate(keys):
+        _check(k, f"key {i}", dev, n, (torch.int64,))
+    for func, data, valid, _u in aggs:
+        if func not in AGG_FUNCS:
+            raise ValueError(func)
+        if data is not None:
+            _check(data, f"{func} data", dev, n,
+                   (torch.float64, torch.int64))
+        elif func in ("sum", "min", "max"):
+            raise ValueError(f"{func} needs data")
+        if valid is not None:
+            _check(valid, f"{func} valid", dev, n, (torch.bool,))
+    T = max((n + _SEG_TILE - 1) // _SEG_TILE, 1)
+    i64 = dict(dtype=torch.int64, device=dev)
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    tile_cnt = torch.empty(T, dtype=torch.int32, device=dev)
+    tile_off = torch.empty(T, **i64)
+    ngroups = torch.zeros((), dtype=torch.int32, device=dev)
+    lead = torch.zeros(oc, dtype=torch.int32, device=dev)
+    present = torch.zeros(oc, **i64)
+    vals, cnts = [], []
+    chunks = [aggs[i:i + _MAX_AGGS] for i in range(0, len(aggs), _MAX_AGGS)] \
+        or [[]]
+    for j, chunk in enumerate(chunks):
+        A = len(chunk)
+        out_val = torch.zeros((A, oc), **i64)
+        out_cnt = torch.zeros((A, oc), **i64)
+        # per-tile head and tail partials: (value, count) per aggregate,
+        # and the active row count
+        parts = [torch.empty(n_, **i64) for _ in ("head", "tail")
+                 for n_ in (max(A, 1) * T, max(A, 1) * T, T)]
+        types = [0 if (d is not None and d.dtype == torch.float64)
+                 else (2 if u else 1) for (_f, d, _v, u) in chunk]
+        _launch("segment_agg", n, _ptr(perm), len(keys),
+                _arr(ctypes.c_int64, [_ptr(k) for k in keys]),
+                _ptr(active), A,
+                _arr(ctypes.c_int64, [_ptr(d) or 0 for (_f, d, _v, _u)
+                                      in chunk]),
+                _arr(ctypes.c_int64, [_ptr(v) or 0 for (_f, _d, v, _u)
+                                      in chunk]),
+                _arr(ctypes.c_int32, [AGG_FUNCS[f] for (f, *_r) in chunk]),
+                _arr(ctypes.c_int32, types), oc, _ptr(flags),
+                _ptr(tile_cnt), _ptr(tile_off), _ptr(ngroups), _ptr(lead),
+                _ptr(out_val), _ptr(out_cnt), _ptr(present),
+                *[_ptr(p) for p in parts], 1 if j == 0 else 0, _stream())
+        for a, (func, d, _v, _u) in enumerate(chunk):
+            v = out_val[a]
+            if d is not None and d.dtype == torch.float64 \
+                    and func in ("sum", "min", "max"):
+                v = v.view(torch.float64)
+            vals.append(v)
+            cnts.append(out_cnt[a])
+    return ngroups, lead, present, vals, cnts
+
+
+def segment_agg_plain(perm, keys: list, active, aggs: list, oc: int):
+    """Plain PyTorch version of `segment_agg`: group ids from the key
+    changes along `perm` (a cumulative sum), then `bucket_agg_plain` over
+    them."""
+    n = perm.shape[0]
+    dev = perm.device
+    p = perm.to(torch.int64)
+    act = active[p]
+    changed = torch.ones(n, dtype=torch.bool, device=dev)
+    if n:
+        changed[1:] = ~act[:-1]
+        for k in keys:
+            ks = k[p]
+            changed[1:] |= ks[1:] != ks[:-1]
+    boundary = act & changed
+    gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    ngroups = boundary.sum().to(torch.int32)
+    live_row = act & (gid < oc)
+    gid = torch.where(live_row, gid, torch.full_like(gid, oc))
+    starts = torch.nonzero(boundary).reshape(-1)[:oc]
+    lead = torch.zeros(oc, dtype=torch.int32, device=dev)
+    lead[:starts.shape[0]] = perm[starts]
+    sorted_aggs = [(f, None if d is None else d[p],
+                    None if v is None else v[p], u) for (f, d, v, u) in aggs]
+    vals, cnts, present = bucket_agg_plain(gid, oc, live_row, sorted_aggs)
+    live = torch.arange(oc, device=dev) < ngroups
+    out_vals = []
+    for (f, _d, _v, _u), val in zip(aggs, vals):
+        if f == "first":      # sorted position → original row id
+            val = torch.where(val < n, p[torch.clamp(val, 0, max(n - 1, 0))]
+                              if n else val, val)
+        out_vals.append(torch.where(live, val, torch.zeros_like(val)))
+    return ngroups, lead, present, out_vals, cnts
+
+
+# --------------------------------------------------------------------------
+# hash64
+# --------------------------------------------------------------------------
+
+_MAX_HASH_COLS = 16
+_C1 = 0xBF58476D1CE4E5B9 - (1 << 64)      # int64 bit patterns
+_C2 = 0x94D049BB133111EB - (1 << 64)
+_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+
+
+def hash64(cols: list, pre: Optional[list] = None) -> torch.Tensor:
+    """`hash_combine(f(c0), f(c1), ...)` over columns taken as int64
+    (as the host's `x.astype(np.int64)`), folded from the left, where f is the splitmix64 finalizer for the columns `pre`
+    marks (all by default) and the identity for the others. The result
+    is the uint64 hash as int64 bits, equal bit for bit to
+    `utils/hashing.py`'s numpy branch."""
+    pre = [True] * len(cols) if pre is None else list(pre)
+    cols = [c.to(torch.int64).contiguous() for c in cols]
+    dev = cols[0].device
+    if dev.type != "cuda":
+        return hash64_plain(cols, pre)
+    n = cols[0].shape[0]
+    if not 1 <= len(cols) <= _MAX_HASH_COLS or len(pre) != len(cols):
+        raise ValueError(f"{len(cols)} hash columns (1 to {_MAX_HASH_COLS})")
+    for i, c in enumerate(cols):
+        _check(c, f"column {i}", dev, n, (torch.int64,))
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    _launch("hash64", n, len(cols),
+            _arr(ctypes.c_int64, [_ptr(c) for c in cols]),
+            _arr(ctypes.c_int32, [int(bool(f)) for f in pre]), _ptr(out),
+            _stream())
+    return out
+
+
+def _lsr(u: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's `>>` is arithmetic)."""
+    return (u >> s) & ((1 << (64 - s)) - 1)
+
+
+def splitmix64_plain(x: torch.Tensor) -> torch.Tensor:
+    u = x.to(torch.int64)
+    u = (u ^ _lsr(u, 30)) * _C1          # int64 products wrap as u64's do
+    u = (u ^ _lsr(u, 27)) * _C2
+    return u ^ _lsr(u, 31)
+
+
+def hash_combine_plain(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return h ^ (x + _GOLDEN + (h << 6) + _lsr(h, 2))
+
+
+def hash64_plain(cols: list, pre: list) -> torch.Tensor:
+    """Plain PyTorch version of `hash64`."""
+    h = None
+    for c, f in zip(cols, pre):
+        x = splitmix64_plain(c) if f else c.to(torch.int64)
+        h = x if h is None else hash_combine_plain(h, x)
+    return h

@@ -41,6 +41,37 @@ def encode_key(enc: torch.Tensor, unsigned: bool = False) -> torch.Tensor:
     return enc ^ _SIGN
 
 
+def key_words(d: torch.Tensor, v, asc: bool = True, nulls_first: bool = True,
+              unsigned: bool = False) -> list:
+    """The sort key words of one column: its null rank when it has a
+    validity mask (NULLs first or last), then its encoding — zero where
+    NULL, so every NULL compares equal."""
+    enc = _sort_operand(d)
+    if not asc:
+        enc = -enc if enc.dtype.is_floating_point else ~enc
+    words = []
+    if v is not None:
+        nullrank = (~v) if not nulls_first else v
+        words.append(encode_key(nullrank.to(torch.int64)).contiguous())
+        enc = torch.where(v, enc, torch.zeros_like(enc))
+    words.append(encode_key(enc, unsigned=unsigned).contiguous())
+    return words
+
+
+def group_key_words(keys, env: dict, unsigned: frozenset = frozenset()
+                    ) -> list:
+    """Key words of a GROUP BY (the reference's sort operands in
+    `xla_exec._trace_group_by_sorted`): per key, a nullable key's int32
+    validity operand before its encoding, so NULLs group together and
+    sort first; ascending. Rows with equal words form one group: the
+    encoding equates −0.0 with 0.0 and every NaN with every other."""
+    words = []
+    for name in keys:
+        d, v = env[name]
+        words += key_words(d, v, unsigned=name in unsigned)
+    return words
+
+
 def sort_env(arrays, valids, length, sel, keys: tuple, names: tuple,
              unsigned: frozenset = frozenset()):
     """keys: tuple of (col_name, ascending, nulls_first); `unsigned`:
@@ -60,18 +91,10 @@ def _sort_impl(arrays, valids, length, sel, keys: tuple, names: tuple,
 
     sort_keys = [encode_key((~active).to(torch.int64))]  # dropped rows last
     for (name, asc, nulls_first) in keys:
-        d = arrays[name]
-        v = valids.get(name)
-        enc = _sort_operand(d)
-        if not asc:
-            enc = -enc if enc.dtype.is_floating_point else ~enc
-        if v is not None:
-            nullrank = (~v) if not nulls_first else v
-            sort_keys.append(encode_key(nullrank.to(torch.int64)))
-            enc = torch.where(v, enc, torch.zeros_like(enc))
-        sort_keys.append(encode_key(enc, unsigned=name in unsigned))
+        sort_keys += key_words(arrays[name], valids.get(name), asc,
+                               nulls_first, name in unsigned)
 
-    perm = K.sort_perm([k.contiguous() for k in sort_keys], cap, device)
+    perm = K.sort_perm(sort_keys, cap, device)
     new_arrays, new_valids = {}, {}
     for name in names:
         new_arrays[name] = arrays[name][perm]

@@ -8,13 +8,21 @@ count rides as a 0-d tensor, filters keep selection masks instead of
 gathering, and every reduction masks by ``row < length``.
 
 The non-elementwise work goes through the hand-written CUDA kernels
-(``ops/cuda``): grouped and keyless aggregation (``bucket_agg``) and
-compaction (``compact``). Elementwise expressions (K1 of the kernel
-table) are plain torch over ``ops/kernels.py``'s lowerings.
+(``ops/cuda``): grouped and keyless aggregation (``bucket_agg``), the
+sort (``sort``) and per-group folds (``segment_agg``) of the sorted
+lanes, compaction (``compact``) and composite-key hashing (``hash64``).
+Elementwise expressions (K1 of the kernel table) are plain torch over
+``ops/kernels.py``'s lowerings.
 
-Ported group-by lanes: keyless and small bounded domains (≤ 512
-buckets). Medium domains (scatter-reduce) and unbounded domains (the
-sort-based lowering) raise ``NotPorted``.
+Group-by lanes, as the reference routes them: keyless; small bounded
+domains (≤ 512 buckets, ``bucket_agg``); medium bounded domains (513 to
+65,535 buckets: sorted by bucket id, folded by ``segment_agg``, emitted
+in bucket order); everything else sorted by its key words and folded
+per run (``segment_agg``). The reference's levers
+``YDB_TPU_GROUPBY_TILE_ROWS``, ``YDB_TPU_GATHER_BATCH_CAP`` and
+``YDB_TPU_GROUPBY_LEGACY`` shaped its XLA programs (gather tiling,
+batching, the pre-tiling lowering) and never changed an answer; this
+lowering has no such programs and reads none of them.
 """
 
 from __future__ import annotations
@@ -28,13 +36,13 @@ import torch
 from ydb_tpu_torch.core.block import HostBlock
 from ydb_tpu_torch.core.dtypes import Kind
 from ydb_tpu_torch.core.schema import Column, Schema
-from ydb_tpu_torch.errors import NotPorted
 from ydb_tpu_torch.ops import ir
 from ydb_tpu_torch.ops.cuda import bindings as K
 from ydb_tpu_torch.ops.device import (
     DeviceBlock, bucket_capacity, to_device, to_host,
 )
 from ydb_tpu_torch.ops.kernels import KERNELS
+from ydb_tpu_torch.ops.sort import encode_key, group_key_words
 from ydb_tpu_torch.ops.torch_ns import TXP, to_tensor, torch_dtype
 from ydb_tpu_torch.utils.metrics import GLOBAL
 
@@ -85,6 +93,10 @@ def _eval(expr, env, params, cap, device):
             return val, None
         return _full(cap, val, expr.dtype.np, device), None
     if isinstance(expr, ir.Call):
+        if expr.op == "hash_combine" and all(
+                isinstance(a, ir.Call) and a.op == "hash64"
+                for a in expr.args):
+            return _eval_hashed_key(expr, env, params, cap, device)
         k = KERNELS[expr.op]
         args = [_eval(a, env, params, cap, device) for a in expr.args]
         extra = expr.extra_dict()
@@ -97,6 +109,19 @@ def _eval(expr, env, params, cap, device):
                 valid = v if valid is None else (valid & v)
         return data, valid
     raise TypeError(f"bad expr {expr!r}")
+
+
+def _eval_hashed_key(expr, env, params, cap, device):
+    """`hash_combine(hash64(c0), hash64(c1), ...)` — a composite join
+    key — as one ``hash64`` launch over the columns instead of one pass
+    per operator; NULL where any column is NULL, as the kernels'
+    default null rule gives."""
+    args = [_eval(a.args[0], env, params, cap, device) for a in expr.args]
+    valid = None
+    for _, v in args:
+        if v is not None:
+            valid = v if valid is None else (valid & v)
+    return K.hash64([d for d, _ in args]), valid
 
 
 # --------------------------------------------------------------------------
@@ -113,11 +138,9 @@ def _agg_operand(d: torch.Tensor) -> torch.Tensor:
     return d.to(torch.int64).contiguous()
 
 
-def _run_aggs(cmd: ir.GroupBy, env, schema: Schema, kid, nb: int, active,
-              cap: int, device, want_first: bool):
-    """Every aggregate of `cmd` (plus, when asked, the first active row
-    per bucket for carried keys) through ONE bucket_agg call. Returns
-    (new_env, present bool (nb,), firstpos int64 (nb,) | None)."""
+def _agg_specs(cmd: ir.GroupBy, env, schema: Schema):
+    """Kernel aggregate specs for `cmd.aggs` (count_all is the kernels'
+    per-group row count and takes no slot). Returns (specs, slots)."""
     specs, slots = [], []
     for a in cmd.aggs:
         if a.func == "count_all":
@@ -136,10 +159,14 @@ def _run_aggs(cmd: ir.GroupBy, env, schema: Schema, kid, nb: int, active,
         else:
             raise ValueError(a.func)
         slots.append(len(specs) - 1)
-    if want_first:
-        specs.append(("first", None, None, False))
-    vals, cnts, present_cnt = K.bucket_agg(kid, nb, active, specs)
+    return specs, slots
 
+
+def _agg_outputs(cmd: ir.GroupBy, env, slots, vals, cnts, present_cnt,
+                 cap: int) -> dict:
+    """Per-group aggregate columns from a kernel's results, with the
+    reference's validity rules (a sum, min, max or some with no valid
+    row is NULL; counts are never NULL)."""
     new_env = {}
     for a, slot in zip(cmd.aggs, slots):
         if slot is None:                       # count_all
@@ -157,6 +184,19 @@ def _run_aggs(cmd: ir.GroupBy, env, schema: Schema, kid, nb: int, active,
             new_env[a.out] = (val.to(d.dtype), any_valid)
         else:                                  # some: first valid row
             new_env[a.out] = (d[torch.clamp(val, 0, cap - 1)], any_valid)
+    return new_env
+
+
+def _run_aggs(cmd: ir.GroupBy, env, schema: Schema, kid, nb: int, active,
+              cap: int, device, want_first: bool):
+    """Every aggregate of `cmd` (plus, when asked, the first active row
+    per bucket for carried keys) through ONE bucket_agg call. Returns
+    (new_env, present bool (nb,), firstpos int64 (nb,) | None)."""
+    specs, slots = _agg_specs(cmd, env, schema)
+    if want_first:
+        specs.append(("first", None, None, False))
+    vals, cnts, present_cnt = K.bucket_agg(kid, nb, active, specs)
+    new_env = _agg_outputs(cmd, env, slots, vals, cnts, present_cnt, cap)
     firstpos = vals[-1] if want_first else None
     return new_env, present_cnt > 0, firstpos
 
@@ -256,11 +296,99 @@ def _emit_bucket_groups(cmd: ir.GroupBy, env, schema: Schema, new_env,
     return compress(padded, nbuckets, present_p, out_cap, device)
 
 
+def _unsigned_keys(names, schema: Schema) -> frozenset:
+    return frozenset(n for n in names
+                     if schema.has(n) and schema.dtype(n).kind == Kind.UINT64)
+
+
+def _sorted_groups(key_words: list, cmd: ir.GroupBy, env, schema: Schema,
+                   active, cap: int, oc: int, device):
+    """The sort-then-fold core of both lanes below: the ``sort`` kernel
+    orders the rows by (inactive rank, key words, row id) at scan
+    capacity, then ``segment_agg`` folds each run of equal words.
+    Returns (new_env of the aggregates at `oc` slots, ngroups, lead)."""
+    inactive = encode_key((~active).to(torch.int64))
+    perm = K.sort_perm([inactive] + key_words, cap, device)
+    specs, slots = _agg_specs(cmd, env, schema)
+    ngroups, lead, present, vals, cnts = K.segment_agg(
+        perm, key_words, active, specs, oc)
+    new_env = _agg_outputs(cmd, env, slots, vals, cnts, present, cap)
+    return new_env, ngroups, lead
+
+
+def _groupby_medium_domain(cmd: ir.GroupBy, env, schema: Schema, sel,
+                           length, cap: int, device):
+    """Bounded domains too wide for bucket_agg (513 to 65,535 buckets):
+    the rows are sorted by bucket id and folded per bucket run (the
+    reference scatter-reduces instead), the per-group results are
+    scattered to their bucket slots, and the shared epilogue emits the
+    non-empty buckets in bucket order, as the reference does."""
+    active = _active(length, sel, cap, device)
+    kid, nbuckets, strides = _bucket_ids(cmd, env, cap, device)
+    oc = min(bucket_capacity(nbuckets, minimum=128), cap)
+    words = [encode_key(kid.to(torch.int64))]
+    grp_env, ngroups, lead = _sorted_groups(words, cmd, env, schema,
+                                            active, cap, oc, device)
+    # group slot g holds bucket kid[lead[g]]; slots past ngroups spill
+    live = torch.arange(oc, device=device) < ngroups
+    slot = torch.where(live, kid[lead.to(torch.int64)].to(torch.int64),
+                       torch.full((oc,), nbuckets, dtype=torch.int64,
+                                  device=device))
+
+    def scatter(x, fill=0):
+        out = torch.full((nbuckets + 1,), fill, dtype=x.dtype, device=device)
+        return out.index_copy_(0, slot, x)[:nbuckets]
+
+    new_env = {}
+    for name, (d, v) in grp_env.items():
+        new_env[name] = (scatter(d), None if v is None else scatter(v))
+    present = scatter(live)
+    firstpos = scatter(lead.to(torch.int64), cap) if cmd.carry_keys else None
+    return _emit_bucket_groups(cmd, env, schema, new_env, present, nbuckets,
+                               strides, cap, device, firstpos)
+
+
+def _trace_group_by_sorted(cmd: ir.GroupBy, env, schema: Schema, sel, length,
+                           cap: int, device):
+    """Unbounded-domain aggregation: one sort of (inactive rank, key
+    words, row id), then ``segment_agg`` over the sorted permutation,
+    with the values read through it (nothing is gathered into sorted
+    order). Key and carried-key columns are taken at each group's leader
+    row, ``d[perm[start]]``, at the output capacity `oc`: the proven
+    ``cmd.out_bound`` when there is one, the scan capacity otherwise.
+    Groups come out in key order, NULL keys first."""
+    active = _active(length, sel, cap, device)
+    oc = cap
+    if cmd.out_bound:
+        oc = min(bucket_capacity(max(int(cmd.out_bound), 1), minimum=128),
+                 cap)
+    words = group_key_words(cmd.keys, env, _unsigned_keys(cmd.keys, schema))
+    new_env, ngroups, lead = _sorted_groups(words, cmd, env, schema, active,
+                                            cap, oc, device)
+    live = torch.arange(oc, device=device) < ngroups
+    _b_inc("proven_rows", oc)
+    _b_inc("capacity_rows", cap)
+    if cmd.out_bound:
+        _b_inc("bounded_groupbys")
+    if cmd.carry_keys:
+        _b_inc("carried_keys", len(cmd.carry_keys))
+    lead = lead.to(torch.int64)
+    for kname in list(cmd.keys) + list(cmd.carry_keys):
+        d, v = env[kname]
+        if schema.dtype(kname).nullable:
+            kv = v[lead] if v is not None else torch.ones_like(live)
+            new_env[kname] = (d[lead], kv & live)
+        else:
+            new_env[kname] = (d[lead], None)
+    return new_env, ngroups
+
+
 def _trace_group_by(cmd: ir.GroupBy, env, schema: Schema, sel, length,
                     cap: int, device):
     """GroupBy dispatch: keyless → one bucket; small bounded domains →
-    bucket_agg; medium bounded and unbounded domains are not ported.
-    Returns (new_env, new_length)."""
+    bucket_agg; medium bounded domains → the bucket-sorted lane;
+    everything else → the sort-based lane. Returns (new_env,
+    new_length)."""
     if not cmd.keys:
         return _groupby_global(cmd, env, schema,
                                _active(length, sel, cap, device), cap,
@@ -273,8 +401,9 @@ def _trace_group_by(cmd: ir.GroupBy, env, schema: Schema, sel, length,
             return _groupby_small_domain(cmd, env, schema, sel, length, cap,
                                          device)
         if nb + 1 <= _SCATTER_MAX_BUCKETS:
-            raise NotPorted("medium-domain group-by (K4)")
-    raise NotPorted("sort-based group-by over an unbounded key domain (K5)")
+            return _groupby_medium_domain(cmd, env, schema, sel, length, cap,
+                                          device)
+    return _trace_group_by_sorted(cmd, env, schema, sel, length, cap, device)
 
 
 # --------------------------------------------------------------------------

@@ -2,15 +2,17 @@
 
 `QueryEngine(device=None)` runs on ``cuda`` and raises when no GPU is
 present unless the caller passes ``device="cpu"``. The port carries the
-SELECT path of one node (parse → plan cache → planner → fused executor)
-and CREATE TABLE; tables are filled through ``ydb_tpu_torch.interop``
-or ``bench.tpch_gen.load_tpch``. DML, transactions and sessions, set
-operations, windows, CTE/derived-table materialization, system views,
+SELECT path of one node (parse → plan cache → planner → fused executor),
+WITH bodies and FROM subqueries materialized into transient tables
+before the outer statement plans, and CREATE TABLE; tables are filled
+through ``ydb_tpu_torch.interop`` or ``bench.tpch_gen.load_tpch``. DML,
+transactions and sessions, set operations, windows, system views,
 materialized views, topics, tracing and admission raise ``NotPorted``.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 from ydb_tpu_torch.core.block import HostBlock
@@ -22,7 +24,7 @@ from ydb_tpu_torch.query.executor import Executor
 from ydb_tpu_torch.query.planner import PlanError, Planner
 from ydb_tpu_torch.scheme.catalog import Catalog
 from ydb_tpu_torch.sql import ast, parse
-from ydb_tpu_torch.storage.mvcc import MAX_SNAPSHOT, Snapshot
+from ydb_tpu_torch.storage.mvcc import MAX_SNAPSHOT, Snapshot, WriteVersion
 
 
 class QueryError(Exception):
@@ -40,11 +42,13 @@ def _has_window(e) -> bool:
 
 
 class QueryEngine:
-    def __init__(self, catalog: Optional[Catalog] = None, device=None):
+    def __init__(self, catalog: Optional[Catalog] = None, device=None,
+                 block_rows: int = 1 << 20):
         self.device = resolve_device(device)
         self.catalog = catalog or Catalog()
         self.planner = Planner(self.catalog)
-        self.executor = Executor(self.catalog, self.device)
+        self.executor = Executor(self.catalog, self.device, block_rows)
+        self._tmp_ids = itertools.count()    # thread-safe temp names
         # plan cache keyed by SQL text, validated against the
         # (uid, data_version) of every referenced table
         self._plan_cache: dict = {}
@@ -78,8 +82,7 @@ class QueryEngine:
         if stmt.relation is None:
             raise NotPorted("SELECT without FROM")
         if self._needs_materialize(stmt):
-            raise NotPorted("CTE / derived-table / system-view "
-                            "materialization")
+            return self._execute_materialized(stmt)
         names = self._referenced_tables(stmt)
         fp = (self._table_fingerprint(names), bounds_enabled(),
               late_mat_enabled())
@@ -149,13 +152,20 @@ class QueryEngine:
         walk_sel(sel)
         return names
 
+    # -- CTE / derived-table materialization -------------------------------
+    #
+    # WITH bodies and FROM subqueries materialize into transient column
+    # tables before the outer statement plans (the reference's stage
+    # materialization). Set operations, system views and windows inside
+    # them are not ported.
+
     def _needs_materialize(self, sel) -> bool:
-        """The reference materializes CTEs, derived tables, system views
-        and subqueries that themselves need it before planning."""
-        if isinstance(sel, ast.SetOp) or sel.ctes:
+        if isinstance(sel, ast.SetOp):
+            return True
+        if sel.ctes:
             return True
         if any(n.startswith(".sys") for n in self._referenced_tables(sel)):
-            return True
+            return True               # `.sys/...` materializes at plan time
 
         def rel_has(r):
             if isinstance(r, ast.SubqueryRef):
@@ -188,6 +198,113 @@ class QueryEngine:
             if expr_has(e):
                 return True
         return False
+
+    def _execute_materialized(self, sel: ast.Select,
+                              snap: Optional[Snapshot] = None) -> HostBlock:
+        snap = snap or self.snapshot()
+        temps: list = []
+        try:
+            sel2 = self._rewrite_sel(sel, {}, temps, snap)
+            plan = self.planner.plan_select(sel2)
+            return self.executor.execute(plan, snap)
+        finally:
+            for t in temps:
+                if self.catalog.has(t):
+                    self.catalog.drop_table(t)
+
+    def _rewrite_sel(self, sel, cte_map: dict,
+                     temps: list, snap: Optional[Snapshot] = None):
+        if isinstance(sel, ast.SetOp):
+            raise NotPorted("set operations")
+        cte_map = dict(cte_map)
+        for (name, body) in sel.ctes:
+            cte_map[name] = self._materialize(
+                self._rewrite_sel(body, cte_map, temps, snap), temps,
+                snap)
+
+        def rewrite_rel(r):
+            if isinstance(r, ast.TableRef):
+                t = cte_map.get(r.name)
+                if t is not None:
+                    return ast.TableRef(t, r.alias or r.name)
+                if r.name.startswith(".sys"):
+                    raise NotPorted("system views")
+                return r
+            if isinstance(r, ast.Join):
+                return ast.Join(r.kind, rewrite_rel(r.left),
+                                rewrite_rel(r.right),
+                                rewrite_expr(r.on))
+            if isinstance(r, ast.SubqueryRef):
+                t = self._materialize(
+                    self._rewrite_sel(r.query, cte_map, temps, snap), temps,
+                    snap)
+                return ast.TableRef(t, r.alias)
+            return r
+
+        def rewrite_expr(e):
+            import dataclasses
+            if e is None or not hasattr(e, "__dataclass_fields__"):
+                return e
+            if isinstance(e, (ast.Exists, ast.InSubquery,
+                              ast.ScalarSubquery)):
+                q = self._rewrite_sel(e.query, cte_map, temps, snap)
+                kw = {"query": q}
+                if isinstance(e, ast.InSubquery):
+                    kw["arg"] = rewrite_expr(e.arg)
+                return dataclasses.replace(e, **kw)
+
+            def rw(v):
+                if isinstance(v, tuple):
+                    return tuple(rw(x) for x in v)
+                return rewrite_expr(v)
+
+            kw = {f: rw(getattr(e, f)) for f in e.__dataclass_fields__}
+            return dataclasses.replace(e, **kw)
+
+        out = ast.Select(**{**sel.__dict__})
+        out.ctes = []
+        if out.relation is not None:
+            out.relation = rewrite_rel(out.relation)
+        out.where = rewrite_expr(out.where)
+        out.having = rewrite_expr(out.having)
+        out.items = [ast.SelectItem(rewrite_expr(i.expr), i.alias)
+                     for i in out.items]
+        out.group_by = [rewrite_expr(g) for g in out.group_by]
+        out.order_by = [ast.OrderItem(rewrite_expr(o.expr), o.ascending,
+                                      o.nulls_first) for o in out.order_by]
+        return out
+
+    def _materialize(self, sel, temps: list,
+                     snap: Optional[Snapshot] = None) -> str:
+        """Materialize an already-rewritten Select into a transient
+        table; returns its name."""
+        snap = snap or self.snapshot()
+        if any(_has_window(i.expr) for i in sel.items):
+            raise NotPorted("window functions (K13)")
+        block = self.executor.execute(self.planner.plan_select(sel), snap)
+        return self._register_temp(block, temps, snap)
+
+    def _register_temp(self, block: HostBlock, temps: list,
+                       snap: Optional[Snapshot] = None) -> str:
+        snap = snap or self.snapshot()
+        tname = f"__tmp{next(self._tmp_ids)}"
+        # temps take the engine's block size, not the 1M-row default
+        t = self.catalog.create_table(tname, block.schema,
+                                      [block.schema.names[0]], shards=1,
+                                      portion_rows=self.executor.block_rows,
+                                      transient=True)
+        t.dictionaries = {n: cd.dictionary
+                          for n, cd in block.columns.items()
+                          if cd.dictionary is not None}
+        if block.length:
+            # committed INSIDE the driving snapshot (tx snapshots are
+            # pinned — a fresh coordinator step would be invisible); the
+            # temp is private and dropped right after, so the early
+            # version leaks nowhere
+            t.commit(t.write(block), WriteVersion(snap.plan_step, 0))
+            t.indexate()
+        temps.append(tname)
+        return tname
 
     def _create_table(self, stmt: ast.CreateTable) -> HostBlock:
         if self.catalog.has(stmt.name):

@@ -32,11 +32,14 @@ from ydb_tpu_torch.storage.mvcc import MAX_SNAPSHOT, Snapshot
 from ydb_tpu_torch.utils.metrics import GLOBAL
 
 class Executor:
-    def __init__(self, catalog, device):
+    def __init__(self, catalog, device, block_rows: int = 1 << 20):
         from ydb_tpu_torch.query.build_cache import BuildCache
         from ydb_tpu_torch.storage.device_cache import DeviceColumnCache
         self.catalog = catalog
         self.device = device
+        # portion size of transient tables (materialized CTEs, derived
+        # tables): the capacity their scans run at
+        self.block_rows = block_rows
         self.device_cache = DeviceColumnCache(device)
         self._tls = threading.local()
         # build sides above this estimate would hash-partition into a

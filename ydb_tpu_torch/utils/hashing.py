@@ -20,14 +20,18 @@ def splitmix64(xp, x):
     Input is converted to uint64 bits (numpy path uses a view to avoid
     value conversion of negatives; jax wraps via astype).
     """
-    if xp is not np:
-        from ydb_tpu_torch.errors import NotPorted
-        raise NotPorted("device-side u64 hashing (K12)")
-    u = np.ascontiguousarray(x.astype(np.int64)).view(np.uint64).copy()
+    if xp is np:
+        u = np.ascontiguousarray(x.astype(np.int64)).view(np.uint64).copy()
+    else:
+        from ydb_tpu_torch.ops.cuda.bindings import hash64
+        return hash64([x])
     u = (u ^ (u >> np.uint64(30))) * np.uint64(_C1)
     u = (u ^ (u >> np.uint64(27))) * np.uint64(_C2)
     return u ^ (u >> np.uint64(31))
 
 
 def hash_combine(xp, h, x):
+    if xp is not np:
+        from ydb_tpu_torch.ops.cuda.bindings import hash64
+        return hash64([h, x], pre=[False, False])
     return h ^ (x + np.uint64(_GOLDEN) + (h << np.uint64(6)) + (h >> np.uint64(2)))
