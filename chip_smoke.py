@@ -5,13 +5,15 @@
 Phases, each printing its own line(s):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. the build of the six CUDA kernels from ``ydb_tpu_torch/ops/cuda/csrc``
-   (one ``nvcc`` per source, in parallel), with its seconds;
-3. generation of TPC-H at ``--sf`` and its load into ``QueryEngine()``
-   (no device argument: it must land on ``cuda``);
+2. the build of the eight CUDA kernel libraries from
+   ``ydb_tpu_torch/ops/cuda/csrc`` (one ``nvcc`` per source, in
+   parallel), with its seconds;
+3. generation of TPC-H at ``--sf``, TPC-DS at SF1 and ClickBench's hits
+   at 1,000,000 rows, each loaded into its own ``QueryEngine()`` (no
+   device argument: it must land on ``cuda``);
 4. the kernel phase: each kernel against its plain PyTorch version on the
-   card, on seeded random inputs at the shapes the TPC-H queries give it
-   at this scale. ``bucket_agg``, ``compact``, ``probe`` and ``sort`` at
+   card, on seeded random inputs at the shapes the queries give it.
+   ``bucket_agg``, ``compact``, ``probe`` and ``sort`` at
    Q1/Q6/Q14's shapes (nulls, an all-null bucket, LUT misses and a
    forced compact overflow included), ``bucket_agg`` at 512 buckets and
    16 aggregates and keyless, and each wrapper's multi-launch form;
@@ -22,20 +24,31 @@ Phases, each printing its own line(s):
    ids, nullable int keys, NaN and -0.0 float keys with every
    aggregate function, and 0 rows; ``hash64`` over two int64 columns at
    lineitem's rows (half the hashes >= 2^63); a probe of u64 keys
-   >= 2^63. Ints, masks, counts and permutations must match exactly,
-   float sums to rtol 1e-9 (another summation order). Times: device time
-   between CUDA events (a spin kernel ahead hides the host's launch
-   work), median of 15 calls after warm-up, for the kernel, its plain
-   version and one PyTorch library call computing the same function
-   where there is one; the bound is the bytes of the distinct input and
-   output tensors over 3.35 TB/s;
-5. the slice phase: all 22 TPC-H queries through ``QueryEngine.query``
-   with ``YDB_TPU_LATE_MAT`` on, and Q1 and Q14 again with it off, path
-   by path (``PATHS``): every answer must equal the pandas oracle
-   (``ydb_tpu_torch/bench/tpch_oracle.py``: rtol 1e-9 for floats, exact
-   otherwise, row order included), every query must take the fused
-   path, and each path's kernels must have launched in that path's own
-   run (the counters are reset just before it and read just after).
+   >= 2^63; ``expand_counts`` and ``expand_gather`` at TPC-DS ds25's
+   shape (timed), with one key matching 100,000 build rows (timed),
+   LEFT with NULL probe keys, float keys and 0 probes; ``window_scan``
+   over store_sales at SF1 by item and date (timed), at ds89's frame
+   (timed), one partition, one row per partition, NULL values and its
+   multi-launch form. Ints, masks, counts, row maps and permutations
+   must match exactly, float sums to rtol 1e-9 (another summation
+   order). Times: device time between CUDA events (a spin kernel ahead
+   hides the host's launch work), median of 15 calls after warm-up, for
+   the kernel, its plain version and one PyTorch library call computing
+   the same function (or, where noted, a floor of it) where there is
+   one; the bound is the bytes of the distinct input and output tensors
+   over 3.35 TB/s (for ``expand_gather``: the rows the outputs take);
+5. the slice phase, path by path (``PATHS``), through
+   ``QueryEngine.query``: all 22 TPC-H queries with ``YDB_TPU_LATE_MAT``
+   on, and Q1 and Q14 again with it off, on the fused path; 36 TPC-DS
+   queries at SF1 (the 25 the third slice opened and the reference
+   bench's subset), the ten windowed ones again on the device window
+   lane, and a window query over all of store_sales; the 43 ClickBench
+   queries. Every answer must equal its pandas oracle
+   (``ydb_tpu_torch/bench/{tpch,tpcds,clickbench}_oracle.py``; rtol 1e-9
+   for floats, exact otherwise, row order included), queries whose path
+   the slice fixes must take it (``EXPECT_PATH``), and each path's
+   kernels must have launched in that path's own run (the counters are
+   reset just before it and read just after).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -652,6 +665,321 @@ def sorted_lane_phase(B, n: int, cap: int, live: int,
     return rows
 
 
+def padded_build_keys(vals):
+    """Sorted build keys padded to a power of two (at least 128) with the
+    dtype's sentinel, as `ops/join.build` lays them out; returns (keys,
+    real count)."""
+    import torch
+    s = torch.sort(vals).values
+    nb = s.shape[0]
+    cap = max(128, 1 << max(nb - 1, 0).bit_length())
+    fill = float("inf") if s.dtype.is_floating_point \
+        else torch.iinfo(torch.int64).max
+    return torch.cat([s, torch.full((cap - nb,), fill, dtype=s.dtype,
+                                    device=s.device)]), nb
+
+
+def check_expand(B, key, kvalid, length, keys, nb, left, probe_cols,
+                 payloads, sync, tag):
+    """expand_counts and expand_gather against their plain versions: row
+    maps, counts, offsets and every gathered column exactly. Returns the
+    counts' outputs, the gather's column specs and its output capacity."""
+    import torch
+    got = B.expand_counts(key, kvalid, length, keys, nb, left)
+    want = B.expand_counts_plain(key, kvalid, length, keys, nb, left)
+    sync()
+    for g_, w_, what in zip(got, want, ("lo", "mcounts", "offsets",
+                                        "total")):
+        check(torch.equal(g_, w_), f"expand_counts {tag}: {what}")
+    total = int(want[3])
+    out_cap = max(128, 1 << max(total - 1, 0).bit_length())
+    cols = [(c, "probe") for c in probe_cols] \
+        + [(d, "build") for d, _v in payloads] \
+        + [(v, "build_valid") for _d, v in payloads]
+    gk = B.expand_gather(*want, out_cap, keys.shape[0], cols)
+    gp = B.expand_gather_plain(*want, out_cap, keys.shape[0], cols)
+    sync()
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        check(torch.equal(a, b), f"expand_gather {tag}: column {i}")
+    return want, cols, out_cap
+
+
+def k8_phase(B, device: str = "cuda") -> list:
+    """The expanding join probe's kernels (K8) against their plain
+    versions: at ds25's shape at SF1 (timed), a skewed build, LEFT with
+    NULL probe keys, and 0 probes."""
+    import torch
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2525)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def rand(n):
+        return torch.rand((n,), generator=g, device=dev, dtype=torch.float64)
+
+    def randint(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev)
+
+    # -- ds25's shape: 1,048,576 store_sales probes against a 4,809-row
+    #    build whose keys repeat (1.6 rows per key), about 50,000 output
+    #    rows; the probe block carries four columns (one nullable), the
+    #    build three payloads (one nullable)
+    n = 1 << 20
+    # the block's live length rides on the device, as a DeviceBlock's
+    # does (an int would cost a host-to-device copy inside the timing)
+    length = torch.tensor(n, dtype=torch.int32, device=dev)
+    keys, nb = padded_build_keys(randint(0, 3000, 4809))
+    kcap = keys.shape[0]
+    key = randint(0, 100_000, n)
+    probe_cols = [key, randint(0, 1 << 40, n), rand(n) * 100, rand(n) > 0.1]
+    payloads = [(randint(0, 1 << 40, kcap), None), (rand(kcap), None),
+                (randint(0, 1 << 30, kcap), rand(kcap) > 0.2)]
+    counts, cols, out_cap = check_expand(B, key, None, length, keys, nb,
+                                         False, probe_cols, payloads, sync,
+                                         "ds25")
+    total = int(counts[3])
+    check(30_000 < total < 80_000, f"ds25 shape: {total} output rows")
+    lo, mcounts, offsets, tot = counts
+
+    def lib_counts():
+        return (torch.searchsorted(keys, key),
+                torch.searchsorted(keys, key, right=True))
+    cnt = torch.diff(offsets, append=tot.reshape(1))
+
+    def lib_gather():
+        # the output rows' probe row ids alone: a floor, not the gather
+        return torch.repeat_interleave(cnt, output_size=total)
+    in_w = sum(c.element_size() for c in probe_cols) \
+        + sum(d.element_size() for d, _v in payloads)
+    out_w = sum(c.element_size() for c in probe_cols) \
+        + sum(d.element_size() + 1 for d, _v in payloads)
+    rows = [dict(
+        name="expand_counts", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/expand.cu",
+        replaces="ydb_tpu/ops/join.py:404",
+        shape=f"n={n} build={nb} (ds25, inner)", max_abs_err=0.0,
+        ms=time_ms(lambda: B.expand_counts(key, None, length, keys, nb,
+                                           False)),
+        plain_ms=time_ms(lambda: B.expand_counts_plain(key, None, length,
+                                                       keys, nb, False)),
+        library_ms=time_ms(lib_counts),
+        # key in, lo + mcounts + offsets out; the build keys once
+        bound_ms=bound_ms(n * (8 + 4 + 4 + 8) + kcap * 8),
+        bound_by="bytes"), dict(
+        name="expand_gather", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/expand.cu",
+        replaces="ydb_tpu/ops/join.py:427",
+        shape=f"n={n} out={total} cols={len(cols)} (ds25)",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: B.expand_gather(lo, mcounts, offsets, tot,
+                                           out_cap, kcap, cols)),
+        plain_ms=time_ms(lambda: B.expand_gather_plain(
+            lo, mcounts, offsets, tot, out_cap, kcap, cols)),
+        library_ms=time_ms(lib_gather),
+        # the three row maps once, the probe and payload rows the outputs
+        # take, the outputs once
+        bound_ms=bound_ms(n * 16 + total * (in_w + out_w)),
+        bound_by="bytes")]
+
+    # -- skew: one key matching 100,000 build rows (8 probe rows hold it),
+    #    the other keys 0 to 3 rows each
+    bvals = torch.cat([torch.zeros(100_000, dtype=torch.int64, device=dev),
+                       torch.repeat_interleave(
+                           torch.arange(1, 300_001, device=dev),
+                           randint(0, 4, 300_000))])
+    skeys, snb = padded_build_keys(bvals)
+    skey = torch.where(randint(0, n, n) < 8, 0, randint(1, 300_001, n))
+    spay = [(randint(0, 1 << 40, skeys.shape[0]), None)]
+    scounts, scols, scap = check_expand(B, skey, None, length, skeys, snb,
+                                        False, [skey], spay, sync, "skew")
+    st = int(scounts[3])
+    log(f"kernel expand skew: n={n} build={snb} out={st} "
+        f"counts_ms={time_ms(lambda: B.expand_counts(skey, None, length, skeys, snb, False)):.4f} "
+        f"gather_ms={time_ms(lambda: B.expand_gather(*scounts, scap, skeys.shape[0], scols)):.4f} "
+        f"gather_plain_ms={time_ms(lambda: B.expand_gather_plain(*scounts, scap, skeys.shape[0], scols)):.4f} "
+        f"gather_bound_us={bound_ms(n * 16 + st * 32) * 1e3:.2f} (bytes)")
+    # -- LEFT with NULL probe keys and a shortened length; float keys;
+    #    0 probes (LEFT and inner); checked, not timed
+    kv = rand(n) > 0.05
+    check_expand(B, key, kv, n - 777, keys, nb, True, probe_cols, payloads,
+                 sync, "left nulls")
+    fkeys, fnb = padded_build_keys(torch.round(rand(5000) * 4000) / 4)
+    check_expand(B, torch.round(rand(n) * 8000) / 4, kv, n, fkeys, fnb, True,
+                 [key], [(rand(fkeys.shape[0]), None)], sync, "float left")
+    for left in (False, True):
+        z = check_expand(B, key[:0], None, 0, keys, nb, left, [key[:0]],
+                         payloads, sync, f"0 probes left={left}")
+        check(int(z[0][3]) == 0, "0 probes: total")
+    return rows
+
+
+def window_scan_bytes(perm, part_words, order_words, aggs) -> int:
+    """window_scan's distinct input bytes plus its outputs: four int64
+    structure columns and a value and a count per aggregate."""
+    n = perm.shape[0]
+    ins = [perm] + list(part_words) + list(order_words) \
+        + [t for (_op, d, v) in aggs for t in (d, v)]
+    return distinct_bytes(ins) + n * 8 * (4 + 2 * len(aggs))
+
+
+def check_window_scan(B, perm, pw, ow, aggs, sync, tag) -> float:
+    """window_scan against its plain version: starts, ends, ranks, counts,
+    integer scans and min / max exactly, float sums to RTOL. Returns the
+    largest absolute difference of a float sum."""
+    import torch
+    got = B.window_scan(perm, pw, ow, aggs)
+    want = B.window_scan_plain(perm, pw, ow, aggs)
+    sync()
+    for i, what in enumerate(("seg_start", "seg_end", "grp_start",
+                              "dense")):
+        check(torch.equal(got[i], want[i]), f"window_scan {tag}: {what}")
+    err = 0.0
+    for a, ((gv, gc), (wv, wc)) in enumerate(zip(got[4], want[4])):
+        check(torch.equal(gc, wc), f"window_scan {tag}: count {a}")
+        if aggs[a][0] == "sum" and gv.dtype == torch.float64:
+            torch.testing.assert_close(gv, wv, rtol=RTOL, atol=0)
+            if gv.numel():
+                err = max(err, float((gv - wv).abs().max()))
+        else:
+            check(torch.equal(gv, wv), f"window_scan {tag}: scan {a}")
+    return err
+
+
+def k13_phase(B, ss: dict, device: str = "cuda") -> list:
+    """The window scans (K13) against their plain version: over
+    store_sales at SF1 (`ss`: its columns as tensors) partitioned by
+    ss_item_sk and ordered by ss_sold_date_sk (timed), at ds89's frame
+    (timed), one partition, every row its own partition, NULL values."""
+    import torch
+
+    from ydb_tpu_torch.ops.sort import encode_key
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(8989)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def rand(n):
+        return torch.rand((n,), generator=g, device=dev, dtype=torch.float64)
+
+    def part_word(*cols):
+        # the window lane's partition word (ops/window_dev.py)
+        n = cols[0].shape[0]
+        h = B.hash64([torch.zeros(n, dtype=torch.int64, device=dev)]
+                     + list(cols), pre=[False] + [True] * len(cols))
+        return B._lsr(h, 1)
+
+    # -- store_sales: rank / dense_rank (structure), a running sum, a
+    #    ROWS-frame avg's sum, a running max
+    n = ss["ss_item_sk"].shape[0]
+    pw = [part_word(ss["ss_item_sk"])]
+    ow = [encode_key(ss["ss_sold_date_sk"])]
+    perm = B.sort_perm(pw + ow, n, dev)
+    aggs = [("sum", ss["ss_ext_sales_price"], None),
+            ("sum", ss["ss_sales_price"], None),
+            ("max", ss["ss_net_profit"], None)]
+    err = check_window_scan(B, perm, pw, ow, aggs, sync, "store_sales")
+
+    def lib():
+        return ([torch.cumsum(d, 0) for (op, d, _v) in aggs if op == "sum"]
+                + [torch.cummax(d, 0) for (op, d, _v) in aggs if op == "max"])
+    rows = [dict(
+        name="window_scan", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/window_scan.cu",
+        replaces="ydb_tpu/ops/window_dev.py:202",
+        shape=f"n={n} partitions=ss_item_sk order=ss_sold_date_sk aggs=3 "
+              "(store_sales SF1)",
+        max_abs_err=err,
+        ms=time_ms(lambda: B.window_scan(perm, pw, ow, aggs)),
+        plain_ms=time_ms(lambda: B.window_scan_plain(perm, pw, ow, aggs)),
+        library_ms=time_ms(lib),
+        bound_ms=bound_ms(window_scan_bytes(perm, pw, ow, aggs)),
+        bound_by="bytes")]
+
+    # -- ds89's frame: 82,881 rows of (category, brand, store, month),
+    #    partitions of 12 months, whole-partition avg(ssp)
+    m = 82_881
+    pid = torch.randperm(m, generator=g, device=dev) // 12
+    pw9 = [part_word(pid % 2, pid, pid % 57)]
+    perm9 = B.sort_perm(pw9, m, dev)
+    aggs9 = [("sum", rand(m) * 1e4, None)]
+    check_window_scan(B, perm9, pw9, [], aggs9, sync, "ds89")
+    log(f"kernel window_scan ds89 frame: n={m} "
+        f"kernel_ms={time_ms(lambda: B.window_scan(perm9, pw9, [], aggs9)):.4f} "
+        f"plain_ms={time_ms(lambda: B.window_scan_plain(perm9, pw9, [], aggs9)):.4f} "
+        f"library_ms={time_ms(lambda: torch.cumsum(aggs9[0][1], 0)):.4f} "
+        f"bound_us={bound_ms(window_scan_bytes(perm9, pw9, [], aggs9)) * 1e3:.2f} (bytes)")
+
+    # -- one partition; every row its own partition; NULL values with
+    #    every scan; a partial last tile; more aggregates than one launch
+    #    takes; checked, not timed
+    k = (1 << 20) + 333
+    vals = rand(k) * 200 + 1          # float sums of one sign, as prices:
+    signed = rand(k) * 200 - 100      # no prefix cancels towards 0
+    ints = torch.randint(-1000, 1000, (k,), generator=g, device=dev)
+    valid = rand(k) > 0.2
+    every = [("sum", vals, valid), ("sum", ints, valid),
+             ("min", signed, valid), ("max", signed, None),
+             ("min", ints, None), ("max", ints, valid)]
+    order = [encode_key(torch.randint(0, 90, (k,), generator=g,
+                                      device=dev))]
+    for tag, words in (("one partition", [part_word(ints * 0)]),
+                       ("singletons", [part_word(torch.arange(
+                           k, device=dev))]),
+                       ("nulls", [part_word(ints % 300)])):
+        p_ = B.sort_perm(words + order, k, dev)
+        check_window_scan(B, p_, words, order, every, sync, tag)
+    check_window_scan(B, p_, words, order, every * 3, sync, "chunked")
+    return rows
+
+
+K13_SQL = """select ss_ticket_sk, ss_item_sk, ss_sold_date_sk,
+  rank() over (partition by ss_item_sk order by ss_sold_date_sk) as rk,
+  dense_rank() over (partition by ss_item_sk order by ss_sold_date_sk)
+    as drk,
+  sum(ss_ext_sales_price) over (partition by ss_item_sk
+    order by ss_sold_date_sk) as run_sum,
+  avg(ss_sales_price) over (partition by ss_item_sk order by ss_sold_date_sk
+    rows between 2 preceding and current row) as ma3,
+  max(ss_net_profit) over (partition by ss_item_sk
+    order by ss_sold_date_sk) as run_max,
+  lag(ss_sales_price) over (partition by ss_item_sk
+    order by ss_sold_date_sk) as prev
+from store_sales
+order by run_sum desc, ss_ticket_sk
+limit 100"""
+
+
+def k13_oracle(raw: dict):
+    """K13_SQL in pandas over the generated store_sales (in its row
+    order, which is the table's): windows per item in date order, ties
+    in row order."""
+    import pandas as pd
+    f = pd.DataFrame({c: raw["store_sales"][c] for c in (
+        "ss_ticket_sk", "ss_item_sk", "ss_sold_date_sk", "ss_ext_sales_price",
+        "ss_sales_price", "ss_net_profit")})
+    s = f.sort_values(["ss_item_sk", "ss_sold_date_sk"], kind="stable")
+    g = s.groupby("ss_item_sk", sort=False)
+    out = pd.DataFrame({
+        "ss_ticket_sk": s.ss_ticket_sk, "ss_item_sk": s.ss_item_sk,
+        "ss_sold_date_sk": s.ss_sold_date_sk,
+        "rk": g.ss_sold_date_sk.rank(method="min").astype("int64"),
+        "drk": g.ss_sold_date_sk.rank(method="dense").astype("int64"),
+        "run_sum": g.ss_ext_sales_price.cumsum(),
+        "ma3": g.ss_sales_price.rolling(3, min_periods=1).mean()
+        .reset_index(level=0, drop=True),
+        "run_max": g.ss_net_profit.cummax(),
+        "prev": g.ss_sales_price.shift(1)})
+    return out.sort_values(["run_sum", "ss_ticket_sk"],
+                           ascending=[False, True],
+                           kind="stable").head(100).reset_index(drop=True)
+
+
 # --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
@@ -659,9 +987,10 @@ def sorted_lane_phase(B, n: int, cap: int, live: int,
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--sf", type=float, default=1.0)
+    ap.add_argument("--sf", type=float, default=1.0,
+                    help="TPC-H scale factor (TPC-DS runs at SF1)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm run of each query with "
+                    help="also trace one warm run of each TPC-H query with "
                     "torch.profiler and print where its time goes")
     args = ap.parse_args()
 
@@ -671,8 +1000,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
 
+    from ydb_tpu_torch.bench import clickbench_oracle, tpcds_oracle
+    from ydb_tpu_torch.bench.clickbench_gen import load_hits
+    from ydb_tpu_torch.bench.tpcds_gen import load_tpcds
     from ydb_tpu_torch.bench.tpch_gen import load_tpch
-    from ydb_tpu_torch.bench.tpch_oracle import QUERIES
+    from ydb_tpu_torch.bench.tpch_oracle import QUERIES, oracle
     from ydb_tpu_torch.ops.cuda import bindings, build
     from ydb_tpu_torch.ops.device import bucket_capacity
     from ydb_tpu_torch.progstore.buckets import bucket_segment, bucket_sources
@@ -696,7 +1028,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {k}: {line.strip()}")
 
-    # 3. data
+    # 3. data: TPC-H at --sf, TPC-DS at SF1 and ClickBench's hits at
+    # 1,000,000 rows (the reference bench's sizes), each in its engine
     t0 = time.perf_counter()
     eng = QueryEngine()
     check(eng.device.type == "cuda", eng.device)
@@ -708,6 +1041,17 @@ def main() -> int:
     n = K * CAP
     log(f"data: sf={args.sf} lineitem={li.num_rows} rows, superblock "
         f"K={K} CAP={CAP} n={n}, {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eng_ds = QueryEngine()
+    raw_ds = load_tpcds(eng_ds.catalog, sf=1.0)
+    log(f"data: TPC-DS sf=1 store_sales="
+        f"{eng_ds.catalog.table('store_sales').num_rows} rows, "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    eng_cb = QueryEngine()
+    raw_cb = load_hits(eng_cb.catalog, n_rows=CLICKBENCH_ROWS)
+    log(f"data: ClickBench hits={CLICKBENCH_ROWS} rows, "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 4. kernels vs plain at the queries' shapes: Q6's compact capacity
     # is sized as the executor sizes it (CBO estimate, 25% headroom, the
@@ -720,6 +1064,12 @@ def main() -> int:
     rows = kernel_phase(bindings, n, q6_cap, n_part, lut_span)
     rows += sorted_lane_phase(bindings, n, CAP,
                               max(p.num_rows for p in portions))
+    rows += k8_phase(bindings)
+    ss = {c: torch.as_tensor(raw_ds["store_sales"][c], device="cuda")
+          for c in ("ss_item_sk", "ss_sold_date_sk", "ss_ext_sales_price",
+                    "ss_sales_price", "ss_net_profit")}
+    rows += k13_phase(bindings, ss)
+    del ss
     for r in rows:
         lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"kernel {r['name']}: {r['shape']} kernel_ms={r['ms']:.4f} "
@@ -727,8 +1077,16 @@ def main() -> int:
             f"bound_us={r['bound_ms'] * 1e3:.2f} "
             f"max_abs_err={r['max_abs_err']:.3g}")
 
-    # 5. the 22 queries through QueryEngine.query
-    launches = slice_phase(eng, bindings, data, QUERIES)
+    # 5. the main path, path by path, through QueryEngine.query
+    suites = {
+        "tpch": (eng, QUERIES, lambda q: oracle(q, data)),
+        "tpcds": (eng_ds, {**tpcds_oracle.QUERIES, "k13": K13_SQL},
+                  lambda q: k13_oracle(raw_ds) if q == "k13"
+                  else tpcds_oracle.oracle(q, raw_ds)),
+        "clickbench": (eng_cb, clickbench_oracle.QUERIES,
+                       lambda q: clickbench_oracle.oracle(q, raw_cb)),
+    }
+    launches = slice_phase(bindings, suites)
     if args.profile:
         profile_phase(eng, QUERIES)
     os.environ.pop("YDB_TPU_LATE_MAT", None)
@@ -746,42 +1104,92 @@ def main() -> int:
     return 0
 
 
-# The main path, slice by slice: each slice's queries run with the
-# launch counters set to 0 just before and read just after, and each of
-# the kernels it names must have launched in that run.
+CLICKBENCH_ROWS = 1_000_000        # the reference bench's BENCH_CLICKBENCH_ROWS
+
+# TPC-DS: the 25 queries this slice opened (windows, SELECT without FROM,
+# set operations, the expanding probe), then the reference bench's subset
+TPCDS_WINDOWED = ("ds12", "ds20", "ds44", "ds47", "ds53", "ds63", "ds67",
+                  "ds70", "ds89", "ds98")
+TPCDS_QUERIES = tuple(dict.fromkeys(
+    TPCDS_WINDOWED
+    + ("ds9", "ds28", "ds61", "ds77", "ds88", "ds90",
+       "ds33", "ds56", "ds60", "ds71", "ds76",
+       "ds25", "ds29", "ds59", "ds72")
+    + ("ds3", "ds7", "ds27", "ds42", "ds43", "ds52", "ds55", "ds62",
+       "ds67", "ds70", "ds89", "ds94", "ds96", "ds97", "ds98")))
+# the execution path each query must end on, where this slice fixes it
+EXPECT_PATH = {"ds25": "portioned", "ds29": "portioned",
+               "ds59": "portioned",
+               **{q: "literal" for q in ("ds9", "ds28", "ds61", "ds77",
+                                         "ds88", "ds90")}}
+CLICKBENCH_QUERIES = tuple(f"c{i}" for i in range(43))
+
+# The main path, path by path: each path's queries run with the launch
+# counters set to 0 just before and read just after, and each of the
+# kernels it names must have launched in that run. A run is (query,
+# options): "late" sets YDB_TPU_LATE_MAT (default on), "window_min_rows"
+# the engine's window_device_min_rows for that query.
 PATHS = (
-    ("q1 q6 q14, late materialization on and off",
-     [("q1", "1"), ("q6", "1"), ("q14", "1"), ("q1", "0"), ("q14", "0")],
+    ("q1 q6 q14, late materialization on and off", "tpch",
+     [("q1", {"late": "1"}), ("q6", {"late": "1"}), ("q14", {"late": "1"}),
+      ("q1", {"late": "0"}), ("q14", {"late": "0"})],
      ("bucket_agg", "compact", "probe", "sort")),
     ("the other 19 queries: sorted and medium-domain group-by, hashing, "
-     "CTEs and derived tables",
-     [(f"q{i}", "1") for i in range(2, 23) if i not in (6, 14)],
+     "CTEs and derived tables", "tpch",
+     [(f"q{i}", {}) for i in range(2, 23) if i not in (6, 14)],
      ("bucket_agg", "compact", "probe", "sort", "segment_agg", "hash64")),
+    ("TPC-DS at SF1: windows (the ten windowed queries again on the "
+     "device lane), the expanding probe on the portioned path, set "
+     "operations, SELECT without FROM, and the store_sales window query",
+     "tpcds",
+     [(q, {}) for q in TPCDS_QUERIES]
+     + [(q, {"window_min_rows": 0}) for q in TPCDS_WINDOWED]
+     + [("k13", {})],
+     ("window_scan", "expand_counts", "expand_gather", "sort", "hash64",
+      "probe", "compact")),
+    ("ClickBench, 1,000,000 rows", "clickbench",
+     [(q, {}) for q in CLICKBENCH_QUERIES],
+     ("bucket_agg", "compact", "sort", "segment_agg")),
 )
 
 
-def slice_phase(eng, bindings, data, queries: dict) -> dict:
-    """Every path of `PATHS` through the engine, each query checked
-    against the oracle; returns each kernel's launches summed over the
-    paths' runs (and nothing else)."""
-    from ydb_tpu_torch.bench.tpch_oracle import assert_frames_match, oracle
+def slice_phase(bindings, suites: dict) -> dict:
+    """Every path of `PATHS` through its suite's engine, each query
+    checked against its oracle; returns each kernel's launches summed
+    over the paths' runs (and nothing else)."""
+    from ydb_tpu_torch.bench.tpch_oracle import assert_frames_match
     total = {k: 0 for k in bindings.LAUNCHES}
-    for label, runs, kernels in PATHS:
+    for label, suite, runs, kernels in PATHS:
+        eng, queries, oracle = suites[suite]
         bindings.reset_launches()
-        for name, late in runs:
-            os.environ["YDB_TPU_LATE_MAT"] = late
+        for name, opts in runs:
+            os.environ["YDB_TPU_LATE_MAT"] = opts.get("late", "1")
+            saved = eng.config.window_device_min_rows
+            if "window_min_rows" in opts:
+                eng.config.window_device_min_rows = opts["window_min_rows"]
             walls = []
-            for _ in range(3):
-                before = dict(bindings.LAUNCHES)
-                t0 = time.perf_counter()
-                got = eng.query(queries[name])
-                walls.append((time.perf_counter() - t0) * 1e3)
+            try:
+                for _ in range(3):
+                    before = dict(bindings.LAUNCHES)
+                    t0 = time.perf_counter()
+                    got = eng.query(queries[name])
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            finally:
+                eng.config.window_device_min_rows = saved
             per_query = {k: v - before[k]
-                         for k, v in bindings.LAUNCHES.items()}
-            check(eng.executor.last_path == "fused", eng.executor.last_path)
-            assert_frames_match(got, oracle(name, data), ordered=True)
-            log(f"query {name} late_mat={late}: cold_ms={walls[0]:.2f} "
-                f"warm_ms={min(walls[1:]):.2f} rows={len(got)} fused ok "
+                         for k, v in bindings.LAUNCHES.items() if v > before[k]}
+            path = eng.executor.last_path
+            want_path = "fused" if suite == "tpch" else EXPECT_PATH.get(name)
+            check(want_path is None or path == want_path,
+                  f"{name}: path {path}, expected {want_path}")
+            want = oracle(name)
+            if suite != "tpch":
+                want.columns = list(got.columns)
+            assert_frames_match(got, want, ordered=True)
+            tag = " ".join(f"{k}={v}" for k, v in opts.items())
+            log(f"query {name}{' ' + tag if tag else ''}: "
+                f"cold_ms={walls[0]:.2f} warm_ms={min(walls[1:]):.2f} "
+                f"rows={len(got)} path={path} ok "
                 f"warm_launches={json.dumps(per_query)}")
         launches = dict(bindings.LAUNCHES)
         log(f"launches ({label}): {json.dumps(launches)}")
@@ -793,10 +1201,44 @@ def slice_phase(eng, bindings, data, queries: dict) -> dict:
     return total
 
 
+def k1_bound_bytes(eng, sql: str) -> int:
+    """The least bytes K1's elementwise work must move in a query: each
+    scan column that a scan-level Assign or Filter reads, read once, and
+    each Assign's output and each Filter's mask written once, over the
+    scan's live rows (join payloads and later stages not counted)."""
+    import numpy as np
+
+    from ydb_tpu_torch.ops import ir
+    from ydb_tpu_torch.sql import parse
+    plan = eng.planner.plan_select(parse(sql))
+    pipe = plan.pipeline
+    table = eng.catalog.table(pipe.scan.table)
+    width = {i: np.dtype(table.schema.dtype(s).np).itemsize
+             for (s, i) in pipe.scan.columns}
+    progs = [pipe.pre_program] + [s for k, s in pipe.steps if k != "join"]
+    if pipe.partial is not None:
+        progs.append(ir.Program([c for c in pipe.partial.commands
+                                 if not isinstance(c, ir.GroupBy)]))
+    read, written = set(), 0
+    for prog in progs:
+        for cmd in (prog.commands if prog is not None else ()):
+            refs: set = set()
+            if isinstance(cmd, ir.Assign):
+                ir.expr_columns(cmd.expr, refs)
+                written += 8
+            elif isinstance(cmd, ir.Filter):
+                ir.expr_columns(cmd.pred, refs)
+                written += 1
+            read |= {r for r in refs if r in width}
+    return table.num_rows * (sum(width[r] for r in read) + written)
+
+
 def profile_phase(eng, queries: dict) -> None:
     """One warm run per query under torch.profiler: host wall time, the
     summed device time of its kernels, the device's idle share of the
-    wall, and the kernels that took most of it."""
+    wall, the kernels that took most of it, and the time of torch's
+    elementwise kernels (K1, plain torch) with, for q6 and q19, K1's
+    byte bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -819,9 +1261,16 @@ def profile_phase(eng, queries: dict) -> None:
                and e.device_type == DeviceType.CUDA]
         dev_ms = sum(dev_us(e) for e in evs) / 1e3
         top = sorted(evs, key=lambda e: -dev_us(e))[:8]
+        elem = [e for e in evs if "elementwise" in e.key]
+        k1 = ""
+        if name in ("q6", "q19"):
+            k1 = (f" k1_bound_ms={bound_ms(k1_bound_bytes(eng, queries[name])):.4f}"
+                  " (bytes)")
         log(f"profile {name}: wall_ms={wall:.3f} device_ms={dev_ms:.3f} "
             f"idle_share={max(0.0, 1 - dev_ms / wall):.3f} kernels="
-            f"{sum(e.count for e in evs)} top: "
+            f"{sum(e.count for e in evs)} elementwise_ms="
+            f"{sum(dev_us(e) for e in elem) / 1e3:.3f} "
+            f"(x{sum(e.count for e in elem)}){k1} top: "
             + "; ".join(f"{e.key[:48]}={dev_us(e) / 1e3:.3f}ms x{e.count}"
                         for e in top))
 

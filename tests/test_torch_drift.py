@@ -23,7 +23,8 @@ storage/pushdown scheme/__init__ scheme/catalog sql/__init__ sql/lexer
 sql/parser sql/ast sql/render query/__init__ query/binder query/plan
 query/planner query/bounds query/latemat query/paramlift query/stats
 query/udf query/build_cache bench/tpch_gen
-progstore/buckets""".split()
+progstore/buckets utils/config query/window bench/tpcds_gen
+bench/clickbench_gen""".split()
 
 _NOT_PORTED_ROWS = """            from ydb_tpu_torch.errors import NotPorted
             raise NotPorted("row tables (storage/rowtable.py)")
@@ -155,15 +156,45 @@ COPIED_FROM = {
     # machine without jax (the test helper imports the reference's
     # generator; the port's is bit-identical, test_torch_slice.py)
     "bench/tpch_oracle": "tests/tpch_util.py",
+    # the TPC-DS and ClickBench oracles, for the same reason
+    "bench/tpcds_oracle": "tests/tpcds_util.py",
+    "bench/tpcds_oracle2": "tests/tpcds_util2.py",
+    "bench/clickbench_oracle": "tests/clickbench_util.py",
+}
+
+_ORACLE2 = ("the second half of the TPC-DS oracle is a module of the "
+            "port's package, not of tests/")
+
+# port module -> [(reason, repo file text after the prefix rewrite, port
+# text)]
+COPIED_FROM_EDITS = {
+    "bench/tpcds_oracle": [
+        (_ORACLE2, "    from tests.tpcds_util2 import QUERIES2, oracle2\n",
+         "    from ydb_tpu_torch.bench.tpcds_oracle2 import QUERIES2, "
+         "oracle2\n"),
+        (_ORACLE2, "    from tests.tpcds_util2 import QUERIES2\n",
+         "    from ydb_tpu_torch.bench.tpcds_oracle2 import QUERIES2\n"),
+    ],
+}
+
+# module-level functions of a reference module that the port's module of
+# the same path copies unchanged (the rest of the module is a port)
+COPIED_FUNCTIONS = {
+    "ops/window_dev": ("_sort_group_key", "spec_supported",
+                       "_encode_part_host", "_final_key_ok",
+                       "_encode_final_key", "_encode_order_host"),
 }
 
 # QueryEngine methods the port's slim engine copies from the reference
 # engine, each with its listed edits
 ENGINE_METHODS = ("_needs_materialize", "_execute_materialized",
-                  "_rewrite_sel", "_materialize", "_register_temp")
+                  "_rewrite_sel", "_materialize", "_register_temp",
+                  "_select_without_from", "_run_select", "_execute_set_op",
+                  "_eval_setop_df", "_host_lane_guard", "_execute_windowed",
+                  "_final_sort_spec", "_windows_on_device")
 
 _NO_SYSVIEW = "no system views or materialized views in the port"
-_NO_SETOP = "set operations are not ported: NotPorted"
+_NO_TRACER = "the port has no tracer: the span goes, its body stays"
 
 ENGINE_EDITS = {
     "_needs_materialize": [(
@@ -180,21 +211,6 @@ ENGINE_EDITS = {
             return True               # `.sys/...` materializes at plan time
 """)],
     "_rewrite_sel": [
-        (_NO_SETOP,
-         """            cte_map = dict(cte_map)
-            for (name, body) in sel.ctes:
-                cte_map[name] = self._materialize(
-                    self._rewrite_sel(body, cte_map, temps, snap), temps,
-                    snap)
-            out = ast.SetOp(
-                sel.op,
-                self._rewrite_sel(sel.left, cte_map, temps, snap),
-                self._rewrite_sel(sel.right, cte_map, temps, snap),
-                sel.order_by, sel.limit, sel.offset)
-            return out
-""",
-         """            raise NotPorted("set operations")
-"""),
         (_NO_SYSVIEW,
          """                view = self.views.get(r.name)
                 if view is not None:
@@ -226,51 +242,6 @@ ENGINE_EDITS = {
          """                if r.name.startswith(".sys"):
                     raise NotPorted("system views")
 """),
-        (_NO_SETOP + " (a subquery body is always a Select)",
-         "                return ast.TableRef(t, r.alias)   "
-         "# Select OR SetOp body\n",
-         "                return ast.TableRef(t, r.alias)\n"),
-        (_NO_SETOP + " (a subquery body is always a Select)",
-         """                if isinstance(q, ast.SetOp):
-                    # plan over a materialized temp: the planner only
-                    # decorrelates plain selects (explicit column items —
-                    # Star would lose the planner's naming contract)
-                    tname = self._materialize(q, temps, snap)
-                    cols = self.catalog.table(tname).schema.names
-                    q = ast.Select(
-                        items=[ast.SelectItem(ast.Name((c,)), c)
-                               for c in cols],
-                        relation=ast.TableRef(tname))
-""", ""),
-    ],
-    "_materialize": [
-        (_NO_SETOP,
-         """        \"\"\"Materialize an already-rewritten Select or SetOp into a
-        transient table; returns its name.\"\"\"
-        from ydb_tpu_torch.query import window as W
-""",
-         """        \"\"\"Materialize an already-rewritten Select into a transient
-        table; returns its name.\"\"\"
-"""),
-        (_NO_SETOP + "; windows (K13) are not ported: NotPorted",
-         """        if isinstance(sel, ast.SetOp):
-            df = self._eval_setop_df(sel, snap)
-            try:
-                df = W.apply_order_limit(df, sel.order_by, sel.limit,
-                                         sel.offset)
-            except ValueError as e:
-                raise QueryError(str(e)) from e
-            block = HostBlock.from_pandas(df)
-        elif W.has_window(sel):
-            block = self._execute_windowed(sel, snap)
-        else:
-            block = self.executor.execute(self.planner.plan_select(sel),
-                                          snap)
-""",
-         """        if any(_has_window(i.expr) for i in sel.items):
-            raise NotPorted("window functions (K13)")
-        block = self.executor.execute(self.planner.plan_select(sel), snap)
-"""),
     ],
     "_register_temp": [(
         "nothing is jit-compiled in the port; the block size is the "
@@ -281,6 +252,116 @@ ENGINE_EDITS = {
 """,
         """        # temps take the engine's block size, not the 1M-row default
 """)],
+    "_execute_set_op": [(
+        _NO_TRACER,
+        """            # combine/dedup is host pandas work: spanned so it ranks as
+            # host_lane on the critical path (arms' device spans nest
+            # inside and classify themselves)
+            with self.tracer.span("setop-host-lane"):
+                df = self._eval_setop_df(rewritten, snap)
+                try:
+                    df = W.apply_order_limit(df, stmt.order_by,
+                                             stmt.limit, stmt.offset)
+                except ValueError as e:
+                    raise QueryError(str(e)) from e
+""",
+        """            df = self._eval_setop_df(rewritten, snap)
+            try:
+                df = W.apply_order_limit(df, stmt.order_by,
+                                         stmt.limit, stmt.offset)
+            except ValueError as e:
+                raise QueryError(str(e)) from e
+""")],
+    "_host_lane_guard": [(
+        "the port keeps no host-lane row counter (no metrics surface)",
+        """        \"\"\"Host pandas lanes (windows, set-op combine) degrade loudly: a
+        counter records the rows crossing to host (`count=False` for
+        re-checks of already-counted rows, e.g. set-op combine levels),
+        and frames above the configured limit refuse instead of silently
+        becoming single-core pandas jobs.\"\"\"
+        from ydb_tpu_torch.utils.metrics import GLOBAL
+        if count:
+            GLOBAL.inc(f"engine/host_lane/{lane}_rows", rows)
+""",
+        """        \"\"\"Host pandas lanes (windows, set-op combine) degrade loudly:
+        frames above the configured limit refuse instead of silently
+        becoming single-core pandas jobs (`count` is the reference's
+        row-counter switch; the port keeps no such counter).\"\"\"
+""")],
+    "_execute_windowed": [
+        (_NO_TRACER,
+         """                with self.tracer.span("window-device",
+                                      rows=inner_block.length):
+                    done = self._windows_on_device(inner_block, outer,
+                                                   final_sort=fs,
+                                                   limit=sel.limit,
+                                                   offset=sel.offset
+                                                   or 0)
+""",
+         """                done = self._windows_on_device(inner_block, outer,
+                                               final_sort=fs,
+                                               limit=sel.limit,
+                                               offset=sel.offset or 0)
+"""),
+        (_NO_TRACER,
+         """            with self.tracer.span("window-device",
+                                  rows=inner_block.length):
+                df = self._windows_on_device(inner_block, outer)
+""",
+         """            df = self._windows_on_device(inner_block, outer)
+"""),
+        (_NO_TRACER,
+         """                # its own span so the single-core pandas lane ranks as
+                # host_lane on the critical path (the q13 class), not
+                # as unattributed statement self-time
+                with self.tracer.span("window-host-lane",
+                                      rows=inner_block.length):
+                    df = W.compute_windows(inner_block.to_pandas(),
+                                           outer)
+""",
+         """                df = W.compute_windows(inner_block.to_pandas(), outer)
+"""),
+    ],
+    "_windows_on_device": [
+        ("the port's lane is eager torch on the engine's device",
+         """        \"\"\"Device window lane (`ops/window_dev.py`): every spec computed
+        in one scatter-free jitted program — sort, segment boundaries,
+        prefix-scan formulas — with a single device→host transfer for
+        all outputs (sliced to offset+limit rows when the final sort
+        pushes down). Returns the assembled frame, or None when a spec
+        requires the pandas lane (which then counts its host rows).\"\"\"
+""",
+         """        \"\"\"Device window lane (`ops/window_dev.py`): every spec computed
+        on the engine's device — sort, segment boundaries, prefix scans
+        (the window_scan kernel) — with a single device→host transfer for
+        all outputs (sliced to offset+limit rows when the final sort
+        pushes down). Returns the assembled frame, or None when a spec
+        requires the pandas lane.\"\"\"
+"""),
+        ("no silent fallback: a device-lane exception propagates (only "
+         "the lane's declines, None, keep the pandas lane); no metrics",
+         """        from ydb_tpu_torch.utils.metrics import GLOBAL
+        try:
+            dev = compute_windows_device(inner_block, outer,
+                                         final_sort=final_sort,
+                                         limit=limit, offset=offset)
+        except Exception:                # noqa: BLE001 — lane, not law
+            GLOBAL.inc("engine/window_device_errors")
+            return None
+        if dev is None:
+            return None
+        GLOBAL.inc("engine/window_device_rows", inner_block.length)
+        if final_sort is not None:
+            GLOBAL.inc("engine/window_device_pushdown")
+""",
+         """        dev = compute_windows_device(inner_block, outer,
+                                     final_sort=final_sort,
+                                     limit=limit, offset=offset,
+                                     device=self.device)
+        if dev is None:
+            return None
+"""),
+    ],
 }
 
 
@@ -320,7 +401,24 @@ def test_engine_method_matches_reference(method):
 @pytest.mark.parametrize("module", sorted(COPIED_FROM))
 def test_copy_of_repo_file_matches(module):
     port = (ROOT / "ydb_tpu_torch" / f"{module}.py").read_text()
-    assert port == _rewrite_imports((ROOT / COPIED_FROM[module]).read_text())
+    want = _apply(_rewrite_imports((ROOT / COPIED_FROM[module]).read_text()),
+                  COPIED_FROM_EDITS.get(module, ()), module)
+    assert port == want
+
+
+def _functions(path: Path) -> dict:
+    src = path.read_text()
+    return {f.name: ast.get_source_segment(src, f)
+            for f in ast.parse(src).body if isinstance(f, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize("module,name", [(m, f) for m, fs in
+                                         sorted(COPIED_FUNCTIONS.items())
+                                         for f in fs])
+def test_copied_function_matches_reference(module, name):
+    ref = _functions(ROOT / "ydb_tpu" / f"{module}.py")
+    port = _functions(ROOT / "ydb_tpu_torch" / f"{module}.py")
+    assert port[name] == _rewrite_imports(ref[name])
 
 
 @pytest.mark.parametrize("module", COPIED)
@@ -338,5 +436,9 @@ def test_every_edit_has_a_reason():
             assert reason and old != new
     for method, edits in ENGINE_EDITS.items():
         assert method in ENGINE_METHODS
+        for reason, old, new in edits:
+            assert reason and old != new
+    for module, edits in COPIED_FROM_EDITS.items():
+        assert module in COPIED_FROM
         for reason, old, new in edits:
             assert reason and old != new

@@ -32,7 +32,12 @@ def test_no_reference_or_jax_import(path):
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, ydb_tpu_torch, ydb_tpu_torch.query, "
             "ydb_tpu_torch.interop, ydb_tpu_torch.ops.cuda.bindings, "
-            "ydb_tpu_torch.utils.hashing, ydb_tpu_torch.bench.tpch_oracle\n"
+            "ydb_tpu_torch.utils.hashing, ydb_tpu_torch.bench.tpch_oracle, "
+            "ydb_tpu_torch.bench.tpcds_oracle, ydb_tpu_torch.bench.tpcds_gen, "
+            "ydb_tpu_torch.bench.clickbench_oracle, "
+            "ydb_tpu_torch.bench.clickbench_gen, "
+            "ydb_tpu_torch.ops.window_dev, ydb_tpu_torch.query.window, "
+            "ydb_tpu_torch.utils.config\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m == 'ydb_tpu' or m.startswith('ydb_tpu.')]\n"
             "print(bad)\n")

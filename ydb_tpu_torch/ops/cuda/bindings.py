@@ -20,6 +20,13 @@ a non-zero code raises.
 | segment_agg  | ops/xla_exec.py _trace_group_by_sorted (boundaries, group |
 |              | starts, per-group folds), _groupby_medium_domain          |
 | hash64       | utils/hashing.py splitmix64, hash_combine (device side)   |
+| window_scan  | ops/window_dev.py _build_window_fn (boundaries, segment   |
+|              | starts and ends, prefix sums, running min/max)            |
+| expand_counts| ops/join.py _expand_counts                                |
+| expand_gather| ops/join.py _expand_gather                                |
+
+Each launch name builds from ``csrc/<library>.cu`` (``expand_counts``
+and ``expand_gather`` share ``expand.cu``).
 
 What bounds each on the H100 and what its design does about it is at the
 top of its source in ``csrc/``.
@@ -35,8 +42,6 @@ import torch
 
 from ydb_tpu_torch.ops.cuda import build
 
-LAUNCHES = {name: 0 for name in build.KERNELS}
-
 _LIBS: dict = {}
 _MU = threading.Lock()
 
@@ -46,24 +51,36 @@ _I32 = ctypes.c_int
 _PI64 = ctypes.POINTER(ctypes.c_int64)
 _PI32 = ctypes.POINTER(ctypes.c_int32)
 
+# launch name -> (library, C symbol, argtypes)
 _SIGS = {
-    "bucket_agg": ("bucket_agg_launch",
+    "bucket_agg": ("bucket_agg", "bucket_agg_launch",
                    [_I64, _I32, _P, _P, _I32, _PI64, _PI64, _PI32, _PI32,
                     _I64, _I32, _P, _P, _P, _P, _P, _P, _P]),
-    "compact": ("compact_launch",
+    "compact": ("compact", "compact_launch",
                 [_I64, _P, _P, _I64, _P, _P, _P, _P, _P, _I32, _PI64, _PI64,
                  _PI32, _I32, _P]),
-    "probe": ("probe_launch",
+    "probe": ("probe", "probe_launch",
               [_I64, _P, _I32, _P, _P, _I32, _P, _I64, _I64, _P, _I64, _I64,
                _I64, _I32, _I32, _I32, _P, _P, _P, _I32, _PI64, _PI64, _PI64,
                _PI64, _PI32, _P]),
-    "sort": ("sort_launch", [_I64, _I32, _PI64, _P, _P, _P]),
-    "segment_agg": ("segment_agg_launch",
+    "sort": ("sort", "sort_launch", [_I64, _I32, _PI64, _P, _P, _P]),
+    "segment_agg": ("segment_agg", "segment_agg_launch",
                     [_I64, _P, _I32, _PI64, _P, _I32, _PI64, _PI64, _PI32,
                      _PI32, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P, _P, _P, _I32, _P]),
-    "hash64": ("hash64_launch", [_I64, _I32, _PI64, _PI32, _P, _P]),
+    "hash64": ("hash64", "hash64_launch", [_I64, _I32, _PI64, _PI32, _P, _P]),
+    "window_scan": ("window_scan", "window_scan_launch",
+                    [_I64, _P, _I32, _I32, _PI64, _I32, _PI32, _PI32, _PI32,
+                     _PI64, _PI64, _PI64, _I64, _P, _P, _P, _P, _P, _P]),
+    "expand_counts": ("expand", "expand_counts_launch",
+                      [_I64, _P, _I32, _P, _P, _P, _I64, _I64, _I32, _P, _P,
+                       _P, _P, _P, _P, _P]),
+    "expand_gather": ("expand", "expand_gather_launch",
+                      [_I64, _I64, _P, _P, _P, _P, _I64, _I32, _PI64, _PI64,
+                       _PI32, _PI32, _P]),
 }
+
+LAUNCHES = {name: 0 for name in _SIGS}
 
 
 def reset_launches() -> None:
@@ -72,17 +89,17 @@ def reset_launches() -> None:
 
 
 def _fn(name: str):
-    """The kernel's C entry point, building the library on first use."""
+    """The kernel's C entry point, building its library on first use."""
+    libname, sym, argtypes = _SIGS[name]
     with _MU:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(libname)
         if lib is None:
-            path = build.build_all((name,))[name]["path"]
-            lib = ctypes.CDLL(path)
-            sym, argtypes = _SIGS[name]
-            getattr(lib, sym).argtypes = argtypes
-            getattr(lib, sym).restype = ctypes.c_int
-            _LIBS[name] = lib
-    return getattr(lib, _SIGS[name][0])
+            path = build.build_all((libname,))[libname]["path"]
+            lib = _LIBS[libname] = ctypes.CDLL(path)
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch(name: str, *args) -> None:
@@ -643,3 +660,318 @@ def hash64_plain(cols: list, pre: list) -> torch.Tensor:
         x = splitmix64_plain(c) if f else c.to(torch.int64)
         h = x if h is None else hash_combine_plain(h, x)
     return h
+
+
+# --------------------------------------------------------------------------
+# window_scan
+# --------------------------------------------------------------------------
+
+_MAX_WINDOW_WORDS = 16
+_MAX_SCANS = 32                  # window_scan.cu MAX_Q
+_SCAN_TILE = 1024                # rows per block (window_scan.cu TILE)
+_SCAN_OPS = {("sum", torch.int64): 0, ("sum", torch.float64): 1,
+             ("min", torch.int64): 2, ("min", torch.float64): 3,
+             ("max", torch.int64): 4, ("max", torch.float64): 5}
+# scan sources (window_scan.cu SRC_*)
+_PART_IDX, _ORDER_IDX, _ORDER_CNT, _VALUE, _VALID_CNT = range(5)
+
+
+def window_scan(perm: torch.Tensor, part_words: list, order_words: list,
+                aggs: list):
+    """Segmented scans over the rows taken in the order `perm` (int32),
+    partitions starting where a partition word changes, order groups
+    where a partition or order word changes (the words are int64 tensors
+    in original row order, read through `perm`).
+
+    aggs: [(op, data, valid)] with op "sum", "min" or "max", data an
+    int64 or float64 column (original row order), valid a bool column or
+    None.
+
+    Returns (seg_start, seg_end, grp_start, dense, scans), each an (n,)
+    int64 per sorted position: the first and last sorted position of the
+    row's partition, the first of its order group, and the count of
+    order groups from the partition start to the row (dense rank); per
+    aggregate (value, count): the inclusive in-partition prefix of the
+    valid values (sum) or their running min / max (the identity, ±inf or
+    the int64 extreme, before the first valid row), and the inclusive
+    in-partition count of valid rows."""
+    n = perm.shape[0]
+    dev = perm.device
+    if dev.type != "cuda":
+        return window_scan_plain(perm, part_words, order_words, aggs)
+    _check(perm, "perm", dev, n, (torch.int32,))
+    words = list(part_words) + list(order_words)
+    if not part_words or len(words) > _MAX_WINDOW_WORDS:
+        raise ValueError(f"{len(part_words)} partition and "
+                         f"{len(order_words)} order words")
+    for i, w in enumerate(words):
+        _check(w, f"word {i}", dev, n, (torch.int64,))
+    for op, data, valid in aggs:
+        _check(data, f"{op} data", dev, n, (torch.int64, torch.float64))
+        if (op, data.dtype) not in _SCAN_OPS:
+            raise ValueError(op)
+        if valid is not None:
+            _check(valid, f"{op} valid", dev, n, (torch.bool,))
+    i64 = dict(dtype=torch.int64, device=dev)
+    seg_start, grp_start, dense, seg_end = (torch.empty(n, **i64)
+                                            for _ in range(4))
+    scans = [(torch.empty(n, dtype=d.dtype, device=dev), torch.empty(n, **i64))
+             for (_op, d, _v) in aggs]
+    per = (_MAX_SCANS - 3) // 2
+    chunks = [list(range(i, min(i + per, len(aggs))))
+              for i in range(0, len(aggs), per)] or [[]]
+    T = max((n + _SCAN_TILE - 1) // _SCAN_TILE, 1)
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    for chunk in chunks:
+        # every launch recomputes the boundaries and the three structure
+        # scans; scan 0 must be the partition start (seg_end reads it)
+        q = [("max", _PART_IDX, None, None, seg_start),
+             ("max", _ORDER_IDX, None, None, grp_start),
+             ("sum", _ORDER_CNT, None, None, dense)]
+        for a in chunk:
+            op, data, valid = aggs[a]
+            q.append((op, _VALUE, data, valid, scans[a][0]))
+            q.append(("sum", _VALID_CNT, None, valid, scans[a][1]))
+        Q = len(q)
+        tile_flag = torch.empty(Q * T, dtype=torch.uint8, device=dev)
+        tile_val = torch.empty(Q * T, **i64)
+        carry = torch.empty(Q * T, **i64)
+        _launch("window_scan", n, _ptr(perm), len(part_words), len(words),
+                _arr(ctypes.c_int64, [_ptr(w) for w in words]), Q,
+                _arr(ctypes.c_int32,
+                     [_SCAN_OPS[(op, d.dtype if d is not None
+                                 else torch.int64)]
+                      for (op, _s, d, _v, _o) in q]),
+                _arr(ctypes.c_int32, [int(s not in (_PART_IDX, _ORDER_IDX))
+                                      for (_op, s, _d, _v, _o) in q]),
+                _arr(ctypes.c_int32, [s for (_op, s, _d, _v, _o) in q]),
+                _arr(ctypes.c_int64, [_ptr(d) or 0 for (_op, _s, d, _v, _o)
+                                      in q]),
+                _arr(ctypes.c_int64, [_ptr(v) or 0 for (_op, _s, _d, v, _o)
+                                      in q]),
+                _arr(ctypes.c_int64, [_ptr(o) for (_op, _s, _d, _v, o) in q]),
+                T, _ptr(flags), _ptr(tile_flag), _ptr(tile_val), _ptr(carry),
+                _ptr(seg_end), _stream())
+    return seg_start, seg_end, grp_start, dense, scans
+
+
+def _seg_scan_plain(x: torch.Tensor, reset: torch.Tensor, fn):
+    """Inclusive scan of `x` under `fn`, restarting where `reset` is set
+    (Hillis–Steele doubling: log2(n) shifted combines)."""
+    x, reset = x.clone(), reset.clone()
+    n = x.shape[0]
+    d = 1
+    while d < n:
+        comb = torch.where(reset[d:], x[d:], fn(x[:-d], x[d:]))
+        reset = torch.cat([reset[:d], reset[d:] | reset[:-d]])
+        x = torch.cat([x[:d], comb])
+        d *= 2
+    return x
+
+
+def window_scan_plain(perm, part_words: list, order_words: list, aggs: list):
+    """Plain PyTorch version of `window_scan`: boundaries by adjacent
+    comparison, starts by `cummax`, ends by a reversed `cummin`, integer
+    counts by `cumsum` differences, and the value scans by a segmented
+    doubling scan (a prefix never crosses a partition)."""
+    n = perm.shape[0]
+    dev = perm.device
+    p = perm.to(torch.int64)
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    b_part = torch.ones(n, dtype=torch.bool, device=dev)
+    b_order = torch.ones(n, dtype=torch.bool, device=dev)
+    if n:
+        for w in part_words:
+            ws = w[p]
+            b_part[1:] &= ws[1:] == ws[:-1]
+        b_part = ~b_part
+        b_part[0] = True
+        b_order[1:] = b_part[1:]
+        for w in order_words:
+            ws = w[p]
+            b_order[1:] |= ws[1:] != ws[:-1]
+    zero = torch.zeros_like(iota)
+    seg_start = torch.cummax(torch.where(b_part, iota, zero), 0).values \
+        if n else iota
+    nxt = torch.cat([b_part[1:], torch.ones(min(n, 1), dtype=torch.bool,
+                                            device=dev)])
+    seg_end = torch.flip(torch.cummin(torch.flip(
+        torch.where(nxt, iota, torch.full_like(iota, n - 1)), [0]), 0)
+        .values, [0]) if n else iota
+    grp_start = torch.cummax(torch.where(b_order, iota, zero), 0).values \
+        if n else iota
+
+    def in_part_count(flag):
+        c = torch.cumsum(flag.to(torch.int64), 0)
+        return c - c[seg_start] + flag[seg_start].to(torch.int64)
+
+    dense = in_part_count(b_order)
+    scans = []
+    for op, data, valid in aggs:
+        v = data[p]
+        ok = torch.ones(n, dtype=torch.bool, device=dev) if valid is None \
+            else valid[p]
+        if op == "sum":
+            x = torch.where(ok, v, torch.zeros_like(v))
+            val = _seg_scan_plain(x, b_part, torch.add) \
+                if v.dtype.is_floating_point else in_part_count(x)
+        else:
+            if v.dtype.is_floating_point:
+                ident = float("inf") if op == "min" else float("-inf")
+            else:
+                ident = (1 << 63) - 1 if op == "min" else -(1 << 63)
+            x = torch.where(ok, v, torch.full_like(v, ident))
+            val = _seg_scan_plain(x, b_part, torch.minimum if op == "min"
+                                  else torch.maximum)
+        scans.append((val, in_part_count(ok)))
+    return seg_start, seg_end, grp_start, dense, scans
+
+
+# --------------------------------------------------------------------------
+# expand_counts, expand_gather
+# --------------------------------------------------------------------------
+
+_EXPAND_TILE = 1024              # rows per block of the prefix (expand.cu)
+_MAX_GATHER_COLS = 32
+EXPAND_MODES = {"probe": 0, "build": 1, "build_valid": 2}
+
+
+def expand_counts(key: torch.Tensor, kvalid: Optional[torch.Tensor],
+                  length, keys_sorted: torch.Tensor, n_build: int,
+                  left: bool):
+    """Match counts of an expanding join probe. For each probe row
+    r < length (int64 or float64 `key`, NULL where `kvalid` is False)
+    the lower and upper bound of its key in the power-of-two padded
+    `keys_sorted` of the same dtype, clipped to `n_build`.
+
+    Returns (lo int32, mcounts int32, offsets int64, total 0-d int64):
+    lo the first matching build row, mcounts the number of matches, and
+    the exclusive prefix of the per-row output counts — the matches, or
+    for LEFT at least 1 per active row — with their total."""
+    n = key.shape[0]
+    dev = key.device
+    if dev.type != "cuda":
+        return expand_counts_plain(key, kvalid, length, keys_sorted, n_build,
+                                   left)
+    _check(key, "key", dev, n, (torch.int64, torch.float64))
+    _check(keys_sorted, "keys_sorted", dev, None, (key.dtype,))
+    kc = keys_sorted.shape[0]
+    if kc & (kc - 1):
+        raise ValueError("expand needs a pow2-padded build")
+    if kvalid is not None:
+        _check(kvalid, "key valid", dev, n, (torch.bool,))
+    length_t = _length_tensor(length, dev)
+    lo = torch.empty(n, dtype=torch.int32, device=dev)
+    mcounts = torch.empty(n, dtype=torch.int32, device=dev)
+    offsets = torch.empty(n, dtype=torch.int64, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    T = max((n + _EXPAND_TILE - 1) // _EXPAND_TILE, 1)
+    tile_sum = torch.empty(T, dtype=torch.int64, device=dev)
+    tile_off = torch.empty(T, dtype=torch.int64, device=dev)
+    _launch("expand_counts", n, _ptr(key), int(key.dtype == torch.float64),
+            _ptr(kvalid), _ptr(length_t), _ptr(keys_sorted), kc, int(n_build),
+            int(bool(left)), _ptr(lo), _ptr(mcounts), _ptr(offsets),
+            _ptr(total), _ptr(tile_sum), _ptr(tile_off), _stream())
+    return lo, mcounts, offsets, total
+
+
+def expand_counts_plain(key, kvalid, length, keys_sorted, n_build: int,
+                        left: bool):
+    """Plain PyTorch version of `expand_counts` (`searchsorted` twice and
+    a cumulative sum, the reference's arithmetic)."""
+    n = key.shape[0]
+    dev = key.device
+    active = torch.arange(n, dtype=torch.int32, device=dev) \
+        < _length_tensor(length, dev)
+    matchable = active if kvalid is None else (active & kvalid)
+    lo = torch.clamp(torch.searchsorted(keys_sorted, key), max=n_build)
+    hi = torch.clamp(torch.searchsorted(keys_sorted, key, right=True),
+                     max=n_build)
+    mcounts = torch.where(matchable, hi - lo, torch.zeros_like(lo))
+    counts = torch.where(active, torch.clamp(mcounts, min=1),
+                         torch.zeros_like(mcounts)) if left else mcounts
+    csum = torch.cumsum(counts, 0)
+    return (lo.to(torch.int32), mcounts.to(torch.int32), csum - counts,
+            csum[-1] if n else torch.zeros((), dtype=torch.int64,
+                                           device=dev))
+
+
+def expand_gather(lo: torch.Tensor, mcounts: torch.Tensor,
+                  offsets: torch.Tensor, total: torch.Tensor, out_cap: int,
+                  pcap: int, cols: list) -> list:
+    """The output rows of an expanding probe: slot j < out_cap belongs to
+    probe row ``row = searchsorted(offsets, j, right) - 1`` and to its
+    ``k = j - offsets[row]``-th match, build row ``bidx = lo[row] + k``
+    clipped to [0, pcap); it is a match when the row has one and
+    j < total (a null-extended LEFT row has none).
+
+    cols: [(src, mode)] — mode "probe": src[row]; "build": src[bidx];
+    "build_valid": the match flag and src[bidx] (src a bool column, or
+    None for the flag alone). Returns one (out_cap,) tensor per column."""
+    n = lo.shape[0]
+    dev = lo.device
+    if dev.type != "cuda":
+        return expand_gather_plain(lo, mcounts, offsets, total, out_cap,
+                                   pcap, cols)
+    _check(lo, "lo", dev, n, (torch.int32,))
+    _check(mcounts, "mcounts", dev, n, (torch.int32,))
+    _check(offsets, "offsets", dev, n, (torch.int64,))
+    outs = []
+    for i, (src, mode) in enumerate(cols):
+        if mode not in EXPAND_MODES:
+            raise ValueError(mode)
+        if src is None and mode != "build_valid":
+            raise ValueError(f"column {i}: {mode} needs a source")
+        if src is not None:
+            _check(src, f"column {i}", dev, n if mode == "probe" else pcap)
+            if src.element_size() not in (1, 2, 4, 8):
+                raise ValueError(f"column {i}: element size "
+                                 f"{src.element_size()}")
+            if mode == "build_valid" and src.dtype != torch.bool:
+                raise ValueError(f"column {i}: validity must be bool")
+        outs.append(torch.empty(out_cap, dtype=torch.bool
+                                if mode == "build_valid" else src.dtype,
+                                device=dev))
+    chunks = [list(range(i, min(i + _MAX_GATHER_COLS, len(cols))))
+              for i in range(0, len(cols), _MAX_GATHER_COLS)] or [[]]
+    for chunk in chunks:
+        _launch("expand_gather", out_cap, n, _ptr(lo), _ptr(mcounts),
+                _ptr(offsets), _ptr(total), int(pcap), len(chunk),
+                _arr(ctypes.c_int64, [_ptr(cols[i][0]) or 0 for i in chunk]),
+                _arr(ctypes.c_int64, [_ptr(outs[i]) for i in chunk]),
+                _arr(ctypes.c_int32, [outs[i].element_size() for i in chunk]),
+                _arr(ctypes.c_int32, [EXPAND_MODES[cols[i][1]]
+                                      for i in chunk]),
+                _stream())
+    return outs
+
+
+def expand_gather_plain(lo, mcounts, offsets, total, out_cap: int, pcap: int,
+                        cols: list) -> list:
+    """Plain PyTorch version of `expand_gather` (`searchsorted` of the
+    slots into the offsets, then gathers)."""
+    n = lo.shape[0]
+    dev = lo.device
+    j = torch.arange(out_cap, dtype=torch.int64, device=dev)
+    row = torch.clamp(torch.searchsorted(offsets, j, right=True) - 1, 0,
+                      max(n - 1, 0))
+    if n == 0:
+        row = torch.zeros_like(j)
+        lo = torch.zeros(1, dtype=torch.int32, device=dev)
+        mcounts = torch.zeros(1, dtype=torch.int32, device=dev)
+        offsets = torch.zeros(1, dtype=torch.int64, device=dev)
+    k = j - offsets[row]
+    bidx = torch.clamp(lo[row].to(torch.int64) + k, 0, pcap - 1)
+    found = (mcounts[row] > 0) & (j < total)
+    outs = []
+    for src, mode in cols:
+        if mode == "probe":
+            outs.append(src[row] if n else torch.zeros(
+                out_cap, dtype=src.dtype, device=dev))
+        elif mode == "build":
+            outs.append(src[bidx])
+        elif src is None:
+            outs.append(found)
+        else:
+            outs.append(found & src[bidx])
+    return outs

@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-KERNELS = ("bucket_agg", "compact", "probe", "sort", "segment_agg", "hash64")
+KERNELS = ("bucket_agg", "compact", "probe", "sort", "segment_agg",
+           "hash64", "window_scan", "expand")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 

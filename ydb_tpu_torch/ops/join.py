@@ -10,8 +10,12 @@ branchless lower_bound, the join-kind selection with the NOT IN rule,
 and the payload gathers (or, under late materialization, the
 (row id, found) pair the fused body gathers from later).
 
-Duplicate-key (expanding) probes, GraceJoin partitions and the
-portioned-path ``probe`` are not ported.
+The portioned path probes one scan block at a time: ``probe`` runs the
+same kernel over a ``DeviceBlock`` and appends the payloads, and
+``probe_expand`` joins against a build with duplicate keys through the
+``expand_counts`` and ``expand_gather`` kernels (K8), with one readback
+of the output row count to size the result. GraceJoin partitions are
+not ported.
 """
 
 from __future__ import annotations
@@ -23,9 +27,10 @@ import numpy as np
 import torch
 
 from ydb_tpu_torch.core.block import HostBlock
-from ydb_tpu_torch.core.schema import Schema
+from ydb_tpu_torch.core.dtypes import DType, Kind
+from ydb_tpu_torch.core.schema import Column, Schema
 from ydb_tpu_torch.ops.cuda import bindings as K
-from ydb_tpu_torch.ops.device import bucket_capacity
+from ydb_tpu_torch.ops.device import DeviceBlock, bucket_capacity
 from ydb_tpu_torch.ops.torch_ns import to_tensor
 
 
@@ -194,3 +199,117 @@ def probe_lut_traced(env: dict, sel, bt_arrays: dict, meta: dict):
     if kind == "mark":
         env2[meta["mark_col"] or "__mark"] = (found, None)
     return env2, out_sel
+
+
+def _matched_domain(enc: torch.Tensor, keys: torch.Tensor):
+    """Probe encoding and sorted keys in one dtype (the reference's
+    promotion: an int probe against float keys, or the reverse, compares
+    as float64)."""
+    if keys.dtype != enc.dtype:
+        return enc.to(torch.float64), keys.to(torch.float64)
+    return enc, keys
+
+
+def probe(dblock: DeviceBlock, table: BuildTable, probe_key: str,
+          kind: str = "inner", mark_col: Optional[str] = None,
+          not_in: bool = False) -> tuple[DeviceBlock, object]:
+    """Probe a device block against a build table (the portioned path).
+
+    Returns (new DeviceBlock with payload columns appended, new selection
+    mask); the caller decides when to compress. The ``probe`` kernel runs
+    its lower_bound over the sorted keys (the reference's searchsorted).
+    Kind "mark" keeps every active row, attaches payloads (null where
+    unmatched) and a bool `mark_col` column holding the match flag."""
+    if not table.unique and kind in ("inner", "left", "mark"):
+        raise ValueError(
+            "broadcast MapJoin requires unique build keys for inner/left "
+            "joins; duplicate keys need the expanding probe")
+    names = tuple(table.schema.names)
+    cap = dblock.capacity
+    dev = dblock.arrays[probe_key].device
+    active = torch.arange(cap, dtype=torch.int32, device=dev) \
+        < dblock.length
+    v = dblock.valids.get(probe_key)
+    enc, keys = _matched_domain(_probe_enc(dblock.arrays[probe_key]),
+                                table.keys_sorted)
+    gather = names if kind in ("inner", "left", "mark") else ()
+    found, _safe, out_sel, gathered = K.probe(
+        enc, None if v is None else v.contiguous(), active.contiguous(),
+        lut=None, lut_base=0, keys_sorted=keys, n_build=table.n,
+        pcap=keys.shape[0], kind=kind, not_in=not_in,
+        has_null=table.anti_has_null,
+        payloads=[(table.payload[s], table.payload_valid.get(s))
+                  for s in gather])
+
+    arrays = dict(dblock.arrays)
+    valids = dict(dblock.valids)
+    dicts = dict(dblock.dictionaries)
+    cols = list(dblock.schema.columns)
+    for name, (gd, gv) in zip(gather, gathered):
+        arrays[name] = gd
+        valids[name] = gv
+        dt = table.schema.dtype(name).with_nullable(True)
+        cols = [c for c in cols if c.name != name] + [Column(name, dt)]
+        if name in table.dictionaries:
+            dicts[name] = table.dictionaries[name]
+    if kind == "mark":
+        name = mark_col or "__mark"
+        arrays[name] = found
+        cols = [c for c in cols if c.name != name] + [
+            Column(name, DType(Kind.BOOL, nullable=False))]
+    out = DeviceBlock(Schema(cols), arrays, valids, dblock.length, cap,
+                      dicts)
+    return out, out_sel
+
+
+def probe_expand(dblock: DeviceBlock, table: BuildTable, probe_key: str,
+                 kind: str = "inner") -> DeviceBlock:
+    """Join a device block against a build table with duplicate keys.
+
+    Returns a NEW compacted DeviceBlock whose capacity is the bucket for
+    the expanded row count (inner: one output row per probe×build match;
+    left: additionally one null-extended row per unmatched probe row),
+    rows in probe order and, within a probe row, in sorted build order.
+    One device→host read of the total decides the capacity bucket."""
+    assert kind in ("inner", "left"), kind
+    enc, keys = _matched_domain(_probe_enc(dblock.arrays[probe_key]),
+                                table.keys_sorted)
+    v = dblock.valids.get(probe_key)
+    lo, mcounts, offsets, total = K.expand_counts(
+        enc, None if v is None else v.contiguous(), dblock.length, keys,
+        table.n, kind == "left")
+    n_out = int(total)                     # sync point (capacity decision)
+    out_cap = bucket_capacity(max(n_out, 1), minimum=128)
+    names = tuple(table.schema.names)
+    pcap = keys.shape[0]
+    # one gather over every column: the probe side's data and validity
+    # at the slot's probe row, the payloads and their validity at its
+    # build row
+    probe_cols = [c.name for c in dblock.schema.columns
+                  if c.name not in names]
+    specs, where = [], []
+    for name in probe_cols:
+        specs.append((dblock.arrays[name].contiguous(), "probe"))
+        where.append((name, "d"))
+        if name in dblock.valids:
+            specs.append((dblock.valids[name].contiguous(), "probe"))
+            where.append((name, "v"))
+    for name in names:
+        specs.append((table.payload[name], "build"))
+        where.append((name, "d"))
+        specs.append((table.payload_valid.get(name), "build_valid"))
+        where.append((name, "v"))
+    outs = K.expand_gather(lo, mcounts, offsets, total, out_cap, pcap, specs)
+    out_arrays, out_valids = {}, {}
+    for (name, part), o in zip(where, outs):
+        (out_arrays if part == "d" else out_valids)[name] = o
+
+    dicts = dict(dblock.dictionaries)
+    cols = [c for c in dblock.schema.columns if c.name not in names]
+    for n in names:
+        cols.append(Column(n, table.schema.dtype(n).with_nullable(True)))
+        if n in table.dictionaries:
+            dicts[n] = table.dictionaries[n]
+    length = torch.tensor(n_out, dtype=torch.int32, device=enc.device)
+    return DeviceBlock(Schema(cols), out_arrays, out_valids, length, out_cap,
+                       dicts)

@@ -502,6 +502,20 @@ def compact_env(env, length, sel, cap: int, new_cap: int, device):
     return new_env, new_len, new_sel, live, ovf
 
 
+def compress_block(dblock: DeviceBlock, sel) -> DeviceBlock:
+    """Apply a selection mask, compacting survivors to the block front
+    (the `compact` kernel), at the same capacity."""
+    names = tuple(dblock.schema.names)
+    env = {n: (dblock.arrays[n], dblock.valids.get(n)) for n in names}
+    device = dblock.length.device
+    env, new_len = compress(env, dblock.length, sel, dblock.capacity,
+                            device)
+    out_d = {n: env[n][0] for n in names}
+    out_v = {n: env[n][1] for n in names if env[n][1] is not None}
+    return DeviceBlock(dblock.schema, out_d, out_v, new_len,
+                       dblock.capacity, dict(dblock.dictionaries))
+
+
 # --------------------------------------------------------------------------
 # single-program entry points
 # --------------------------------------------------------------------------

@@ -2,11 +2,17 @@
 
 `QueryEngine(device=None)` runs on ``cuda`` and raises when no GPU is
 present unless the caller passes ``device="cpu"``. The port carries the
-SELECT path of one node (parse → plan cache → planner → fused executor),
-WITH bodies and FROM subqueries materialized into transient tables
-before the outer statement plans, and CREATE TABLE; tables are filled
-through ``ydb_tpu_torch.interop`` or ``bench.tpch_gen.load_tpch``. DML,
-transactions and sessions, set operations, windows, system views,
+read path of one node: SELECT (parse → plan cache → planner → executor,
+fused or portioned), WITH bodies and FROM subqueries materialized into
+transient tables before the outer statement plans, set operations
+(arms on the device, the combine in pandas), SELECT without FROM, and
+window functions (the inner query on the device, the window pass on the
+device lane `ops/window_dev.py` or the pandas lane `query/window.py`);
+and CREATE TABLE. Tables are filled through ``ydb_tpu_torch.interop`` or
+the generators under ``bench/``. `config` (`utils/config.Config`) is
+read for the window lane (``enable_device_windows``,
+``window_device_min_rows``) and the host-lane limit
+(``host_lane_max_rows``). DML, transactions and sessions, system views,
 materialized views, topics, tracing and admission raise ``NotPorted``.
 """
 
@@ -14,6 +20,8 @@ from __future__ import annotations
 
 import itertools
 from typing import Optional
+
+import numpy as np
 
 from ydb_tpu_torch.core.block import HostBlock
 from ydb_tpu_torch.core.schema import Column, Schema
@@ -31,19 +39,11 @@ class QueryError(Exception):
     pass
 
 
-def _has_window(e) -> bool:
-    """Whether an expression tree holds a window function call."""
-    if isinstance(e, ast.WindowFunc):
-        return True
-    if isinstance(e, tuple):
-        return any(_has_window(x) for x in e)
-    return hasattr(e, "__dataclass_fields__") and any(
-        _has_window(getattr(e, f)) for f in e.__dataclass_fields__)
-
-
 class QueryEngine:
     def __init__(self, catalog: Optional[Catalog] = None, device=None,
-                 block_rows: int = 1 << 20):
+                 block_rows: int = 1 << 20, config=None):
+        from ydb_tpu_torch.utils.config import Config
+        self.config = config or Config.load()
         self.device = resolve_device(device)
         self.catalog = catalog or Catalog()
         self.planner = Planner(self.catalog)
@@ -62,7 +62,7 @@ class QueryEngine:
     def execute(self, sql: str) -> HostBlock:
         stmt = parse(sql)
         try:
-            if isinstance(stmt, ast.Select):
+            if isinstance(stmt, (ast.Select, ast.SetOp)):
                 return self._execute_read(stmt, sql)
             if isinstance(stmt, ast.CreateTable):
                 return self._create_table(stmt)
@@ -74,15 +74,25 @@ class QueryEngine:
         """Execute and return a pandas DataFrame."""
         return self.execute(sql).to_pandas()
 
-    def _execute_read(self, stmt: ast.Select, sql: str) -> HostBlock:
+    def _execute_read(self, stmt, sql: str) -> HostBlock:
+        """SELECT / set-op execution, dispatched as the reference's
+        `_execute_read` does."""
         from ydb_tpu_torch.ops.torch_exec import late_mat_enabled
+        from ydb_tpu_torch.query import window as W
         from ydb_tpu_torch.query.bounds import bounds_enabled
-        if any(_has_window(i.expr) for i in stmt.items):
-            raise NotPorted("window functions (K13)")
+        snap = self.snapshot()
+        if isinstance(stmt, ast.SetOp):
+            block = self._execute_set_op(stmt, snap)
+            self.executor.last_path = "set-op"
+            return block
+        if W.has_window(stmt):
+            return self._execute_windowed(stmt, snap)
         if stmt.relation is None:
-            raise NotPorted("SELECT without FROM")
+            block = self._select_without_from(stmt, snap)
+            self.executor.last_path = "literal"
+            return block
         if self._needs_materialize(stmt):
-            return self._execute_materialized(stmt)
+            return self._execute_materialized(stmt, snap)
         names = self._referenced_tables(stmt)
         fp = (self._table_fingerprint(names), bounds_enabled(),
               late_mat_enabled())
@@ -93,7 +103,7 @@ class QueryEngine:
         else:
             plan = self.planner.plan_select(stmt)
             self._plan_cache[sql] = (fp, plan)
-        return self.executor.execute(plan, self.snapshot())
+        return self.executor.execute(plan, snap)
 
     def _table_fingerprint(self, names) -> tuple:
         out = []
@@ -152,12 +162,328 @@ class QueryEngine:
         walk_sel(sel)
         return names
 
+    # -- reads beside the plain SELECT: literal, set operations, windows ---
+    #
+    # Copies of the reference's methods (tests/test_torch_drift.py lists
+    # their edits).
+
+    def _select_without_from(self, sel: ast.Select,
+                             snap: Optional[Snapshot] = None) -> HostBlock:
+        """Constant SELECT (`select 1 + 1 as x`): fold each item host-side
+        — one row, no scan (the literal-executer analog). Scalar
+        subqueries evaluate first (the q88 report shape: a row of
+        independent counts)."""
+        from ydb_tpu_torch.core import dtypes as dt
+        from ydb_tpu_torch.core.dictionary import Dictionary
+        from ydb_tpu_torch.query.binder import _try_fold
+
+        def eval_subs(e):
+            import dataclasses
+            if isinstance(e, ast.ScalarSubquery):
+                blk = self._run_select(e.query, snap)
+                if len(blk.schema.names) != 1:
+                    raise QueryError("scalar subquery must select one "
+                                     "column")
+                if blk.length > 1:
+                    raise QueryError("scalar subquery returned "
+                                     f"{blk.length} rows")
+                if blk.length == 0:
+                    return ast.Literal(None)     # SQL: empty → NULL
+                v = blk.to_pandas().iloc[0, 0]
+                if v is None or (isinstance(v, float) and np.isnan(v)):
+                    return ast.Literal(None)
+                if hasattr(v, "item"):
+                    v = v.item()   # numpy scalar → python
+                return ast.Literal(v)
+            if not hasattr(e, "__dataclass_fields__"):
+                return e
+
+            def rw(v):
+                if isinstance(v, tuple):
+                    return tuple(rw(x) for x in v)
+                if hasattr(v, "__dataclass_fields__"):
+                    return eval_subs(v)
+                return v
+            return dataclasses.replace(
+                e, **{fld: rw(getattr(e, fld))
+                      for fld in e.__dataclass_fields__})
+
+        cols, arrays, valids, dicts = [], {}, {}, {}
+        for i, item in enumerate(sel.items):
+            expr2 = eval_subs(item.expr)
+            if isinstance(expr2, ast.Literal) and expr2.value is None:
+                name = item.alias or f"column{i}"
+                cols.append(Column(name, dt.DType(dt.Kind.INT64, True)))
+                arrays[name] = np.zeros(1, np.int64)
+                valids[name] = np.zeros(1, bool)
+                continue
+            folded = _try_fold(expr2)
+            if folded is None:
+                raise QueryError(
+                    "SELECT without FROM supports constant expressions only")
+            name = item.alias or f"column{i}"
+            v = folded.value
+            if v is None:
+                cols.append(Column(name, dt.DType(dt.Kind.INT64, True)))
+                arrays[name] = np.zeros(1, np.int64)
+                valids[name] = np.zeros(1, bool)
+            elif isinstance(v, bool):
+                cols.append(Column(name, dt.DType(dt.Kind.BOOL, False)))
+                arrays[name] = np.array([v])
+            elif isinstance(v, int):
+                cols.append(Column(name, dt.DType(dt.Kind.INT64, False)))
+                arrays[name] = np.array([v], np.int64)
+            elif isinstance(v, float):
+                cols.append(Column(name, dt.DType(dt.Kind.FLOAT64, False)))
+                arrays[name] = np.array([v], np.float64)
+            else:
+                d = Dictionary()
+                cols.append(Column(name, dt.DType(dt.Kind.STRING, False)))
+                arrays[name] = d.encode([str(v)])
+                dicts[name] = d
+        return HostBlock.from_arrays(Schema(cols), arrays, valids, dicts)
+
+    def _run_select(self, sel,
+                    snap: Optional[Snapshot] = None) -> HostBlock:
+        """Execute an in-memory Select/SetOp AST (DML subflows, CTE
+        bodies, window inner queries) — no text-keyed plan cache."""
+        from ydb_tpu_torch.query import window as W
+        snap = snap or self.snapshot()
+        if isinstance(sel, ast.SetOp):
+            return self._execute_set_op(sel, snap)
+        if W.has_window(sel):
+            return self._execute_windowed(sel, snap)
+        if self._needs_materialize(sel):
+            return self._execute_materialized(sel, snap)
+        plan = self.planner.plan_select(sel)
+        return self.executor.execute(plan, snap)
+
+    def _execute_set_op(self, stmt: ast.SetOp,
+                        snap: Optional[Snapshot] = None) -> HostBlock:
+        """UNION / UNION ALL: CTEs materialize once (visible to every
+        arm), arms run through the normal device path, the combine (and
+        dedup for UNION) runs host-side."""
+        from ydb_tpu_torch.query import window as W
+        snap = snap or self.snapshot()
+        temps: list = []
+        try:
+            rewritten = self._rewrite_sel(stmt, {}, temps, snap)
+            df = self._eval_setop_df(rewritten, snap)
+            try:
+                df = W.apply_order_limit(df, stmt.order_by,
+                                         stmt.limit, stmt.offset)
+            except ValueError as e:
+                raise QueryError(str(e)) from e
+            return HostBlock.from_pandas(df)
+        finally:
+            for tn in temps:
+                if self.catalog.has(tn):
+                    self.catalog.drop_table(tn)
+
+    def _eval_setop_df(self, node, snap):
+        """Evaluate an already-rewritten SetOp tree to a pandas frame."""
+        import pandas as pd
+        if isinstance(node, ast.SetOp):
+            left = self._eval_setop_df(node.left, snap)
+            right = self._eval_setop_df(node.right, snap)
+            if len(left.columns) != len(right.columns):
+                raise QueryError("UNION arms have different arity")
+            right.columns = left.columns
+            # the combined frame is the actual host job — guard it too
+            # (N arms each under the limit can still combine over it);
+            # count=False: rows were already counted at their leaf arms
+            self._host_lane_guard(len(left) + len(right), "setop",
+                                  count=False)
+            if node.op in ("union", "union_all"):
+                out = pd.concat([left, right], ignore_index=True)
+                if node.op == "union":
+                    out = out.drop_duplicates(ignore_index=True)
+                return out
+            cols = list(left.columns)
+
+            def counts(lf, rf, how):
+                """Per-distinct-row multiplicities of both arms."""
+                lc = lf.groupby(cols, dropna=False).size() \
+                       .rename("__l").reset_index()
+                rc = rf.groupby(cols, dropna=False).size() \
+                       .rename("__r").reset_index()
+                return lc.merge(rc, on=cols, how=how)
+
+            if node.op == "intersect":
+                return left.drop_duplicates().merge(
+                    right.drop_duplicates(), on=cols, how="inner") \
+                    .reset_index(drop=True)
+            if node.op == "intersect_all":
+                m = counts(left, right, "inner")
+                reps = np.minimum(m["__l"], m["__r"]).to_numpy()
+            elif node.op == "except":
+                m = left.drop_duplicates().merge(
+                    right.drop_duplicates(), on=cols, how="left",
+                    indicator=True)
+                return m[m["_merge"] == "left_only"][cols] \
+                    .reset_index(drop=True)
+            else:                    # except_all: multiplicity difference
+                m = counts(left, right, "left")
+                reps = np.maximum(m["__l"] - m["__r"].fillna(0), 0) \
+                    .astype(int).to_numpy()
+            return m[cols].loc[m.index.repeat(reps)] \
+                          .reset_index(drop=True)
+        arm = self._run_select(node, snap)
+        self._host_lane_guard(arm.length, "setop")
+        return arm.to_pandas()
+
+    def _host_lane_guard(self, rows: int, lane: str,
+                         count: bool = True) -> None:
+        """Host pandas lanes (windows, set-op combine) degrade loudly:
+        frames above the configured limit refuse instead of silently
+        becoming single-core pandas jobs (`count` is the reference's
+        row-counter switch; the port keeps no such counter)."""
+        if rows > self.config.host_lane_max_rows:
+            raise QueryError(
+                f"{lane} host-fallback lane refused a {rows}-row frame "
+                f"(host_lane_max_rows={self.config.host_lane_max_rows}; "
+                f"raise it in config to accept the single-core cost)")
+
+    def _execute_windowed(self, sel: ast.Select,
+                          snap: Optional[Snapshot] = None) -> HostBlock:
+        """Window functions: the inner query (scan/filter/join/agg) runs
+        on the device; the window pass runs host-side over its (usually
+        post-aggregation) result — see `ydb_tpu/query/window.py`."""
+        from ydb_tpu_torch.query import window as W
+        snap = snap or self.snapshot()
+        try:
+            inner, outer, post = W.split_windowed(sel)
+        except ValueError as e:
+            raise QueryError(str(e)) from e
+        inner_block = self._run_select(inner, snap)
+        df = None
+        device_ok = self.config.flag("enable_device_windows") \
+            and inner_block.length >= self.config.window_device_min_rows
+        if device_ok and post is None and not sel.distinct \
+                and sel.limit is not None:
+            # final ORDER BY + LIMIT pushable: every output leaves the
+            # device sliced to offset+limit rows (O(rows) egress was the
+            # dominant window cost — PERF.md r5)
+            fs = self._final_sort_spec(sel, outer)
+            if fs is not None:
+                done = self._windows_on_device(inner_block, outer,
+                                               final_sort=fs,
+                                               limit=sel.limit,
+                                               offset=sel.offset or 0)
+                if done is not None:
+                    lo = sel.offset or 0
+                    return HostBlock.from_pandas(
+                        done.iloc[lo:lo + sel.limit]
+                        .reset_index(drop=True))
+        if device_ok:
+            df = self._windows_on_device(inner_block, outer)
+        if df is None:
+            self._host_lane_guard(inner_block.length, "window")
+            try:
+                df = W.compute_windows(inner_block.to_pandas(), outer)
+            except ValueError as e:
+                raise QueryError(str(e)) from e
+        if post is not None:
+            # window results used INSIDE expressions: evaluate the
+            # rewritten items as a second pass over the computed frame.
+            # NULL-bearing numeric columns come back from to_pandas as
+            # object dtype — coerce them back, or from_pandas would
+            # classify them as STRING and the post arithmetic would run
+            # on dictionary codes
+            import pandas as pd
+            win_cols = {p["alias"] for k, p in outer if k == "win"}
+            for c in df.columns:
+                if df[c].dtype != object:
+                    continue
+                numeric = c in win_cols or (
+                    inner_block.schema.has(c)
+                    and not inner_block.schema.dtype(c).is_string)
+                if numeric:
+                    df[c] = pd.to_numeric(df[c])
+            temps: list = []
+            try:
+                tname = self._register_temp(HostBlock.from_pandas(df),
+                                            temps, snap)
+                final = ast.Select(items=post,
+                                   relation=ast.TableRef(tname))
+                df = self._run_select(final, snap).to_pandas()
+            finally:
+                for tn in temps:
+                    if self.catalog.has(tn):
+                        self.catalog.drop_table(tn)
+        if sel.distinct:
+            df = df.drop_duplicates(ignore_index=True)
+        try:
+            df = W.apply_order_limit(df, sel.order_by, sel.limit,
+                                     sel.offset)
+        except ValueError as e:
+            raise QueryError(str(e)) from e
+        return HostBlock.from_pandas(df)
+
+    def _final_sort_spec(self, sel, outer):
+        """[(output name, ascending)] when every ORDER BY key is a plain
+        output-column reference with default NULL placement; None
+        otherwise (the host tail handles the exotic cases)."""
+        names = set()
+        for kind, payload in outer:
+            names.add(payload if kind == "col" else payload["alias"])
+        fs = []
+        for o in sel.order_by:
+            if not isinstance(o.expr, ast.Name) \
+                    or o.expr.parts[-1] not in names \
+                    or o.nulls_first is not None:
+                return None
+            fs.append((o.expr.parts[-1], o.ascending))
+        return fs
+
+    def _windows_on_device(self, inner_block: HostBlock, outer,
+                           final_sort=None, limit=None, offset=0):
+        """Device window lane (`ops/window_dev.py`): every spec computed
+        on the engine's device — sort, segment boundaries, prefix scans
+        (the window_scan kernel) — with a single device→host transfer for
+        all outputs (sliced to offset+limit rows when the final sort
+        pushes down). Returns the assembled frame, or None when a spec
+        requires the pandas lane."""
+        import pandas as pd
+
+        from ydb_tpu_torch.ops.window_dev import compute_windows_device
+        dev = compute_windows_device(inner_block, outer,
+                                     final_sort=final_sort,
+                                     limit=limit, offset=offset,
+                                     device=self.device)
+        if dev is None:
+            return None
+
+        def series(vals, valid, dic):
+            if dic is not None:
+                s = pd.Series(dic.decode(vals), dtype=object)
+            else:
+                s = pd.Series(vals)
+            if valid is not None and not valid.all():
+                s = s.where(pd.Series(valid))
+            return s
+
+        if final_sort is not None:
+            sliced, _n = dev
+            cols = {}
+            for kind, payload in outer:
+                name = payload if kind == "col" else payload["alias"]
+                cols[name] = series(*sliced[name])
+            return pd.DataFrame(cols)
+        base = inner_block.to_pandas()
+        cols = {}
+        for kind, payload in outer:
+            if kind == "col":
+                cols[payload] = base[payload]
+            else:
+                cols[payload["alias"]] = series(*dev[payload["alias"]])
+        return pd.DataFrame(cols)
+
     # -- CTE / derived-table materialization -------------------------------
     #
     # WITH bodies and FROM subqueries materialize into transient column
     # tables before the outer statement plans (the reference's stage
-    # materialization). Set operations, system views and windows inside
-    # them are not ported.
+    # materialization). System views inside them are not ported.
 
     def _needs_materialize(self, sel) -> bool:
         if isinstance(sel, ast.SetOp):
@@ -215,7 +541,17 @@ class QueryEngine:
     def _rewrite_sel(self, sel, cte_map: dict,
                      temps: list, snap: Optional[Snapshot] = None):
         if isinstance(sel, ast.SetOp):
-            raise NotPorted("set operations")
+            cte_map = dict(cte_map)
+            for (name, body) in sel.ctes:
+                cte_map[name] = self._materialize(
+                    self._rewrite_sel(body, cte_map, temps, snap), temps,
+                    snap)
+            out = ast.SetOp(
+                sel.op,
+                self._rewrite_sel(sel.left, cte_map, temps, snap),
+                self._rewrite_sel(sel.right, cte_map, temps, snap),
+                sel.order_by, sel.limit, sel.offset)
+            return out
         cte_map = dict(cte_map)
         for (name, body) in sel.ctes:
             cte_map[name] = self._materialize(
@@ -238,7 +574,7 @@ class QueryEngine:
                 t = self._materialize(
                     self._rewrite_sel(r.query, cte_map, temps, snap), temps,
                     snap)
-                return ast.TableRef(t, r.alias)
+                return ast.TableRef(t, r.alias)   # Select OR SetOp body
             return r
 
         def rewrite_expr(e):
@@ -248,6 +584,16 @@ class QueryEngine:
             if isinstance(e, (ast.Exists, ast.InSubquery,
                               ast.ScalarSubquery)):
                 q = self._rewrite_sel(e.query, cte_map, temps, snap)
+                if isinstance(q, ast.SetOp):
+                    # plan over a materialized temp: the planner only
+                    # decorrelates plain selects (explicit column items —
+                    # Star would lose the planner's naming contract)
+                    tname = self._materialize(q, temps, snap)
+                    cols = self.catalog.table(tname).schema.names
+                    q = ast.Select(
+                        items=[ast.SelectItem(ast.Name((c,)), c)
+                               for c in cols],
+                        relation=ast.TableRef(tname))
                 kw = {"query": q}
                 if isinstance(e, ast.InSubquery):
                     kw["arg"] = rewrite_expr(e.arg)
@@ -276,12 +622,23 @@ class QueryEngine:
 
     def _materialize(self, sel, temps: list,
                      snap: Optional[Snapshot] = None) -> str:
-        """Materialize an already-rewritten Select into a transient
-        table; returns its name."""
+        """Materialize an already-rewritten Select or SetOp into a
+        transient table; returns its name."""
+        from ydb_tpu_torch.query import window as W
         snap = snap or self.snapshot()
-        if any(_has_window(i.expr) for i in sel.items):
-            raise NotPorted("window functions (K13)")
-        block = self.executor.execute(self.planner.plan_select(sel), snap)
+        if isinstance(sel, ast.SetOp):
+            df = self._eval_setop_df(sel, snap)
+            try:
+                df = W.apply_order_limit(df, sel.order_by, sel.limit,
+                                         sel.offset)
+            except ValueError as e:
+                raise QueryError(str(e)) from e
+            block = HostBlock.from_pandas(df)
+        elif W.has_window(sel):
+            block = self._execute_windowed(sel, snap)
+        else:
+            block = self.executor.execute(self.planner.plan_select(sel),
+                                          snap)
         return self._register_temp(block, temps, snap)
 
     def _register_temp(self, block: HostBlock, temps: list,

@@ -1,12 +1,18 @@
 """Physical plan executor, single node (port of ``ydb_tpu/query/executor.py``).
 
-The port carries the reference's fused whole-query path: the scan's
-(K, CAP) superblock on the engine's device, the join builds prepared on
-the host and placed on the device, and the query body (`ops/fused.py`)
-launched once, with the result read back in one copy when the returned
-future is consumed. Plans the fused path declines — an empty scan, a
-scan above the scan budget (tiled), duplicate-key or partitioned builds
-— and the mesh, batched and portioned lanes raise ``NotPorted``.
+The port carries the reference's two single-node lanes. The fused
+whole-query path: the scan's (K, CAP) superblock on the engine's device,
+the join builds prepared on the host and placed on the device, and the
+query body (`ops/fused.py`) launched once, with the result read back in
+one copy when the returned future is consumed. The portioned path, for
+the plans the fused path declines (an empty scan, more joins than the
+fuse cap, duplicate-key builds): each portion runs through the
+pipeline's programs and probes on its own (`_run_pipeline`), and
+`_finalize` concatenates the partials, runs the final program, sorts
+and limits. A scan above the scan budget (the tiled lane, K11), a
+partitioned build (GraceJoin), a partial merge above the merge budget
+(the spill lane, K14) and the mesh and batched lanes raise
+``NotPorted``.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import threading
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ydb_tpu_torch.core.block import ColumnData, HostBlock
 from ydb_tpu_torch.core.schema import Column, Schema
@@ -23,7 +30,8 @@ from ydb_tpu_torch.errors import NotPorted
 from ydb_tpu_torch.ops import ir
 from ydb_tpu_torch.ops import join as J
 from ydb_tpu_torch.ops.device import (
-    DeviceResultFuture, batched_to_host, bucket_capacity,
+    DeviceBlock, DeviceResultFuture, batched_to_host, bucket_capacity,
+    to_device, to_host,
 )
 from ydb_tpu_torch.ops.torch_ns import to_tensor
 from ydb_tpu_torch.progstore import buckets as shape_buckets
@@ -52,6 +60,10 @@ class Executor:
             os.environ.get("YDB_TPU_FUSED_SCAN_BUDGET", 6 << 30))
         self.fuse_max_joins = int(
             os.environ.get("YDB_TPU_FUSE_MAX_JOINS", 6))
+        # portioned-path partial merges above this estimate would spill
+        # to host partitions in the reference (K14) — not ported
+        self.merge_budget_bytes = int(
+            os.environ.get("YDB_TPU_MERGE_BUDGET", 1 << 30))
         self.build_cache = BuildCache(int(
             os.environ.get("YDB_TPU_BUILD_CACHE_BUDGET", 2 << 30)),
             device_cache=self.device_cache)
@@ -95,8 +107,16 @@ class Executor:
                 params[pname] = col.data[0]
                 params[pname + "__valid"] = True
         fused = self._try_execute_fused(plan, params, snapshot, defer=True)
-        self.last_path = "fused"
-        return fused.map(lambda b: self._project_output(b, plan.output))
+        if isinstance(fused, DeviceResultFuture):
+            self.last_path = "fused"
+            return fused.map(
+                lambda b: self._project_output(b, plan.output))
+        # fused path declined: it may have prepared the join builds already
+        self.last_path = "portioned"
+        partials = self._run_pipeline(plan.pipeline, params, snapshot,
+                                      builds=fused)
+        fut = self._finalize(plan, partials, params, defer=True)
+        return fut.map(lambda b: self._project_output(b, plan.output))
 
     # -- fused whole-query path --------------------------------------------
 
@@ -105,8 +125,11 @@ class Executor:
                            _no_compact: bool = False):
         """Run the query as one fused device function (`ops/fused.py`).
         Returns the HostBlock (`defer=True`: a `DeviceResultFuture`
-        deferring the single readout). Shapes the reference streams
-        through another lane raise NotPorted."""
+        deferring the single readout); on a decline (more joins than the
+        fuse cap, an expanding probe, an empty scan), the list of
+        prepared join BuildTables for `_run_pipeline` to reuse, or None
+        if none were prepared. A scan above the scan budget raises
+        NotPorted (the reference's tiled lane)."""
         from ydb_tpu_torch.ops import fused as F
         from ydb_tpu_torch.storage.device_cache import (
             enumerate_scan_sources, estimate_scan_bytes,
@@ -116,11 +139,11 @@ class Executor:
         table = self.catalog.table(pipe.scan.table)
         join_steps = [step for kind, step in pipe.steps if kind == "join"]
         if len(join_steps) > self.fuse_max_joins:
-            raise NotPorted("portioned path (join count above the fuse cap)")
+            return None                  # program-complexity cap
         builds = self._prepare_builds(pipe, params, snapshot)
         for step, bt in zip(join_steps, builds):
             if not bt.unique and step.kind in ("inner", "left", "mark"):
-                raise NotPorted("duplicate-key (expanding) join probe (K8)")
+                return builds            # expanding probe
 
         plan0 = plan            # pre-rewrite plan (the overflow-rerun input)
         (plan, pipe, scan_cols, schema, partial_schema, dicts,
@@ -139,7 +162,7 @@ class Executor:
                                           snapshot, pipe.scan.prune or None,
                                           sources, src_ids, pad_to=Kb)
         if sb is None:
-            raise NotPorted("portioned path (empty scan)")
+            return builds or None          # empty scan → portioned path
         arrays, valids, lengths, K, CAP, sb_dicts = sb
         sb_valid_names = frozenset(valids.keys())
         dicts.update(sb_dicts)
@@ -612,7 +635,14 @@ class Executor:
             # output = keep every column (composite-key builds carry
             # internal hash columns a projection would drop)
             bplan = QueryPlan(pipeline=step.build, params=dict(params))
-            built = self._try_execute_fused(bplan, params, snapshot)
+            fused = self._try_execute_fused(bplan, params, snapshot)
+            if isinstance(fused, HostBlock):
+                built = fused
+            else:
+                built = HostBlock.concat(
+                    [to_host(d) for d in
+                     self._run_pipeline(step.build, params, snapshot,
+                                        builds=fused)])
         kcd = built.columns.get(step.build_key)
         if kcd is not None and kcd.dictionary is not None \
                 and probe_dict is not None \
@@ -640,6 +670,206 @@ class Executor:
                      keep_fd=keep_fd)
         bt.anti_has_null = anti_has_null
         return bt
+
+    # -- pipelines (the portioned path) ------------------------------------
+
+    def _run_pipeline(self, pipe: Pipeline, params: dict,
+                      snapshot: Snapshot, builds=None) -> list:
+        """Partial-result DeviceBlocks, one per scan block (≥1: an empty
+        scan still runs the programs once so global aggregates emit their
+        row). `builds`: BuildTables already prepared by a declined fused
+        attempt."""
+        if builds is None:
+            builds = self._prepare_builds(pipe, params, snapshot)
+        out = [self._run_block(pipe, d, builds, params)
+               for d in self._scan_device_blocks(pipe, snapshot)]
+        if not out:
+            out = [self._run_block(
+                pipe, to_device(self._empty_scan_block(pipe), self.device),
+                builds, params)]
+        return out
+
+    def _run_block(self, pipe: Pipeline, d: DeviceBlock, builds: list,
+                   params: dict) -> DeviceBlock:
+        """One scan block through the pipeline: its programs in order,
+        each join a probe of the block, then the partial (the
+        reference's `_run_block_multi` without its GraceJoin fork: the
+        port builds no partitioned build)."""
+        from ydb_tpu_torch.ops.torch_exec import run_on_device
+        if pipe.pre_program is not None:
+            d = run_on_device(pipe.pre_program, d, params)
+        bi = 0
+        for kind, step in pipe.steps:
+            if kind == "join":
+                d = self._probe_one(d, builds[bi], step)
+                bi += 1
+            else:
+                d = run_on_device(step, d, params)
+        if pipe.partial is not None:
+            d = run_on_device(pipe.partial, d, params)
+        return d
+
+    @staticmethod
+    def _probe_one(d: DeviceBlock, table, step) -> DeviceBlock:
+        from ydb_tpu_torch.ops.torch_exec import compress_block
+        if not table.unique and step.kind in ("inner", "left"):
+            # duplicate build keys → expanding probe; output compact
+            return J.probe_expand(d, table, step.probe_key, step.kind)
+        d, sel = J.probe(d, table, step.probe_key, step.kind,
+                         mark_col=step.mark_col or None, not_in=step.not_in)
+        return d if step.kind == "mark" else compress_block(d, sel)
+
+    def _scan_device_blocks(self, pipe: Pipeline, snapshot: Snapshot):
+        """Per-portion device blocks via the column cache; committed but
+        unindexed inserts, and portions with MVCC delete marks visible at
+        the snapshot, upload uncached."""
+        table = self.catalog.table(pipe.scan.table)
+        storage_names = [s for (s, _i) in pipe.scan.columns]
+        rename = {s: i for (s, i) in pipe.scan.columns}
+        for shard in table.shards:
+            portions, insert_entries = shard.scan_sources(
+                snapshot, pipe.scan.prune or None)
+            for p in portions:
+                if p.deletes and p.delete_sig(snapshot):
+                    hb = _rename_block(
+                        p.visible_block(snapshot).select(storage_names),
+                        rename)
+                    yield to_device(hb, self.device)
+                    continue
+                yield self.device_cache.device_block(p, storage_names,
+                                                     rename)
+            for e in insert_entries:
+                hb = _rename_block(e.block.select(storage_names), rename)
+                yield to_device(hb, self.device)
+
+    def _empty_scan_block(self, pipe: Pipeline) -> HostBlock:
+        """Zero-row block with the scan's schema and dictionaries."""
+        table = self.catalog.table(pipe.scan.table)
+        cols, schema_cols = {}, []
+        for (storage, internal) in pipe.scan.columns:
+            c = table.schema.col(storage)
+            cols[internal] = ColumnData(
+                np.zeros(0, dtype=c.dtype.np), None,
+                table.dictionaries.get(storage))
+            schema_cols.append(Column(internal, c.dtype))
+        return HostBlock(Schema(schema_cols), cols, 0)
+
+    def _finalize(self, plan: QueryPlan, dblocks: list, params: dict,
+                  defer: bool = False) -> "HostBlock | DeviceResultFuture":
+        """Concatenate the partials, then the final program, sort and
+        limit on the device, then one batched transfer (`defer=True`: the
+        transfer runs at `result()` time). Partial-aggregate states too
+        large to merge in one device concat would spill to host
+        partitions in the reference (K14): NotPorted."""
+        in_schema = dblocks[0].schema
+
+        fp = plan.final_program
+        merge_gb = fp.commands[0] if fp is not None and fp.commands \
+            and isinstance(fp.commands[0], ir.GroupBy) else None
+        if merge_gb is not None and merge_gb.keys and len(dblocks) > 1:
+            prow = sum(np.dtype(c.dtype.np).itemsize + 1
+                       for c in in_schema.columns)
+            total = sum(d.capacity for d in dblocks) * prow
+            if total > self.merge_budget_bytes:
+                raise NotPorted("spilled partial merge (K14)")
+        sort_params, sort_spec, rank_assigns = self._sort_setup(
+            plan, in_schema, dblocks)
+        all_params = {**params, **sort_params}
+        dev_params = {k: (to_tensor(v, self.device)
+                          if isinstance(v, np.ndarray) else v)
+                      for k, v in all_params.items()}
+        out_d, out_v, length, out_schema = self._build_finalize(
+            plan, in_schema, dblocks, sort_spec, rank_assigns, dev_params)
+
+        dicts = {}
+        for d in dblocks:
+            dicts.update(d.dictionaries)
+        dicts.update(plan.result_dicts)
+        dicts = {n: dc for n, dc in dicts.items() if out_schema.has(n)}
+        out_cap = (next(iter(out_d.values())).shape[0] if out_d else 0)
+        dblock = DeviceBlock(out_schema, out_d, out_v, length, out_cap, dicts)
+        lo = plan.offset or 0
+        limit = plan.limit
+        fut = DeviceResultFuture(
+            lambda: _apply_offset(to_host(dblock), lo, limit))
+        return fut if defer else fut.result()
+
+    def _sort_setup(self, plan: QueryPlan, in_schema: Schema, dblocks: list):
+        """Rank-LUT params for string sort keys (lexicographic order over
+        dictionary codes) + the static sort spec."""
+        schema = in_schema
+        if plan.final_program is not None:
+            schema = ir.infer_schema(plan.final_program, in_schema)
+        dicts = {}
+        for d in dblocks:
+            dicts.update(d.dictionaries)
+        return self._sort_setup_fused(plan, schema, dicts)
+
+    def _build_finalize(self, plan: QueryPlan, in_schema: Schema,
+                        dblocks: list, sort_spec: tuple, rank_assigns: list,
+                        params: dict):
+        """The finalize body, eager: concatenate the partials' live rows,
+        run the final program, the rank assigns, the sort and the limit.
+        Returns (arrays, valids, length, out_schema)."""
+        from ydb_tpu_torch.core.dtypes import Kind
+        from ydb_tpu_torch.ops.sort import sort_env
+        from ydb_tpu_torch.ops.torch_exec import (
+            _eval, _trace_program, compress,
+        )
+        final_prog = plan.final_program
+        in_cols = list(in_schema.columns)
+        names = [c.name for c in in_cols]
+        out_schema = ir.infer_schema(final_prog, in_schema) \
+            if final_prog is not None else in_schema
+        limit = plan.limit
+        lim2 = None if limit is None else limit + (plan.offset or 0)
+        keep = list(dict.fromkeys(n for (n, _lbl) in plan.output))
+        dev = self.device
+
+        masks = [torch.arange(d.capacity, dtype=torch.int32, device=dev)
+                 < d.length for d in dblocks]
+        total = sum(d.capacity for d in dblocks)
+        env = {}
+        for n in names:
+            data = torch.cat([d.arrays[n] for d in dblocks])
+            valid = torch.cat([d.valids[n] if n in d.valids
+                               else torch.ones(d.capacity, dtype=torch.bool,
+                                               device=dev)
+                               for d in dblocks])
+            env[n] = (data, valid)
+        mask = torch.cat(masks)
+        env, length = compress(env, total, mask, total, dev)
+        cap = total
+        if final_prog is not None:
+            env, length, sel, _schema = _trace_program(
+                final_prog, in_cols, cap, env, length, params, dev)
+            if env:
+                cap = next(iter(env.values()))[0].shape[0]
+            if sel is not None:
+                env, length = compress(env, length, sel, cap, dev)
+        for a in rank_assigns:
+            env[a.name] = _eval(a.expr, env, params, cap, dev)
+        if sort_spec:
+            arrays = {n: d for n, (d, _v) in env.items()}
+            valids = {n: v for n, (d, v) in env.items() if v is not None}
+            arrays2, valids2, length = sort_env(
+                arrays, valids, length, None, sort_spec,
+                tuple(arrays.keys()),
+                unsigned=frozenset(n for n in arrays if out_schema.has(n)
+                                   and out_schema.dtype(n).kind
+                                   == Kind.UINT64))
+            env = {n: (arrays2[n], valids2.get(n)) for n in arrays2}
+        if lim2 is not None:
+            length = torch.clamp(length, max=lim2)
+            out_cap = min(bucket_capacity(lim2, minimum=128), cap)
+            env = {n: (d[:out_cap], v[:out_cap] if v is not None else None)
+                   for n, (d, v) in env.items()}
+        out_names = [n for n in keep if n in env] or list(env.keys())
+        out_d = {n: env[n][0] for n in out_names}
+        out_v = {n: env[n][1] for n in out_names if env[n][1] is not None}
+        out_cols = [c for c in out_schema.columns if c.name in keep] \
+            or list(out_schema.columns)
+        return out_d, out_v, length, Schema(out_cols)
 
     # -- output ------------------------------------------------------------
 
@@ -707,3 +937,13 @@ def _add_hash_column(block: HostBlock, key_cols: list, out: str) -> HostBlock:
     schema = block.schema.extend([Column(out, DType(Kind.UINT64,
                                                     valid is not None))])
     return HostBlock(schema, cols, block.length)
+
+
+def _rename_block(block: HostBlock, rename: dict) -> HostBlock:
+    cols = {}
+    schema_cols = []
+    for c in block.schema:
+        new = rename.get(c.name, c.name)
+        cols[new] = block.columns[c.name]
+        schema_cols.append(Column(new, c.dtype))
+    return HostBlock(Schema(schema_cols), cols, block.length)

@@ -2,10 +2,11 @@
 
 Immutable portion columns are stacked into (K, CAP) superblocks and
 uploaded to the engine's device once per data version, then reused
-across queries, LRU-evicted under a byte budget. The port carries the
-fused path's ``superblock`` only: per-portion device blocks belong to
-the portioned path, and device-resident (stage-spine) sources to the DQ
-runtime, neither of which this slice runs.
+across queries, LRU-evicted under a byte budget. The fused path reads
+``superblock``s; the portioned path reads one portion at a time
+(``device_block``), each column cached under the portion's id.
+Device-resident (stage-spine) sources belong to the DQ runtime, which
+the port does not run.
 """
 
 from __future__ import annotations
@@ -118,6 +119,49 @@ class DeviceColumnCache:
             self.bytes += nbytes
             self._evict()
             return data, valid
+
+    def column(self, portion, col: str):
+        """(device data, device valid | None) of one portion column,
+        padded to the portion's capacity bucket."""
+        key = (portion.id, col)
+        hit = self._lookup(key)
+        if hit is not None:
+            return hit[0], hit[1]
+        cd = portion.block.columns[col]
+        cap = bucket_capacity(max(portion.num_rows, 1))
+        pad = cap - portion.num_rows
+        data = to_tensor(np.pad(cd.data, (0, pad)) if pad else cd.data,
+                         self.device)
+        valid = None
+        nbytes = data.nbytes
+        if cd.valid is not None:
+            valid = to_tensor(np.pad(cd.valid, (0, pad)) if pad
+                              else cd.valid, self.device)
+            nbytes += valid.nbytes
+        return self._insert(key, data, valid, nbytes)
+
+    def device_block(self, portion, columns: list, rename=None):
+        """A DeviceBlock of a portion's columns from the cache."""
+        import torch
+
+        from ydb_tpu_torch.core.schema import Column, Schema
+        from ydb_tpu_torch.ops.device import DeviceBlock
+        rename = rename or {}
+        cap = bucket_capacity(max(portion.num_rows, 1))
+        arrays, valids, dicts, cols = {}, {}, {}, []
+        for name in columns:
+            out = rename.get(name, name)
+            d, v = self.column(portion, name)
+            arrays[out] = d
+            if v is not None:
+                valids[out] = v
+            cd = portion.block.columns[name]
+            if cd.dictionary is not None:
+                dicts[out] = cd.dictionary
+            cols.append(Column(out, portion.block.schema.dtype(name)))
+        length = torch.tensor(portion.num_rows, dtype=torch.int32,
+                              device=self.device)
+        return DeviceBlock(Schema(cols), arrays, valids, length, cap, dicts)
 
     def superblock(self, table, storage_names: list, rename: dict,
                    snapshot, prune, sources=None, src_ids=None,
