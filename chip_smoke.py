@@ -5,7 +5,7 @@
 Phases, each printing its own line(s):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. the build of the eight CUDA kernel libraries from
+2. the build of the nine CUDA kernel libraries from
    ``ydb_tpu_torch/ops/cuda/csrc`` (one ``nvcc`` per source, in
    parallel), with its seconds;
 3. generation of TPC-H at ``--sf``, TPC-DS at SF1 and ClickBench's hits
@@ -43,12 +43,25 @@ Phases, each printing its own line(s):
    queries at SF1 (the 25 the third slice opened and the reference
    bench's subset), the ten windowed ones again on the device window
    lane, and a window query over all of store_sales; the 43 ClickBench
-   queries. Every answer must equal its pandas oracle
-   (``ydb_tpu_torch/bench/{tpch,tpcds,clickbench}_oracle.py``; rtol 1e-9
-   for floats, exact otherwise, row order included), queries whose path
-   the slice fixes must take it (``EXPECT_PATH``), and each path's
-   kernels must have launched in that path's own run (the counters are
-   reset just before it and read just after).
+   queries; and TPC-H again through a second engine over the same data
+   whose device budgets are the defaults over 100 (``BEYOND_BUDGETS``),
+   so scans stream through the tiled lane, large build sides partition
+   into GraceJoin builds and partial aggregates spill to host
+   partitions: all 22 queries and the reference tiled-lane test's two
+   extra ones, each line with the query's spilled rows, tiles and
+   partition counts (``LaneRecorder``). Every answer must equal its
+   pandas oracle (``ydb_tpu_torch/bench/{tpch,tpcds,clickbench}_oracle.py``;
+   rtol 1e-9 for floats, exact otherwise, row order included where the
+   query fixes it), queries whose path a slice fixes must take it
+   (``EXPECT_PATH``), and each path's kernels must have launched in that
+   path's own run (the counters are reset just before it and read just
+   after);
+6. ``partition`` against its plain version at the largest spill feed of
+   the beyond-budget path (timed), at a GraceJoin routing of lineitem's
+   superblock rows by l_orderkey into 8 partitions (timed), and at 1 and
+   256 partitions, 0 live rows, nullable, float (NaN, ±inf, -0.0) and
+   two-column keys, hashes >= 2^63, 36 columns and 0 rows: ids, counts
+   and moved columns bit for bit.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -980,6 +993,244 @@ def k13_oracle(raw: dict):
                            kind="stable").head(100).reset_index(drop=True)
 
 
+def partition_bytes(n: int, cols, nparts: int) -> int:
+    """partition's bytes: the hashes in and the ids out, each moved column
+    read and written once, the counts out."""
+    return n * (8 + 4) + 2 * n * sum(c.element_size() for c in cols) \
+        + 8 * nparts
+
+
+def check_partition(B, h, length, nparts: int, cols, sync, tag,
+                    out_rows=None):
+    """partition against its plain version: ids, counts and every moved
+    column exactly (floats bit for bit, NaNs included). Returns the plain
+    version's outputs."""
+    import torch
+    got = B.partition(h, length, nparts, cols, out_rows)
+    want = B.partition_plain(h, length, nparts, cols, out_rows)
+    sync()
+    check(torch.equal(got[0], want[0]), f"partition {tag}: ids")
+    check(torch.equal(got[1], want[1]), f"partition {tag}: counts")
+    for i, (a, b) in enumerate(zip(got[2], want[2])):
+        if a.dtype == torch.float64:
+            a, b = a.view(torch.int64), b.view(torch.int64)
+        check(torch.equal(a, b), f"partition {tag}: column {i}")
+    return want
+
+
+def partition_phase(B, feed, li: dict, n: int, live: int,
+                    device: str = "cuda") -> list:
+    """The partition kernel (K14) against its plain version: at the
+    largest spill feed of the beyond-budget path (`feed`: its block,
+    keys and partitions; timed), at a GraceJoin routing of lineitem's
+    superblock rows by l_orderkey into 8 partitions (`li`: lineitem
+    columns padded to `n` rows, `live` real; timed), and checked at 1
+    and 256 partitions, 0 live rows, nullable and float keys, two key
+    columns, more columns than one launch moves and 0 rows."""
+    import torch
+
+    from ydb_tpu_torch.ops import spill as SP
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1414)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def randint(lo, hi, m):
+        return torch.randint(lo, hi, (m,), generator=g, device=dev)
+
+    def lib(ids, cols):
+        order = torch.sort(ids, stable=True).indices
+        return [c.index_select(0, order) for c in cols]
+
+    # -- the largest spill feed of the beyond-budget path
+    dblock, keys, nparts, query = feed
+    arrays = {k: v.contiguous() for k, v in dblock.arrays.items()}
+    valids = {k: v.contiguous() for k, v in dblock.valids.items()}
+    h = SP.key_hashes(arrays, valids, keys)
+    cols = list(arrays.values()) + list(valids.values())
+    m = h.shape[0]
+    want = check_partition(B, h, dblock.length, nparts, cols, sync,
+                           "spill feed")
+    ids = want[0]
+    rows = [dict(
+        name="partition", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/partition.cu",
+        replaces="ydb_tpu/ops/spill.py:35",
+        shape=f"n={m} live={int(dblock.length)} keys={len(keys)} "
+              f"nparts={nparts} cols={len(cols)} (largest spill feed, "
+              f"{query})",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: B.partition(h, dblock.length, nparts, cols)),
+        plain_ms=time_ms(lambda: B.partition_plain(h, dblock.length, nparts,
+                                                   cols)),
+        library_ms=time_ms(lambda: lib(ids, cols)),
+        bound_ms=bound_ms(partition_bytes(m, cols, nparts)),
+        bound_by="bytes")]
+
+    # -- GraceJoin routing: lineitem's superblock rows by l_orderkey into
+    #    8 partitions, the block's columns moved into 2n-row buffers as the
+    #    executor moves them
+    length = torch.tensor(live, dtype=torch.int32, device=dev)
+    hk = B.hash64([SP.as_int64(li["l_orderkey"])])
+    lcols = list(li.values())
+    want = check_partition(B, hk, length, 8, lcols, sync, "grace routing",
+                           out_rows=2 * n)
+    gids = want[0]
+    log(f"kernel partition grace routing: n={n} live={live} nparts=8 "
+        f"cols={len(lcols)} (lineitem by l_orderkey) "
+        f"kernel_ms={time_ms(lambda: B.partition(hk, length, 8, lcols, 2 * n)):.4f} "
+        f"plain_ms={time_ms(lambda: B.partition_plain(hk, length, 8, lcols, 2 * n)):.4f} "
+        f"library_ms={time_ms(lambda: lib(gids, lcols)):.4f} "
+        f"bound_us={bound_ms(partition_bytes(n, lcols, 8)) * 1e3:.2f} (bytes)")
+    top = float((hk < 0).to(torch.float64).mean())
+    check(top > 0.4, f"partition: {top} of the hashes >= 2^63")
+
+    # -- checked, not timed: 1 and 256 partitions, 0 live rows, nullable
+    #    keys (the NULL sentinel), float keys with NaN, ±inf and -0.0, two
+    #    key columns, a partial last tile, the multi-launch form, 0 rows
+    m = (1 << 20) + 333
+    ki = randint(-(1 << 62), 1 << 62, m)
+    kv = randint(0, 10, m) > 1
+    kf = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0, 0.0,
+                       1.5, -2.5, 1e300], dtype=torch.float64,
+                      device=dev)[randint(0, 8, m)]
+    vals = [ki, kf, kv, randint(0, 1 << 30, m).to(torch.int32)]
+    hk1 = SP.key_hashes({"k": ki}, {}, ["k"])
+    cases = [("1 partition", hk1, m, 1), ("256 partitions", hk1, m - 999, 256),
+             ("0 live rows", hk1, 0, 16),
+             ("nullable key", SP.key_hashes({"k": ki}, {"k": kv}, ["k"]), m,
+              32),
+             ("float key", SP.key_hashes({"f": kf}, {}, ["f"]), m, 8),
+             ("two keys", SP.key_hashes({"k": ki, "f": kf}, {"k": kv},
+                                        ["k", "f"]), m - 1, 64)]
+    for tag, hh, ln, parts in cases:
+        check_partition(B, hh, ln, parts, vals, sync, tag)
+    check_partition(B, cases[0][1], m, 4, vals * 9, sync, "36 columns")
+    z = check_partition(B, ki[:0], 0, 8, [v[:0] for v in vals], sync,
+                        "0 rows")
+    check(int(z[1].sum()) == 0, "partition 0 rows: counts")
+    return rows
+
+
+class LaneRecorder:
+    """What the beyond-budget lanes did in each query run, read by
+    wrapping (not changing) the port's functions while the path runs:
+    the partition counts of each GraceJoin build (`build_partitioned`)
+    and spill store (`PartitionStore`), the tiles streamed
+    (`Executor._stack_tile`) and the host time spent stacking and
+    queueing their uploads, the spilled rows (`executor/spilled_rows`),
+    and the largest spill feed of the whole path (by live rows times
+    columns),
+    which the kernel phase then checks and times."""
+
+    def __init__(self, executor):
+        from ydb_tpu_torch.ops import join as J
+        from ydb_tpu_torch.ops import spill as SP
+        self.largest = None
+        self.query = ""
+        self._restore = []
+        rec = self
+
+        def wrap(owner, name, fn):
+            real = getattr(owner, name)
+            self._restore.append((owner, name, real))
+            setattr(owner, name, fn(real))
+
+        def builds(real):
+            def bp(*a, **k):
+                out = real(*a, **k)
+                rec.grace.append(out.n_partitions)
+                return out
+            return bp
+
+        def feed(real):
+            def fd(store, dblock):
+                if not any(s is store for s in rec.stores):
+                    rec.stores.append(store)
+                # the feed reads its block back right after: reading the
+                # live length here adds no wait of its own
+                size = (int(dblock.length) * (len(dblock.arrays)
+                                              + len(dblock.valids)),
+                        dblock.capacity)
+                if rec.largest is None or size > rec.largest[0]:
+                    rec.largest = (size, (dblock, store.key_names,
+                                          store.nparts, rec.query))
+                return real(store, dblock)
+            return fd
+
+        def tiles(real):
+            def st(*a, **k):
+                t0 = time.perf_counter()
+                out = real(*a, **k)
+                rec.tiles += 1
+                rec.stack_s += time.perf_counter() - t0
+                return out
+            return st
+        wrap(J, "build_partitioned", builds)
+        wrap(SP.PartitionStore, "feed", feed)
+        self._restore.append((executor, "_stack_tile", None))
+        executor._stack_tile = tiles(executor._stack_tile)
+        self.start("")
+
+    def start(self, query: str) -> None:
+        from ydb_tpu_torch.utils.metrics import GLOBAL
+        self.query = query
+        self.grace, self.stores, self.tiles, self.stack_s = [], [], 0, 0.0
+        self._spilled0 = GLOBAL.get("executor/spilled_rows")
+
+    def note(self) -> str:
+        from ydb_tpu_torch.utils.metrics import GLOBAL
+        return (f"spilled_rows={GLOBAL.get('executor/spilled_rows') - self._spilled0} "
+                f"tiles={self.tiles} stack_ms={self.stack_s * 1e3:.2f} "
+                f"grace_partitions={self.grace} "
+                f"spill_partitions={[s.nparts for s in self.stores]}")
+
+    def close(self) -> None:
+        for owner, name, real in reversed(self._restore):
+            if real is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, real)
+
+
+# the two extra queries of the reference's tiled-lane test
+# (tests/test_tiled.py), run on the beyond-budget path
+BEYOND_EXTRA = {
+    "spill1": "select l_orderkey, sum(l_quantity) as q from lineitem "
+              "group by l_orderkey order by q desc, l_orderkey limit 25",
+    "union1": "select l_orderkey, l_quantity from lineitem "
+              "where l_quantity >= 49",
+}
+
+
+def beyond_oracle(name: str, data):
+    import pandas as pd
+
+    from ydb_tpu_torch.bench.tpch_oracle import oracle
+    if name not in BEYOND_EXTRA:
+        return oracle(name, data)
+    li = pd.DataFrame({c: data.tables["lineitem"][c]
+                       for c in ("l_orderkey", "l_quantity")})
+    if name == "spill1":
+        w = li.groupby("l_orderkey").l_quantity.sum().reset_index()
+        w = w.sort_values(["l_quantity", "l_orderkey"],
+                          ascending=[False, True], kind="stable").head(25)
+        return w.rename(columns={"l_quantity": "q"})
+    return li[li.l_quantity >= 49]
+
+
+# the device budgets of the beyond-budget path: the reference's defaults
+# (ydb_tpu/query/executor.py:106-121) over 100, so SF1 crosses them as
+# SF100 crosses the defaults on one card
+BEYOND_BUDGETS = {"fused_scan_budget_bytes": (6 << 30) // 100,
+                  "tile_budget_bytes": (1 << 30) // 100,
+                  "merge_budget_bytes": (1 << 30) // 100,
+                  "grace_budget_bytes": (1 << 29) // 100}
+
+
 # --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
@@ -998,6 +1249,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, HERE)
 
     from ydb_tpu_torch.bench import clickbench_oracle, tpcds_oracle
@@ -1070,14 +1322,19 @@ def main() -> int:
                     "ss_sales_price", "ss_net_profit")}
     rows += k13_phase(bindings, ss)
     del ss
-    for r in rows:
-        lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"kernel {r['name']}: {r['shape']} kernel_ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
-            f"bound_us={r['bound_ms'] * 1e3:.2f} "
-            f"max_abs_err={r['max_abs_err']:.3g}")
 
-    # 5. the main path, path by path, through QueryEngine.query
+    # 5. the main path, path by path, through QueryEngine.query; the
+    # beyond-budget path runs a second engine over the TPC-H data with
+    # the device budgets cut to a hundredth
+    eng_bb = QueryEngine(catalog=eng.catalog)
+    for k, v in BEYOND_BUDGETS.items():
+        setattr(eng_bb.executor, k, v)
+    log(f"beyond the budgets: TPC-H sf={args.sf} with the budgets over "
+        "100 (" + ", ".join(f"{k}={v}" for k, v in BEYOND_BUDGETS.items())
+        + "), as SF100 meets the defaults on one card (SF100's 600M "
+        "lineitem rows are beyond the host generator and this run's time "
+        "limit)")
+    recorder = LaneRecorder(eng_bb.executor)
     suites = {
         "tpch": (eng, QUERIES, lambda q: oracle(q, data)),
         "tpcds": (eng_ds, {**tpcds_oracle.QUERIES, "k13": K13_SQL},
@@ -1085,11 +1342,36 @@ def main() -> int:
                   else tpcds_oracle.oracle(q, raw_ds)),
         "clickbench": (eng_cb, clickbench_oracle.QUERIES,
                        lambda q: clickbench_oracle.oracle(q, raw_cb)),
+        "tpch_beyond": (eng_bb, {**QUERIES, **BEYOND_EXTRA},
+                        lambda q: beyond_oracle(q, data), recorder),
     }
-    launches = slice_phase(bindings, suites)
+    try:
+        launches = slice_phase(bindings, suites)
+    finally:
+        recorder.close()
     if args.profile:
         profile_phase(eng, QUERIES)
+        profile_beyond_phase(eng_bb, {**QUERIES, **BEYOND_EXTRA})
     os.environ.pop("YDB_TPU_LATE_MAT", None)
+
+    # 6. the partition kernel at the largest spill feed of the
+    # beyond-budget path and at a GraceJoin routing of lineitem
+    check(recorder.largest is not None, "beyond the budgets: no spill feed")
+    li_cols = {}
+    for c in ("l_orderkey", "l_partkey", "l_extendedprice", "l_discount"):
+        col = torch.zeros(n, dtype=torch.float64 if c in (
+            "l_extendedprice", "l_discount") else torch.int64)
+        col[:li.num_rows] = torch.from_numpy(data.tables["lineitem"][c])
+        li_cols[c] = col.to("cuda")
+    li_cols["big"] = (li_cols["l_extendedprice"] > 50_000).contiguous()
+    rows += partition_phase(bindings, recorder.largest[1], li_cols, n,
+                            li.num_rows)
+    for r in rows:
+        lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"kernel {r['name']}: {r['shape']} kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
+            f"bound_us={r['bound_ms'] * 1e3:.2f} "
+            f"max_abs_err={r['max_abs_err']:.3g}")
 
     table = [{k: r[k] for k in ("name", "route", "source", "replaces")}
              | {"launches": launches[r["name"]],
@@ -1097,6 +1379,7 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
              for r in rows]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1117,11 +1400,23 @@ TPCDS_QUERIES = tuple(dict.fromkeys(
        "ds25", "ds29", "ds59", "ds72")
     + ("ds3", "ds7", "ds27", "ds42", "ds43", "ds52", "ds55", "ds62",
        "ds67", "ds70", "ds89", "ds94", "ds96", "ds97", "ds98")))
-# the execution path each query must end on, where this slice fixes it
-EXPECT_PATH = {"ds25": "portioned", "ds29": "portioned",
-               "ds59": "portioned",
-               **{q: "literal" for q in ("ds9", "ds28", "ds61", "ds77",
-                                         "ds88", "ds90")}}
+# the execution path each query must end on, where a slice fixes it
+EXPECT_PATH = {
+    "tpcds": {"ds25": "portioned", "ds29": "portioned", "ds59": "portioned",
+              **{q: "literal" for q in ("ds9", "ds28", "ds61", "ds77",
+                                        "ds88", "ds90")}},
+    # at SF1 with the budgets over 100 (the seven others stay fused)
+    "tpch_beyond": {
+        **{q: "fused-tiled" for q in ("q1", "q5", "q6", "q14", "q17",
+                                      "q19")},
+        **{q: "fused-tiled-spill" for q in ("q3", "q8", "q10", "spill1")},
+        "union1": "fused-tiled-union",
+        **{q: "portioned" for q in ("q4", "q7", "q9", "q12", "q18",
+                                    "q21")}},
+}
+# beyond-budget queries whose cold run must build a GraceJoin partitioned
+# build (their portioned path probes it through the partition routing)
+EXPECT_GRACE = ("q4", "q7", "q9", "q12", "q18", "q21")
 CLICKBENCH_QUERIES = tuple(f"c{i}" for i in range(43))
 
 # The main path, path by path: each path's queries run with the launch
@@ -1150,6 +1445,12 @@ PATHS = (
     ("ClickBench, 1,000,000 rows", "clickbench",
      [(q, {}) for q in CLICKBENCH_QUERIES],
      ("bucket_agg", "compact", "sort", "segment_agg")),
+    ("TPC-H beyond the budgets (the defaults over 100): the tiled lane, "
+     "GraceJoin builds with partition routing, the spill merge", "tpch_beyond",
+     [(f"q{i}", {}) for i in range(1, 23)]
+     + [("spill1", {}), ("union1", {"unordered": True})],
+     ("partition", "hash64", "probe", "compact", "bucket_agg", "sort",
+      "segment_agg")),
 )
 
 
@@ -1160,37 +1461,47 @@ def slice_phase(bindings, suites: dict) -> dict:
     from ydb_tpu_torch.bench.tpch_oracle import assert_frames_match
     total = {k: 0 for k in bindings.LAUNCHES}
     for label, suite, runs, kernels in PATHS:
-        eng, queries, oracle = suites[suite]
+        eng, queries, oracle, *recorder = suites[suite]
+        recorder = recorder[0] if recorder else None
         bindings.reset_launches()
         for name, opts in runs:
             os.environ["YDB_TPU_LATE_MAT"] = opts.get("late", "1")
             saved = eng.config.window_device_min_rows
             if "window_min_rows" in opts:
                 eng.config.window_device_min_rows = opts["window_min_rows"]
-            walls = []
+            walls, notes = [], []
             try:
                 for _ in range(3):
+                    if recorder is not None:
+                        recorder.start(name)
                     before = dict(bindings.LAUNCHES)
                     t0 = time.perf_counter()
                     got = eng.query(queries[name])
                     walls.append((time.perf_counter() - t0) * 1e3)
+                    if recorder is not None:
+                        notes.append((recorder.note(), list(recorder.grace)))
             finally:
                 eng.config.window_device_min_rows = saved
             per_query = {k: v - before[k]
                          for k, v in bindings.LAUNCHES.items() if v > before[k]}
             path = eng.executor.last_path
-            want_path = "fused" if suite == "tpch" else EXPECT_PATH.get(name)
+            want_path = "fused" if suite == "tpch" \
+                else EXPECT_PATH.get(suite, {}).get(name)
             check(want_path is None or path == want_path,
                   f"{name}: path {path}, expected {want_path}")
+            if recorder is not None and name in EXPECT_GRACE:
+                check(notes[0][1], f"{name}: no GraceJoin partitioned build")
             want = oracle(name)
-            if suite != "tpch":
+            if suite in ("tpcds", "clickbench"):
                 want.columns = list(got.columns)
-            assert_frames_match(got, want, ordered=True)
+            assert_frames_match(got, want, ordered=not opts.get("unordered"))
             tag = " ".join(f"{k}={v}" for k, v in opts.items())
+            lanes = f" cold: {notes[0][0]} warm: {notes[-1][0]}" \
+                if notes else ""
             log(f"query {name}{' ' + tag if tag else ''}: "
                 f"cold_ms={walls[0]:.2f} warm_ms={min(walls[1:]):.2f} "
                 f"rows={len(got)} path={path} ok "
-                f"warm_launches={json.dumps(per_query)}")
+                f"warm_launches={json.dumps(per_query)}{lanes}")
         launches = dict(bindings.LAUNCHES)
         log(f"launches ({label}): {json.dumps(launches)}")
         missing = [k for k in kernels if launches[k] <= 0]
@@ -1273,6 +1584,43 @@ def profile_phase(eng, queries: dict) -> None:
             f"(x{sum(e.count for e in elem)}){k1} top: "
             + "; ".join(f"{e.key[:48]}={dev_us(e) / 1e3:.3f}ms x{e.count}"
                         for e in top))
+
+
+def profile_beyond_phase(eng, queries: dict) -> None:
+    """One warm run of each beyond-budget query that takes a tiled lane,
+    under torch.profiler: the wall, the device time of its kernels, of
+    its host→device copies (the tiles' uploads) and of its device→host
+    copies, and the device's idle share of the wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    os.environ["YDB_TPU_LATE_MAT"] = "1"
+    names = [f"q{i}" for i in range(1, 23)] + list(BEYOND_EXTRA)
+    for name in names:
+        eng.query(queries[name])
+        torch.cuda.synchronize()
+        if not eng.executor.last_path.startswith("fused-tiled"):
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.query(queries[name])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+
+        def dev_us(e) -> float:
+            return float(getattr(e, "self_device_time_total", None)
+                         or getattr(e, "self_cuda_time_total", 0) or 0)
+        evs = [e for e in prof.key_averages() if dev_us(e) > 0
+               and e.device_type == DeviceType.CUDA]
+        h2d = sum(dev_us(e) for e in evs if "HtoD" in e.key) / 1e3
+        d2h = sum(dev_us(e) for e in evs if "DtoH" in e.key) / 1e3
+        dev_ms = sum(dev_us(e) for e in evs) / 1e3
+        log(f"profile beyond {name}: path={eng.executor.last_path} "
+            f"wall_ms={wall:.3f} device_ms={dev_ms:.3f} "
+            f"htod_ms={h2d:.3f} dtoh_ms={d2h:.3f} "
+            f"compute_ms={dev_ms - h2d - d2h:.3f} "
+            f"idle_share={max(0.0, 1 - dev_ms / wall):.3f}")
 
 
 if __name__ == "__main__":

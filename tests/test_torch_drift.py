@@ -177,12 +177,38 @@ COPIED_FROM_EDITS = {
     ],
 }
 
-# module-level functions of a reference module that the port's module of
-# the same path copies unchanged (the rest of the module is a port)
+# module-level functions and classes of a reference module that the
+# port's module of the same path copies (the rest of the module is a
+# port), each with its listed edits
 COPIED_FUNCTIONS = {
     "ops/window_dev": ("_sort_group_key", "spec_supported",
                        "_encode_part_host", "_final_key_ok",
                        "_encode_final_key", "_encode_order_host"),
+    "ops/spill": ("PartitionStore", "host_sort_limit"),
+    "ops/join": ("build_partitioned",),
+}
+
+# (module, name) -> [(reason, reference text after the prefix rewrite,
+# port text)]
+COPIED_FUNCTION_EDITS = {
+    ("ops/spill", "PartitionStore"): [(
+        "one batched device→host copy of the partitioned block, columns "
+        "in the schema's host dtypes (the port keeps unsigned values in "
+        "wider or signed storage)",
+        """        h_arrays, h_valids, h_counts = jax.device_get(
+            (arrays, valids, counts))
+""",
+        """        h_arrays, h_valids, h_counts = _fetch(dblock.schema, arrays, valids,
+                                              counts)
+""")],
+    ("ops/join", "build_partitioned"): [
+        ("the port's build places its tables on the engine's device",
+         "                      budget_bytes: int) -> PartitionedBuild:",
+         "                      budget_bytes: int, device) -> PartitionedBuild:"),
+        ("the port's build places its tables on the engine's device",
+         "        tables.append(build(block.take(idx), key, payload_names))",
+         "        tables.append(build(block.take(idx), key, payload_names, device))"),
+    ],
 }
 
 # QueryEngine methods the port's slim engine copies from the reference
@@ -409,7 +435,8 @@ def test_copy_of_repo_file_matches(module):
 def _functions(path: Path) -> dict:
     src = path.read_text()
     return {f.name: ast.get_source_segment(src, f)
-            for f in ast.parse(src).body if isinstance(f, ast.FunctionDef)}
+            for f in ast.parse(src).body
+            if isinstance(f, (ast.FunctionDef, ast.ClassDef))}
 
 
 @pytest.mark.parametrize("module,name", [(m, f) for m, fs in
@@ -418,7 +445,10 @@ def _functions(path: Path) -> dict:
 def test_copied_function_matches_reference(module, name):
     ref = _functions(ROOT / "ydb_tpu" / f"{module}.py")
     port = _functions(ROOT / "ydb_tpu_torch" / f"{module}.py")
-    assert port[name] == _rewrite_imports(ref[name])
+    want = _apply(_rewrite_imports(ref[name]),
+                  COPIED_FUNCTION_EDITS.get((module, name), ()),
+                  f"{module}.{name}")
+    assert port[name] == want
 
 
 @pytest.mark.parametrize("module", COPIED)
@@ -440,5 +470,9 @@ def test_every_edit_has_a_reason():
             assert reason and old != new
     for module, edits in COPIED_FROM_EDITS.items():
         assert module in COPIED_FROM
+        for reason, old, new in edits:
+            assert reason and old != new
+    for (module, name), edits in COPIED_FUNCTION_EDITS.items():
+        assert name in COPIED_FUNCTIONS[module]
         for reason, old, new in edits:
             assert reason and old != new

@@ -24,6 +24,8 @@ a non-zero code raises.
 |              | starts and ends, prefix sums, running min/max)            |
 | expand_counts| ops/join.py _expand_counts                                |
 | expand_gather| ops/join.py _expand_gather                                |
+| partition    | ops/spill.py _partition_sort (ids, counts, the sort and   |
+|              | gathers); query/executor.py _partition_block (routing)    |
 
 Each launch name builds from ``csrc/<library>.cu`` (``expand_counts``
 and ``expand_gather`` share ``expand.cu``).
@@ -78,6 +80,9 @@ _SIGS = {
     "expand_gather": ("expand", "expand_gather_launch",
                       [_I64, _I64, _P, _P, _P, _P, _I64, _I32, _PI64, _PI64,
                        _PI32, _PI32, _P]),
+    "partition": ("partition", "partition_launch",
+                  [_I64, _P, _P, _I32, _P, _P, _P, _P, _P, _I32, _PI64,
+                   _PI64, _PI32, _I32, _P]),
 }
 
 LAUNCHES = {name: 0 for name in _SIGS}
@@ -975,3 +980,95 @@ def expand_gather_plain(lo, mcounts, offsets, total, out_cap: int, pcap: int,
         else:
             outs.append(found & src[bidx])
     return outs
+
+
+# --------------------------------------------------------------------------
+# partition
+# --------------------------------------------------------------------------
+
+_MAX_PARTS = 256
+_PART_COLS = 32                  # partition.cu MAX_COLS
+_PART_TILE = 4096                # rows per block (partition.cu TILE_ROWS)
+_PART_SCAN_CHUNK = 8192          # partition.cu SCAN_CHUNK
+
+
+def _check_parts(nparts: int) -> None:
+    if not 1 <= nparts <= _MAX_PARTS or nparts & (nparts - 1):
+        raise ValueError(f"{nparts} partitions (a power of two, 1 to "
+                         f"{_MAX_PARTS})")
+
+
+def partition(hashes: torch.Tensor, length, nparts: int, cols: list,
+              out_rows: Optional[int] = None):
+    """Stable counting sort of rows by hash partition: row r < length
+    goes to partition `hashes[r] % nparts` (the int64 bits taken as
+    uint64; `nparts` a power of two), rows past the length to the extra
+    bin `nparts`.
+
+    Returns (ids, counts, outs): the int32 partition id of every row (in
+    row order), the int64 row count of each partition, and each column of
+    `cols` (any element width) moved to (partition, row) order — each
+    partition a contiguous range, rows in their order, rows past the
+    length last — in a buffer of `out_rows` (>= n, default n) rows whose
+    rows past n are zero."""
+    n = hashes.shape[0]
+    dev = hashes.device
+    out_rows = n if out_rows is None else out_rows
+    if dev.type != "cuda":
+        return partition_plain(hashes, length, nparts, cols, out_rows)
+    _check_parts(nparts)
+    _check(hashes, "hashes", dev, n, (torch.int64,))
+    if n >= 1 << 31 or out_rows < n:
+        raise ValueError(f"{n} rows into {out_rows}")
+    for i, c in enumerate(cols):
+        _check(c, f"column {i}", dev, n)
+        if c.element_size() not in (1, 2, 4, 8):
+            raise ValueError(f"column {i}: element size {c.element_size()}")
+    length_t = _length_tensor(length, dev)
+    ntiles = (n + _PART_TILE - 1) // _PART_TILE
+    e = (nparts + 1) * ntiles
+    ids = torch.empty(n, dtype=torch.int32, device=dev)
+    hist = torch.empty(max(e, 1), dtype=torch.int32, device=dev)
+    offs = torch.empty(max(e, 1), dtype=torch.int32, device=dev)
+    chunk_sums = torch.empty(max((e + _PART_SCAN_CHUNK - 1)
+                                 // _PART_SCAN_CHUNK, 1),
+                             dtype=torch.int32, device=dev)
+    counts = torch.empty(nparts, dtype=torch.int64, device=dev)
+    outs = [torch.empty(out_rows, dtype=c.dtype, device=dev) for c in cols]
+    for o in outs:
+        o[n:].zero_()
+    chunks = [list(range(i, min(i + _PART_COLS, len(cols))))
+              for i in range(0, len(cols), _PART_COLS)] or [[]]
+    for j, chunk in enumerate(chunks):
+        _launch("partition", n, _ptr(hashes), _ptr(length_t), nparts,
+                _ptr(ids), _ptr(hist), _ptr(offs), _ptr(chunk_sums),
+                _ptr(counts), len(chunk),
+                _arr(ctypes.c_int64, [_ptr(cols[i]) for i in chunk]),
+                _arr(ctypes.c_int64, [_ptr(outs[i]) for i in chunk]),
+                _arr(ctypes.c_int32, [cols[i].element_size()
+                                      for i in chunk]),
+                1 if j == 0 else 0, _stream())
+    return ids, counts, outs
+
+
+def partition_plain(hashes, length, nparts: int, cols: list,
+                    out_rows: Optional[int] = None):
+    """Plain PyTorch version of `partition` (the ids by a mask of the low
+    bits, a stable `torch.sort` of them, `bincount`, `index_select`)."""
+    _check_parts(nparts)
+    n = hashes.shape[0]
+    dev = hashes.device
+    out_rows = n if out_rows is None else out_rows
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    ids = torch.where(iota < _length_tensor(length, dev),
+                      (hashes & (nparts - 1)).to(torch.int32),
+                      torch.full_like(iota, nparts))
+    order = torch.sort(ids, stable=True).indices
+    counts = torch.bincount(ids.to(torch.int64),
+                            minlength=nparts + 1)[:nparts]
+    outs = []
+    for c in cols:
+        o = torch.zeros(out_rows, dtype=c.dtype, device=dev)
+        o[:n] = c.index_select(0, order)
+        outs.append(o)
+    return ids, counts, outs

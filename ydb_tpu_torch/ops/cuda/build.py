@@ -20,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 KERNELS = ("bucket_agg", "compact", "probe", "sort", "segment_agg",
-           "hash64", "window_scan", "expand")
+           "hash64", "window_scan", "expand", "partition")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 

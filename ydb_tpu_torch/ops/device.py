@@ -145,5 +145,14 @@ class DeviceResultFuture:
             raise self._exc
         return self._value
 
+    @classmethod
+    def completed(cls, value) -> "DeviceResultFuture":
+        """A future already holding its result (paths that read their
+        result back while they run: the tiled and spill lanes)."""
+        fut = cls(None)
+        fut._value = value
+        fut._done = True
+        return fut
+
     def map(self, fn) -> "DeviceResultFuture":
         return DeviceResultFuture(lambda: fn(self.result()))

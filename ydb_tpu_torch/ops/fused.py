@@ -10,7 +10,9 @@ flattened to one K·CAP row vector with a per-row activity mask; filters
 thread a selection mask; joins probe with the ``probe`` kernel; group-by,
 compaction and sort go through ``bucket_agg``, ``compact`` and ``sort``.
 The result is stacked by dtype and crosses to the host in ONE copy
-(``fetch_fused_result``).
+(``fetch_fused_result``). A scan above the fused scan budget runs the
+front half of the same body once per tile of sources (``build_tile_fn``,
+the executor's tiled lane).
 """
 
 from __future__ import annotations
@@ -252,6 +254,66 @@ def build_fused_fn(pipe, final_program: Optional[ir.Program],
         return data_stacks, valid_stack, length, aux
 
     return fn, layout_box
+
+
+def build_tile_fn(pipe, scan_cols: list, K: int, CAP: int,
+                  sb_valid_names: frozenset, join_metas: list):
+    """Scan→filter→join→partial-agg body for ONE tile of a scan above the
+    fused scan budget (the streaming front half of `build_fused_fn`,
+    stopping after `pipe.partial`): a tile is K stacked sources run
+    through the query's kernels without a host sync, and the partial
+    stays on the device for the finalize or spill merge.
+
+    fn(sb, sbv, lengths, builds, params) → (data {name}, valids {name},
+    length) — compressed (active rows at front). Tiles merge after the
+    loop, so the late-materialization deferral is stripped here (a row
+    id crossing a tile boundary would dangle)."""
+    join_metas = [{**m, "late": False} for m in join_metas]
+
+    def fn(sb, sbv, lengths, builds, params):
+        device = lengths.device
+        cap = K * CAP
+        env = {}
+        for c in scan_cols:
+            d = sb[c.name].reshape(cap)
+            v = sbv[c.name].reshape(cap) if c.name in sb_valid_names else None
+            env[c.name] = (d, v)
+        sel = (torch.arange(CAP, dtype=torch.int32, device=device)[None, :]
+               < lengths[:, None]).reshape(cap)
+        length = torch.tensor(cap, dtype=torch.int32, device=device)
+        schema = Schema(list(scan_cols))
+
+        def run(prog, env, length, sel, schema, cap):
+            env, length, sel, schema = _trace_program(
+                prog, schema.columns, cap, env, length, params, device,
+                sel=sel)
+            if env:
+                cap = next(iter(env.values()))[0].shape[0]
+            return env, length, sel, schema, cap
+
+        if pipe.pre_program is not None:
+            env, length, sel, schema, cap = run(pipe.pre_program, env,
+                                                length, sel, schema, cap)
+        bi = 0
+        for kind, step in pipe.steps:
+            if kind == "join":
+                meta = join_metas[bi]
+                env, sel = probe_lut_traced(env, sel, builds[bi], meta)
+                bi += 1
+                schema = apply_join_schema(schema, meta["payload_cols"])
+            else:
+                env, length, sel, schema, cap = run(step, env, length, sel,
+                                                    schema, cap)
+        if pipe.partial is not None:
+            env, length, sel, schema, cap = run(pipe.partial, env, length,
+                                                sel, schema, cap)
+        if sel is not None:
+            env, length = compress(env, length, sel, cap, device)
+        out_d = {n: d for n, (d, _v) in env.items()}
+        out_v = {n: v for n, (d, v) in env.items() if v is not None}
+        return out_d, out_v, length
+
+    return fn
 
 
 def _unpack_fused_host(host_stacks, host_valids, n: int, layout_box: dict,

@@ -14,8 +14,12 @@ The portioned path probes one scan block at a time: ``probe`` runs the
 same kernel over a ``DeviceBlock`` and appends the payloads, and
 ``probe_expand`` joins against a build with duplicate keys through the
 ``expand_counts`` and ``expand_gather`` kernels (K8), with one readback
-of the output row count to size the result. GraceJoin partitions are
-not ported.
+of the output row count to size the result.
+
+A build side above the executor's grace budget is split on the host by
+key hash into a ``PartitionedBuild`` (``build_partitioned``, GraceJoin);
+the executor routes each probe block to the partitions with the
+``partition`` kernel and probes each partition's rows against its table.
 """
 
 from __future__ import annotations
@@ -72,10 +76,14 @@ class BuildTable:
 
 @dataclass
 class PartitionedBuild:
-    """GraceJoin-partitioned build side. The port never makes one (the
-    executor raises NotPorted above the grace budget); the type exists
-    for the build cache's accounting."""
-    tables: list
+    """GraceJoin-style hash-partitioned build side (`mkql_grace_join.cpp`):
+    the build rows are split on the host by key hash into partitions
+    small enough for the grace budget; the probe side routes each row to
+    its key's partition, so every partition joins independently. Each
+    partition is a `BuildTable` placed on the device by `build`, as the
+    reference places them, so all partitions are device-resident at once
+    (keeping them in host memory until probed is later work)."""
+    tables: list                   # [BuildTable] per partition
     n_partitions: int
     key: str
 
@@ -137,6 +145,28 @@ def build(block: HostBlock, key: str, payload_names: list[str], device,
                       dicts, unique, lut, lut_base, fd_block=fd_block)
 
 
+def build_partitioned(block: HostBlock, key: str, payload_names: list[str],
+                      budget_bytes: int, device) -> PartitionedBuild:
+    """Partition a too-big build side by key hash (splitmix64, matching
+    the device-side routing in the probe)."""
+    from ydb_tpu_torch.utils.hashing import splitmix64
+
+    row_bytes = max(1, sum(block.columns[n].data.itemsize
+                           for n in payload_names) + 8)
+    total = row_bytes * max(block.length, 1)
+    nparts = 1
+    while total / nparts > budget_bytes:
+        nparts *= 2
+    enc, _valid = _host_key(block, key)
+    h = splitmix64(np, enc.astype(np.int64))
+    part = (h % np.uint64(nparts)).astype(np.int64)
+    tables = []
+    for p in range(nparts):
+        idx = np.nonzero(part == p)[0]
+        tables.append(build(block.take(idx), key, payload_names, device))
+    return PartitionedBuild(tables, nparts, key)
+
+
 def _probe_enc(d: torch.Tensor) -> torch.Tensor:
     if d.dtype.is_floating_point:
         return d.to(torch.float64).contiguous()
@@ -172,11 +202,8 @@ def probe_lut_traced(env: dict, sel, bt_arrays: dict, meta: dict):
     gather = () if late or kind not in ("inner", "left", "mark") \
         else meta["src_names"]
     keys = bt_arrays["keys"]
-    if meta.get("bsearch") and keys.dtype != enc.dtype:
-        if not keys.dtype.is_floating_point:
-            from ydb_tpu_torch.errors import NotPorted
-            raise NotPorted("float probe key against an integral build")
-        enc = enc.to(keys.dtype)           # the reference's promotion
+    if meta.get("bsearch"):
+        enc, keys = _matched_domain(enc, keys)
     found, safe, out_sel, gathered = K.probe(
         enc, None if v is None else v.contiguous(), sel.contiguous(),
         lut=None if meta.get("bsearch") else bt_arrays["lut"],

@@ -39,17 +39,22 @@ def torch_dtype(dt) -> torch.dtype:
     return _TORCH[np.dtype(dt)]
 
 
+def storage_array(a: np.ndarray) -> np.ndarray:
+    """A host array in its port storage dtype (unsigned 64/32/16-bit
+    arrays are reinterpreted or widened)."""
+    if a.dtype == np.uint64:
+        return a.view(np.int64)
+    if a.dtype in (np.uint32, np.uint16):
+        return a.astype(np.int64 if a.dtype == np.uint32 else np.int32)
+    return a
+
+
 def to_tensor(a: np.ndarray, device) -> torch.Tensor:
-    """Host array → tensor on `device` in its port storage dtype
-    (unsigned 64/32/16-bit arrays are reinterpreted or widened)."""
+    """Host array → tensor on `device` in its port storage dtype."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:
         a = a.copy()
-    if a.dtype == np.uint64:
-        a = a.view(np.int64)
-    elif a.dtype in (np.uint32, np.uint16):
-        a = a.astype(np.int64 if a.dtype == np.uint32 else np.int32)
-    return torch.from_numpy(a).to(device)
+    return torch.from_numpy(storage_array(a)).to(device)
 
 
 def astype(xp, x, dt):

@@ -11,14 +11,19 @@ device lane `ops/window_dev.py` or the pandas lane `query/window.py`);
 and CREATE TABLE. Tables are filled through ``ydb_tpu_torch.interop`` or
 the generators under ``bench/``. `config` (`utils/config.Config`) is
 read for the window lane (``enable_device_windows``,
-``window_device_min_rows``) and the host-lane limit
-(``host_lane_max_rows``). DML, transactions and sessions, system views,
-materialized views, topics, tracing and admission raise ``NotPorted``.
+``window_device_min_rows``), the host-lane limit
+(``host_lane_max_rows``) and the GraceJoin budget
+(``grace_budget_bytes``, unless ``YDB_TPU_GRACE_BUDGET`` is set).
+`executor.last_path` names the lane a SELECT took: fused, fused-tiled,
+fused-tiled-spill, fused-tiled-union, portioned, set-op or literal.
+DML, transactions and sessions, system views, materialized views,
+topics, tracing and admission raise ``NotPorted``.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 from typing import Optional
 
 import numpy as np
@@ -48,6 +53,11 @@ class QueryEngine:
         self.catalog = catalog or Catalog()
         self.planner = Planner(self.catalog)
         self.executor = Executor(self.catalog, self.device, block_rows)
+        # budget priority: explicit env var > config > built-in default
+        # (the executor's constructor already read the env)
+        if "YDB_TPU_GRACE_BUDGET" not in os.environ:
+            self.executor.grace_budget_bytes = \
+                self.config.grace_budget_bytes
         self._tmp_ids = itertools.count()    # thread-safe temp names
         # plan cache keyed by SQL text, validated against the
         # (uid, data_version) of every referenced table

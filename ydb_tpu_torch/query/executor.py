@@ -9,10 +9,19 @@ the plans the fused path declines (an empty scan, more joins than the
 fuse cap, duplicate-key builds): each portion runs through the
 pipeline's programs and probes on its own (`_run_pipeline`), and
 `_finalize` concatenates the partials, runs the final program, sorts
-and limits. A scan above the scan budget (the tiled lane, K11), a
-partitioned build (GraceJoin), a partial merge above the merge budget
-(the spill lane, K14) and the mesh and batched lanes raise
-``NotPorted``.
+and limits.
+
+Beyond the device budgets (the reference's defaults, `YDB_TPU_*`):
+- a scan whose stacked superblock exceeds `fused_scan_budget_bytes`
+  streams through tiles of `tile_budget_bytes` (`_execute_fused_tiled`,
+  `ops/fused.build_tile_fn`), its partials finalized together, spilled,
+  or (non-aggregating plans) unioned on the host;
+- a build side above `grace_budget_bytes` hash-partitions on the host
+  (`ops/join.build_partitioned`, GraceJoin): the plan runs portioned and
+  each scan block is routed to the partitions by the `partition` kernel;
+- partial-aggregate states above `merge_budget_bytes` spill to host
+  key-hash partitions (`ops/spill.py`, K14) and merge per partition.
+The mesh and batched lanes are not ported.
 """
 
 from __future__ import annotations
@@ -26,14 +35,13 @@ import torch
 
 from ydb_tpu_torch.core.block import ColumnData, HostBlock
 from ydb_tpu_torch.core.schema import Column, Schema
-from ydb_tpu_torch.errors import NotPorted
 from ydb_tpu_torch.ops import ir
 from ydb_tpu_torch.ops import join as J
 from ydb_tpu_torch.ops.device import (
     DeviceBlock, DeviceResultFuture, batched_to_host, bucket_capacity,
     to_device, to_host,
 )
-from ydb_tpu_torch.ops.torch_ns import to_tensor
+from ydb_tpu_torch.ops.torch_ns import storage_array, to_tensor, torch_dtype
 from ydb_tpu_torch.progstore import buckets as shape_buckets
 from ydb_tpu_torch.query.plan import JoinStep, Pipeline, QueryPlan
 from ydb_tpu_torch.storage.mvcc import MAX_SNAPSHOT, Snapshot
@@ -50,18 +58,20 @@ class Executor:
         self.block_rows = block_rows
         self.device_cache = DeviceColumnCache(device)
         self._tls = threading.local()
-        # build sides above this estimate would hash-partition into a
-        # GraceJoin in the reference — not ported (NotPorted)
+        # build sides above this estimate hash-partition into a GraceJoin
         self.grace_budget_bytes = int(
             os.environ.get("YDB_TPU_GRACE_BUDGET", 1 << 29))
-        # scans whose stacked superblock estimate exceeds this would
-        # stream through the reference's tiled lane — not ported
+        # scans whose stacked superblock estimate exceeds this stream
+        # through the tiled lane instead of residing on the device
         self.fused_scan_budget_bytes = int(
             os.environ.get("YDB_TPU_FUSED_SCAN_BUDGET", 6 << 30))
+        # device bytes per scan tile on the tiled lane (2 tiles in flight)
+        self.tile_budget_bytes = int(
+            os.environ.get("YDB_TPU_TILE_BUDGET", 1 << 30))
         self.fuse_max_joins = int(
             os.environ.get("YDB_TPU_FUSE_MAX_JOINS", 6))
-        # portioned-path partial merges above this estimate would spill
-        # to host partitions in the reference (K14) — not ported
+        # partial-agg states above this estimate spill to host memory and
+        # merge per key-hash partition (K14)
         self.merge_budget_bytes = int(
             os.environ.get("YDB_TPU_MERGE_BUDGET", 1 << 30))
         self.build_cache = BuildCache(int(
@@ -107,6 +117,11 @@ class Executor:
                 params[pname] = col.data[0]
                 params[pname + "__valid"] = True
         fused = self._try_execute_fused(plan, params, snapshot, defer=True)
+        if isinstance(fused, tuple):           # tiled lane: (kind, block)
+            kind, block = fused
+            self.last_path = kind
+            return DeviceResultFuture.completed(
+                self._project_output(block, plan.output))
         if isinstance(fused, DeviceResultFuture):
             self.last_path = "fused"
             return fused.map(
@@ -125,11 +140,11 @@ class Executor:
                            _no_compact: bool = False):
         """Run the query as one fused device function (`ops/fused.py`).
         Returns the HostBlock (`defer=True`: a `DeviceResultFuture`
-        deferring the single readout); on a decline (more joins than the
-        fuse cap, an expanding probe, an empty scan), the list of
-        prepared join BuildTables for `_run_pipeline` to reuse, or None
-        if none were prepared. A scan above the scan budget raises
-        NotPorted (the reference's tiled lane)."""
+        deferring the single readout); for a scan above the scan budget,
+        the tiled lane's ("fused-tiled[...]", HostBlock); on a decline
+        (more joins than the fuse cap, a partitioned build, an expanding
+        probe, an empty scan), the list of prepared join BuildTables for
+        `_run_pipeline` to reuse, or None if none were prepared."""
         from ydb_tpu_torch.ops import fused as F
         from ydb_tpu_torch.storage.device_cache import (
             enumerate_scan_sources, estimate_scan_bytes,
@@ -142,8 +157,9 @@ class Executor:
             return None                  # program-complexity cap
         builds = self._prepare_builds(pipe, params, snapshot)
         for step, bt in zip(join_steps, builds):
-            if not bt.unique and step.kind in ("inner", "left", "mark"):
-                return builds            # expanding probe
+            if isinstance(bt, J.PartitionedBuild) or (
+                    not bt.unique and step.kind in ("inner", "left", "mark")):
+                return builds            # partitioned / expanding probe
 
         plan0 = plan            # pre-rewrite plan (the overflow-rerun input)
         (plan, pipe, scan_cols, schema, partial_schema, dicts,
@@ -157,7 +173,9 @@ class Executor:
         if sources and estimate_scan_bytes(sources, storage_names,
                                            pad_to=Kb) \
                 > self.fused_scan_budget_bytes:
-            raise NotPorted("tiled scan above the fused scan budget (K11)")
+            return self._execute_fused_tiled(
+                plan, params, pipe, sources, scan_cols, builds, join_metas,
+                dicts, partial_schema)
         sb = self.device_cache.superblock(table, storage_names, rename,
                                           snapshot, pipe.scan.prune or None,
                                           sources, src_ids, pad_to=Kb)
@@ -582,6 +600,223 @@ class Executor:
                 return k, total
         return None, None
 
+    # -- tiled fused path (scan > device budget) ---------------------------
+
+    def _execute_fused_tiled(self, plan: QueryPlan, params: dict, pipe,
+                             sources: list, scan_cols: list, builds: list,
+                             join_metas: list, build_dicts: dict,
+                             partial_schema: Schema):
+        """Stream a scan too large for the device through fixed-size
+        tiles: each tile is K_tile stacked sources run through one
+        scan→filter→join→partial body (`ops/fused.build_tile_fn`), with
+        at most two tiles in flight (the next tile's stack and upload
+        overlap the current one's kernels). Partials either stay on the
+        device for the normal finalize, spill to host key-hash partitions
+        for a per-partition merge (`ops/spill.py` — the WideCombiner
+        InMemory→Spilling→ProcessSpilled analog,
+        `mkql_wide_combine.cpp:338-600`), or, for non-aggregating plans,
+        union on the host with per-tile top-k pre-cuts (DqCnMerge-style).
+
+        Returns ("fused-tiled[...]", HostBlock)."""
+        import dataclasses
+
+        from ydb_tpu_torch.ops import fused as F
+        from ydb_tpu_torch.ops import spill as SP
+        from ydb_tpu_torch.ops.torch_exec import _SCATTER_MAX_BUCKETS
+
+        CAP = max(bucket_capacity(max(b.length, 1)) for b in sources)
+        row_bytes = 0
+        sb_valid_names = set()
+        tile_dicts = dict(build_dicts)
+        for (s, internal) in pipe.scan.columns:
+            cd0 = sources[0].columns[s]
+            row_bytes += cd0.data.itemsize
+            if any(b.columns[s].valid is not None for b in sources):
+                sb_valid_names.add(internal)
+                row_bytes += 1
+            if cd0.dictionary is not None:
+                tile_dicts[internal] = cd0.dictionary
+        K_tile = max(1, int(self.tile_budget_bytes // (CAP * row_bytes)))
+        K_tile = min(K_tile, len(sources))
+        n_tiles = (len(sources) + K_tile - 1) // K_tile
+        tile_cap = K_tile * CAP
+        sb_valid_names = frozenset(sb_valid_names)
+
+        # static tile-output capacity: bounded-domain partial group-bys
+        # compact to their bucket count; everything else stays tile-sized
+        tile_out_cap = tile_cap
+        last = pipe.partial.commands[-1] \
+            if pipe.partial is not None and pipe.partial.commands else None
+        if isinstance(last, ir.GroupBy):
+            if not last.keys:
+                tile_out_cap = 1
+            elif last.key_domains and all(d > 0 for d in last.key_domains):
+                nb = 1
+                for d in last.key_domains:
+                    nb *= d + 1
+                if nb + 1 <= _SCATTER_MAX_BUCKETS:
+                    tile_out_cap = bucket_capacity(nb, minimum=128)
+            if last.out_bound:
+                # a proven ngroups bound: the partials really are this
+                # small — don't let a tile-sized estimate trigger a
+                # needless spill
+                tile_out_cap = min(
+                    tile_out_cap,
+                    bucket_capacity(max(int(last.out_bound), 1),
+                                    minimum=128))
+        prow = sum(np.dtype(c.dtype.np).itemsize + 1
+                   for c in partial_schema.columns)
+        est_partial = n_tiles * min(tile_out_cap, tile_cap) * prow
+
+        fp = plan.final_program
+        merge_gb = fp.commands[0] if fp is not None and fp.commands \
+            and isinstance(fp.commands[0], ir.GroupBy) else None
+        spill = (merge_gb is not None and merge_gb.keys
+                 and est_partial > self.merge_budget_bytes)
+        union = merge_gb is None and est_partial > self.merge_budget_bytes
+
+        fn = F.build_tile_fn(pipe, scan_cols, K_tile, CAP, sb_valid_names,
+                             join_metas)
+        build_inputs = [F.build_traced_inputs(bt) for bt in builds]
+        dev_params = {k: (to_tensor(v, self.device)
+                          if isinstance(v, np.ndarray) else v)
+                      for k, v in params.items()}
+        out_dicts = {n: d for n, d in tile_dicts.items()
+                     if partial_schema.has(n)}
+
+        GLOBAL.inc("executor/tiled_queries")
+        # the tile stacks + resident partials live OUTSIDE the cache's
+        # accounting: make room so warm cache + streaming fit the device
+        self.device_cache.reserve(2 * self.tile_budget_bytes
+                                  + self.merge_budget_bytes)
+        store = None
+        if spill:
+            P = 1
+            while est_partial / P > self.merge_budget_bytes and P < 256:
+                P *= 2
+            store = SP.PartitionStore(partial_schema, list(merge_gb.keys),
+                                      P, out_dicts)
+
+        # union mode: per-tile finalize plans (top-k pre-cut when the
+        # query sort-limits, plain program application otherwise)
+        lim = None if plan.limit is None else plan.limit + (plan.offset or 0)
+        topk = bool(plan.sort) and lim is not None and lim <= (1 << 17)
+        out_names = {n for (n, _lbl) in plan.output}
+        extra = [(sk.name, sk.name) for sk in plan.sort
+                 if sk.name not in out_names]
+        if union:
+            if topk:
+                plan_tile = dataclasses.replace(
+                    plan, offset=None, limit=lim, output=plan.output + extra)
+            else:
+                plan_tile = dataclasses.replace(
+                    plan, sort=[], limit=None, offset=None,
+                    output=plan.output + extra)
+
+        partials, unions = [], []
+        prev = None
+        for t in range(n_tiles):
+            tile_sources = sources[t * K_tile:(t + 1) * K_tile]
+            sb, sbv, lengths = self._stack_tile(
+                tile_sources, pipe.scan.columns, K_tile, CAP,
+                sb_valid_names)
+            out_d, out_v, length = fn(sb, sbv, lengths, build_inputs,
+                                      dev_params)
+            out_d = {n: out_d[n] for n in partial_schema.names}
+            out_v = {n: v for n, v in out_v.items()
+                     if partial_schema.has(n)}
+            cap_t = (next(iter(out_d.values())).shape[0]
+                     if out_d else tile_cap)
+            dblock = DeviceBlock(partial_schema, out_d, out_v, length,
+                                 cap_t, out_dicts)
+            if spill:
+                store.feed(dblock)       # syncs → natural backpressure
+            elif union:
+                unions.append(self._finalize(plan_tile, [dblock], params))
+            else:
+                partials.append(dblock)
+                # two tiles in flight: wait for the one before this one
+                # before stacking the next
+                done = _tile_done(self.device)
+                if prev is not None:
+                    prev.synchronize()
+                prev = done
+
+        if spill:
+            GLOBAL.inc("executor/spilled_rows", store.spilled_rows)
+            GLOBAL.inc("executor/spilled_bytes", store.spilled_bytes)
+            return ("fused-tiled-spill",
+                    self._merge_spilled(plan, store, params))
+        if union:
+            u = HostBlock.concat(unions) if len(unions) > 1 else unions[0]
+            if topk:
+                plan_merge = dataclasses.replace(
+                    plan, final_program=None, output=plan.output + extra)
+                block = self._finalize(plan_merge,
+                                       [to_device(u, self.device)], params)
+            else:
+                block = SP.host_sort_limit(
+                    u, plan.sort, plan.limit, plan.offset,
+                    {**out_dicts, **plan.result_dicts})
+            return ("fused-tiled-union", block)
+        return ("fused-tiled", self._finalize(plan, partials, params))
+
+    def _stack_tile(self, tile_sources: list, scan_columns: list,
+                    K_tile: int, CAP: int, sb_valid_names: frozenset):
+        """Stack one tile of sources into (K_tile, CAP) host tensors
+        (pinned on a CUDA engine) and copy them to the device without
+        waiting. Short tiles pad with zero-length sources so every tile
+        has one shape."""
+        pin = self.device.type == "cuda"
+        lengths = torch.zeros(K_tile, dtype=torch.int32, pin_memory=pin)
+        for k, b in enumerate(tile_sources):
+            lengths[k] = b.length
+        arrays, valids = {}, {}
+        for (s, internal) in scan_columns:
+            dtype = torch_dtype(tile_sources[0].columns[s].data.dtype)
+            stack = torch.zeros((K_tile, CAP), dtype=dtype, pin_memory=pin)
+            vstack = torch.zeros((K_tile, CAP), dtype=torch.bool,
+                                 pin_memory=pin) \
+                if internal in sb_valid_names else None
+            hs = stack.numpy()
+            hv = vstack.numpy() if vstack is not None else None
+            for k, b in enumerate(tile_sources):
+                cd = b.columns[s]
+                hs[k, :b.length] = storage_array(cd.data)
+                if hv is not None:
+                    hv[k, :b.length] = (cd.valid if cd.valid is not None
+                                        else True)
+            arrays[internal] = stack.to(self.device, non_blocking=True)
+            if vstack is not None:
+                valids[internal] = vstack.to(self.device, non_blocking=True)
+        return arrays, valids, lengths.to(self.device, non_blocking=True)
+
+    def _merge_spilled(self, plan: QueryPlan, store, params: dict):
+        """ProcessSpilled: per key-hash partition, concat the spilled
+        pieces, run the merge group-by + rest of the final program on
+        the device, then combine partitions on the host (disjoint key
+        sets) and apply ORDER BY / LIMIT there."""
+        import dataclasses
+
+        from ydb_tpu_torch.ops import spill as SP
+
+        out_names = {n for (n, _lbl) in plan.output}
+        extra = [(sk.name, sk.name) for sk in plan.sort
+                 if sk.name not in out_names]
+        plan_p = dataclasses.replace(plan, sort=[], limit=None, offset=None,
+                                     output=plan.output + extra)
+        outs = []
+        for p in range(store.nparts):
+            hb = store.partition(p)
+            if hb.length == 0 and outs:
+                continue
+            outs.append(self._finalize(plan_p, [to_device(hb, self.device)],
+                                       params))
+        union = HostBlock.concat(outs) if len(outs) > 1 else outs[0]
+        return SP.host_sort_limit(
+            union, plan.sort, plan.limit, plan.offset,
+            {**store.dictionaries, **plan.result_dicts})
+
     # -- join builds -------------------------------------------------------
 
     def _prepare_builds(self, pipe: Pipeline, params: dict,
@@ -636,7 +871,9 @@ class Executor:
             # internal hash columns a projection would drop)
             bplan = QueryPlan(pipeline=step.build, params=dict(params))
             fused = self._try_execute_fused(bplan, params, snapshot)
-            if isinstance(fused, HostBlock):
+            if isinstance(fused, tuple):
+                built = fused[1]
+            elif isinstance(fused, HostBlock):
                 built = fused
             else:
                 built = HostBlock.concat(
@@ -661,11 +898,16 @@ class Executor:
                     raise NotImplementedError(
                         "correlated NOT IN over a subquery producing NULLs "
                         "is not supported yet")
+        # GraceJoin: a build side above the device budget hash-
+        # partitions on the host
         if not step.not_in and built.length:
             cols = list(dict.fromkeys([step.build_key] + list(step.payload)))
             row_bytes = sum(built.columns[n].data.itemsize for n in cols)
             if built.length * row_bytes > self.grace_budget_bytes:
-                raise NotPorted("GraceJoin partitioned build")
+                return J.build_partitioned(built, step.build_key,
+                                           list(step.payload),
+                                           self.grace_budget_bytes,
+                                           self.device)
         bt = J.build(built, step.build_key, list(step.payload), self.device,
                      keep_fd=keep_fd)
         bt.anti_has_null = anti_has_null
@@ -681,43 +923,96 @@ class Executor:
         attempt."""
         if builds is None:
             builds = self._prepare_builds(pipe, params, snapshot)
-        out = [self._run_block(pipe, d, builds, params)
-               for d in self._scan_device_blocks(pipe, snapshot)]
+        out = []
+        for d in self._scan_device_blocks(pipe, snapshot):
+            out.extend(self._run_block_multi(pipe, d, builds, params))
         if not out:
-            out = [self._run_block(
+            out = self._run_block_multi(
                 pipe, to_device(self._empty_scan_block(pipe), self.device),
-                builds, params)]
+                builds, params)
         return out
 
-    def _run_block(self, pipe: Pipeline, d: DeviceBlock, builds: list,
-                   params: dict) -> DeviceBlock:
-        """One scan block through the pipeline: its programs in order,
-        each join a probe of the block, then the partial (the
-        reference's `_run_block_multi` without its GraceJoin fork: the
-        port builds no partitioned build)."""
+    def _run_block_multi(self, pipe: Pipeline, d: DeviceBlock, builds: list,
+                         params: dict) -> list:
+        """Run one scan block through the pipeline: its programs in
+        order, each join a probe of the block, then the partial. A
+        GraceJoin-partitioned build forks the stream: probe rows route to
+        their key's partition and each partition continues through the
+        remaining steps on its own — their partials merge like any other
+        blocks."""
         from ydb_tpu_torch.ops.torch_exec import run_on_device
         if pipe.pre_program is not None:
             d = run_on_device(pipe.pre_program, d, params)
-        bi = 0
-        for kind, step in pipe.steps:
-            if kind == "join":
-                d = self._probe_one(d, builds[bi], step)
-                bi += 1
-            else:
-                d = run_on_device(step, d, params)
-        if pipe.partial is not None:
-            d = run_on_device(pipe.partial, d, params)
-        return d
+
+        def run_steps(d: DeviceBlock, si: int, bi: int) -> list:
+            while si < len(pipe.steps):
+                kind, step = pipe.steps[si]
+                if kind != "join":
+                    d = run_on_device(step, d, params)
+                    si += 1
+                    continue
+                table = builds[bi]
+                if isinstance(table, J.PartitionedBuild):
+                    out = []
+                    parts = self._partition_block(d, step.probe_key,
+                                                  table.n_partitions)
+                    for dp, bt in zip(parts, table.tables):
+                        out.extend(self._probe_one(dp, bt, step, run_steps,
+                                                   si, bi))
+                    return out
+                return self._probe_one(d, table, step, run_steps, si, bi)
+            if pipe.partial is not None:
+                d = run_on_device(pipe.partial, d, params)
+            return [d]
+
+        return run_steps(d, 0, 0)
 
     @staticmethod
-    def _probe_one(d: DeviceBlock, table, step) -> DeviceBlock:
+    def _probe_one(d: DeviceBlock, table, step, run_steps, si: int,
+                   bi: int) -> list:
         from ydb_tpu_torch.ops.torch_exec import compress_block
         if not table.unique and step.kind in ("inner", "left"):
             # duplicate build keys → expanding probe; output compact
-            return J.probe_expand(d, table, step.probe_key, step.kind)
+            d = J.probe_expand(d, table, step.probe_key, step.kind)
+            return run_steps(d, si + 1, bi + 1)
         d, sel = J.probe(d, table, step.probe_key, step.kind,
                          mark_col=step.mark_col or None, not_in=step.not_in)
-        return d if step.kind == "mark" else compress_block(d, sel)
+        if step.kind != "mark":
+            d = compress_block(d, sel)
+        return run_steps(d, si + 1, bi + 1)
+
+    @staticmethod
+    def _partition_block(d: DeviceBlock, key: str, nparts: int) -> list:
+        """The block's rows split by the hash of their key (splitmix64 of
+        its int64 value, as the host partitioner hashes the build side):
+        one DeviceBlock per partition, holding its rows in order. The
+        `partition` kernel moves every column once, so each partition is
+        a contiguous range of the moved columns (the reference compresses
+        the block once per partition); each block keeps the input's
+        capacity, and its rows past its length belong to later partitions
+        or are zero. One readback of the counts places the ranges."""
+        from ydb_tpu_torch.ops.cuda import bindings as K
+        from ydb_tpu_torch.ops.spill import as_int64
+        h = K.hash64([as_int64(d.arrays[key])])
+        names = [c.name for c in d.schema.columns]
+        vnames = [n for n in names if n in d.valids]
+        cap = d.capacity
+        _ids, counts, moved = K.partition(
+            h, d.length, nparts,
+            [d.arrays[n].contiguous() for n in names]
+            + [d.valids[n].contiguous() for n in vnames],
+            out_rows=2 * cap)
+        lengths = counts.to(torch.int32)
+        ends = np.cumsum(batched_to_host([counts])[0])
+        out = []
+        for p in range(nparts):
+            lo = int(ends[p - 1]) if p else 0
+            cols = [m[lo:lo + cap] for m in moved]
+            out.append(DeviceBlock(
+                d.schema, dict(zip(names, cols[:len(names)])),
+                dict(zip(vnames, cols[len(names):])), lengths[p], cap,
+                dict(d.dictionaries)))
+        return out
 
     def _scan_device_blocks(self, pipe: Pipeline, snapshot: Snapshot):
         """Per-portion device blocks via the column cache; committed but
@@ -759,8 +1054,9 @@ class Executor:
         """Concatenate the partials, then the final program, sort and
         limit on the device, then one batched transfer (`defer=True`: the
         transfer runs at `result()` time). Partial-aggregate states too
-        large to merge in one device concat would spill to host
-        partitions in the reference (K14): NotPorted."""
+        large to merge in one device concat (high-cardinality group-bys
+        on the portioned path) route to the host partitioned merge
+        instead (K14)."""
         in_schema = dblocks[0].schema
 
         fp = plan.final_program
@@ -771,7 +1067,22 @@ class Executor:
                        for c in in_schema.columns)
             total = sum(d.capacity for d in dblocks) * prow
             if total > self.merge_budget_bytes:
-                raise NotPorted("spilled partial merge (K14)")
+                from ydb_tpu_torch.ops import spill as SP
+                P = 1
+                while total / P > self.merge_budget_bytes and P < 256:
+                    P *= 2
+                dicts = {}
+                for d in dblocks:
+                    dicts.update(d.dictionaries)
+                store = SP.PartitionStore(in_schema, list(merge_gb.keys),
+                                          P, dicts)
+                for d in dblocks:
+                    store.feed(d)
+                GLOBAL.inc("executor/spilled_rows", store.spilled_rows)
+                GLOBAL.inc("executor/spilled_bytes", store.spilled_bytes)
+                merged = self._merge_spilled(plan, store, params)
+                return DeviceResultFuture.completed(merged) if defer \
+                    else merged
         sort_params, sort_spec, rank_assigns = self._sort_setup(
             plan, in_schema, dblocks)
         all_params = {**params, **sort_params}
@@ -888,6 +1199,16 @@ class Executor:
             cols[lbl] = ColumnData(cd.data, cd.valid, cd.dictionary)
             schema_cols.append(Column(lbl, block.schema.dtype(internal)))
         return HostBlock(Schema(schema_cols), cols, block.length)
+
+
+def _tile_done(device):
+    """A CUDA event marking the work queued so far (None on the CPU,
+    where every call has finished when it returns)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
 
 
 def _apply_offset(block: HostBlock, lo: int, limit) -> HostBlock:

@@ -100,6 +100,16 @@ class DeviceColumnCache:
         with self._mu:
             self.foreign_bytes = max(0, self.foreign_bytes - nbytes)
 
+    def reserve(self, nbytes: int) -> None:
+        """Evict LRU entries until `nbytes` of device memory fits beside
+        the cached set — for paths that allocate device memory the cache
+        doesn't track (tiled scan stacks, spill partials)."""
+        with self._mu:
+            while self.bytes + self.foreign_bytes + nbytes > self.budget \
+                    and self._entries:
+                _key, (_d, _v, nb) = self._entries.popitem(last=False)
+                self.bytes -= nb
+
     def _lookup(self, key):
         with self._mu:
             hit = self._entries.get(key)
