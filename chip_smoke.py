@@ -61,7 +61,32 @@ Phases, each printing its own line(s):
    superblock rows by l_orderkey into 8 partitions (timed), and at 1 and
    256 partitions, 0 live rows, nullable, float (NaN, ±inf, -0.0) and
    two-column keys, hashes >= 2^63, 36 columns and 0 rows: ids, counts
-   and moved columns bit for bit.
+   and moved columns bit for bit;
+7. the batched serving lane's member-axis entries, before the paths
+   (``batched_kernel_phase``): ``bucket_agg_batched`` at Q1's shape with
+   8 members' masks from 8 DELTAs (timed), keyless at Q6's (timed), at
+   512 buckets x 16 aggregates (timed), every function, per-member ids
+   and values; ``segment_agg_batched`` at the batch c40 sends over the
+   1M hits rows (timed); ``compact_batched`` at the point-lookup batch
+   over orders' capacity (timed) and at 8 top-k masks over lineitem
+   (timed); B = 1, identical members, an empty member and B = 64. Each
+   line also times B launches of the single-query kernel; the bound is
+   the single kernel's byte count extended by the member axis, a shared
+   input counted once (``compact_batched`` also logs the bytes its
+   zero-filled full-capacity outputs write beyond it);
+8. the batched serving path, after the others (``serving_phase``): per
+   template of ``ydb_tpu_torch/bench/serving.py`` (TPC-H Q1, Q6, Q12,
+   Q14, Q19 and Q3 with qgen parameters, 64 point lookups of orders,
+   ClickBench c36, c37, c40, c42), B client threads released together
+   through an engine with ``YDB_TPU_BATCH_WINDOW=500`` and through the
+   lane-off engine over the same catalog: every member equal to the
+   lane-off answer, the validation member to its oracle, the batched
+   templates coalesced (Q3's literals sit on its build sides, so it
+   runs as singles), wrapper calls per batch equal at B = 2 and B = 8
+   (a sort of B x cap rows runs more merge passes inside its one call);
+   the
+   storm walls with the lane on and off and one traced batch's device
+   time.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -70,6 +95,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -1232,6 +1258,582 @@ BEYOND_BUDGETS = {"fused_scan_budget_bytes": (6 << 30) // 100,
 
 
 # --------------------------------------------------------------------------
+# the batched serving lane: member-axis kernel entries
+# --------------------------------------------------------------------------
+
+
+def batched_agg_bytes(kid, nb: int, masks, aggs) -> int:
+    """bucket_agg_batched's distinct input bytes (a shared column once)
+    plus its (B, nb) outputs."""
+    Bm = masks.shape[0]
+    ins = [kid, masks] + [t for (_f, d, v, _u) in aggs for t in (d, v)]
+    return distinct_bytes(ins) + Bm * nb * 8 * (2 * len(aggs) + 1)
+
+
+def check_bucket_agg_batched(B, kid, nb, masks, aggs, sync, tag) -> float:
+    """bucket_agg_batched against its plain version; returns the largest
+    absolute difference of a float sum."""
+    import torch
+    kv, kc, kp = B.bucket_agg_batched(kid, nb, masks, aggs)
+    pv, pc, pp = B.bucket_agg_batched_plain(kid, nb, masks, aggs)
+    sync()
+    check(torch.equal(kp, pp), f"bucket_agg_batched {tag} present")
+    err = 0.0
+    for i, (f, d, _v, _u) in enumerate(aggs):
+        check(torch.equal(kc[i], pc[i]), f"bucket_agg_batched {tag} cnt {i}")
+        if f == "sum" and d.dtype == torch.float64:
+            torch.testing.assert_close(kv[i], pv[i], rtol=RTOL, atol=0)
+            err = max(err, float((kv[i] - pv[i]).abs().max()))
+        else:
+            check(torch.equal(kv[i], pv[i]),
+                  f"bucket_agg_batched {tag} {f} {i}")
+    return err
+
+
+def check_segment_agg_batched(B, perm, keys, masks, aggs, oc, sync,
+                              tag) -> float:
+    import torch
+    kn, kl, kp, kv, kc = B.segment_agg_batched(perm, keys, masks, aggs, oc)
+    pn, pl, pp, pv, pc = B.segment_agg_batched_plain(perm, keys, masks,
+                                                     aggs, oc)
+    sync()
+    check(torch.equal(kn, pn), f"segment_agg_batched {tag} ngroups")
+    check(torch.equal(kl, pl), f"segment_agg_batched {tag} lead")
+    check(torch.equal(kp, pp), f"segment_agg_batched {tag} present")
+    err = 0.0
+    for i, (f, d, _v, _u) in enumerate(aggs):
+        check(torch.equal(kc[i], pc[i]), f"segment_agg_batched {tag} cnt {i}")
+        if f == "sum" and d.dtype == torch.float64:
+            torch.testing.assert_close(kv[i], pv[i], rtol=RTOL, atol=0)
+            err = max(err, float((kv[i] - pv[i]).abs().max()))
+        else:
+            check(torch.equal(kv[i], pv[i]),
+                  f"segment_agg_batched {tag} {f} {i}")
+    return err
+
+
+def check_compact_batched(B, cols, masks, lengths, n, new_cap, sync, tag):
+    import torch
+    Bm = masks.shape[0]
+    ko, kl, kn, kf = B.compact_batched(cols, masks, lengths, n, new_cap, Bm)
+    po, pl, pn, pf = B.compact_batched_plain(cols, masks, lengths, n,
+                                             new_cap, Bm)
+    sync()
+    check(torch.equal(kl, pl) and torch.equal(kn, pn)
+          and torch.equal(kf, pf), f"compact_batched {tag} lengths")
+    for a, b in zip(ko, po):
+        check(torch.equal(a, b), f"compact_batched {tag} column")
+    return int(kl.sum())
+
+
+def compact_batched_bytes(masks, live: int, cols) -> int:
+    """compact's bound extended by the member axis: each member's mask
+    read once, each live row of every column read once and written
+    once (n + 2 * nlive * width per member)."""
+    return masks.numel() + 2 * live * sum(c.element_size() for c in cols)
+
+
+def batched_kernel_phase(B, n: int, hits: dict, orders_n: int,
+                         point_members: int, device: str = "cuda") -> list:
+    """The three member-axis entries against their plain versions at the
+    serving lane's shapes, timed with their plain versions, a PyTorch
+    library call (or short sequence) for the same function, and B
+    launches of the single-query kernel; the bound counts a shared
+    input once. `hits`: c40's columns at 1M rows (URLHash, EventDate,
+    CounterID, IsRefresh, TraficSourceID, RefererHash) as device
+    tensors."""
+    import torch
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    rows = []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def rand(shape, dtype=torch.float64):
+        return torch.rand(shape, generator=g, device=dev, dtype=dtype)
+
+    def randint(lo, hi, shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    def line(name, shape, k, p, lib, singles, bound, extra=""):
+        libs = "—" if lib is None else f"{lib:.4f}"
+        log(f"kernel {name} {shape}: kernel_ms={k:.4f} plain_ms={p:.4f} "
+            f"library_ms={libs} b_single_launches_ms={singles:.4f} "
+            f"bound_us={bound * 1e3:.2f} (bytes){extra}")
+
+    # -- bucket_agg_batched at Q1's shape: 12 buckets, the 10 kernel
+    #    aggregates (7 float64 sums, 3 counts), 8 members whose masks
+    #    are 8 DELTAs of l_shipdate <= date '1998-12-01' - DELTA
+    Bm = 8
+    u = rand((n,))
+    kid = torch.where(u < 0.49, 10, torch.where(
+        u < 0.74, 5, torch.where(u < 0.993, 7, 6))).to(torch.int32)
+    sd = randint(0, 2526, (n,))
+    live = rand((n,)) < 0.98
+    deltas = randint(60, 121, (Bm,))
+    masks = (live[None, :] & (sd[None, :] <= 2526 - deltas[:, None])) \
+        .contiguous()
+    aggs = [("sum", rand((n,)) * 1e5, None, False) for _ in range(7)] \
+        + [("count", None, None, False) for _ in range(3)]
+    err = check_bucket_agg_batched(B, kid, 12, masks, aggs, sync, "Q1")
+    sums = [d for (f, d, _v, _u) in aggs if f == "sum"]
+    member = torch.arange(Bm, device=dev, dtype=torch.int64)[:, None]
+
+    def lib_q1():
+        # one histogram over flat (member, bucket) ids, a dump bin for
+        # the rows no member keeps: a weighted bincount per sum, one
+        # bincount for the counts (Q1's counts are all count(*))
+        flat = torch.where(masks, member * 12 + kid.to(torch.int64)[None, :],
+                           Bm * 12).reshape(-1)
+        return [torch.bincount(flat, weights=d.repeat(Bm),
+                               minlength=Bm * 12 + 1) for d in sums] \
+            + [torch.bincount(flat, minlength=Bm * 12 + 1)]
+    k = time_ms(lambda: B.bucket_agg_batched(kid, 12, masks, aggs))
+    p = time_ms(lambda: B.bucket_agg_batched_plain(kid, 12, masks, aggs))
+    lib = time_ms(lib_q1)
+    singles = time_ms(lambda: [B.bucket_agg(kid, 12, masks[b], aggs)
+                               for b in range(Bm)])
+    bound = bound_ms(batched_agg_bytes(kid, 12, masks, aggs))
+    rows.append(dict(
+        name="bucket_agg_batched", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/bucket_agg.cu",
+        replaces="ydb_tpu/ops/fused.py:299",
+        shape=f"n={n} nb=12 aggs={len(aggs)} B={Bm} (Q1, 8 DELTAs)",
+        max_abs_err=err, ms=k, plain_ms=p, library_ms=lib, bound_ms=bound,
+        bound_by="bytes"))
+    line("bucket_agg_batched", f"Q1 n={n} nb=12 aggs=10 B={Bm}", k, p, lib,
+         singles, bound)
+    # every function, NULLs, a per-member value column and per-member
+    # ids, checked
+    v = rand((n,)) > 0.05
+    per_val = rand((Bm, n)) * 1e3
+    funcs = [("sum", aggs[0][1], v, False), ("count", None, v, False),
+             ("min", aggs[0][1], v, False), ("max", aggs[1][1], v, False),
+             ("first", None, v, False), ("sum", per_val, None, False),
+             ("sum", randint(-(1 << 40), 1 << 40, (n,)), v, False),
+             ("min", randint(-(1 << 62), 1 << 62, (n,)), None, True),
+             ("max", randint(-(1 << 62), 1 << 62, (n,)), v, True)]
+    check_bucket_agg_batched(B, kid, 12, masks, funcs, sync, "funcs")
+    kid_pm = randint(0, 12, (Bm, n), torch.int32)
+    check_bucket_agg_batched(B, kid_pm, 12, masks, funcs, sync,
+                             "per-member ids")
+
+    # -- keyless at Q6's shape: sum(l_extendedprice * l_discount) under 8
+    #    members' (DATE, DISCOUNT, QUANTITY) masks
+    q6 = [("sum", aggs[0][1], None, False)]
+    q6_masks = (live[None, :] & (rand((Bm, n)) < 0.02)).contiguous()
+    check_bucket_agg_batched(B, None, 1, q6_masks, q6, sync, "Q6 keyless")
+    check_bucket_agg_batched(B, None, 1, q6_masks, funcs, sync,
+                             "keyless funcs")
+    q6mf = q6_masks.to(torch.float64)
+    line("bucket_agg_batched", f"Q6 keyless n={n} aggs=1 B={Bm}",
+         time_ms(lambda: B.bucket_agg_batched(None, 1, q6_masks, q6)),
+         time_ms(lambda: B.bucket_agg_batched_plain(None, 1, q6_masks, q6)),
+         time_ms(lambda: q6mf @ aggs[0][1]),
+         time_ms(lambda: [B.bucket_agg(None, 1, q6_masks[b], q6)
+                          for b in range(Bm)]),
+         bound_ms(batched_agg_bytes(None, 1, q6_masks, q6)))
+
+    # -- 512 buckets x 16 aggregates, 8 members
+    kid5 = randint(0, 512, (n,), torch.int32)
+    wide = []
+    for a in range(16):
+        f = ("sum", "sum", "count", "min", "max", "first")[a % 6]
+        d = None if f in ("count", "first") else (
+            rand((n,)) * 1e5 if a % 4 else randint(-(1 << 40), 1 << 40,
+                                                   (n,)))
+        wide.append((f, d, rand((n,)) > 0.05 if a % 3 else None, False))
+    check_bucket_agg_batched(B, kid5, 512, masks, wide, sync, "nb=512")
+    line("bucket_agg_batched", f"nb=512 n={n} aggs=16 B={Bm}",
+         time_ms(lambda: B.bucket_agg_batched(kid5, 512, masks, wide)),
+         time_ms(lambda: B.bucket_agg_batched_plain(kid5, 512, masks,
+                                                    wide)),
+         None,
+         time_ms(lambda: [B.bucket_agg(kid5, 512, masks[b], wide)
+                          for b in range(Bm)]),
+         bound_ms(batched_agg_bytes(kid5, 512, masks, wide)))
+
+    # -- segment_agg_batched at the batch c40 sends over the 1M hits rows
+    #    (c36's URL groups fit the 512-bucket lane, so its batch takes
+    #    bucket_agg_batched): the sorted lane over (URLHash, EventDate),
+    #    8 members (CounterID, EventDate window), one sort of the union
+    #    of their masks, count(*) only
+    from ydb_tpu_torch.ops.sort import encode_key
+    nh = hits["URLHash"].shape[0]
+    cid = randint(1, 101, (Bm,))
+    cid[0] = 1                             # the busiest counter
+    lo = randint(0, 16, (Bm,))
+    hi = torch.clamp(lo + randint(7, 31, (Bm,)), max=30)
+    day = hits["EventDate"].to(torch.int64) - 19530
+    tsid = hits["TraficSourceID"]
+    hmasks = ((hits["CounterID"][None, :] == cid[:, None])
+              & (day[None, :] >= lo[:, None]) & (day[None, :] <= hi[:, None])
+              & (hits["IsRefresh"] == 0)[None, :]
+              & ((tsid == -1) | (tsid == 6))[None, :]
+              & (hits["RefererHash"] == 1417906597943049265)[None, :]
+              ).contiguous()
+    words = [encode_key(hits["URLHash"].to(torch.int64)).contiguous(),
+             encode_key(hits["EventDate"].to(torch.int64)).contiguous()]
+    union = hmasks.any(0)
+    perm = B.sort_perm([encode_key((~union).to(torch.int64))] + words, nh,
+                       dev)
+    oc = nh
+    c40 = []                               # count(*) only: no kernel agg
+    serr = check_segment_agg_batched(B, perm, words, hmasks, c40, oc, sync,
+                                     "c40")
+    hv = rand((nh,)) > 0.1
+    hfuncs = [("sum", rand((nh,)) * 1e3, hv, False),
+              ("count", None, hv, False), ("min", rand((nh,)), None, False),
+              ("max", randint(-(1 << 62), 1 << 62, (nh,)), hv, True),
+              ("first", None, hv, False),
+              ("sum", rand((Bm, nh)), None, False)]
+    serr = max(serr, check_segment_agg_batched(
+        B, perm, words, hmasks, hfuncs, oc, sync, "c40 funcs"))
+    perms = [B.sort_perm([encode_key((~hmasks[b]).to(torch.int64))] + words,
+                         nh, dev) for b in range(Bm)]
+    member = torch.arange(Bm, device=dev)[:, None].expand(Bm, nh)
+    flat = torch.stack([member.reshape(-1),
+                        hits["URLHash"].repeat(Bm),
+                        hits["EventDate"].to(torch.int64).repeat(Bm)])
+
+    def lib_c40():
+        return torch.unique(flat[:, hmasks.reshape(-1)], dim=1,
+                            return_counts=True)
+    k = time_ms(lambda: B.segment_agg_batched(perm, words, hmasks, c40, oc))
+    p = time_ms(lambda: B.segment_agg_batched_plain(perm, words, hmasks,
+                                                    c40, oc))
+    lib = time_ms(lib_c40)
+    singles = time_ms(lambda: [B.segment_agg(perms[b], words, hmasks[b],
+                                             c40, oc) for b in range(Bm)])
+    # segment_agg's bound extended by the member axis: the distinct
+    # inputs, and per member oc slots of lead (4), present (8) and a
+    # value and a count per aggregate (16 each)
+    bound = bound_ms(distinct_bytes([perm, hmasks] + words)
+                     + Bm * oc * (4 + 8 + 16 * len(c40)))
+    rows.append(dict(
+        name="segment_agg_batched", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/segment_agg.cu",
+        replaces="ydb_tpu/ops/fused.py:299",
+        shape=f"n={nh} B={Bm} (c40: (URLHash, EventDate) groups, count(*))",
+        max_abs_err=serr, ms=k, plain_ms=p, library_ms=lib, bound_ms=bound,
+        bound_by="bytes"))
+    line("segment_agg_batched", f"c40 n={nh} B={Bm} live="
+         f"{[int(x) for x in hmasks.sum(1)]}", k, p, lib, singles, bound)
+
+    # -- compact_batched at the point-lookup batch: orders' capacity, one
+    #    live row per member; and at 8 top-k masks over lineitem
+    Bp = point_members
+    ok = torch.arange(orders_n, device=dev, dtype=torch.int64) * 4 + 1
+    ocols = [ok, rand((orders_n,)) * 5e5,
+             randint(8035, 10592, (orders_n,), torch.int32)]
+    keys = ok[randint(0, orders_n - 1000, (Bp,))]
+    pmasks = (ok[None, :] == keys[:, None]).contiguous()
+    plen = orders_n - 1000
+    plive = check_compact_batched(B, ocols, pmasks, plen, orders_n,
+                                  orders_n, sync, "point")
+
+    def lib_point():
+        idx = torch.nonzero(pmasks)
+        return [c[idx[:, 1]] for c in ocols]
+    k = time_ms(lambda: B.compact_batched(ocols, pmasks, plen, orders_n,
+                                          orders_n, Bp))
+    p = time_ms(lambda: B.compact_batched_plain(ocols, pmasks, plen,
+                                                orders_n, orders_n, Bp))
+    lib = time_ms(lib_point)
+    singles = time_ms(lambda: [B.compact(ocols, pmasks[b], plen, orders_n,
+                                         orders_n) for b in range(Bp)])
+    width = sum(c.element_size() for c in ocols)
+    bound = bound_ms(compact_batched_bytes(pmasks, plive, ocols))
+    # what the wrapper writes beyond the bound: B full-capacity outputs,
+    # zero-filled before the scatter
+    fill = f" zero_fill_bytes={Bp * orders_n * width} live_rows={plive}"
+    rows.append(dict(
+        name="compact_batched", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/compact.cu",
+        replaces="ydb_tpu/ops/fused.py:299",
+        shape=f"n={orders_n} B={Bp} (point lookups, one live row each)",
+        max_abs_err=0.0, ms=k, plain_ms=p, library_ms=lib, bound_ms=bound,
+        bound_by="bytes"))
+    line("compact_batched", f"point n={orders_n} B={Bp}", k, p, lib,
+         singles, bound, fill)
+    lcols = [aggs[0][1], randint(0, 6_000_000, (n,))]
+    tmasks = (live[None, :] & (sd[None, :] == randint(0, 2526, (Bm,))
+                               [:, None])).contiguous()
+    tlive = check_compact_batched(B, lcols, tmasks, n, n, n, sync, "top-k")
+
+    def lib_topk():
+        idx = torch.nonzero(tmasks)
+        return [c[idx[:, 1]] for c in lcols]
+    line("compact_batched", f"top-k n={n} B={Bm}",
+         time_ms(lambda: B.compact_batched(lcols, tmasks, n, n, n, Bm)),
+         time_ms(lambda: B.compact_batched_plain(lcols, tmasks, n, n, n,
+                                                 Bm)),
+         time_ms(lib_topk),
+         time_ms(lambda: [B.compact(lcols, tmasks[b], n, n, n)
+                          for b in range(Bm)]),
+         bound_ms(compact_batched_bytes(tmasks, tlive, lcols)),
+         f" zero_fill_bytes={Bm * n * sum(c.element_size() for c in lcols)}"
+         f" live_rows={tlive}")
+
+    # -- edge cases, checked: B = 1, every member identical, a member
+    #    with no live row, B = 64 (a member per block row)
+    m = 200_003
+    e_kid = randint(0, 300, (m,), torch.int32)
+    e_val = [("sum", rand((m,)), None, False), ("count", None, None, False),
+             ("first", None, None, False)]
+    e_words = [encode_key(e_kid.to(torch.int64))]
+    for tag, mk in (("B=1", lambda: rand((1, m)) < 0.5),
+                    ("identical", lambda: (rand((m,)) < 0.5)[None, :]
+                     .expand(4, m).contiguous()),
+                    ("empty member", lambda: torch.cat(
+                        [rand((3, m)) < 0.5,
+                         torch.zeros(1, m, dtype=torch.bool, device=dev)])),
+                    ("B=64", lambda: rand((64, m)) < 0.3)):
+        em = mk()
+        check_bucket_agg_batched(B, e_kid, 300, em, e_val, sync, tag)
+        check_bucket_agg_batched(B, None, 1, em, e_val, sync, f"{tag} keyless")
+        eu = em.any(0)
+        ep = B.sort_perm([encode_key((~eu).to(torch.int64))] + e_words, m,
+                         dev)
+        check_segment_agg_batched(B, ep, e_words, em, e_val, 512, sync, tag)
+        check_compact_batched(B, [e_kid, e_val[0][1]], em, m - 7, m, m,
+                              sync, tag)
+        check_compact_batched(B, [e_kid], em, m, m, 1024, sync,
+                              f"{tag} overflow")
+    log("kernel batched edge cases: B=1, identical members, an empty "
+        "member, B=64 (bucket_agg_batched keyed and keyless, "
+        "segment_agg_batched, compact_batched with an overflow) ok")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# the batched serving path
+# --------------------------------------------------------------------------
+
+SERVING_SEED = 20261017
+SERVING_TEMPLATES = (("q1", "tpch", 8), ("q6", "tpch", 8),
+                     ("q12", "tpch", 8), ("q14", "tpch", 8),
+                     ("q19", "tpch", 8), ("q3", "tpch", 8),
+                     ("point", "tpch", 64), ("c36", "clickbench", 8),
+                     ("c37", "clickbench", 8), ("c40", "clickbench", 8),
+                     ("c42", "clickbench", 8))
+SERVING_KERNELS = ("bucket_agg_batched", "segment_agg_batched",
+                   "compact_batched", "probe", "sort")
+
+
+def _storm(eng, texts):
+    """One thread per text, released together; returns (wall ms,
+    {i: (frame, last_path)})."""
+    import threading
+    out, errs = {}, []
+    barrier = threading.Barrier(len(texts) + 1)
+
+    def one(i, sql):
+        try:
+            barrier.wait()
+            df = eng.query(sql)
+            out[i] = (df, eng.executor.last_path)
+        except Exception as e:             # noqa: BLE001 — reported below
+            errs.append((i, repr(e)))
+    threads = [threading.Thread(target=one, args=(i, q))
+               for i, q in enumerate(texts)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = (time.perf_counter() - t0) * 1e3
+    check(not errs, f"storm failed: {errs[:3]}")
+    return wall, out
+
+
+def _merge_passes(n: int) -> int:
+    """merge_pass launches of one sort.cu call over n rows: one per
+    doubling of the 512-row tiles up to n."""
+    passes, w = 0, 512
+    while w < n:
+        passes, w = passes + 1, w * 2
+    return passes
+
+
+@contextlib.contextmanager
+def _sort_sizes(bindings):
+    """The row counts of the `sort_perm` calls made inside the block
+    (each is one wrapper call and 1 + _merge_passes(n) kernel
+    launches)."""
+    real, sizes = bindings.sort_perm, []
+
+    def recording(keys, n, device):
+        sizes.append(n)
+        return real(keys, n, device)
+    bindings.sort_perm = recording
+    try:
+        yield sizes
+    finally:
+        bindings.sort_perm = real
+
+
+def _batched_call(eng, texts):
+    """One direct `execute_fused_batched` of `texts` (the lane's call)."""
+    import dataclasses
+
+    from ydb_tpu_torch.sql import parse
+    plans = [eng.planner.plan_select(parse(q)) for q in texts]
+    p0 = plans[0]
+    pipe = p0.pipeline
+    pb = dataclasses.replace(p0, pipeline=dataclasses.replace(
+        pipe, scan=dataclasses.replace(pipe.scan, prune=[])))
+    return eng.executor.execute_fused_batched(
+        pb, [(p, dict(p.params)) for p in plans], eng.snapshot())
+
+
+def _device_ms(fn) -> float:
+    """Device time of one call of `fn` under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(float(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0) or 0)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def admitted_batch(eng, text: str, Bn: int):
+    """The largest B <= Bn, halving, that the lane's own gates admit for
+    `text` (est x B against the fused scan budget, and for plans with no
+    LIMIT and no GROUP BY against the merge budget, `batch_lane.
+    _group_key`). Returns (B, est, [the gates that declined])."""
+    from ydb_tpu_torch.query.admission import estimate_plan_bytes
+    from ydb_tpu_torch.query.batch_lane import _has_groupby
+    from ydb_tpu_torch.sql import parse
+    plan = eng.planner.plan_select(parse(text))
+    est = max(estimate_plan_bytes(eng.catalog, plan, eng.snapshot()),
+              1 << 20)
+    ex = eng.executor
+    declined = []
+    while True:
+        if est * Bn > ex.fused_scan_budget_bytes:
+            declined.append(f"est x {Bn} > fused_scan_budget")
+        elif plan.limit is None and not _has_groupby(plan) \
+                and est * Bn > ex.merge_budget_bytes:
+            declined.append(f"est x {Bn} > merge_budget (no LIMIT, no "
+                            "GROUP BY)")
+        else:
+            return Bn, est, declined
+        Bn //= 2
+        check(Bn >= 2, f"the lane's gates admit no batch: {declined}")
+
+
+def serving_phase(bindings, engines: dict, oracles: dict,
+                  order_keys) -> dict:
+    """The batched serving path: per template, B client threads released
+    together send one variant each (`bench/serving.py`, parameters drawn
+    from SERVING_SEED) to an engine with the lane on
+    (`YDB_TPU_BATCH_WINDOW=500`, `YDB_TPU_BATCH_MAX=B`) and to the
+    lane-off engine over the same catalog. Every member must equal the
+    lane-off answer, the validation member its oracle; batched templates
+    must coalesce (`batch/batches`, `last_path`), Q3 (literals on its
+    build sides) must run as singles; a direct execute_fused_batched
+    must call the same kernel wrappers, as many times, at B = 2 and
+    B = 8 (a sort over B x cap rows runs more merge passes inside its
+    call; they are logged).
+    Returns this path's launches."""
+    import torch
+
+    from ydb_tpu_torch.bench import serving
+    from ydb_tpu_torch.bench.tpch_oracle import assert_frames_match
+    from ydb_tpu_torch.query import QueryEngine
+    from ydb_tpu_torch.utils.metrics import GLOBAL
+    os.environ["YDB_TPU_LATE_MAT"] = "1"
+    os.environ["YDB_TPU_BATCH_WINDOW"] = "500"
+    lanes = {}
+    for suite, off in engines.items():
+        lanes[suite] = QueryEngine(catalog=off.catalog)
+    os.environ.pop("YDB_TPU_BATCH_WINDOW", None)
+    log(f"batched serving: window 500 ms, seed {SERVING_SEED}; templates "
+        + ", ".join(f"{n} B={b}" for n, _s, b in SERVING_TEMPLATES))
+    bindings.reset_launches()
+    for name, suite, Bn in SERVING_TEMPLATES:
+        off, on = engines[suite], lanes[suite]
+        if name == "point":
+            texts_all = serving.point_variants(order_keys, Bn, SERVING_SEED)
+        else:
+            texts_all = serving.variants(name, Bn, SERVING_SEED)
+        # the reference's own gates: est x B against the fused scan and
+        # merge budgets; halve B until they admit the template
+        Bn, est, declined = admitted_batch(on, texts_all[0], Bn)
+        for gate in declined:
+            log(f"serving {name}: declined at {gate}; halving B")
+        gate = f"admitted at B={Bn}"
+        texts = texts_all[:Bn]
+        on._batch_lane.max_batch = Bn
+        want = [off.query(q) for q in texts]          # lane off, warm
+        for q in texts:        # plans cached, device warm (each alone)
+            on.query(q)
+        t_off, _ = _storm(off, texts)
+        b0 = {k: GLOBAL.get(k) for k in ("batch/batches", "batch/singles",
+                                         "batch/coalesced_queries")}
+        t_on, got = _storm(on, texts)
+        d = {k: GLOBAL.get(k) - v for k, v in b0.items()}
+        for i, q in enumerate(texts):
+            assert_frames_match(got[i][0], want[i], ordered=True)
+        if name != "point":
+            ref = oracles[suite](name)
+            if suite == "clickbench":
+                ref.columns = list(got[0][0].columns)
+            assert_frames_match(got[0][0], ref, ordered=True)
+        paths = sorted({p for (_df, p) in got.values()})
+        if name == "q3":
+            check(d["batch/batches"] == 0 and "fused-batched" not in paths,
+                  f"q3 must run as singles: {d} {paths}")
+        else:
+            check(d["batch/batches"] >= 1 and "fused-batched" in paths,
+                  f"{name}: no batch ({d}, paths {paths})")
+        note = ""
+        if name != "q3":
+            per_b, merges = {}, {}
+            for b in (2, 8) if Bn >= 8 else (2, Bn):
+                before = dict(bindings.LAUNCHES)
+                with _sort_sizes(bindings) as sizes:
+                    blocks = _batched_call(on, texts[:b])
+                torch.cuda.synchronize()
+                check(blocks is not None, f"{name}: batched call declined")
+                per_b[b] = {k: v - before[k]
+                            for k, v in bindings.LAUNCHES.items()
+                            if v > before[k]}
+                merges[b] = sum(_merge_passes(m) for m in sizes)
+            b_lo, b_hi = sorted(per_b)
+            check(per_b[b_lo] == per_b[b_hi],
+                  f"{name}: wrapper calls per batch depend on B: {per_b}")
+            dev_ms = _device_ms(lambda: _batched_call(on, texts))
+            note = (f" wrapper_calls_per_batch={sum(per_b[b_hi].values())} "
+                    f"{json.dumps(per_b[b_hi])} (equal at B={b_lo} and "
+                    f"B={b_hi}) sort_merge_passes={merges[b_lo]} at "
+                    f"B={b_lo}, {merges[b_hi]} at B={b_hi} "
+                    f"traced_batch_device_ms={dev_ms:.3f}")
+        log(f"serving {name}: B={Bn} est={est} gate={gate} "
+            f"storm_lane_off_ms={t_off:.2f} storm_lane_on_ms={t_on:.2f} "
+            f"batches={d['batch/batches']} singles={d['batch/singles']} "
+            f"coalesced={d['batch/coalesced_queries']} paths={paths} "
+            f"ok{note}")
+    launches = dict(bindings.LAUNCHES)
+    log(f"launches (batched serving): {json.dumps(launches)}")
+    missing = [k for k in SERVING_KERNELS if launches[k] <= 0]
+    check(not missing, f"kernels not launched on batched serving: {missing}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -1322,6 +1924,24 @@ def main() -> int:
                     "ss_sales_price", "ss_net_profit")}
     rows += k13_phase(bindings, ss)
     del ss
+    # the serving lane's member-axis entries: c40's columns over the 1M
+    # hits rows, orders' capacity and the point-lookup batch as the
+    # serving path runs it
+    import numpy as np
+
+    from ydb_tpu_torch.bench import serving
+    hits = {c: torch.as_tensor(np.asarray(raw_cb[c]), device="cuda")
+            for c in ("URLHash", "EventDate", "CounterID", "IsRefresh",
+                      "TraficSourceID", "RefererHash")}
+    orders = eng.catalog.table("orders")
+    o_portions = [p for s in orders.shards for p in s.portions]
+    orders_n = bucket_sources(len(o_portions)) * max(
+        bucket_capacity(max(p.num_rows, 1)) for p in o_portions)
+    order_keys = data.tables["orders"]["o_orderkey"]
+    point_b, _est, _gates = admitted_batch(
+        eng, serving.point_variants(order_keys, 1, SERVING_SEED)[0], 64)
+    rows += batched_kernel_phase(bindings, n, hits, orders_n, point_b)
+    del hits
 
     # 5. the main path, path by path, through QueryEngine.query; the
     # beyond-budget path runs a second engine over the TPC-H data with
@@ -1349,6 +1969,14 @@ def main() -> int:
         launches = slice_phase(bindings, suites)
     finally:
         recorder.close()
+    served = serving_phase(
+        bindings, {"tpch": eng, "clickbench": eng_cb},
+        {"tpch": lambda q: oracle(q, data),
+         "clickbench": lambda q: clickbench_oracle.oracle(q, raw_cb)},
+        order_keys)
+    for k, v in served.items():
+        launches[k] += v
+    log(f"launches (all paths): {json.dumps(launches)}")
     if args.profile:
         profile_phase(eng, QUERIES)
         profile_beyond_phase(eng_bb, {**QUERIES, **BEYOND_EXTRA})

@@ -26,9 +26,19 @@ a non-zero code raises.
 | expand_gather| ops/join.py _expand_gather                                |
 | partition    | ops/spill.py _partition_sort (ids, counts, the sort and   |
 |              | gathers); query/executor.py _partition_block (routing)    |
+| *_batched    | the member axis of bucket_agg, segment_agg and compact:   |
+|              | what ops/fused.py build_fused_batched_fn's vmap gives     |
+|              | them in the reference                                     |
 
 Each launch name builds from ``csrc/<library>.cu`` (``expand_counts``
-and ``expand_gather`` share ``expand.cu``).
+and ``expand_gather`` share ``expand.cu``; each ``*_batched`` entry is
+in its kernel's source).
+
+Member axis (the batched serving lane): B same-shape queries run as one.
+An input of a ``*_batched`` wrapper is either shared, shape (n,), or per
+member, shape (B, n) with contiguous rows; its member stride goes to the
+kernel (0 when shared), so a shared column is never copied B times.
+Outputs carry the member axis first.
 
 What bounds each on the H100 and what its design does about it is at the
 top of its source in ``csrc/``.
@@ -83,6 +93,19 @@ _SIGS = {
     "partition": ("partition", "partition_launch",
                   [_I64, _P, _P, _I32, _P, _P, _P, _P, _P, _I32, _PI64,
                    _PI64, _PI32, _I32, _P]),
+    "bucket_agg_batched": ("bucket_agg", "bucket_agg_batched_launch",
+                           [_I64, _I32, _P, _I64, _I32, _P, _I64,
+                            _I32, _PI64, _PI64, _PI64, _PI64, _PI32, _PI32,
+                            _I64, _I32, _P, _P, _P, _P, _P, _P, _P]),
+    "segment_agg_batched": ("segment_agg", "segment_agg_batched_launch",
+                            [_I64, _P, _I32, _PI64, _P, _I32, _P, _I64,
+                             _I32, _PI64, _PI64, _PI64, _PI64, _PI32, _PI32,
+                             _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _I32, _P]),
+    "compact_batched": ("compact", "compact_batched_launch",
+                        [_I64, _I32, _P, _I32, _P, _I64, _I64, _P, _P, _P,
+                         _P, _P, _I32, _PI64, _PI64, _PI64, _PI32, _I32,
+                         _P]),
 }
 
 LAUNCHES = {name: 0 for name in _SIGS}
@@ -124,6 +147,35 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _arr(ctype, vals):
     return (ctype * max(len(vals), 1))(*vals)
+
+
+def _member_stride(t: torch.Tensor, what: str, device, B: int, n: int,
+                   dtypes=None) -> int:
+    """Check a member-axis input — shared (n,) or per member (B, n) with
+    contiguous rows — and return its member stride in elements (0 when
+    shared)."""
+    if t.dim() == 1:
+        _check(t, what, device, n, dtypes)
+        return 0
+    if t.device.type != device.type or (
+            device.index is not None and t.device.index != device.index):
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if t.dim() != 2 or tuple(t.shape) != (B, n) or (n > 1
+                                                    and t.stride(1) != 1):
+        raise ValueError(f"{what}: shape {tuple(t.shape)} strides "
+                         f"{t.stride()}, expected ({n},) or ({B}, {n}) "
+                         "with contiguous rows")
+    if dtypes is not None and t.dtype not in dtypes:
+        raise ValueError(f"{what}: dtype {t.dtype} not in {dtypes}")
+    return t.stride(0)
+
+
+def _per_member(t: Optional[torch.Tensor], B: int) -> Optional[torch.Tensor]:
+    """A member-axis input as (B, n) (a shared one expanded, not copied)
+    — the plain versions' view."""
+    if t is None or t.dim() == 2:
+        return t
+    return t.unsqueeze(0).expand(B, t.shape[0])
 
 
 def _check(t: torch.Tensor, what: str, device, n: Optional[int] = None,
@@ -260,6 +312,110 @@ def bucket_agg_plain(kid, nb: int, active: torch.Tensor, aggs: list):
     return vals, cnts, present
 
 
+_TILE_ROWS = 512                 # bucket_agg.cu TILE
+_KEYLESS_SLOTS = 8               # bucket_agg.cu SLOTS
+
+
+def bucket_agg_batched(kid: Optional[torch.Tensor], nb: int,
+                       masks: torch.Tensor, aggs: list):
+    """`bucket_agg` for B members at once (the batched serving lane).
+
+    masks: bool (B, n), member b's active rows. kid: None (keyless), or
+    int32 bucket ids shared (n,) or per member (B, n). aggs: as
+    `bucket_agg`'s, each data and valid shared (n,) or per member (B, n).
+
+    Returns (vals, cnts, present) as `bucket_agg`'s with a leading member
+    axis: per aggregate a (B, nb) value and (B, nb) count, and the (B, nb)
+    active-row counts. Member b's results equal `bucket_agg` over its
+    rows; its float sums fold in the same order as a single query's."""
+    B, n = masks.shape
+    dev = masks.device
+    if dev.type != "cuda":
+        return bucket_agg_batched_plain(kid, nb, masks, aggs)
+    ms = _member_stride(masks, "masks", dev, B, n, (torch.bool,))
+    if ms == 0:
+        raise ValueError("masks: one row per member")
+    ks = 0
+    if kid is not None:
+        ks = _member_stride(kid, "kid", dev, B, n, (torch.int32,))
+    elif nb != 1:
+        raise ValueError("keyless aggregation has one bucket")
+    if not 1 <= nb <= _MAX_BUCKETS:
+        raise ValueError(f"{nb} buckets (at most {_MAX_BUCKETS})")
+    specs = []
+    for func, data, valid, u in aggs:
+        if func not in AGG_FUNCS:
+            raise ValueError(func)
+        ds = vs = 0
+        if data is not None:
+            ds = _member_stride(data, f"{func} data", dev, B, n,
+                                (torch.float64, torch.int64))
+        elif func in ("sum", "min", "max"):
+            raise ValueError(f"{func} needs data")
+        if valid is not None:
+            vs = _member_stride(valid, f"{func} valid", dev, B, n,
+                                (torch.bool,))
+        specs.append((func, data, valid, u, ds, vs))
+    G = max(1, min((n + _TILE_ROWS - 1) // _TILE_ROWS, _PARTIAL_BLOCKS))
+    vals, cnts, present = [], [], None
+    per = _KEYLESS_SLOTS if kid is None else _MAX_AGGS
+    chunks = [specs[i:i + per] for i in range(0, len(specs), per)] or [[]]
+    for chunk in chunks:
+        A = len(chunk)
+        part_val = torch.empty(B * G * A * nb, dtype=torch.int64, device=dev)
+        part_cnt = torch.empty(B * G * A * nb, dtype=torch.int64, device=dev)
+        part_pres = torch.empty(B * G * nb, dtype=torch.int64, device=dev)
+        out_val = torch.empty((B, A, nb), dtype=torch.int64, device=dev)
+        out_cnt = torch.empty((B, A, nb), dtype=torch.int64, device=dev)
+        out_pres = torch.empty((B, nb), dtype=torch.int64, device=dev)
+        types = [0 if (d is not None and d.dtype == torch.float64)
+                 else (2 if u else 1) for (_f, d, _v, u, _ds, _vs) in chunk]
+        _launch("bucket_agg_batched", n, nb, _ptr(kid), ks, B,
+                _ptr(masks), ms, A,
+                _arr(ctypes.c_int64, [_ptr(c[1]) or 0 for c in chunk]),
+                _arr(ctypes.c_int64, [c[4] for c in chunk]),
+                _arr(ctypes.c_int64, [_ptr(c[2]) or 0 for c in chunk]),
+                _arr(ctypes.c_int64, [c[5] for c in chunk]),
+                _arr(ctypes.c_int32, [AGG_FUNCS[c[0]] for c in chunk]),
+                _arr(ctypes.c_int32, types), n, G, _ptr(part_val),
+                _ptr(part_cnt), _ptr(part_pres), _ptr(out_val),
+                _ptr(out_cnt), _ptr(out_pres), _stream())
+        for a, (func, d, *_r) in enumerate(chunk):
+            v = out_val[:, a]
+            if d is not None and d.dtype == torch.float64 \
+                    and func in ("sum", "min", "max"):
+                v = v.view(torch.float64)
+            vals.append(v)
+            cnts.append(out_cnt[:, a])
+        present = out_pres
+    return vals, cnts, present
+
+
+def bucket_agg_batched_plain(kid, nb: int, masks: torch.Tensor, aggs: list):
+    """Plain PyTorch version of `bucket_agg_batched`: `bucket_agg_plain`
+    over the B·n rows with member b's buckets at b·nb + bucket."""
+    B, n = masks.shape
+    dev = masks.device
+    off = torch.arange(B, dtype=torch.int64, device=dev)[:, None]
+    k = torch.zeros((B, n), dtype=torch.int64, device=dev) if kid is None \
+        else _per_member(kid, B).to(torch.int64)
+    k = torch.where((k >= 0) & (k < nb), k + off * nb,
+                    torch.full_like(k, -1)).reshape(-1)
+    active = masks.reshape(-1) & (k >= 0)
+    k = torch.clamp(k, min=0).to(torch.int32)
+    flat = [(f, None if d is None else _per_member(d, B).reshape(-1),
+             None if v is None else _per_member(v, B).reshape(-1), u)
+            for (f, d, v, u) in aggs]
+    vals, cnts, present = bucket_agg_plain(k, B * nb, active, flat)
+    out_vals = []
+    for (f, *_r), v in zip(aggs, vals):
+        v = v.reshape(B, nb)
+        if f == "first":     # flat row id → the member's row id (n: none)
+            v = torch.where(v >= B * n, torch.full_like(v, n), v - off * n)
+        out_vals.append(v)
+    return out_vals, [c.reshape(B, nb) for c in cnts], present.reshape(B, nb)
+
+
 # --------------------------------------------------------------------------
 # compact
 # --------------------------------------------------------------------------
@@ -332,6 +488,88 @@ def compact_plain(cols: list, mask, length, n: int, new_cap: int):
         o = torch.zeros(new_cap, dtype=c.dtype, device=dev)
         o[:keep.shape[0]] = c[keep]
         outs.append(o)
+    new_len = torch.clamp(live, max=new_cap)
+    return outs, live, new_len, live > new_cap
+
+
+def compact_batched(cols: list, masks: Optional[torch.Tensor], lengths,
+                    n: int, new_cap: int, B: int):
+    """`compact` for B members at once: member b keeps the rows r <
+    lengths[b] (and masks[b, r]) of each column, in order, in row b of a
+    (B, new_cap) output.
+
+    cols: each shared (n,) or per member (B, n), any element width;
+    masks: bool (B, n), shared (n,), or None; lengths: int32 (B,), or one
+    length for every member (an int or 0-d tensor).
+
+    Returns (outs, live, new_len, overflow): (B, new_cap) columns (rows
+    past a member's new_len are zero) and (B,) live counts (int32),
+    new_len = min(live, new_cap) and overflow = live > new_cap."""
+    dev = masks.device if masks is not None else (
+        cols[0].device if cols else lengths.device)
+    if dev.type != "cuda":
+        return compact_batched_plain(cols, masks, lengths, n, new_cap, B)
+    ms = 0
+    if masks is not None:
+        ms = _member_stride(masks, "masks", dev, B, n, (torch.bool,))
+    strides = []
+    for i, c in enumerate(cols):
+        strides.append(_member_stride(c, f"column {i}", dev, B, n))
+        if c.element_size() not in (1, 2, 4, 8):
+            raise ValueError(f"column {i}: element size {c.element_size()}")
+    if isinstance(lengths, torch.Tensor) and lengths.dim() == 1:
+        _check(lengths, "lengths", dev, B, (torch.int32,))
+        lengths_t, ls = lengths, 1
+    else:
+        lengths_t, ls = _length_tensor(lengths, dev), 0
+    nblocks = max((n + 1023) // 1024, 1)
+    block_counts = torch.empty(B * nblocks, dtype=torch.int32, device=dev)
+    block_offsets = torch.empty(B * nblocks, dtype=torch.int32, device=dev)
+    live = torch.empty(B, dtype=torch.int32, device=dev)
+    new_len = torch.empty(B, dtype=torch.int32, device=dev)
+    ovf = torch.empty(B, dtype=torch.bool, device=dev)
+    outs = [torch.zeros((B, new_cap), dtype=c.dtype, device=dev)
+            for c in cols]
+    chunks = [list(range(i, min(i + _MAX_COLS, len(cols))))
+              for i in range(0, len(cols), _MAX_COLS)] or [[]]
+    for j, chunk in enumerate(chunks):
+        _launch("compact_batched", n, B, _ptr(lengths_t), ls, _ptr(masks),
+                ms, new_cap, _ptr(block_counts), _ptr(block_offsets),
+                _ptr(live), _ptr(new_len), _ptr(ovf), len(chunk),
+                _arr(ctypes.c_int64, [_ptr(cols[i]) for i in chunk]),
+                _arr(ctypes.c_int64, [strides[i] for i in chunk]),
+                _arr(ctypes.c_int64, [_ptr(outs[i]) for i in chunk]),
+                _arr(ctypes.c_int32, [cols[i].element_size()
+                                      for i in chunk]),
+                1 if j == 0 else 0, _stream())
+    return outs, live, new_len, ovf
+
+
+def compact_batched_plain(cols: list, masks, lengths, n: int, new_cap: int,
+                          B: int):
+    """Plain PyTorch version of `compact_batched` (a rank per member by
+    cumulative sum, then one scatter over the B·new_cap slots)."""
+    dev = masks.device if masks is not None else (
+        cols[0].device if cols else lengths.device)
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    if isinstance(lengths, torch.Tensor) and lengths.dim() == 1:
+        lens = lengths.to(device=dev, dtype=torch.int32)
+    else:
+        lens = _length_tensor(lengths, dev).expand(B)
+    active = iota[None, :] < lens[:, None]
+    if masks is not None:
+        active = active & _per_member(masks, B)
+    rank = torch.cumsum(active.to(torch.int64), 1) - 1
+    live = active.sum(1).to(torch.int32)
+    off = torch.arange(B, dtype=torch.int64, device=dev)[:, None] * new_cap
+    keep = active & (rank < new_cap)
+    slot = torch.where(keep, off + rank,
+                       torch.full_like(rank, B * new_cap)).reshape(-1)
+    outs = []
+    for c in cols:
+        o = torch.zeros(B * new_cap + 1, dtype=c.dtype, device=dev)
+        o.index_copy_(0, slot, _per_member(c, B).reshape(-1))
+        outs.append(o[:B * new_cap].reshape(B, new_cap))
     new_len = torch.clamp(live, max=new_cap)
     return outs, live, new_len, live > new_cap
 
@@ -608,6 +846,146 @@ def segment_agg_plain(perm, keys: list, active, aggs: list, oc: int):
     return ngroups, lead, present, out_vals, cnts
 
 
+def segment_agg_batched(perm: torch.Tensor, keys: list, masks: torch.Tensor,
+                        aggs: list, oc: int):
+    """`segment_agg` for B members that share one sort (the batched
+    serving lane's group-by over shared keys).
+
+    perm: int32 (n,) that puts the rows active in ANY member first,
+    ordered by key (`sort_perm` over the union of the masks); keys: int64
+    key words (n,), shared; masks: bool (B, n); aggs: as
+    `bucket_agg_batched`'s (data and valid shared or per member); oc: the
+    output capacity, at least the number of groups of the union.
+
+    Returns (ngroups, lead, present, vals, cnts) as `segment_agg`'s with
+    a leading member axis: ngroups (B,) int32 — a group with no active
+    row in member b is absent from b's result, as a sort of b's rows
+    alone drops it — and per member (B, oc) slots in key order: lead the
+    group's first active row of the member (int32), present its active
+    rows, the values and counts. Slots past a member's ngroups hold
+    zeros."""
+    B, n = masks.shape
+    dev = masks.device
+    if dev.type != "cuda":
+        return segment_agg_batched_plain(perm, keys, masks, aggs, oc)
+    _check(perm, "perm", dev, n, (torch.int32,))
+    ms = _member_stride(masks, "masks", dev, B, n, (torch.bool,))
+    if ms == 0:
+        raise ValueError("masks: one row per member")
+    if not 1 <= len(keys) <= _MAX_KEYS:
+        raise ValueError(f"{len(keys)} key words (1 to {_MAX_KEYS})")
+    for i, k in enumerate(keys):
+        _check(k, f"key {i}", dev, n, (torch.int64,))
+    # the member's first row per group rides as one more `first`
+    specs = []
+    for func, data, valid, u in list(aggs) + [("first", None, None, False)]:
+        if func not in AGG_FUNCS:
+            raise ValueError(func)
+        ds = vs = 0
+        if data is not None:
+            ds = _member_stride(data, f"{func} data", dev, B, n,
+                                (torch.float64, torch.int64))
+        elif func in ("sum", "min", "max"):
+            raise ValueError(f"{func} needs data")
+        if valid is not None:
+            vs = _member_stride(valid, f"{func} valid", dev, B, n,
+                                (torch.bool,))
+        specs.append((func, data, valid, u, ds, vs))
+    union = masks.any(0)
+    T = max((n + _SEG_TILE - 1) // _SEG_TILE, 1)
+    i64 = dict(dtype=torch.int64, device=dev)
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    tile_cnt = torch.empty(T, dtype=torch.int32, device=dev)
+    tile_off = torch.empty(T, **i64)
+    ngroups_u = torch.zeros((), dtype=torch.int32, device=dev)
+    present = torch.zeros((B, oc), **i64)
+    cols = [present]
+    where = []                   # (spec index, "v" | "c") per later column
+    chunks = [specs[i:i + _MAX_AGGS]
+              for i in range(0, len(specs), _MAX_AGGS)]
+    for j, chunk in enumerate(chunks):
+        A = len(chunk)
+        out_val = torch.zeros((B, A, oc), **i64)
+        out_cnt = torch.zeros((B, A, oc), **i64)
+        parts = [torch.empty(n_, **i64) for _ in ("head", "tail")
+                 for n_ in (B * A * T, B * A * T, B * T)]
+        types = [0 if (d is not None and d.dtype == torch.float64)
+                 else (2 if u else 1) for (_f, d, _v, u, _ds, _vs) in chunk]
+        _launch("segment_agg_batched", n, _ptr(perm), len(keys),
+                _arr(ctypes.c_int64, [_ptr(k) for k in keys]), _ptr(union),
+                B, _ptr(masks), ms, A,
+                _arr(ctypes.c_int64, [_ptr(c[1]) or 0 for c in chunk]),
+                _arr(ctypes.c_int64, [c[4] for c in chunk]),
+                _arr(ctypes.c_int64, [_ptr(c[2]) or 0 for c in chunk]),
+                _arr(ctypes.c_int64, [c[5] for c in chunk]),
+                _arr(ctypes.c_int32, [AGG_FUNCS[c[0]] for c in chunk]),
+                _arr(ctypes.c_int32, types), oc, _ptr(flags),
+                _ptr(tile_cnt), _ptr(tile_off), _ptr(ngroups_u),
+                _ptr(out_val), _ptr(out_cnt), _ptr(present),
+                *[_ptr(p) for p in parts], 1 if j == 0 else 0, _stream())
+        base = j * _MAX_AGGS
+        for a in range(A):
+            cols += [out_val[:, a], out_cnt[:, a]]
+            where += [(base + a, "v"), (base + a, "c")]
+    # each member keeps the runs where it has rows, in key order
+    outs, _live, ngroups, _ovf = compact_batched(cols, present > 0,
+                                                 ngroups_u, oc, oc, B)
+    present = outs[0]
+    vals = [None] * len(specs)
+    cnts = [None] * len(specs)
+    for (i, part), o in zip(where, outs[1:]):
+        (vals if part == "v" else cnts)[i] = o
+    for i, (func, d, *_r) in enumerate(specs):
+        if d is not None and d.dtype == torch.float64 \
+                and func in ("sum", "min", "max"):
+            vals[i] = vals[i].view(torch.float64)
+    lead = vals.pop().to(torch.int32)
+    cnts.pop()
+    return ngroups, lead, present, vals, cnts
+
+
+def segment_agg_batched_plain(perm, keys: list, masks, aggs: list, oc: int):
+    """Plain PyTorch version of `segment_agg_batched`: the runs of equal
+    keys along `perm` (over the union of the masks), each member's runs
+    that hold its rows ranked by cumulative sum, then
+    `bucket_agg_batched_plain` over the per-member group ids."""
+    B, n = masks.shape
+    dev = masks.device
+    p = perm.to(torch.int64)
+    union = masks.any(0)[p]
+    changed = torch.ones(n, dtype=torch.bool, device=dev)
+    if n:
+        changed[1:] = ~union[:-1]
+        for k in keys:
+            ks = k[p]
+            changed[1:] |= ks[1:] != ks[:-1]
+    run = torch.cumsum((union & changed).to(torch.int64), 0) - 1  # sorted
+    act = masks[:, p] & union[None, :]                   # (B, n) sorted
+    run_b = torch.where(act, run[None, :].expand(B, n),
+                        torch.full((B, n), n, dtype=torch.int64, device=dev))
+    hits = torch.zeros((B, n + 1), dtype=torch.int64, device=dev)
+    hits.scatter_add_(1, run_b, act.to(torch.int64))
+    has = hits[:, :n] > 0
+    rank = torch.cumsum(has.to(torch.int64), 1) - 1
+    ngroups = has.sum(1).to(torch.int32)
+    gid_sorted = torch.where(act, rank.gather(1, torch.clamp(run_b, 0,
+                                                             max(n - 1, 0))),
+                             torch.full_like(run_b, -1))
+    gid = torch.full((B, n), -1, dtype=torch.int64, device=dev)
+    gid[:, p] = gid_sorted                               # original order
+    live_row = (gid >= 0) & (gid < oc)
+    kid = torch.where(live_row, gid, torch.zeros_like(gid)).to(torch.int32)
+    vals, cnts, present = bucket_agg_batched_plain(
+        kid, oc, masks & live_row,
+        list(aggs) + [("first", None, None, False)])
+    lead = vals.pop()
+    cnts.pop()
+    live = torch.arange(oc, device=dev)[None, :] < ngroups[:, None]
+    lead = torch.where(live, lead, torch.zeros_like(lead)).to(torch.int32)
+    out_vals = [torch.where(live, v, torch.zeros_like(v)) for v in vals]
+    return ngroups, lead, present, out_vals, cnts
+
+
 # --------------------------------------------------------------------------
 # hash64
 # --------------------------------------------------------------------------
@@ -623,8 +1001,14 @@ def hash64(cols: list, pre: Optional[list] = None) -> torch.Tensor:
     (as the host's `x.astype(np.int64)`), folded from the left, where f is the splitmix64 finalizer for the columns `pre`
     marks (all by default) and the identity for the others. The result
     is the uint64 hash as int64 bits, equal bit for bit to
-    `utils/hashing.py`'s numpy branch."""
+    `utils/hashing.py`'s numpy branch. Columns with a member axis
+    ((B, n), the batched lane) hash as one launch over their B·n rows,
+    shared (n,) ones broadcast against them."""
     pre = [True] * len(cols) if pre is None else list(pre)
+    shape = torch.broadcast_shapes(*[c.shape for c in cols])
+    if len(shape) > 1:
+        return hash64([c.expand(shape).reshape(-1) for c in cols],
+                      pre).reshape(shape)
     cols = [c.to(torch.int64).contiguous() for c in cols]
     dev = cols[0].device
     if dev.type != "cuda":

@@ -22,6 +22,10 @@
 // sums are bit-for-bit repeatable. Keyless aggregation (TPC-H Q6, Q14)
 // has nothing to order and takes its own partial kernel, which folds rows
 // straight from device memory in registers.
+// Member axis (bucket_agg_batched_launch, the batched serving lane): B
+// members with their own masks over shared (or per-member) ids and
+// values; see the notes above each partial kernel. The single-query
+// entry is the case B = 1.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -43,6 +47,8 @@ struct AggSpec {
   const uint8_t* valid[MAX_AGGS];   // null = every row valid
   int func[MAX_AGGS];
   int type[MAX_AGGS];
+  int64_t dstride[MAX_AGGS];        // elements between members' rows of
+  int64_t vstride[MAX_AGGS];        // data / valid; 0 = shared
 };
 
 __device__ __forceinline__ uint64_t identity(int f, int t) {
@@ -108,13 +114,30 @@ __device__ __forceinline__ void fold_row(const AggSpec& spec, int A,
   }
 }
 
+// B members (the batched serving lane): member b is block row
+// blockIdx.y = b and runs the single query's body over its own mask,
+// ids and per-member values (each at b times its member stride; a
+// shared input has stride 0). MEMBERS = false compiles the single
+// query's kernel, with the member offsets folded away.
+struct Members {
+  int B;                    // members in all (1 for a single query)
+  const uint8_t* active;    // member b's mask at b * mask_stride; null = all
+  int64_t mask_stride;
+  int64_t kid_stride;       // elements between members' ids; 0 = shared
+};
+
+template <bool MEMBERS>
 __global__ void __launch_bounds__(THREADS)
-bucket_agg_partial(int64_t n, int nb, const int32_t* kid,
-                   const uint8_t* active, AggSpec spec, uint64_t* part_val,
+bucket_agg_partial(int64_t n, int nb, const int32_t* kid, Members M,
+                   AggSpec spec, uint64_t* part_val,
                    unsigned long long* part_cnt,
                    unsigned long long* part_present) {
   extern __shared__ unsigned long long smem[];
   const int A = spec.n_aggs;
+  const int64_t mb = MEMBERS ? blockIdx.y : 0;
+  const uint8_t* active =
+      M.active == nullptr ? nullptr : M.active + mb * M.mask_stride;
+  if (MEMBERS) kid += mb * M.kid_stride;
   uint64_t* acc = (uint64_t*)smem;                      // A * nb
   uint64_t* tval = acc + (size_t)A * nb;                // A * TILE
   uint32_t* cnt = (uint32_t*)(tval + (size_t)A * TILE); // A * nb
@@ -151,11 +174,13 @@ bucket_agg_partial(int64_t n, int nb, const int32_t* kid,
 #pragma unroll
         for (int a = 0; a < MAX_AGGS; ++a) {
           if (a < A) {
-            if (spec.valid[a] == nullptr || spec.valid[a][r])
+            const int64_t vr = MEMBERS ? r + mb * spec.vstride[a] : r;
+            const int64_t dr = MEMBERS ? r + mb * spec.dstride[a] : r;
+            if (spec.valid[a] == nullptr || spec.valid[a][vr])
               bits |= 1u << a;
             uint64_t x = 0;
             if (spec.func[a] == F_FIRST) x = (uint64_t)r;
-            else if (spec.data[a] != nullptr) x = spec.data[a][r];
+            else if (spec.data[a] != nullptr) x = spec.data[a][dr];
             tval[(size_t)a * TILE + j] = x;
           }
         }
@@ -263,13 +288,13 @@ bucket_agg_partial(int64_t n, int nb, const int32_t* kid,
     }
     __syncthreads();
   }
-  const size_t base = (size_t)blockIdx.x * A * nb;
+  const size_t part = (size_t)mb * gridDim.x + blockIdx.x;
   for (int i = threadIdx.x; i < A * nb; i += blockDim.x) {
-    part_val[base + i] = acc[i];
-    part_cnt[base + i] = cnt[i];
+    part_val[part * A * nb + i] = acc[i];
+    part_cnt[part * A * nb + i] = cnt[i];
   }
   for (int b = threadIdx.x; b < nb; b += blockDim.x)
-    part_present[(size_t)blockIdx.x * nb + b] = pres[b];
+    part_present[part * nb + b] = pres[b];
 }
 
 // Keyless (one bucket, no ids): no staging and no ordering. Each thread
@@ -349,6 +374,111 @@ bucket_agg_keyless(int64_t n, const uint8_t* active, AggSpec spec,
   }
 }
 
+#define SLOTS 8                           // keyless members' register slots
+
+// Keyless for B members: each thread folds its rows in registers, one
+// slot per (member, aggregate) of its block's members (per_block x
+// n_aggs <= SLOTS slots, their member and aggregate worked out once;
+// more members take more block rows along y),
+// lanes fold through the shuffle tree, and the block's first threads
+// fold the warps in warp order: a fixed order. A shared value is read
+// from device memory once per row; the other members' reads of it hit L1.
+__global__ void __launch_bounds__(THREADS, 2)
+bucket_agg_keyless_batched(int64_t n, Members M, int per_block,
+                           AggSpec spec,
+                           uint64_t* part_val, unsigned long long* part_cnt,
+                           unsigned long long* part_present) {
+  __shared__ uint64_t wval[WARPS][SLOTS];
+  __shared__ unsigned wcnt[WARPS][SLOTS];
+  __shared__ unsigned wpres[WARPS][SLOTS];
+  const int A = spec.n_aggs;
+  const int b0 = blockIdx.y * per_block;
+  const int nm = M.B - b0 < per_block ? M.B - b0 : per_block;
+  const int S = nm * A;                    // live (member, aggregate) slots
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint64_t la[SLOTS];
+  unsigned lc[SLOTS], lp[SLOTS];
+  int sm[SLOTS], sa[SLOTS];          // slot -> member, aggregate
+#pragma unroll
+  for (int i = 0; i < SLOTS; ++i) {
+    sm[i] = i < S ? i / A : 0;
+    sa[i] = i < S ? i % A : 0;
+    la[i] = i < S ? identity(spec.func[sa[i]], spec.type[sa[i]]) : 0;
+    lc[i] = 0;
+    lp[i] = 0;
+  }
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  for (int64_t r0 = (int64_t)blockIdx.x * THREADS + threadIdx.x; r0 < n;
+       r0 += 2 * stride) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int64_t r = r0 + u * stride;
+      if (r >= n) break;
+#pragma unroll
+      for (int m = 0; m < SLOTS; ++m)
+        if (m < nm)
+          lp[m] += M.active == nullptr ||
+                   M.active[(b0 + m) * M.mask_stride + r];
+#pragma unroll
+      for (int i = 0; i < SLOTS; ++i) {
+        if (i < S) {
+          const int a = sa[i], f = spec.func[a];
+          const int64_t b = b0 + sm[i];
+          const bool on = M.active == nullptr ||
+                          M.active[b * M.mask_stride + r];
+          const bool v = spec.valid[a] == nullptr ||
+                         spec.valid[a][b * spec.vstride[a] + r];
+          const uint64_t x =
+              f == F_FIRST ? (uint64_t)r
+              : spec.data[a] != nullptr
+                  ? spec.data[a][b * spec.dstride[a] + r] : 0;
+          if (on && v) {
+            ++lc[i];
+            if (f != F_COUNT) la[i] = combine(f, spec.type[a], la[i], x);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < SLOTS; ++i) {
+    if (i >= S) break;
+    const int f = spec.func[sa[i]];
+    const unsigned c = __reduce_add_sync(0xffffffffu, lc[i]);
+    const uint64_t x =
+        f == F_COUNT ? 0 : warp_fold(f, spec.type[sa[i]], la[i]);
+    if (lane == 0) {
+      wval[warp][i] = x;
+      wcnt[warp][i] = c;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < SLOTS; ++m) {
+    if (m >= nm) break;
+    const unsigned c = __reduce_add_sync(0xffffffffu, lp[m]);
+    if (lane == 0) wpres[warp][m] = c;
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < S) {
+    const int i = threadIdx.x, m = i / A, a = i - m * A;
+    const int f = spec.func[a], ty = spec.type[a];
+    uint64_t acc = identity(f, ty);
+    unsigned long long c = 0;
+    for (int w = 0; w < WARPS; ++w) {
+      if (f != F_COUNT) acc = combine(f, ty, acc, wval[w][i]);
+      c += wcnt[w][i];
+    }
+    const size_t part = (size_t)(b0 + m) * gridDim.x + blockIdx.x;
+    part_val[part * A + a] = acc;
+    part_cnt[part * A + a] = c;
+  }
+  if ((int)threadIdx.x < nm) {
+    unsigned long long c = 0;
+    for (int w = 0; w < WARPS; ++w) c += wpres[w][threadIdx.x];
+    part_present[(size_t)(b0 + threadIdx.x) * gridDim.x + blockIdx.x] = c;
+  }
+}
+
 __device__ __forceinline__ unsigned long long warp_sum(unsigned long long x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_down_sync(0xffffffffu, x, off);
@@ -357,21 +487,27 @@ __device__ __forceinline__ unsigned long long warp_sum(unsigned long long x) {
 
 // One warp per output: lane l folds the partials of blocks l, l + 32, ...
 // in order, then the lanes fold through the shuffle tree. A fixed order.
-__global__ void bucket_agg_final(int G, int nb, int64_t cap, AggSpec spec,
-                                 const uint64_t* part_val,
+// Outputs per member b: out_val / out_cnt (b, a, bucket), out_present
+// (b, bucket).
+__global__ void bucket_agg_final(int G, int nb, int64_t cap, int B,
+                                 AggSpec spec, const uint64_t* part_val,
                                  const unsigned long long* part_cnt,
                                  const unsigned long long* part_present,
                                  uint64_t* out_val, int64_t* out_cnt,
                                  int64_t* out_present) {
   const int A = spec.n_aggs;
   const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int64_t w = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int per = A * nb + nb;
+  const int64_t b = w / per;
+  const int i = (int)(w % per);
+  if (b >= B) return;
   if (i < A * nb) {
     const int a = i / nb, f = spec.func[a], ty = spec.type[a];
     uint64_t acc = identity(f, ty);
     unsigned long long c = 0;
     for (int g = lane; g < G; g += 32) {
-      const size_t j = (size_t)g * A * nb + i;
+      const size_t j = ((size_t)b * G + g) * A * nb + i;
       acc = combine(f, ty, acc, part_val[j]);
       c += part_cnt[j];
     }
@@ -381,15 +517,16 @@ __global__ void bucket_agg_final(int G, int nb, int64_t cap, AggSpec spec,
       if (f == F_COUNT) acc = c;
       else if ((f == F_MIN || f == F_MAX) && c == 0) acc = 0;   // typed zero
       else if (f == F_FIRST && c == 0) acc = (uint64_t)cap;
-      out_val[i] = acc;
-      out_cnt[i] = (int64_t)c;
+      out_val[(size_t)b * A * nb + i] = acc;
+      out_cnt[(size_t)b * A * nb + i] = (int64_t)c;
     }
-  } else if (i < A * nb + nb) {
-    const int b = i - A * nb;
+  } else {
+    const int k = i - A * nb;
     unsigned long long p = 0;
-    for (int g = lane; g < G; g += 32) p += part_present[(size_t)g * nb + b];
+    for (int g = lane; g < G; g += 32)
+      p += part_present[((size_t)b * G + g) * nb + k];
     p = warp_sum(p);
-    if (lane == 0) out_present[b] = (int64_t)p;
+    if (lane == 0) out_present[(size_t)b * nb + k] = (int64_t)p;
   }
 }
 
@@ -397,6 +534,68 @@ extern "C" size_t bucket_agg_smem_bytes(int n_aggs, int nb) {
   return (size_t)n_aggs * nb * 12 + (size_t)n_aggs * TILE * 8 +
          (size_t)nb * 12 + (size_t)TILE * 8 + (size_t)CHUNKS * nb * 2 +
          (size_t)TILE * 2;
+}
+
+static int launch(int64_t n, int nb, const void* kid, Members M, int n_aggs,
+                  const int64_t* data_ptrs, const int64_t* data_strides,
+                  const int64_t* valid_ptrs, const int64_t* valid_strides,
+                  const int32_t* funcs, const int32_t* types, int64_t cap,
+                  int G, void* part_val, void* part_cnt, void* part_present,
+                  void* out_val, void* out_cnt, void* out_present,
+                  void* stream) {
+  // keyless members: as many per block as their slots hold
+  const int per_block = kid != nullptr || n_aggs > SLOTS ? 1
+                        : SLOTS / (n_aggs > 0 ? n_aggs : 1);
+  const int rows = (M.B + per_block - 1) / per_block;
+  if (n_aggs < 0 || n_aggs > MAX_AGGS || nb < 1 || nb > MAX_BUCKETS ||
+      G < 1 || (kid == nullptr && nb != 1) || M.B < 1 || rows > 65535 ||
+      (kid == nullptr && M.B > 1 && n_aggs > SLOTS))
+    return (int)cudaErrorInvalidValue;
+  AggSpec spec;
+  spec.n_aggs = n_aggs;
+  for (int a = 0; a < MAX_AGGS; ++a) {
+    const bool on = a < n_aggs;
+    spec.data[a] = on ? (const uint64_t*)data_ptrs[a] : nullptr;
+    spec.valid[a] = on ? (const uint8_t*)valid_ptrs[a] : nullptr;
+    spec.func[a] = on ? funcs[a] : F_COUNT;
+    spec.type[a] = on ? types[a] : T_I64;
+    spec.dstride[a] = on && data_strides && spec.data[a] ? data_strides[a]
+                                                         : 0;
+    spec.vstride[a] = on && valid_strides && spec.valid[a]
+                          ? valid_strides[a] : 0;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  const dim3 grid(G, rows);
+  if (kid == nullptr && M.B == 1) {     // a single keyless query
+    bucket_agg_keyless<<<G, THREADS, 0, s>>>(
+        n, M.active, spec, (uint64_t*)part_val,
+        (unsigned long long*)part_cnt, (unsigned long long*)part_present);
+  } else if (kid == nullptr) {          // keyless members: nb == 1
+    bucket_agg_keyless_batched<<<grid, THREADS, 0, s>>>(
+        n, M, per_block, spec, (uint64_t*)part_val,
+        (unsigned long long*)part_cnt, (unsigned long long*)part_present);
+  } else {
+    const size_t smem = bucket_agg_smem_bytes(n_aggs, nb);
+    auto kernel = M.B > 1 ? &bucket_agg_partial<true>
+                          : &bucket_agg_partial<false>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, THREADS, smem, s>>>(
+        n, nb, (const int32_t*)kid, M, spec, (uint64_t*)part_val,
+        (unsigned long long*)part_cnt, (unsigned long long*)part_present);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t total = (int64_t)M.B * (n_aggs * nb + nb);
+  bucket_agg_final<<<(unsigned)((total + WARPS - 1) / WARPS), THREADS, 0,
+                     s>>>(G, nb, cap, M.B, spec, (const uint64_t*)part_val,
+                          (const unsigned long long*)part_cnt,
+                          (const unsigned long long*)part_present,
+                          (uint64_t*)out_val, (int64_t*)out_cnt,
+                          (int64_t*)out_present);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int bucket_agg_launch(int64_t n, int nb, const void* kid,
@@ -408,42 +607,26 @@ extern "C" int bucket_agg_launch(int64_t n, int nb, const void* kid,
                                  void* part_cnt, void* part_present,
                                  void* out_val, void* out_cnt,
                                  void* out_present, void* stream) {
-  if (n_aggs < 0 || n_aggs > MAX_AGGS || nb < 1 || nb > MAX_BUCKETS ||
-      G < 1 || (kid == nullptr && nb != 1))
-    return (int)cudaErrorInvalidValue;
-  AggSpec spec;
-  spec.n_aggs = n_aggs;
-  for (int a = 0; a < MAX_AGGS; ++a) {
-    const bool on = a < n_aggs;
-    spec.data[a] = on ? (const uint64_t*)data_ptrs[a] : nullptr;
-    spec.valid[a] = on ? (const uint8_t*)valid_ptrs[a] : nullptr;
-    spec.func[a] = on ? funcs[a] : F_COUNT;
-    spec.type[a] = on ? types[a] : T_I64;
-  }
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (kid == nullptr) {                 // keyless: nb == 1
-    bucket_agg_keyless<<<G, THREADS, 0, s>>>(
-        n, (const uint8_t*)active, spec, (uint64_t*)part_val,
-        (unsigned long long*)part_cnt, (unsigned long long*)part_present);
-  } else {
-    const size_t smem = bucket_agg_smem_bytes(n_aggs, nb);
-    err = cudaFuncSetAttribute(bucket_agg_partial,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    bucket_agg_partial<<<G, THREADS, smem, s>>>(
-        n, nb, (const int32_t*)kid, (const uint8_t*)active, spec,
-        (uint64_t*)part_val, (unsigned long long*)part_cnt,
-        (unsigned long long*)part_present);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int total = n_aggs * nb + nb;
-  bucket_agg_final<<<(total + WARPS - 1) / WARPS, THREADS, 0, s>>>(
-      G, nb, cap, spec, (const uint64_t*)part_val,
-      (const unsigned long long*)part_cnt,
-      (const unsigned long long*)part_present, (uint64_t*)out_val,
-      (int64_t*)out_cnt, (int64_t*)out_present);
-  return (int)cudaGetLastError();
+  const Members M = {1, (const uint8_t*)active, 0, 0};
+  return launch(n, nb, kid, M, n_aggs, data_ptrs, nullptr, valid_ptrs,
+                nullptr, funcs, types, cap, G, part_val, part_cnt,
+                part_present, out_val, out_cnt, out_present, stream);
+}
+
+// B members: masks (B, n) rows mask_stride apart; ids shared (kid_stride
+// 0) or per member; each aggregate's data and validity shared or per
+// member (strides in elements). Partials B * G * n_aggs * nb; outputs
+// (B, n_aggs, nb) and (B, nb).
+extern "C" int bucket_agg_batched_launch(
+    int64_t n, int nb, const void* kid, int64_t kid_stride, int B,
+    const void* masks, int64_t mask_stride, int n_aggs,
+    const int64_t* data_ptrs, const int64_t* data_strides,
+    const int64_t* valid_ptrs, const int64_t* valid_strides,
+    const int32_t* funcs, const int32_t* types, int64_t cap, int G,
+    void* part_val, void* part_cnt, void* part_present, void* out_val,
+    void* out_cnt, void* out_present, void* stream) {
+  const Members M = {B, (const uint8_t*)masks, mask_stride, kid_stride};
+  return launch(n, nb, kid, M, n_aggs, data_ptrs, data_strides, valid_ptrs,
+                valid_strides, funcs, types, cap, G, part_val, part_cnt,
+                part_present, out_val, out_cnt, out_present, stream);
 }

@@ -29,6 +29,15 @@
 // following tiles up to the next start, in tile order. Sums fold each
 // segment directly (no cumulative-sum differences), without atomics, in
 // an order fixed by the input: float sums repeat bit for bit.
+// Member axis (segment_agg_batched_launch, the batched serving lane): B
+// members share one sort — the rows active in any member first, by key —
+// and differ in their masks (and in any per-member value column). The
+// runs of equal keys are cut once, over the union of the masks (launches
+// 1 and 2 as above); seg_reduce stages each tile's permutation and run
+// starts once and folds the tile for each member in turn, and seg_fix
+// takes a warp per (tile, member). Each member gets a partial per run;
+// the caller keeps the runs where the member has rows (compact_batched),
+// which are exactly the groups a sort of that member's rows alone gives.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -56,6 +65,8 @@ struct AggSpec {
   const uint8_t* valid[MAX_AGGS];   // null = every row valid
   int func[MAX_AGGS];
   int type[MAX_AGGS];
+  int64_t dstride[MAX_AGGS];        // elements between members' rows of
+  int64_t vstride[MAX_AGGS];        // data / valid; 0 = shared
 };
 
 // A partial: per aggregate a folded value and the count of rows that fed
@@ -66,6 +77,15 @@ struct Part {
   uint64_t* pres;
   int64_t stride;
 };
+
+// member b's partials: B consecutive (n_aggs, stride) blocks
+__device__ __forceinline__ Part member_part(Part P, int n_aggs, int64_t b) {
+  Part q = P;
+  q.val += b * n_aggs * P.stride;
+  q.cnt += b * n_aggs * P.stride;
+  q.pres += b * P.stride;
+  return q;
+}
 
 __device__ __forceinline__ uint64_t identity(int f, int t) {
   if (f == F_MIN) {
@@ -118,18 +138,23 @@ __device__ __forceinline__ void init(const AggSpec& spec, uint64_t* la,
   }
 }
 
-// fold original row r (an active row) into the running partial
+// fold original row r (an active row of member b) into the running
+// partial; MEMBERS = false (a single query) folds the stride terms away
+template <bool MEMBERS>
 __device__ __forceinline__ void fold_row(const AggSpec& spec, int32_t r,
-                                         uint64_t* la, uint64_t* lc) {
+                                         int64_t b, uint64_t* la,
+                                         uint64_t* lc) {
 #pragma unroll
   for (int a = 0; a < MAX_AGGS; ++a) {
+    const int64_t vr = MEMBERS ? b * spec.vstride[a] + r : r;
+    const int64_t dr = MEMBERS ? b * spec.dstride[a] + r : r;
     if (a < spec.n_aggs &&
-        (spec.valid[a] == nullptr || spec.valid[a][r] != 0)) {
+        (spec.valid[a] == nullptr || spec.valid[a][vr] != 0)) {
       ++lc[a];
       const int f = spec.func[a];
       if (f == F_FIRST) la[a] = combine(f, spec.type[a], la[a], (uint64_t)r);
       else if (f != F_COUNT)
-        la[a] = combine(f, spec.type[a], la[a], spec.data[a][r]);
+        la[a] = combine(f, spec.type[a], la[a], spec.data[a][dr]);
     }
   }
 }
@@ -229,11 +254,14 @@ __global__ void seg_scan(int64_t T, const int32_t* tile_cnt,
   if (threadIdx.x == blockDim.x - 1) *ngroups = (int32_t)s[blockDim.x - 1];
 }
 
+// B members: member b's activity is masks[b * mask_stride + row]
+template <bool MEMBERS>
 __global__ void __launch_bounds__(THREADS)
-seg_reduce(int64_t n, const int32_t* perm, const uint8_t* active,
-           const uint8_t* flags, const int32_t* tile_cnt,
-           const int64_t* tile_off, int64_t oc, AggSpec spec, int write_lead,
-           int32_t* lead, Part out, Part head, Part tail) {
+seg_reduce(int64_t n, const int32_t* perm, int B, const uint8_t* masks,
+           int64_t mask_stride, const uint8_t* flags,
+           const int32_t* tile_cnt, const int64_t* tile_off, int64_t oc,
+           AggSpec spec, int write_lead, int32_t* lead, Part out, Part head,
+           Part tail) {
   __shared__ int32_t s_row[TILE];
   __shared__ uint8_t s_act[TILE];
   __shared__ uint8_t s_flag[TILE];
@@ -247,7 +275,7 @@ seg_reduce(int64_t n, const int32_t* perm, const uint8_t* active,
     uint8_t a = 0, f = 0;
     if (i < len) {
       r = perm[base + i];
-      a = active[r];
+      if (!MEMBERS) a = masks[r];      // a single query's activity
       f = flags[base + i];
     }
     s_row[i] = r;
@@ -281,50 +309,66 @@ seg_reduce(int64_t n, const int32_t* perm, const uint8_t* active,
   // piece p in [0, nb]: p = 0 is the head (rows before the first start),
   // piece p >= 1 starts at the p-th start; piece nb (nb >= 1) is the tail
   uint64_t la[MAX_AGGS], lc[MAX_AGGS];
-  for (int p = threadIdx.x; p <= nb; p += THREADS) {
-    const int lo = p == 0 ? 0 : s_start[p - 1];
-    const int hi = p < nb ? s_start[p] : len;
-    if (hi - lo >= LONG_PIECE) continue;
-    init(spec, la, lc);
-    uint64_t lp = 0;
-    for (int i = lo; i < hi; ++i)
-      if (s_act[i]) {
-        ++lp;
-        fold_row(spec, s_row[i], la, lc);
-      }
-    if (p == 0) store_raw(spec, head, t, la, lc, lp);
-    else if (p == nb) store_raw(spec, tail, t, la, lc, lp);
-    else if (g0 + p - 1 < oc) store_final(spec, out, g0 + p - 1, la, lc, lp, n);
-  }
-  for (int p = warp; p <= nb; p += WARPS) {
-    const int lo = p == 0 ? 0 : s_start[p - 1];
-    const int hi = p < nb ? s_start[p] : len;
-    if (hi - lo < LONG_PIECE) continue;
-    init(spec, la, lc);
-    uint64_t lp = 0;
-    for (int i = lo + lane; i < hi; i += 32)
-      if (s_act[i]) {
-        ++lp;
-        fold_row(spec, s_row[i], la, lc);
-      }
-    warp_fold_all(spec, la, lc, &lp);
-    if (lane == 0) {
-      if (p == 0) store_raw(spec, head, t, la, lc, lp);
-      else if (p == nb) store_raw(spec, tail, t, la, lc, lp);
+  for (int64_t b = 0; b < B; ++b) {
+    const uint8_t* active = masks + b * mask_stride;
+    const Part mout = member_part(out, spec.n_aggs, b);
+    const Part mhead = member_part(head, spec.n_aggs, b);
+    const Part mtail = member_part(tail, spec.n_aggs, b);
+    if (MEMBERS) {                       // this member's activity
+      __syncthreads();                   // the previous member is folded
+      for (int i = threadIdx.x; i < TILE; i += THREADS)
+        s_act[i] = i < len ? active[s_row[i]] : 0;
+      __syncthreads();
+    }
+    for (int p = threadIdx.x; p <= nb; p += THREADS) {
+      const int lo = p == 0 ? 0 : s_start[p - 1];
+      const int hi = p < nb ? s_start[p] : len;
+      if (hi - lo >= LONG_PIECE) continue;
+      init(spec, la, lc);
+      uint64_t lp = 0;
+      for (int i = lo; i < hi; ++i)
+        if (s_act[i]) {
+          ++lp;
+          fold_row<MEMBERS>(spec, s_row[i], b, la, lc);
+        }
+      if (p == 0) store_raw(spec, mhead, t, la, lc, lp);
+      else if (p == nb) store_raw(spec, mtail, t, la, lc, lp);
       else if (g0 + p - 1 < oc)
-        store_final(spec, out, g0 + p - 1, la, lc, lp, n);
+        store_final(spec, mout, g0 + p - 1, la, lc, lp, n);
+    }
+    for (int p = warp; p <= nb; p += WARPS) {
+      const int lo = p == 0 ? 0 : s_start[p - 1];
+      const int hi = p < nb ? s_start[p] : len;
+      if (hi - lo < LONG_PIECE) continue;
+      init(spec, la, lc);
+      uint64_t lp = 0;
+      for (int i = lo + lane; i < hi; i += 32)
+        if (s_act[i]) {
+          ++lp;
+          fold_row<MEMBERS>(spec, s_row[i], b, la, lc);
+        }
+      warp_fold_all(spec, la, lc, &lp);
+      if (lane == 0) {
+        if (p == 0) store_raw(spec, mhead, t, la, lc, lp);
+        else if (p == nb) store_raw(spec, mtail, t, la, lc, lp);
+        else if (g0 + p - 1 < oc)
+          store_final(spec, mout, g0 + p - 1, la, lc, lp, n);
+      }
     }
   }
 }
 
-// one warp per tile with a group start: that tile's last group is its
-// tail plus the heads of the following tiles, through the next tile that
-// holds a start (whose head ends at that start)
+// one warp per (tile with a group start, member): that tile's last group
+// is its tail plus the heads of the following tiles, through the next
+// tile that holds a start (whose head ends at that start)
 __global__ void __launch_bounds__(THREADS)
 seg_fix(int64_t T, int64_t n, const int32_t* tile_cnt,
-        const int64_t* tile_off, int64_t oc, AggSpec spec, Part out,
-        Part head, Part tail) {
+        const int64_t* tile_off, int64_t oc, AggSpec spec, Part out_all,
+        Part head_all, Part tail_all) {
   const int lane = threadIdx.x & 31;
+  const Part out = member_part(out_all, spec.n_aggs, blockIdx.y);
+  const Part head = member_part(head_all, spec.n_aggs, blockIdx.y);
+  const Part tail = member_part(tail_all, spec.n_aggs, blockIdx.y);
   const int64_t t = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (t >= T || tile_cnt[t] == 0) return;          // whole warp together
   const int64_t g = tile_off[t] + tile_cnt[t] - 1;
@@ -362,16 +406,18 @@ seg_fix(int64_t T, int64_t n, const int32_t* tile_cnt,
   }
 }
 
-extern "C" int segment_agg_launch(
+static int launch(
     int64_t n, const void* perm, int n_keys, const int64_t* key_ptrs,
-    const void* active, int n_aggs, const int64_t* data_ptrs,
-    const int64_t* valid_ptrs, const int32_t* funcs, const int32_t* types,
-    int64_t oc, void* flags, void* tile_cnt, void* tile_off, void* ngroups,
-    void* lead, void* out_val, void* out_cnt, void* out_pres,
-    void* head_val, void* head_cnt, void* head_pres, void* tail_val,
-    void* tail_cnt, void* tail_pres, int first_chunk, void* stream) {
+    const void* active, int B, const void* masks, int64_t mask_stride,
+    int n_aggs, const int64_t* data_ptrs, const int64_t* data_strides,
+    const int64_t* valid_ptrs, const int64_t* valid_strides,
+    const int32_t* funcs, const int32_t* types, int64_t oc, void* flags,
+    void* tile_cnt, void* tile_off, void* ngroups, void* lead,
+    void* out_val, void* out_cnt, void* out_pres, void* head_val,
+    void* head_cnt, void* head_pres, void* tail_val, void* tail_cnt,
+    void* tail_pres, int first_chunk, int write_lead, void* stream) {
   if (n_keys < 1 || n_keys > MAX_KEYS || n_aggs < 0 || n_aggs > MAX_AGGS ||
-      oc < 1 || n >= (int64_t)1 << 31)
+      oc < 1 || n >= (int64_t)1 << 31 || B < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   Keys K;
@@ -386,6 +432,10 @@ extern "C" int segment_agg_launch(
     spec.valid[a] = on ? (const uint8_t*)valid_ptrs[a] : nullptr;
     spec.func[a] = on ? funcs[a] : F_COUNT;
     spec.type[a] = on ? types[a] : T_I64;
+    spec.dstride[a] = on && data_strides && spec.data[a] ? data_strides[a]
+                                                         : 0;
+    spec.vstride[a] = on && valid_strides && spec.valid[a]
+                          ? valid_strides[a] : 0;
   }
   const int64_t T = (n + TILE - 1) / TILE;
   const Part out = {(uint64_t*)out_val, (uint64_t*)out_cnt,
@@ -407,15 +457,61 @@ extern "C" int segment_agg_launch(
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  seg_reduce<<<(unsigned)T, THREADS, 0, s>>>(
-      n, (const int32_t*)perm, (const uint8_t*)active,
-      (const uint8_t*)flags, (const int32_t*)tile_cnt,
-      (const int64_t*)tile_off, oc, spec, first_chunk, (int32_t*)lead, out,
-      head, tail);
+  if (B > 1)
+    seg_reduce<true><<<(unsigned)T, THREADS, 0, s>>>(
+        n, (const int32_t*)perm, B, (const uint8_t*)masks, mask_stride,
+        (const uint8_t*)flags, (const int32_t*)tile_cnt,
+        (const int64_t*)tile_off, oc, spec, write_lead, (int32_t*)lead, out,
+        head, tail);
+  else
+    seg_reduce<false><<<(unsigned)T, THREADS, 0, s>>>(
+        n, (const int32_t*)perm, B, (const uint8_t*)masks, mask_stride,
+        (const uint8_t*)flags, (const int32_t*)tile_cnt,
+        (const int64_t*)tile_off, oc, spec, write_lead, (int32_t*)lead, out,
+        head, tail);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  seg_fix<<<(unsigned)((T + WARPS - 1) / WARPS), THREADS, 0, s>>>(
+  const dim3 fix_grid((unsigned)((T + WARPS - 1) / WARPS), B);
+  seg_fix<<<fix_grid, THREADS, 0, s>>>(
       T, n, (const int32_t*)tile_cnt, (const int64_t*)tile_off, oc, spec,
       out, head, tail);
   return (int)cudaGetLastError();
+}
+
+extern "C" int segment_agg_launch(
+    int64_t n, const void* perm, int n_keys, const int64_t* key_ptrs,
+    const void* active, int n_aggs, const int64_t* data_ptrs,
+    const int64_t* valid_ptrs, const int32_t* funcs, const int32_t* types,
+    int64_t oc, void* flags, void* tile_cnt, void* tile_off, void* ngroups,
+    void* lead, void* out_val, void* out_cnt, void* out_pres,
+    void* head_val, void* head_cnt, void* head_pres, void* tail_val,
+    void* tail_cnt, void* tail_pres, int first_chunk, void* stream) {
+  return launch(n, perm, n_keys, key_ptrs, active, 1, active, 0, n_aggs,
+                data_ptrs, nullptr, valid_ptrs, nullptr, funcs, types, oc,
+                flags, tile_cnt, tile_off, ngroups, lead, out_val, out_cnt,
+                out_pres, head_val, head_cnt, head_pres, tail_val, tail_cnt,
+                tail_pres, first_chunk, first_chunk, stream);
+}
+
+// B members over one shared sort: `active` is the union of the masks
+// (the runs are cut over it), masks (B, n) rows mask_stride apart; each
+// aggregate's data / validity shared or per member (strides in
+// elements). Outputs per member at the union's group slots: out
+// (B, n_aggs, oc) and (B, oc); head / tail (B, n_aggs, T) and (B, T).
+extern "C" int segment_agg_batched_launch(
+    int64_t n, const void* perm, int n_keys, const int64_t* key_ptrs,
+    const void* active, int B, const void* masks, int64_t mask_stride,
+    int n_aggs, const int64_t* data_ptrs, const int64_t* data_strides,
+    const int64_t* valid_ptrs, const int64_t* valid_strides,
+    const int32_t* funcs, const int32_t* types, int64_t oc, void* flags,
+    void* tile_cnt, void* tile_off, void* ngroups, void* out_val,
+    void* out_cnt, void* out_pres, void* head_val, void* head_cnt,
+    void* head_pres, void* tail_val, void* tail_cnt, void* tail_pres,
+    int first_chunk, void* stream) {
+  return launch(n, perm, n_keys, key_ptrs, active, B, masks, mask_stride,
+                n_aggs, data_ptrs, data_strides, valid_ptrs, valid_strides,
+                funcs, types, oc, flags, tile_cnt, tile_off, ngroups,
+                nullptr, out_val, out_cnt, out_pres, head_val, head_cnt,
+                head_pres, tail_val, tail_cnt, tail_pres, first_chunk, 0,
+                stream);
 }

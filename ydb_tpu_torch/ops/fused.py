@@ -12,7 +12,10 @@ compaction and sort go through ``bucket_agg``, ``compact`` and ``sort``.
 The result is stacked by dtype and crosses to the host in ONE copy
 (``fetch_fused_result``). A scan above the fused scan budget runs the
 front half of the same body once per tile of sources (``build_tile_fn``,
-the executor's tiled lane).
+the executor's tiled lane). B same-shape queries run the same body once
+with a member axis on the values that differ (``build_fused_batched_fn``,
+the batched serving lane), and read back in one copy for the batch
+(``fetch_fused_batch``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ from ydb_tpu_torch.ops import ir
 from ydb_tpu_torch.ops.device import batched_to_host, bucket_capacity
 from ydb_tpu_torch.ops.join import probe_lut_traced
 from ydb_tpu_torch.ops.sort import sort_env
-from ydb_tpu_torch.ops.torch_exec import _eval, _trace_program, compress
+from ydb_tpu_torch.ops.torch_exec import (
+    PerMember, _eval, _trace_program, compress,
+)
 
 # the executor-lifted LIMIT+OFFSET input (companion of the
 # query/paramlift.py literal lift)
@@ -72,7 +77,8 @@ def build_fused_fn(pipe, final_program: Optional[ir.Program],
                    keep: tuple, lift_limit: bool = False,
                    late_scan: frozenset = frozenset(),
                    compact_prog: Optional[ir.Program] = None):
-    """The full single-node query as one eager function.
+    """The full single-node query as one eager function (`_fused_body`
+    without a member axis).
 
     scan_cols: [Column] of the flattened scan env (internal names).
     join_metas: per join step, the static meta for `probe_lut_traced`
@@ -92,6 +98,51 @@ def build_fused_fn(pipe, final_program: Optional[ir.Program],
     reference or at the bound-sized tail. Joins whose meta carries
     `late` thread a (build row-id, match) pair in place of their
     payloads."""
+    return _fused_body(pipe, final_program, scan_cols, K, CAP,
+                       sb_valid_names, join_metas, rank_assigns, sort_spec,
+                       limit, offset, keep, lift_limit=lift_limit,
+                       late_scan=late_scan, compact_prog=compact_prog)
+
+
+def build_fused_batched_fn(pipe, final_program: Optional[ir.Program],
+                           scan_cols: list, K: int, CAP: int,
+                           sb_valid_names: frozenset, join_metas: list,
+                           rank_assigns: list, sort_spec: tuple,
+                           limit: Optional[int], offset: Optional[int],
+                           keep: tuple, members: int,
+                           lift_limit: bool = False,
+                           late_scan: frozenset = frozenset()):
+    """The batched serving lane's body: `members` same-shape queries in
+    ONE launch sequence. The scan superblock, the builds and every param
+    whose value is the same for all members are taken once; a param
+    whose values differ arrives as a `torch_exec.PerMember` ((B,) or
+    (B, L)), and a value becomes per member, (B, cap), only where it
+    depends on one — the reference's vmap with `in_axes` None or 0 per
+    param, written out because the kernels are not traceable. The
+    number of kernel launches does not depend on B.
+
+    Returns (fn, layout_box); fn(sb, sbv, lengths, builds, params) →
+    (data_stacks {dtype: (B, k, cap)}, valid_stack (B, m, cap) | None,
+    lengths (B,), aux) — `aux` is always empty (the compact step is
+    single-query only, as in the reference)."""
+    return _fused_body(pipe, final_program, scan_cols, K, CAP,
+                       sb_valid_names, join_metas, rank_assigns, sort_spec,
+                       limit, offset, keep, lift_limit=lift_limit,
+                       late_scan=late_scan, members=members)
+
+
+def _fused_body(pipe, final_program: Optional[ir.Program],
+                scan_cols: list, K: int, CAP: int,
+                sb_valid_names: frozenset, join_metas: list,
+                rank_assigns: list, sort_spec: tuple,
+                limit: Optional[int], offset: Optional[int],
+                keep: tuple, lift_limit: bool = False,
+                late_scan: frozenset = frozenset(),
+                compact_prog: Optional[ir.Program] = None,
+                members: int = 0):
+    """Eager body shared by `build_fused_fn` and, with `members` B > 0,
+    `build_fused_batched_fn` (outputs then carry the member axis
+    first)."""
     lim2 = None if limit is None else limit + (offset or 0)
     layout_box: dict = {}
     unsigned = frozenset(c.name for c in scan_cols
@@ -167,11 +218,11 @@ def build_fused_fn(pipe, final_program: Optional[ir.Program],
                 prog, schema.columns, cap, env, length, params, device,
                 sel=sel, aux=aux, passthrough=helper_names())
             if env:
-                cap = next(iter(env.values()))[0].shape[0]
+                cap = next(iter(env.values()))[0].shape[-1]
             elif sel is not None:
                 # a column-free env (count(*) plans) still changes
                 # capacity through a Compact — the mask carries it
-                cap = sel.shape[0]
+                cap = sel.shape[-1]
             # a GroupBy/Projection that dropped a deferred column from
             # the schema retires its deferral (it no longer exists)
             for nm in [n for n in deferred if not schema.has(n)]:
@@ -225,9 +276,13 @@ def build_fused_fn(pipe, final_program: Optional[ir.Program],
             env = {n: (arrays2[n], valids2.get(n)) for n in arrays2}
         if lim2 is not None:
             bound = params[LIMIT_PARAM] if lift_limit else lim2
-            length = torch.clamp(length, max=int(bound))
+            if isinstance(bound, PerMember):      # each member's own limit
+                length = torch.minimum(length, bound.t.to(torch.int32))
+            else:
+                length = torch.clamp(length, max=int(bound))
             out_cap = min(bucket_capacity(lim2, minimum=128), cap)
-            env = {n: (d[:out_cap], v[:out_cap] if v is not None else None)
+            env = {n: (d[..., :out_cap],
+                       v[..., :out_cap] if v is not None else None)
                    for n, (d, v) in env.items()}
         # the tail gather: whatever is still deferred materializes HERE,
         # at the post-limit capacity
@@ -238,19 +293,28 @@ def build_fused_fn(pipe, final_program: Optional[ir.Program],
             materialize(sorted(deferred))
             want = [n for n in env if not n.startswith("__lm")]
         out_names = [n for n in want if n in env]
+
+        def row(x):        # the member axis on every output (batched)
+            if members and x.dim() == 1:
+                return x.unsqueeze(0).expand(members, x.shape[0])
+            return x
+        axis = 1 if members else 0
         groups: dict = {}
         data_layout = []
         for n in out_names:
             d = env[n][0]
             key = str(d.dtype)
-            groups.setdefault(key, []).append(d)
+            groups.setdefault(key, []).append(row(d))
             data_layout.append((n, key, len(groups[key]) - 1))
         valid_names = [n for n in out_names if env[n][1] is not None]
         layout_box["data"] = data_layout
         layout_box["valids"] = valid_names
-        data_stacks = {k: torch.stack(v) for k, v in groups.items()}
-        valid_stack = (torch.stack([env[n][1] for n in valid_names])
-                       if valid_names else None)
+        data_stacks = {k: torch.stack(v, axis) for k, v in groups.items()}
+        valid_stack = (torch.stack([row(env[n][1]) for n in valid_names],
+                                   axis) if valid_names else None)
+        if members:
+            length = length.to(torch.int32).reshape(1).repeat(members) \
+                if length.dim() == 0 else length.to(torch.int32)
         return data_stacks, valid_stack, length, aux
 
     return fn, layout_box
@@ -362,6 +426,37 @@ def fetch_fused_result(data_stacks, valid_stack, length, layout_box: dict,
     host_valids = host[len(keys)] if valid_stack is not None else None
     return _unpack_fused_host(host_stacks, host_valids, n, layout_box,
                               out_schema, out_dicts)
+
+
+def fetch_fused_batch(data_stacks, valid_stack, lengths, layout_box: dict,
+                      out_schema: Schema, out_dicts: dict,
+                      member_rows: list):
+    """Device→host readout of one BATCHED execution: ONE copy for the
+    whole batch (lengths included), then each member unpacks its row on
+    the host. Large row-level outputs read the lengths first and slice
+    the padding off on the device, as `fetch_fused_result` does.
+    `member_rows[i]` is member i's row (identical members all read row
+    0). Returns [HostBlock], one per member."""
+    keys = list(data_stacks)
+    cap_out = data_stacks[keys[0]].shape[2] if keys else 0
+    tensors = [data_stacks[k] for k in keys] + (
+        [valid_stack] if valid_stack is not None else [])
+    if cap_out > (1 << 16):
+        ns = batched_to_host([lengths])[0]
+        m = max(int(ns.max()), 1)
+        host = batched_to_host([t[:, :, :m] for t in tensors])
+    else:
+        host = batched_to_host(tensors + [lengths])
+        ns = host.pop()
+    host_stacks = dict(zip(keys, host[:len(keys)]))
+    host_valids = host[len(keys)] if valid_stack is not None else None
+    out = []
+    for b in member_rows:
+        hs = {k: v[b] for k, v in host_stacks.items()}
+        hv = host_valids[b] if host_valids is not None else None
+        out.append(_unpack_fused_host(hs, hv, int(ns[b]), layout_box,
+                                      out_schema, out_dicts))
+    return out
 
 
 def fused_cache_key(plan, scan_cols, K, CAP, sb_valid_names, builds_sig,

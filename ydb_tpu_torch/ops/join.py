@@ -186,10 +186,23 @@ def probe_lut_traced(env: dict, sel, bt_arrays: dict, meta: dict):
     src_names, mark_col, not_in, bsearch, late, row_col, found_col.
 
     Returns (env', sel'). Selection: matched rows for inner/semi,
-    unmatched for anti, all for left/mark."""
+    unmatched for anti, all for left/mark.
+
+    The member axis (the batched lane): with a shared key and a
+    per-member `sel` (B, cap), ONE probe over the union of the members'
+    masks serves them all — on a row active in member b the union's
+    match, payloads and mark equal b's own, and each member's selection
+    is the union's result AND its own mask, for every kind (inner, left,
+    semi, anti, NOT IN: `_probe_members`). A per-member key probes the
+    B·cap rows flattened."""
     if sel is None:
         raise ValueError("probe_lut_traced needs the row-activity mask")
     d, v = env[meta["probe_key"]]
+    if d.dim() == 2 or (v is not None and v.dim() == 2):
+        return _probe_members(env, sel, bt_arrays, meta)
+    if sel.dim() == 2:
+        env2, out_sel = probe_lut_traced(env, sel.any(0), bt_arrays, meta)
+        return env2, out_sel & sel
     kind = meta["kind"]
     if not meta.get("bsearch") and d.dtype.is_floating_point:
         # LUTs address integer keys; truncating a float probe would
@@ -226,6 +239,28 @@ def probe_lut_traced(env: dict, sel, bt_arrays: dict, meta: dict):
     if kind == "mark":
         env2[meta["mark_col"] or "__mark"] = (found, None)
     return env2, out_sel
+
+
+def _probe_members(env: dict, sel, bt_arrays: dict, meta: dict):
+    """`probe_lut_traced` for a per-member probe key: one probe over the
+    B·cap rows (every column the probe reads flattened along the member
+    axis), its outputs back at (B, cap)."""
+    d, v = env[meta["probe_key"]]
+    B, cap = (d if d.dim() == 2 else v).shape
+
+    def flat(x):
+        if x is None:
+            return None
+        return (x if x.dim() == 2 else x.unsqueeze(0).expand(B, cap)) \
+            .reshape(-1)
+    flat_env = {meta["probe_key"]: (flat(d), flat(v))}
+    env2, out_sel = probe_lut_traced(flat_env, flat(sel), bt_arrays, meta)
+    out = dict(env)
+    for name, (gd, gv) in env2.items():
+        if name != meta["probe_key"]:
+            out[name] = (gd.reshape(B, cap),
+                         None if gv is None else gv.reshape(B, cap))
+    return out, out_sel.reshape(B, cap)
 
 
 def _matched_domain(enc: torch.Tensor, keys: torch.Tensor):

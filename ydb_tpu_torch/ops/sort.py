@@ -81,6 +81,11 @@ def sort_env(arrays, valids, length, sel, keys: tuple, names: tuple,
 
 def _sort_impl(arrays, valids, length, sel, keys: tuple, names: tuple,
                unsigned: frozenset = frozenset()):
+    if any(a.dim() == 2 for a in list(arrays.values())
+           + list(valids.values())) or (sel is not None and sel.dim() == 2) \
+            or (isinstance(length, torch.Tensor) and length.dim() == 1):
+        return _sort_members(arrays, valids, length, sel, keys, names,
+                             unsigned)
     first = arrays[names[0]]
     cap = first.shape[0]
     device = first.device
@@ -101,4 +106,45 @@ def _sort_impl(arrays, valids, length, sel, keys: tuple, names: tuple,
         if name in valids:
             new_valids[name] = valids[name][perm]
     new_len = active.to(torch.int32).sum()
+    return new_arrays, new_valids, new_len
+
+
+def _sort_members(arrays, valids, length, sel, keys: tuple, names: tuple,
+                  unsigned: frozenset):
+    """The member axis (the batched lane): every member's rows sorted by
+    ONE sort of the B·cap rows whose leading key word is the member id,
+    then each member's rows past its length (or off its mask), then the
+    keys — each member's rows come out in its own order, in its own row
+    of (B, cap) outputs, with (B,) lengths."""
+    tensors = list(arrays.values()) + list(valids.values()) + [sel, length]
+    B = next(t.shape[0] for t in tensors if isinstance(t, torch.Tensor)
+             and (t.dim() == 2 or (t is length and t.dim() == 1)))
+    cap = arrays[names[0]].shape[-1]
+    device = arrays[names[0]].device
+
+    def full(x):
+        return x if x.dim() == 2 else x.unsqueeze(0).expand(B, cap)
+
+    iota = torch.arange(cap, dtype=torch.int32, device=device)
+    active = iota[None, :] < (length[:, None] if length.dim() == 1
+                              else length)
+    if sel is not None:
+        active = active & sel
+    active = active.expand(B, cap)
+    member = torch.arange(B, dtype=torch.int64, device=device)[:, None]
+    sort_keys = [encode_key(member.expand(B, cap).reshape(-1)),
+                 encode_key((~active).to(torch.int64).reshape(-1))]
+    for (name, asc, nulls_first) in keys:
+        v = valids.get(name)
+        sort_keys += key_words(full(arrays[name]).reshape(-1),
+                               None if v is None else full(v).reshape(-1),
+                               asc, nulls_first, name in unsigned)
+    perm = K.sort_perm(sort_keys, B * cap, device).to(torch.int64)
+    local = perm.reshape(B, cap) - member * cap
+    new_arrays, new_valids = {}, {}
+    for name in names:
+        new_arrays[name] = torch.gather(full(arrays[name]), 1, local)
+        if name in valids:
+            new_valids[name] = torch.gather(full(valids[name]), 1, local)
+    new_len = active.to(torch.int32).sum(1, dtype=torch.int32)
     return new_arrays, new_valids, new_len

@@ -23,6 +23,20 @@ per run (``segment_agg``). The reference's levers
 ``YDB_TPU_GROUPBY_LEGACY`` shaped its XLA programs (gather tiling,
 batching, the pre-tiling lowering) and never changed an answer; this
 lowering has no such programs and reads none of them.
+
+The member axis (the batched serving lane, ``ops/fused.
+build_fused_batched_fn``): B same-shape queries run as one, and every
+value is either shared, shape (cap,), or per member, shape (B, cap) —
+the reference's vmap ``in_axes`` None against 0, decided per value. A
+lifted param whose value differs across the members arrives as a
+``PerMember``; a value becomes per member only when it depends on one.
+Elementwise work broadcasts; a mask, a length (then (B,)) or a column
+that is per member sends a group-by, a compaction, a probe or a sort to
+its kernel's member-axis entry (``bucket_agg_batched``,
+``segment_agg_batched``, ``compact_batched``); the probe and the sort
+launch once for every member (the probe over the union of the masks
+when its key is shared, else over the flattened members). A shared
+input is never copied per member where the kernel takes it once.
 """
 
 from __future__ import annotations
@@ -71,6 +85,55 @@ def _b_inc(name: str, by: int = 1) -> None:
 
 
 # --------------------------------------------------------------------------
+# the member axis
+# --------------------------------------------------------------------------
+
+
+class PerMember:
+    """A lifted param whose value differs across the members of a batch:
+    `t` carries the member axis first — (B,) for a scalar, (B, L) for an
+    array (an IN-list LUT, a string pool)."""
+    __slots__ = ("t",)
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+
+
+def _members(*xs) -> int:
+    """B when any of `xs` (data, validity or mask) is (B, cap), else 0."""
+    for x in xs:
+        if isinstance(x, torch.Tensor) and x.dim() == 2:
+            return x.shape[0]
+    return 0
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """`t` with contiguous rows (a kernel's member-axis input)."""
+    return t if t.dim() == 2 and t.stride(-1) == 1 else t.contiguous()
+
+
+def _is_member_length(length) -> bool:
+    return isinstance(length, torch.Tensor) and length.dim() == 1
+
+
+def _take(d: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """d at row positions idx, along the last axis; either may carry the
+    member axis."""
+    if d.dim() == 1:
+        return d[idx]
+    if idx.dim() == 1:
+        return d[:, idx]
+    return torch.gather(d, 1, idx)
+
+
+def _member_masks(active: torch.Tensor, B: int) -> torch.Tensor:
+    """A (B, cap) mask with its own row per member (the kernels' input)."""
+    if active.dim() == 2:
+        return active.contiguous()
+    return active.unsqueeze(0).expand(B, active.shape[0]).contiguous()
+
+
+# --------------------------------------------------------------------------
 # expressions
 # --------------------------------------------------------------------------
 
@@ -89,6 +152,12 @@ def _eval(expr, env, params, cap, device):
         return _full(cap, expr.value, expr.dtype.np, device), None
     if isinstance(expr, ir.Param):
         val = params[expr.name]
+        if isinstance(val, PerMember):
+            t = val.t
+            if expr.is_array:
+                return t, None
+            t = t.to(torch_dtype(expr.dtype.np))
+            return t[:, None].expand(t.shape[0], cap), None
         if expr.is_array:
             return val, None
         return _full(cap, val, expr.dtype.np, device), None
@@ -100,6 +169,8 @@ def _eval(expr, env, params, cap, device):
         k = KERNELS[expr.op]
         args = [_eval(a, env, params, cap, device) for a in expr.args]
         extra = expr.extra_dict()
+        if expr.op == "take_lut" and args[1][0].dim() == 2:
+            return _take_lut_members(args, extra)
         if k.null_mode == "custom":
             return k.impl_nv(TXP, args, extra)
         data = k.impl(TXP, [a[0] for a in args], extra)
@@ -109,6 +180,21 @@ def _eval(expr, env, params, cap, device):
                 valid = v if valid is None else (valid & v)
         return data, valid
     raise TypeError(f"bad expr {expr!r}")
+
+
+def _take_lut_members(args, extra):
+    """`take_lut` with a per-member LUT (B, L): each member gathers from
+    its own row (the kernels' `lut[code]` broadcast along the member
+    axis); validity as `ops/kernels.py _take_lut_nv`."""
+    (codes, vc), (lut, _v) = args
+    B, L = lut.shape
+    safe = torch.clamp(codes, 0, L - 1).to(torch.int64)
+    data = torch.gather(lut, 1, safe.expand(B, safe.shape[-1]))
+    nul = codes < 0
+    valid = ~nul if vc is None else (vc & ~nul)
+    if extra.get("null_neg"):
+        valid = valid & (data >= 0)
+    return data, valid
 
 
 def _eval_hashed_key(expr, env, params, cap, device):
@@ -183,35 +269,45 @@ def _agg_outputs(cmd: ir.GroupBy, env, slots, vals, cnts, present_cnt,
         elif a.func in ("min", "max"):
             new_env[a.out] = (val.to(d.dtype), any_valid)
         else:                                  # some: first valid row
-            new_env[a.out] = (d[torch.clamp(val, 0, cap - 1)], any_valid)
+            new_env[a.out] = (_take(d, torch.clamp(val, 0, cap - 1)),
+                              any_valid)
     return new_env
 
 
 def _run_aggs(cmd: ir.GroupBy, env, schema: Schema, kid, nb: int, active,
-              cap: int, device, want_first: bool):
+              cap: int, device, want_first: bool, B: int = 0):
     """Every aggregate of `cmd` (plus, when asked, the first active row
-    per bucket for carried keys) through ONE bucket_agg call. Returns
-    (new_env, present bool (nb,), firstpos int64 (nb,) | None)."""
+    per bucket for carried keys) through ONE bucket_agg call (B members:
+    one bucket_agg_batched call). Returns (new_env, present bool (nb,),
+    firstpos int64 (nb,) | None), each (B, nb) for B members."""
     specs, slots = _agg_specs(cmd, env, schema)
     if want_first:
         specs.append(("first", None, None, False))
-    vals, cnts, present_cnt = K.bucket_agg(kid, nb, active, specs)
+    if B:
+        vals, cnts, present_cnt = K.bucket_agg_batched(
+            kid, nb, _member_masks(active, B), specs)
+    else:
+        vals, cnts, present_cnt = K.bucket_agg(kid, nb, active, specs)
     new_env = _agg_outputs(cmd, env, slots, vals, cnts, present_cnt, cap)
     firstpos = vals[-1] if want_first else None
     return new_env, present_cnt > 0, firstpos
 
 
 def _active(length, sel, cap: int, device) -> torch.Tensor:
+    """row < length (and sel): (cap,), or (B, cap) when the length (B,)
+    or the mask carries the member axis."""
     iota = torch.arange(cap, dtype=torch.int32, device=device)
-    active = iota < length
+    active = iota < (length[:, None] if _is_member_length(length)
+                     else length)
     return active if sel is None else (active & sel)
 
 
 def _groupby_global(cmd: ir.GroupBy, env, schema: Schema, active, cap: int,
-                    device):
-    """Keyless GROUP BY: one bucket, one output row."""
+                    device, B: int = 0):
+    """Keyless GROUP BY: one bucket, one output row (per member)."""
     new_env, _present, _first = _run_aggs(cmd, env, schema, None, 1, active,
-                                          cap, device, want_first=False)
+                                          cap, device, want_first=False,
+                                          B=B)
     return new_env, torch.tensor(1, dtype=torch.int32, device=device)
 
 
@@ -234,20 +330,22 @@ def _bucket_ids(cmd: ir.GroupBy, env, cap: int, device):
 
 
 def _groupby_small_domain(cmd: ir.GroupBy, env, schema: Schema, sel,
-                          length, cap: int, device):
+                          length, cap: int, device, B: int = 0):
     """Bounded-domain aggregation: bucket ids in torch, every aggregate
     in one `bucket_agg` launch, then the shared epilogue."""
     active = _active(length, sel, cap, device)
     kid, nbuckets, strides = _bucket_ids(cmd, env, cap, device)
     new_env, present, firstpos = _run_aggs(
         cmd, env, schema, kid, nbuckets, active, cap, device,
-        want_first=bool(cmd.carry_keys))
+        want_first=bool(cmd.carry_keys), B=B)
     return _emit_bucket_groups(cmd, env, schema, new_env, present, nbuckets,
                                strides, cap, device, firstpos)
 
 
 def _pad(t: torch.Tensor, pad: int) -> torch.Tensor:
-    return torch.cat([t, torch.zeros(pad, dtype=t.dtype, device=t.device)])
+    """Zeros appended along the last axis."""
+    return torch.cat([t, torch.zeros(t.shape[:-1] + (pad,), dtype=t.dtype,
+                                     device=t.device)], dim=-1)
 
 
 def _emit_bucket_groups(cmd: ir.GroupBy, env, schema: Schema, new_env,
@@ -273,10 +371,10 @@ def _emit_bucket_groups(cmd: ir.GroupBy, env, schema: Schema, new_env,
     for kname in cmd.carry_keys:
         d, v = env[kname]
         safe = torch.clamp(firstpos, 0, cap - 1)
-        kd = d[safe]
+        kd = _take(d, safe)
         dt = schema.dtype(kname)
         if dt.nullable:
-            kv = (v[safe] if v is not None
+            kv = (_take(v, safe) if v is not None
                   else torch.ones((nbuckets,), dtype=torch.bool,
                                   device=device))
             new_env[kname] = (kd, kv & present)
@@ -287,12 +385,12 @@ def _emit_bucket_groups(cmd: ir.GroupBy, env, schema: Schema, new_env,
     pad = out_cap - nbuckets
     padded = {}
     for name, (d, v) in new_env.items():
-        dp = _pad(d, pad) if pad > 0 else d[:out_cap]
+        dp = _pad(d, pad) if pad > 0 else d[..., :out_cap]
         vp = None
         if v is not None:
-            vp = _pad(v, pad) if pad > 0 else v[:out_cap]
+            vp = _pad(v, pad) if pad > 0 else v[..., :out_cap]
         padded[name] = (dp, vp)
-    present_p = _pad(present, pad) if pad > 0 else present[:out_cap]
+    present_p = _pad(present, pad) if pad > 0 else present[..., :out_cap]
     return compress(padded, nbuckets, present_p, out_cap, device)
 
 
@@ -302,22 +400,91 @@ def _unsigned_keys(names, schema: Schema) -> frozenset:
 
 
 def _sorted_groups(key_words: list, cmd: ir.GroupBy, env, schema: Schema,
-                   active, cap: int, oc: int, device):
+                   active, cap: int, oc: int, device, B: int = 0):
     """The sort-then-fold core of both lanes below: the ``sort`` kernel
     orders the rows by (inactive rank, key words, row id) at scan
     capacity, then ``segment_agg`` folds each run of equal words.
-    Returns (new_env of the aggregates at `oc` slots, ngroups, lead)."""
-    inactive = encode_key((~active).to(torch.int64))
-    perm = K.sort_perm([inactive] + key_words, cap, device)
+    Returns (new_env of the aggregates at `oc` slots, ngroups, lead).
+
+    B members: with shared key words, ONE sort over the union of the
+    members' masks and ``segment_agg_batched`` (each member's groups,
+    (B,) ngroups, (B, oc) slots); with a per-member word, one sort of
+    the B·cap rows with the member id as the leading word
+    (`_member_key_groups`)."""
     specs, slots = _agg_specs(cmd, env, schema)
-    ngroups, lead, present, vals, cnts = K.segment_agg(
-        perm, key_words, active, specs, oc)
+    if B and any(w.dim() == 2 for w in key_words):
+        ngroups, lead, present, vals, cnts = _member_key_groups(
+            key_words, _member_masks(active, B), specs, cap, oc, device)
+    elif B:
+        masks = _member_masks(active, B)
+        inactive = encode_key((~masks.any(0)).to(torch.int64))
+        perm = K.sort_perm([inactive] + key_words, cap, device)
+        ngroups, lead, present, vals, cnts = K.segment_agg_batched(
+            perm, key_words, masks, specs, oc)
+    else:
+        inactive = encode_key((~active).to(torch.int64))
+        perm = K.sort_perm([inactive] + key_words, cap, device)
+        ngroups, lead, present, vals, cnts = K.segment_agg(
+            perm, key_words, active, specs, oc)
     new_env = _agg_outputs(cmd, env, slots, vals, cnts, present, cap)
     return new_env, ngroups, lead
 
 
+def _member_key_groups(key_words: list, masks, specs, cap: int, oc: int,
+                       device):
+    """Groups whose key words differ per member: the B·cap rows sorted
+    once by (inactive, member, words), folded as one query by
+    ``segment_agg`` at B·oc slots (the members' groups come out member
+    by member), then each member's run of groups taken into its (B, oc)
+    row. Returns segment_agg_batched's (ngroups, lead, present, vals,
+    cnts)."""
+    B = masks.shape[0]
+    n = B * cap
+    member = torch.arange(B, dtype=torch.int64,
+                          device=device).repeat_interleave(cap)
+    words = [encode_key(member)] + [
+        (w if w.dim() == 2 else w.unsqueeze(0).expand(B, cap))
+        .reshape(-1).contiguous() for w in key_words]
+    active = masks.reshape(-1)
+    inactive = encode_key((~active).to(torch.int64))
+    perm = K.sort_perm([inactive] + words, n, device)
+    flat = [(f, None if d is None else K._per_member(d, B).reshape(-1)
+             .contiguous(),
+             None if v is None else K._per_member(v, B).reshape(-1)
+             .contiguous(), u) for (f, d, v, u) in specs]
+    ng, lead, present, vals, cnts = K.segment_agg(perm, words, active, flat,
+                                                  B * oc)
+    slots = torch.arange(B * oc, device=device)
+    live = slots < ng
+    owner = torch.where(live, lead.to(torch.int64) // cap,
+                        torch.full_like(slots, B))
+    counts = torch.bincount(owner, minlength=B + 1)[:B]
+    first = torch.cumsum(counts, 0) - counts
+    i = torch.arange(oc, device=device)
+    here = i[None, :] < counts[:, None]
+    idx = torch.where(here, first[:, None] + i[None, :],
+                      torch.zeros_like(here, dtype=torch.int64))
+
+    def per(x):
+        y = x[idx]
+        return torch.where(here, y, torch.zeros_like(y))
+
+    off = torch.arange(B, device=device)[:, None] * cap
+    lead_m = per(lead.to(torch.int64))
+    lead_m = torch.where(here, lead_m - off, torch.zeros_like(lead_m))
+    out_vals = []
+    for (f, *_r), v in zip(specs, vals):
+        y = per(v)
+        if f == "first":          # flat row id → the member's row id
+            y = torch.where(here & (y < n), y - off,
+                            torch.where(here, torch.full_like(y, cap), y))
+        out_vals.append(y)
+    return (counts.to(torch.int32), lead_m.to(torch.int32), per(present),
+            out_vals, [per(c) for c in cnts])
+
+
 def _groupby_medium_domain(cmd: ir.GroupBy, env, schema: Schema, sel,
-                           length, cap: int, device):
+                           length, cap: int, device, B: int = 0):
     """Bounded domains too wide for bucket_agg (513 to 65,535 buckets):
     the rows are sorted by bucket id and folded per bucket run (the
     reference scatter-reduces instead), the per-group results are
@@ -328,16 +495,19 @@ def _groupby_medium_domain(cmd: ir.GroupBy, env, schema: Schema, sel,
     oc = min(bucket_capacity(nbuckets, minimum=128), cap)
     words = [encode_key(kid.to(torch.int64))]
     grp_env, ngroups, lead = _sorted_groups(words, cmd, env, schema,
-                                            active, cap, oc, device)
+                                            active, cap, oc, device, B)
     # group slot g holds bucket kid[lead[g]]; slots past ngroups spill
-    live = torch.arange(oc, device=device) < ngroups
-    slot = torch.where(live, kid[lead.to(torch.int64)].to(torch.int64),
-                       torch.full((oc,), nbuckets, dtype=torch.int64,
+    live = torch.arange(oc, device=device) < (ngroups[:, None] if B
+                                              else ngroups)
+    slot = torch.where(live, _take(kid, lead.to(torch.int64))
+                       .to(torch.int64),
+                       torch.full(live.shape, nbuckets, dtype=torch.int64,
                                   device=device))
 
     def scatter(x, fill=0):
-        out = torch.full((nbuckets + 1,), fill, dtype=x.dtype, device=device)
-        return out.index_copy_(0, slot, x)[:nbuckets]
+        out = torch.full(x.shape[:-1] + (nbuckets + 1,), fill,
+                         dtype=x.dtype, device=device)
+        return out.scatter_(-1, slot, x)[..., :nbuckets]
 
     new_env = {}
     for name, (d, v) in grp_env.items():
@@ -349,7 +519,7 @@ def _groupby_medium_domain(cmd: ir.GroupBy, env, schema: Schema, sel,
 
 
 def _trace_group_by_sorted(cmd: ir.GroupBy, env, schema: Schema, sel, length,
-                           cap: int, device):
+                           cap: int, device, B: int = 0):
     """Unbounded-domain aggregation: one sort of (inactive rank, key
     words, row id), then ``segment_agg`` over the sorted permutation,
     with the values read through it (nothing is gathered into sorted
@@ -364,8 +534,9 @@ def _trace_group_by_sorted(cmd: ir.GroupBy, env, schema: Schema, sel, length,
                  cap)
     words = group_key_words(cmd.keys, env, _unsigned_keys(cmd.keys, schema))
     new_env, ngroups, lead = _sorted_groups(words, cmd, env, schema, active,
-                                            cap, oc, device)
-    live = torch.arange(oc, device=device) < ngroups
+                                            cap, oc, device, B)
+    live = torch.arange(oc, device=device) < (ngroups[:, None] if B
+                                              else ngroups)
     _b_inc("proven_rows", oc)
     _b_inc("capacity_rows", cap)
     if cmd.out_bound:
@@ -376,10 +547,10 @@ def _trace_group_by_sorted(cmd: ir.GroupBy, env, schema: Schema, sel, length,
     for kname in list(cmd.keys) + list(cmd.carry_keys):
         d, v = env[kname]
         if schema.dtype(kname).nullable:
-            kv = v[lead] if v is not None else torch.ones_like(live)
-            new_env[kname] = (d[lead], kv & live)
+            kv = _take(v, lead) if v is not None else torch.ones_like(live)
+            new_env[kname] = (_take(d, lead), kv & live)
         else:
-            new_env[kname] = (d[lead], None)
+            new_env[kname] = (_take(d, lead), None)
     return new_env, ngroups
 
 
@@ -388,22 +559,30 @@ def _trace_group_by(cmd: ir.GroupBy, env, schema: Schema, sel, length,
     """GroupBy dispatch: keyless → one bucket; small bounded domains →
     bucket_agg; medium bounded domains → the bucket-sorted lane;
     everything else → the sort-based lane. Returns (new_env,
-    new_length)."""
+    new_length). With the member axis on the mask, the length or a
+    column the group-by reads, every lane runs once for all B members
+    (per-member results (B, oc), lengths (B,))."""
+    refs = list(cmd.keys) + list(cmd.carry_keys) + [
+        a.arg for a in cmd.aggs if a.arg is not None]
+    B = _members(sel, *[x for n in refs for x in env[n]])
+    if not B and _is_member_length(length):
+        B = length.shape[0]
     if not cmd.keys:
         return _groupby_global(cmd, env, schema,
                                _active(length, sel, cap, device), cap,
-                               device)
+                               device, B)
     if cmd.key_domains and all(d > 0 for d in cmd.key_domains):
         nb = 1
         for d in cmd.key_domains:
             nb *= d + 1
         if nb <= _SMALL_DOMAIN_BUCKETS:
             return _groupby_small_domain(cmd, env, schema, sel, length, cap,
-                                         device)
+                                         device, B)
         if nb + 1 <= _SCATTER_MAX_BUCKETS:
             return _groupby_medium_domain(cmd, env, schema, sel, length, cap,
-                                          device)
-    return _trace_group_by_sorted(cmd, env, schema, sel, length, cap, device)
+                                          device, B)
+    return _trace_group_by_sorted(cmd, env, schema, sel, length, cap, device,
+                                  B)
 
 
 # --------------------------------------------------------------------------
@@ -434,7 +613,7 @@ def _trace_program(program: ir.Program, in_schema_cols, cap, env, length,
             env, length = _trace_group_by(cmd, env, schema, sel, length, cap,
                                           device)
             if env:
-                cap = next(iter(env.values()))[0].shape[0]
+                cap = next(iter(env.values()))[0].shape[-1]
             schema = ir.infer_schema(ir.Program([cmd]), schema)
             sel = None
         elif isinstance(cmd, ir.Projection):
@@ -483,7 +662,28 @@ def compress(env, length, sel, cap: int, device):
     """BlockCompress: the selected rows, in order, at the front of the
     same capacity (the `compact` kernel). The port defines only the live
     prefix [0, length'); the reference also keeps the dropped rows after
-    it."""
+    it. With the member axis (on the mask, the length or a column) each
+    member compacts its own rows: (B, cap) columns and (B,) lengths
+    through `compact_batched`."""
+    B = _members(sel, *[x for pair in env.values() for x in pair])
+    if not B and _is_member_length(length):
+        B = length.shape[0]
+    if B:
+        names = list(env)
+        cols, where = [], []
+        for nm in names:
+            d, v = env[nm]
+            cols.append(_rows(d))
+            where.append((nm, 0))
+            if v is not None:
+                cols.append(_rows(v))
+                where.append((nm, 1))
+        outs, live, _new_len, _ovf = K.compact_batched(
+            cols, None if sel is None else _rows(sel), length, cap, cap, B)
+        new_env = {nm: [None, None] for nm in names}
+        for (nm, part), o in zip(where, outs):
+            new_env[nm][part] = o
+        return {nm: (d, v) for nm, (d, v) in new_env.items()}, live
     new_env, live, _new_len, _ovf = _compact_cols(env, length, sel, cap,
                                                   cap)
     return new_env, live

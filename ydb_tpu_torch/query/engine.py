@@ -14,16 +14,28 @@ read for the window lane (``enable_device_windows``,
 ``window_device_min_rows``), the host-lane limit
 (``host_lane_max_rows``) and the GraceJoin budget
 (``grace_budget_bytes``, unless ``YDB_TPU_GRACE_BUDGET`` is set).
-`executor.last_path` names the lane a SELECT took: fused, fused-tiled,
-fused-tiled-spill, fused-tiled-union, portioned, set-op or literal.
+`executor.last_path` names the lane a SELECT took: fused, fused-batched,
+fused-tiled, fused-tiled-spill, fused-tiled-union, portioned, set-op or
+literal.
+
+A plain SELECT reserves its estimated device bytes under memory
+admission (`query/admission.py`: ``YDB_TPU_ADMISSION_BUDGET``,
+``YDB_TPU_ADMISSION_TIMEOUT``) and a slot of the pipeline window
+(``YDB_TPU_PIPELINE_WINDOW`` / ``Config.pipeline_window``) from dispatch
+to readout, as the reference's does. With ``YDB_TPU_BATCH_WINDOW`` (ms)
+above 0, same-shape SELECTs arriving inside the window coalesce into one
+batched execution (`query/batch_lane.py`, at most ``YDB_TPU_BATCH_MAX``
+members). `query` is safe to call from many threads; `counters()`
+returns the ``batch/*``, ``admission/*`` and ``pipeline/*`` counters.
 DML, transactions and sessions, system views, materialized views,
-topics, tracing and admission raise ``NotPorted``.
+topics and tracing raise ``NotPorted``.
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import threading
 from typing import Optional
 
 import numpy as np
@@ -44,6 +56,17 @@ class QueryError(Exception):
     pass
 
 
+# counters() keys that read 0 before their first event
+_ALWAYS_VISIBLE = (
+    "batch/batches", "batch/coalesced_queries", "batch/max_size",
+    "batch/singles", "batch/fallbacks", "batch/declined",
+    "batch/reservations", "batch/window_timeouts", "admission/waits",
+    "admission/timeouts", "admission/in_flight_bytes",
+    "admission/active_queries", "pipeline/dispatched",
+    "pipeline/overlap_hits", "pipeline/window_timeouts",
+    "pipeline/in_flight")
+
+
 class QueryEngine:
     def __init__(self, catalog: Optional[Catalog] = None, device=None,
                  block_rows: int = 1 << 20, config=None):
@@ -61,8 +84,36 @@ class QueryEngine:
         self._tmp_ids = itertools.count()    # thread-safe temp names
         # plan cache keyed by SQL text, validated against the
         # (uid, data_version) of every referenced table
-        self._plan_cache: dict = {}
+        self._plan_cache: dict = {}          # guarded-by: _plan_mu
+        self._plan_mu = threading.Lock()
         self.plan_cache_hits = 0
+        # device-memory admission (the reference's kqp_rm_service seat):
+        # SELECTs reserve their scan+build estimate before dispatch
+        from ydb_tpu_torch.query.admission import MemoryAdmission
+        from ydb_tpu_torch.storage.device_cache import DEFAULT_BUDGET
+        self.admission = MemoryAdmission(
+            int(os.environ.get("YDB_TPU_ADMISSION_BUDGET", DEFAULT_BUDGET)),
+            timeout_s=float(os.environ.get("YDB_TPU_ADMISSION_TIMEOUT",
+                                           60.0)))
+        # the window bounds dispatched-but-undrained SELECTs: each holds
+        # its result buffers (plus its admission reservation) on the
+        # device until drained
+        self.pipeline_window = max(1, int(os.environ.get(
+            "YDB_TPU_PIPELINE_WINDOW", self.config.pipeline_window)))
+        self._pipe_sem = threading.BoundedSemaphore(self.pipeline_window)
+        self._pipe_mu = threading.Lock()
+        self._pipe_inflight = 0          # guarded-by: _pipe_mu
+        # the batched serving lane: with YDB_TPU_BATCH_WINDOW=<ms> > 0,
+        # same-shape SELECTs arriving inside the window coalesce into
+        # ONE batched execution; 0 (the default) is off
+        self.batch_window_ms = float(
+            os.environ.get("YDB_TPU_BATCH_WINDOW", "0") or 0)
+        self._batch_lane = None
+        if self.batch_window_ms > 0:
+            from ydb_tpu_torch.query.batch_lane import BatchLane
+            self._batch_lane = BatchLane(
+                self, self.batch_window_ms / 1000.0,
+                max_batch=int(os.environ.get("YDB_TPU_BATCH_MAX", "64")))
 
     def snapshot(self) -> Snapshot:
         """Reads see every committed version: the port has no concurrent
@@ -106,14 +157,111 @@ class QueryEngine:
         names = self._referenced_tables(stmt)
         fp = (self._table_fingerprint(names), bounds_enabled(),
               late_mat_enabled())
-        cached = self._plan_cache.get(sql)
-        if cached is not None and cached[0] == fp:
-            plan = cached[1]
-            self.plan_cache_hits += 1
-        else:
-            plan = self.planner.plan_select(stmt)
-            self._plan_cache[sql] = (fp, plan)
-        return self.executor.execute(plan, snap)
+        with self._plan_mu:
+            cached = self._plan_cache.get(sql)
+            if cached is not None and cached[0] == fp:
+                plan = cached[1]
+                self.plan_cache_hits += 1
+            else:
+                plan = self.planner.plan_select(stmt)
+                self._plan_cache[sql] = (fp, plan)
+        return self._select(plan, snap)
+
+    def _select(self, plan, snap) -> HostBlock:
+        """The reference's `_execute_read` tail: the plan's device-byte
+        estimate, then the batch lane (its leader holds one window slot
+        and one reservation for the whole batch) or the per-query
+        pipeline."""
+        from ydb_tpu_torch.query.admission import (
+            AdmissionTimeout, estimate_plan_bytes,
+        )
+        # floor: even column-less scans (count(*)) reserve a nominal
+        # slot so admission can actually bound concurrency
+        est = max(estimate_plan_bytes(self.catalog, plan, snap), 1 << 20)
+        try:
+            block = None
+            if self._batch_lane is not None:
+                block = self._batch_lane.try_run(plan, snap, est)
+            if block is None:
+                block = self._dispatch_and_drain(plan, snap, est)
+        except AdmissionTimeout as e:
+            raise QueryError(str(e)) from e
+        return block
+
+    def _dispatch_and_drain(self, plan, snap, est: int) -> HostBlock:
+        """The concurrent query pipeline: a *dispatch phase* (plan →
+        compile-cache hit → device enqueue, `Executor.execute_async`)
+        followed by a *readout phase* that resolves the device-result
+        future lock-free — so while this query drains D2H, the next
+        one's dispatch is already in flight.
+
+        The admission reservation spans BOTH phases (result buffers
+        live in device memory until drained), and `pipeline_window`
+        bounds dispatched-but-undrained queries on top of the byte
+        budget."""
+        # window slot FIRST, byte reservation second: a query parked
+        # behind the window must not sit on admission bytes it isn't
+        # using (that would shed concurrent large queries with spurious
+        # AdmissionTimeouts). Sem holders waiting on admission shed via
+        # its deadline and release the slot — no circular wait — and the
+        # slot wait itself is BOUNDED by the same deadline, so a window
+        # saturated by admission-queued queries sheds instead of
+        # head-of-line blocking every later SELECT indefinitely.
+        from ydb_tpu_torch.query.admission import AdmissionTimeout
+        from ydb_tpu_torch.utils.metrics import GLOBAL
+        if not self._pipe_sem.acquire(timeout=self.admission.timeout_s):
+            GLOBAL.inc("pipeline/window_timeouts")
+            raise AdmissionTimeout(
+                f"pipeline window saturated: {self.pipeline_window} "
+                "queries dispatched-or-queued for longer than the "
+                "admission deadline")
+        try:
+            with self.admission.admit(est):
+                return self._dispatch_drain_admitted(plan, snap, est)
+        finally:
+            self._pipe_sem.release()
+
+    def _dispatch_drain_admitted(self, plan, snap, est: int) -> HostBlock:
+        """Body of the pipeline once the window slot + byte reservation
+        are held: dispatch, account the in-flight overlap, drain."""
+        from ydb_tpu_torch.utils.metrics import GLOBAL
+        entered = False
+        try:
+            fut = self.executor.execute_async(plan, snap)
+            with self._pipe_mu:
+                self._pipe_inflight += 1
+                entered = True
+                if self._pipe_inflight > 1:
+                    # another query was dispatched and undrained when
+                    # this one entered: the pipeline genuinely
+                    # overlapped (the counter the threaded throughput
+                    # test asserts on)
+                    GLOBAL.inc("pipeline/overlap_hits")
+                GLOBAL.set("pipeline/in_flight", self._pipe_inflight)
+            GLOBAL.inc("pipeline/dispatched")
+            block = fut.result()
+            return block
+        finally:
+            if entered:
+                with self._pipe_mu:
+                    self._pipe_inflight -= 1
+                    GLOBAL.set("pipeline/in_flight", self._pipe_inflight)
+
+    def counters(self) -> dict:
+        """Live counter snapshot (a slim form of the reference's
+        /counters payload): the process counters, the
+        plan cache size, the pipeline window and the batch window; the
+        lane's and admission's counters are present (0) before their
+        first use."""
+        from ydb_tpu_torch.utils.metrics import GLOBAL
+        c = GLOBAL.snapshot()
+        with self._plan_mu:
+            c["engine/plan_cache_size"] = len(self._plan_cache)
+        c["pipeline/window"] = self.pipeline_window
+        c["batch/window_ms"] = self.batch_window_ms
+        for k in _ALWAYS_VISIBLE:
+            c.setdefault(k, 0)
+        return c
 
     def _table_fingerprint(self, names) -> tuple:
         out = []

@@ -21,7 +21,10 @@ Beyond the device budgets (the reference's defaults, `YDB_TPU_*`):
   each scan block is routed to the partitions by the `partition` kernel;
 - partial-aggregate states above `merge_budget_bytes` spill to host
   key-hash partitions (`ops/spill.py`, K14) and merge per partition.
-The mesh and batched lanes are not ported.
+The batched serving lane (`execute_fused_batched`, driven by
+`query/batch_lane.py`) runs B same-shape SELECTs as one fused execution
+with a member axis on the lifted params that differ. The mesh lanes are
+not ported.
 """
 
 from __future__ import annotations
@@ -259,6 +262,138 @@ class Executor:
         fut = DeviceResultFuture(fetch)
         return fut if defer else fut.result()
 
+    # -- multi-query batched dispatch --------------------------------------
+
+    def execute_fused_batched(self, plan: QueryPlan, members: list,
+                              snapshot: Snapshot):
+        """ONE fused execution for a batch of same-shape queries (the
+        serving lane, `query/batch_lane.py`): the shared scan superblock
+        and join builds are taken once, the lifted params whose values
+        differ across the members get a member axis, and one launch
+        sequence (`ops/fused.build_fused_batched_fn`) serves the whole
+        batch — one readout for B clients.
+
+        `plan`: the leader's plan with scan pruning STRIPPED (pruning is
+        literal-dependent and cannot partition a shared execution; the
+        lane already verified every member sees identical source sets).
+        `members`: [(member_plan, member_params)] — same `lift_sig`.
+        Returns [HostBlock] projected per member, or None where the
+        reference declines the shape before dispatch (more joins than
+        the fuse cap, a partitioned or non-unique build, an empty or
+        tiled-class scan, param-name drift, array params whose shapes
+        differ). Nothing is traced here, so a failure inside the
+        execution is a fault and reaches the caller: there is no
+        per-member fallback for it (the reference's `batch/trace_errors`
+        lane). The reference pads the member axis to a power of two to
+        key compiled programs; the port compiles none and runs exactly
+        B members (identical members run once)."""
+        from ydb_tpu_torch.ops import fused as F
+        from ydb_tpu_torch.ops.torch_exec import PerMember
+        from ydb_tpu_torch.storage.device_cache import (
+            enumerate_scan_sources, estimate_scan_bytes,
+        )
+
+        pipe = plan.pipeline
+        table = self.catalog.table(pipe.scan.table)
+        join_steps = [step for kind, step in pipe.steps if kind == "join"]
+        if len(join_steps) > self.fuse_max_joins:
+            return None
+        params0 = dict(members[0][1])
+        builds = self._prepare_builds(pipe, params0, snapshot)
+        for step, bt in zip(join_steps, builds):
+            if isinstance(bt, J.PartitionedBuild) or (
+                    not bt.unique and step.kind in ("inner", "left",
+                                                    "mark")):
+                return None
+        (plan, pipe, scan_cols, schema, _partial_schema, dicts,
+         join_metas, late_scan) = self._fused_plan_setup(plan, builds)
+
+        storage_names = [s for (s, _i) in pipe.scan.columns]
+        rename = {s: i for (s, i) in pipe.scan.columns}
+        sources, src_ids = enumerate_scan_sources(table, snapshot, None)
+        Kb = shape_buckets.bucket_sources(len(sources))
+        if not sources or estimate_scan_bytes(sources, storage_names,
+                                              pad_to=Kb) \
+                > self.fused_scan_budget_bytes:
+            return None                  # empty / tiled-class scan
+        sb = self.device_cache.superblock(table, storage_names, rename,
+                                          snapshot, None, sources, src_ids,
+                                          pad_to=Kb)
+        if sb is None:
+            return None
+        arrays, valids, lengths, K, CAP, sb_dicts = sb
+        sb_valid_names = frozenset(valids.keys())
+        dicts.update(sb_dicts)
+
+        sort_params, sort_spec, rank_assigns = self._sort_setup_fused(
+            plan, schema, dicts)
+        # per-member param dicts (sort params are batch-invariant; a
+        # LIMIT always lifts here — see _lift_limit_setup — so each
+        # member clamps to ITS OWN limit+offset, not the leader's)
+        lift_limit, _lim_key = self._lift_limit_setup(plan, force=True)
+        mem_params = []
+        for (mp, prms) in members:
+            p = {**prms, **sort_params}
+            if lift_limit:
+                p[F.LIMIT_PARAM] = np.int32(mp.limit + (mp.offset or 0))
+            mem_params.append(p)
+        names = sorted(mem_params[0])
+        for p in mem_params[1:]:
+            if sorted(p) != names:
+                return None              # shape drift — lane sig was stale
+
+        # the member axis only on the params whose values differ; the
+        # batch-invariant ones (rank LUTs, shared pool arrays) are taken
+        # once
+        shared, mapped = {}, {}
+        for n in names:
+            vals = [p[n] for p in mem_params]
+            if all(_param_values_equal(vals[0], v) for v in vals[1:]):
+                shared[n] = vals[0]
+                continue
+            arrs = [np.asarray(v) for v in vals]
+            if any(a.shape != arrs[0].shape or a.dtype != arrs[0].dtype
+                   for a in arrs[1:]):
+                # array params whose SHAPES vary with the literal
+                # (integer IN lists) — Param fingerprints carry no
+                # shape, so the sig can't split these; decline
+                return None
+            mapped[n] = np.stack(arrs)
+        B = len(members)
+        # every member identical (a same-text storm): one execution,
+        # every member unpacks row 0
+        rows = B if mapped else 1
+        member_rows = list(range(B)) if mapped else [0] * B
+
+        keep = tuple(dict.fromkeys(n for (n, _lbl) in plan.output))
+        fn, layout_box = F.build_fused_batched_fn(
+            pipe, plan.final_program, scan_cols, K, CAP, sb_valid_names,
+            join_metas, rank_assigns, sort_spec, plan.limit, plan.offset,
+            keep, rows, lift_limit=lift_limit, late_scan=late_scan)
+        out_schema = Schema([c for c in schema.columns if c.name in keep]
+                            or list(schema.columns))
+        dev_params = {k: (to_tensor(v, self.device)
+                          if isinstance(v, np.ndarray) else v)
+                      for k, v in shared.items()}
+        dev_params.update({k: PerMember(to_tensor(v, self.device))
+                           for k, v in mapped.items()})
+        build_inputs = [F.build_traced_inputs(bt) for bt in builds]
+        data_stacks, valid_stack, length, _aux = fn(
+            arrays, valids, lengths, build_inputs, dev_params)
+
+        out_dicts = {n2: d for n2, d in dicts.items() if out_schema.has(n2)}
+        out_dicts.update({n2: d for n2, d in plan.result_dicts.items()
+                          if out_schema.has(n2)})
+        blocks = F.fetch_fused_batch(data_stacks, valid_stack, length,
+                                     layout_box, out_schema, out_dicts,
+                                     member_rows)
+        out = []
+        for (mp, _prms), blk in zip(members, blocks):
+            blk = _apply_offset(blk, mp.offset or 0, mp.limit)
+            out.append(self._project_output(blk, mp.output))
+        return out
+
+
     def _sort_setup_fused(self, plan: QueryPlan, schema: Schema,
                           dicts: dict):
         """Rank-LUT sort params against the fused pipeline's final schema."""
@@ -351,11 +486,23 @@ class Executor:
             join_metas, late_scan
 
     @staticmethod
-    def _lift_limit_setup(plan: QueryPlan, all_params=None):
-        """(lift_limit, lim_key): lifted plans with a LIMIT pass
-        limit+offset as the __lim2 input and key on its capacity bucket."""
+    def _lift_limit_setup(plan: QueryPlan, all_params=None,
+                          force: bool = False):
+        """(lift_limit, lim_key) for a fused compile: lifted plans with a
+        LIMIT pass limit+offset as the __lim2 device input and key the
+        program on its capacity bucket; everything else keeps the baked
+        constants (byte-identical compile key to the pre-lift path).
+
+        `force`: the batched lane ALWAYS lifts a LIMIT — its shape sig
+        groups on the bucket, so members whose only difference is the
+        LIMIT/OFFSET value must still clamp per member (a zero-literal
+        `limit 3` and `limit 5` coalesce; baking the leader's value
+        would hand every member the leader's row count).
+        `all_params`: when given, the leader's __lim2 is injected (the
+        batched lane instead injects per member)."""
         from ydb_tpu_torch.ops.fused import LIMIT_PARAM
-        if plan.limit is None or not getattr(plan, "lift_names", ()):
+        if plan.limit is None or not (
+                force or getattr(plan, "lift_names", ())):
             return False, None
         lim2 = plan.limit + (plan.offset or 0)
         if all_params is not None:
@@ -1209,6 +1356,16 @@ def _tile_done(device):
     ev = torch.cuda.Event()
     ev.record()
     return ev
+
+
+def _param_values_equal(a, b) -> bool:
+    """Batch-invariance test for one runtime param across two members
+    (arrays compare by dtype/shape/contents; scalars by type + value)."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b))
+    return type(a) is type(b) and bool(a == b)
 
 
 def _apply_offset(block: HostBlock, lo: int, limit) -> HostBlock:
