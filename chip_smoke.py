@@ -7,7 +7,8 @@ Phases, each printing its own line(s):
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
 2. the build of the nine CUDA kernel libraries from
    ``ydb_tpu_torch/ops/cuda/csrc`` (one ``nvcc`` per source, in
-   parallel), with its seconds;
+   parallel), with its seconds, then NVRTC's version and the seconds of
+   one trivial K1 stage (its first build);
 3. generation of TPC-H at ``--sf``, TPC-DS at SF1 and ClickBench's hits
    at 1,000,000 rows, each loaded into its own ``QueryEngine()`` (no
    device argument: it must land on ``cuda``);
@@ -29,7 +30,17 @@ Phases, each printing its own line(s):
    LEFT with NULL probe keys, float keys and 0 probes; ``window_scan``
    over store_sales at SF1 by item and date (timed), at ds89's frame
    (timed), one partition, one row per partition, NULL values and its
-   multi-launch form. Ints, masks, counts, row maps and permutations
+   multi-launch form; K1 (the generated expression-stage kernels,
+   ``ydb_tpu_torch/ops/k1.py``, built by NVRTC at first use) on every
+   stage q1, q6 and q19 hand over on the fused path, q19's batched
+   stages at B = 8 with per-member params, and the op sweep of
+   ``ydb_tpu_torch/bench/k1_sweep.py`` (every op of ``ops/kernels.py``
+   over each storage dtype it takes, NULLs, NaN, +-inf, -0.0, zero
+   divisors, codes of -1, a null_neg LUT, hash inputs >= 2^63) at 2^20
+   and 0 rows: outputs equal in dtype, validity presence and shape,
+   ints and masks exactly, floats bit for bit (any NaN for any NaN)
+   and held at rtol 1e-9; each stage's kernel and plain ms, launches and
+   byte bound, and per query the sum beside ``k1_bound_bytes``. Ints, masks, counts, row maps and permutations
    must match exactly, float sums to rtol 1e-9 (another summation
    order). Times: device time between CUDA events (a spin kernel ahead
    hides the host's launch work), median of 15 calls after warm-up, for
@@ -55,7 +66,9 @@ Phases, each printing its own line(s):
    query fixes it), queries whose path a slice fixes must take it
    (``EXPECT_PATH``), and each path's kernels must have launched in that
    path's own run (the counters are reset just before it and read just
-   after);
+   after; K1 launches on every path); each query's line adds the K1
+   builds (NVRTC compilations) its runs made and their milliseconds, each
+   path's launch line their totals;
 6. ``partition`` against its plain version at the largest spill feed of
    the beyond-budget path (timed), at a GraceJoin routing of lineitem's
    superblock rows by l_orderkey into 8 partitions (timed), and at 1 and
@@ -84,9 +97,9 @@ Phases, each printing its own line(s):
    templates coalesced (Q3's literals sit on its build sides, so it
    runs as singles), wrapper calls per batch equal at B = 2 and B = 8
    (a sort of B x cap rows runs more merge passes inside its one call);
-   the
-   storm walls with the lane on and off and one traced batch's device
-   time.
+   the storm walls with the lane on and off (the lane-on storm after one
+   untimed storm, so that the batched stages' K1 builds fall outside
+   it) and one traced batch's device time.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -1622,7 +1635,7 @@ SERVING_TEMPLATES = (("q1", "tpch", 8), ("q6", "tpch", 8),
                      ("c37", "clickbench", 8), ("c40", "clickbench", 8),
                      ("c42", "clickbench", 8))
 SERVING_KERNELS = ("bucket_agg_batched", "segment_agg_batched",
-                   "compact_batched", "probe", "sort")
+                   "compact_batched", "probe", "sort", "k1")
 
 
 def _storm(eng, texts):
@@ -1780,6 +1793,11 @@ def serving_phase(bindings, engines: dict, oracles: dict,
         want = [off.query(q) for q in texts]          # lane off, warm
         for q in texts:        # plans cached, device warm (each alone)
             on.query(q)
+        # one untimed storm builds the batched stages' K1 kernels (a
+        # per-member param is another signature), as the texts alone
+        # built the single ones: the timed storms hold no NVRTC build
+        _storm(on, texts)
+        k1_b0 = GLOBAL.get("k1/builds")
         t_off, _ = _storm(off, texts)
         b0 = {k: GLOBAL.get(k) for k in ("batch/batches", "batch/singles",
                                          "batch/coalesced_queries")}
@@ -1821,8 +1839,10 @@ def serving_phase(bindings, engines: dict, oracles: dict,
                     f"B={b_hi}) sort_merge_passes={merges[b_lo]} at "
                     f"B={b_lo}, {merges[b_hi]} at B={b_hi} "
                     f"traced_batch_device_ms={dev_ms:.3f}")
+        k1_storm = GLOBAL.get("k1/builds") - k1_b0
         log(f"serving {name}: B={Bn} est={est} gate={gate} "
             f"storm_lane_off_ms={t_off:.2f} storm_lane_on_ms={t_on:.2f} "
+            f"k1_builds_in_storms={k1_storm} "
             f"batches={d['batch/batches']} singles={d['batch/singles']} "
             f"coalesced={d['batch/coalesced_queries']} paths={paths} "
             f"ok{note}")
@@ -1881,6 +1901,19 @@ def main() -> int:
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {k}: {line.strip()}")
+    # K1: NVRTC at first use; a trivial stage first, so a missing
+    # libnvrtc or a failed compile ends the run here
+    from ydb_tpu_torch.ops import ir, k1
+    from ydb_tpu_torch.ops.cuda import nvrtc
+    t0 = time.perf_counter()
+    x = torch.arange(1 << 10, dtype=torch.int64, device="cuda")
+    env = {"x": (x, None)}
+    k1.run_stage((ir.Assign("y", ir.call("add", ir.Col("x"), ir.Col("x"))),),
+                 env, {}, None, 1 << 10, "cuda")
+    torch.cuda.synchronize()
+    check(torch.equal(env["y"][0], x * 2), "k1: the trivial stage is wrong")
+    log(f"build: k1 NVRTC {'.'.join(map(str, nvrtc.version()))}, one "
+        f"trivial stage in {time.perf_counter() - t0:.3f} s")
 
     # 3. data: TPC-H at --sf, TPC-DS at SF1 and ClickBench's hits at
     # 1,000,000 rows (the reference bench's sizes), each in its engine
@@ -1942,6 +1975,7 @@ def main() -> int:
         eng, serving.point_variants(order_keys, 1, SERVING_SEED)[0], 64)
     rows += batched_kernel_phase(bindings, n, hits, orders_n, point_b)
     del hits
+    rows += k1_phase(bindings, eng, QUERIES)
 
     # 5. the main path, path by path, through QueryEngine.query; the
     # beyond-budget path runs a second engine over the TPC-H data with
@@ -2007,6 +2041,10 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
              for r in rows]
+    from ydb_tpu_torch.utils.metrics import GLOBAL
+    log(f"k1: {GLOBAL.get('k1/builds')} NVRTC builds in "
+        f"{GLOBAL.get('k1/build_ms') / 1e3:.2f} s, "
+        f"{GLOBAL.get('k1/cache_hits')} cubin cache hits")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {
@@ -2056,11 +2094,12 @@ PATHS = (
     ("q1 q6 q14, late materialization on and off", "tpch",
      [("q1", {"late": "1"}), ("q6", {"late": "1"}), ("q14", {"late": "1"}),
       ("q1", {"late": "0"}), ("q14", {"late": "0"})],
-     ("bucket_agg", "compact", "probe", "sort")),
+     ("bucket_agg", "compact", "probe", "sort", "k1")),
     ("the other 19 queries: sorted and medium-domain group-by, hashing, "
      "CTEs and derived tables", "tpch",
      [(f"q{i}", {}) for i in range(2, 23) if i not in (6, 14)],
-     ("bucket_agg", "compact", "probe", "sort", "segment_agg", "hash64")),
+     ("bucket_agg", "compact", "probe", "sort", "segment_agg", "hash64",
+      "k1")),
     ("TPC-DS at SF1: windows (the ten windowed queries again on the "
      "device lane), the expanding probe on the portioned path, set "
      "operations, SELECT without FROM, and the store_sales window query",
@@ -2069,16 +2108,16 @@ PATHS = (
      + [(q, {"window_min_rows": 0}) for q in TPCDS_WINDOWED]
      + [("k13", {})],
      ("window_scan", "expand_counts", "expand_gather", "sort", "hash64",
-      "probe", "compact")),
+      "probe", "compact", "k1")),
     ("ClickBench, 1,000,000 rows", "clickbench",
      [(q, {}) for q in CLICKBENCH_QUERIES],
-     ("bucket_agg", "compact", "sort", "segment_agg")),
+     ("bucket_agg", "compact", "sort", "segment_agg", "k1")),
     ("TPC-H beyond the budgets (the defaults over 100): the tiled lane, "
      "GraceJoin builds with partition routing, the spill merge", "tpch_beyond",
      [(f"q{i}", {}) for i in range(1, 23)]
      + [("spill1", {}), ("union1", {"unordered": True})],
      ("partition", "hash64", "probe", "compact", "bucket_agg", "sort",
-      "segment_agg")),
+      "segment_agg", "k1")),
 )
 
 
@@ -2087,10 +2126,12 @@ def slice_phase(bindings, suites: dict) -> dict:
     checked against its oracle; returns each kernel's launches summed
     over the paths' runs (and nothing else)."""
     from ydb_tpu_torch.bench.tpch_oracle import assert_frames_match
+    from ydb_tpu_torch.utils.metrics import GLOBAL
     total = {k: 0 for k in bindings.LAUNCHES}
     for label, suite, runs, kernels in PATHS:
         eng, queries, oracle, *recorder = suites[suite]
         recorder = recorder[0] if recorder else None
+        k1_before = (GLOBAL.get("k1/builds"), GLOBAL.get("k1/build_ms"))
         bindings.reset_launches()
         for name, opts in runs:
             os.environ["YDB_TPU_LATE_MAT"] = opts.get("late", "1")
@@ -2098,6 +2139,7 @@ def slice_phase(bindings, suites: dict) -> dict:
             if "window_min_rows" in opts:
                 eng.config.window_device_min_rows = opts["window_min_rows"]
             walls, notes = [], []
+            b0 = (GLOBAL.get("k1/builds"), GLOBAL.get("k1/build_ms"))
             try:
                 for _ in range(3):
                     if recorder is not None:
@@ -2126,18 +2168,252 @@ def slice_phase(bindings, suites: dict) -> dict:
             tag = " ".join(f"{k}={v}" for k, v in opts.items())
             lanes = f" cold: {notes[0][0]} warm: {notes[-1][0]}" \
                 if notes else ""
+            builds = (f" k1_builds={GLOBAL.get('k1/builds') - b0[0]} "
+                      f"k1_build_ms="
+                      f"{GLOBAL.get('k1/build_ms') - b0[1]:.1f}")
             log(f"query {name}{' ' + tag if tag else ''}: "
                 f"cold_ms={walls[0]:.2f} warm_ms={min(walls[1:]):.2f} "
                 f"rows={len(got)} path={path} ok "
-                f"warm_launches={json.dumps(per_query)}{lanes}")
+                f"warm_launches={json.dumps(per_query)}{lanes}{builds}")
         launches = dict(bindings.LAUNCHES)
-        log(f"launches ({label}): {json.dumps(launches)}")
+        log(f"launches ({label}): {json.dumps(launches)} k1_builds="
+            f"{GLOBAL.get('k1/builds') - k1_before[0]} k1_build_s="
+            f"{(GLOBAL.get('k1/build_ms') - k1_before[1]) / 1e3:.2f}")
         missing = [k for k in kernels if launches[k] <= 0]
         check(not missing, f"kernels not launched on {label}: {missing}")
         for k, v in launches.items():
             total[k] += v
     log(f"launches: {json.dumps(total)}")
     return total
+
+
+# --------------------------------------------------------------------------
+# K1: the generated expression-stage kernels
+# --------------------------------------------------------------------------
+
+K1_QUERIES = ("q1", "q6", "q19")
+K1_ENTRY = "k1_stage"              # the generated kernels' name (ops/k1.py)
+K1_SWEEP_ROWS = 1 << 20
+K1_SWEEP_SEED = 20261017
+
+
+class StageCapture:
+    """The K1 stages a run hands to `k1.run_stage`, each with its inputs
+    (wrapping, not changing, the function while the block runs)."""
+
+    def __init__(self):
+        self.stages = []
+
+    def __enter__(self):
+        from ydb_tpu_torch.ops import k1
+        self._k1, self._real = k1, k1.run_stage
+
+        def record(stage, env, params, sel, cap, device):
+            self.stages.append((tuple(stage), dict(env), dict(params), sel,
+                                cap))
+            return self._real(stage, env, params, sel, cap, device)
+        k1.run_stage = record
+        return self
+
+    def __exit__(self, *exc):
+        self._k1.run_stage = self._real
+
+
+def _k1_run(stage, env, params, sel, cap, device, plain: bool):
+    """(outputs [(data, valid)] per Assign, selection) of one run."""
+    from ydb_tpu_torch.ops import ir, k1
+    e = dict(env)
+    fn = k1.run_stage_plain if plain else k1.run_stage
+    s = fn(stage, e, params, sel, cap, device)
+    return [e[c.name] for c in stage if isinstance(c, ir.Assign)], s
+
+
+def _k1_compare(got, want, tag) -> tuple:
+    """Equal storage dtype, shape and validity presence; ints, bools and
+    validity exactly; floats bit for bit (any NaN for any NaN), held at
+    RTOL. Returns (largest float difference, bit-equal)."""
+    import torch
+    err, bits = 0.0, True
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g is not None and w is not None or g is w, f"{tag} {i}")
+        if g is None:
+            continue
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{tag} {i}: {g.dtype}{tuple(g.shape)} vs "
+              f"{w.dtype}{tuple(w.shape)}")
+        if not g.dtype.is_floating_point:
+            check(torch.equal(g, w), f"{tag} {i}: values differ")
+            continue
+        gn, wn = torch.isnan(g), torch.isnan(w)
+        check(torch.equal(gn, wn), f"{tag} {i}: NaN positions differ")
+        gg, ww = g[~gn], w[~wn]
+        torch.testing.assert_close(gg, ww, rtol=RTOL, atol=0)
+        iv = torch.int32 if g.dtype == torch.float32 else torch.int64
+        bits = bits and torch.equal(gg.view(iv), ww.view(iv))
+        if gg.numel():
+            fin = torch.isfinite(ww)
+            if bool(fin.any()):
+                err = max(err, float((gg[fin] - ww[fin]).abs().max()))
+    return err, bits
+
+
+def _k1_bytes(stage, env, params, sel, outs, s_out) -> int:
+    """Distinct input tensors the stage reads, once, and its outputs."""
+    import torch
+
+    from ydb_tpu_torch.ops import k1
+    from ydb_tpu_torch.ops.torch_exec import PerMember
+    names, ps = k1.stage_inputs(stage)
+    ins = [t for n in names if n in env for t in env[n]]
+    for p in ps:
+        v = params[p.name]
+        v = v.t if isinstance(v, PerMember) else v
+        if isinstance(v, torch.Tensor):
+            ins.append(v)
+    if s_out is not None:
+        ins.append(sel)
+    written = sum(t.numel() * t.element_size() for pair in outs
+                  for t in pair if t is not None)
+    if s_out is not None and s_out is not sel:
+        written += s_out.numel()
+    return distinct_bytes(ins) + written
+
+
+def check_k1_stage(B, stage, env, params, sel, cap, tag, device) -> dict:
+    """One stage through its kernel and its plain version on the card:
+    checked, timed, its launches counted and its byte bound."""
+    import torch
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    before = B.LAUNCHES["k1"]
+    got, gs = _k1_run(stage, env, params, sel, cap, device, plain=False)
+    launches = B.LAUNCHES["k1"] - before
+    want, ws = _k1_run(stage, env, params, sel, cap, device, plain=True)
+    sync()
+    flat_g = [t for pair in got for t in pair] + [gs]
+    flat_w = [t for pair in want for t in pair] + [ws]
+    err, bits = _k1_compare(flat_g, flat_w, f"k1 {tag}")
+    from ydb_tpu_torch.ops import k1
+    ms = time_ms(lambda: k1.run_stage(stage, dict(env), params, sel, cap,
+                                      device), iters=9, warmup=2)
+    plain_ms = time_ms(lambda: k1.run_stage_plain(
+        stage, dict(env), params, sel, cap, device), iters=9, warmup=2)
+    nbytes = _k1_bytes(stage, env, params, sel, got, gs)
+    return {"ms": ms, "plain_ms": plain_ms, "launches": launches,
+            "bound_ms": bound_ms(nbytes), "max_abs_err": err,
+            "bit_equal": bits}
+
+
+def _k1_line(tag, stage, cap, r) -> None:
+    from ydb_tpu_torch.ops import ir
+    na = sum(isinstance(c, ir.Assign) for c in stage)
+    log(f"kernel k1 {tag}: rows={cap} assigns={na} "
+        f"filters={len(stage) - na} kernel_ms={r['ms']:.4f} "
+        f"plain_ms={r['plain_ms']:.4f} launches={r['launches']} "
+        f"bound_us={r['bound_ms'] * 1e3:.2f} bit_equal={r['bit_equal']} "
+        f"max_abs_err={r['max_abs_err']:.3g}")
+
+
+def k1_phase(B, eng, queries: dict, device: str = "cuda") -> list:
+    """K1 against its plain version on the card: the stages q1, q6 and
+    q19 hand over on the fused path (late materialization on), q19's
+    batched stages at B = 8 with per-member params, and the op sweep of
+    `bench/k1_sweep.py` (every op over each storage dtype it takes, with
+    NULLs, NaN, +-inf, -0.0, zero divisors, negative floor operands,
+    codes of -1, a `null_neg` LUT, hash inputs >= 2^63) at 2^20 rows and
+    at 0 rows. Returns the kernel-table row: q19's stages, their time
+    and their byte bound summed (`k1_bound_bytes`, the query-level
+    formula, is logged beside it)."""
+    import numpy as np
+    import torch
+
+    from ydb_tpu_torch.bench import k1_sweep, serving
+    from ydb_tpu_torch.ops import ir, k1
+    os.environ["YDB_TPU_LATE_MAT"] = "1"
+    err, totals = 0.0, {}
+    for q in K1_QUERIES:
+        eng.query(queries[q])                       # warm: plans, builds
+        before = B.LAUNCHES["k1"]
+        with StageCapture() as cap_:
+            eng.query(queries[q])
+        warm = B.LAUNCHES["k1"] - before
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "launches": warm, "stages": len(cap_.stages)}
+        for i, (stage, env, params, sel, n) in enumerate(cap_.stages):
+            r = check_k1_stage(B, stage, env, params, sel, n,
+                               f"{q} stage {i}", device)
+            _k1_line(f"{q} stage {i}", stage, n, r)
+            for k in ("ms", "plain_ms", "bound_ms"):
+                tot[k] += r[k]
+            err = max(err, r["max_abs_err"])
+        totals[q] = tot
+        log(f"kernel k1 {q}: stages={tot['stages']} "
+            f"launches_per_warm_query={warm} kernel_ms={tot['ms']:.4f} "
+            f"plain_ms={tot['plain_ms']:.4f} stage_bound_ms="
+            f"{tot['bound_ms']:.4f} (bytes: each stage's inputs once and "
+            f"outputs once, at its rows) k1_bound_ms="
+            f"{bound_ms(k1_bound_bytes(eng, queries[q])):.4f} (bytes: "
+            "k1_bound_bytes)")
+    # q19's batched stages: 8 qgen variants, per-member params
+    texts = serving.variants("q19", 8, SERVING_SEED)
+    _batched_call(eng, texts)
+    with StageCapture() as cap_:
+        check(_batched_call(eng, texts) is not None, "q19 batch declined")
+    for i, (stage, env, params, sel, n) in enumerate(cap_.stages):
+        r = check_k1_stage(B, stage, env, params, sel, n,
+                           f"q19 batched B=8 stage {i}", device)
+        _k1_line(f"q19 batched B=8 stage {i}", stage, n, r)
+        err = max(err, r["max_abs_err"])
+    # the op sweep
+    cols = k1_sweep.columns(K1_SWEEP_ROWS, K1_SWEEP_SEED)
+    prm = k1_sweep.params(K1_SWEEP_SEED)
+
+    def tensors(c, n, dev):
+        return {k: (torch.from_numpy(np.ascontiguousarray(d[:n])).to(dev),
+                    None if v is None else torch.from_numpy(
+                        np.ascontiguousarray(v[:n])).to(dev))
+                for k, (d, v) in c.items()}
+
+    def params_on(dev):
+        return {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray)
+                    else v) for k, v in prm.items()}
+
+    one, p_cpu = tensors(cols, 1, "cpu"), params_on("cpu")
+    cases = k1_sweep.cases(K1_SWEEP_ROWS, K1_SWEEP_SEED,
+                           supported=lambda e, _c, _p: k1.supports(
+                               (ir.Assign("r", e),), one, p_cpu))
+    env_d, p_d = tensors(cols, K1_SWEEP_ROWS, device), params_on(device)
+    n_bits = 0
+    for case in cases:
+        r = check_k1_stage(B, case.stage, env_d, p_d, None, K1_SWEEP_ROWS,
+                           f"sweep {case.name}", device)
+        _k1_line(f"sweep {case.name}", case.stage, K1_SWEEP_ROWS, r)
+        n_bits += r["bit_equal"]
+        err = max(err, r["max_abs_err"])
+    mask = (torch.arange(K1_SWEEP_ROWS, device=device) % 3) > 0
+    for nf in (1, 2):
+        for sel in (None, mask):
+            st = k1_sweep.filter_stage(nf)
+            r = check_k1_stage(B, st, env_d, p_d, sel, K1_SWEEP_ROWS,
+                               f"sweep filters={nf}", device)
+            _k1_line(f"sweep filters={nf} mask={sel is not None}", st,
+                     K1_SWEEP_ROWS, r)
+    zero = tensors(cols, 0, device)
+    for case in cases:
+        got, gs = _k1_run(case.stage, zero, p_d, None, 0, device, False)
+        want, ws = _k1_run(case.stage, zero, p_d, None, 0, device, True)
+        _k1_compare([t for p in got for t in p], [t for p in want for t in p],
+                    f"k1 sweep {case.name} at 0 rows")
+    log(f"kernel k1 sweep: {len(cases)} stages over {K1_SWEEP_ROWS} rows "
+        f"and 0 rows, {sum(len(c.stage) for c in cases)} assigns, "
+        f"{n_bits} bit-equal, every op of KERNELS ok")
+    q19 = totals["q19"]
+    return [{"name": "k1", "route": "cuda", "source": "ydb_tpu_torch/ops/k1.py",
+             "replaces": "ydb_tpu/ops/xla_exec.py:75",
+             "shape": f"q19 at SF1: {q19['stages']} stages, "
+                      f"{q19['launches']} launches a warm query",
+             "ms": q19["ms"], "plain_ms": q19["plain_ms"],
+             "library_ms": None, "bound_ms": q19["bound_ms"],
+             "bound_by": "bytes", "max_abs_err": err}]
 
 
 def k1_bound_bytes(eng, sql: str) -> int:
@@ -2175,8 +2451,9 @@ def k1_bound_bytes(eng, sql: str) -> int:
 def profile_phase(eng, queries: dict) -> None:
     """One warm run per query under torch.profiler: host wall time, the
     summed device time of its kernels, the device's idle share of the
-    wall, the kernels that took most of it, and the time of torch's
-    elementwise kernels (K1, plain torch) with, for q6 and q19, K1's
+    wall, the kernels that took most of it, the time and count of K1's
+    generated kernels (`k1_stage`) and of torch's elementwise kernels
+    that remain (index gathers and the like), with, for q6 and q19, K1's
     byte bound."""
     import torch
     from torch.autograd import DeviceType
@@ -2201,15 +2478,18 @@ def profile_phase(eng, queries: dict) -> None:
         dev_ms = sum(dev_us(e) for e in evs) / 1e3
         top = sorted(evs, key=lambda e: -dev_us(e))[:8]
         elem = [e for e in evs if "elementwise" in e.key]
+        k1e = [e for e in evs if e.key.startswith(K1_ENTRY)]
         k1 = ""
         if name in ("q6", "q19"):
             k1 = (f" k1_bound_ms={bound_ms(k1_bound_bytes(eng, queries[name])):.4f}"
                   " (bytes)")
         log(f"profile {name}: wall_ms={wall:.3f} device_ms={dev_ms:.3f} "
             f"idle_share={max(0.0, 1 - dev_ms / wall):.3f} kernels="
-            f"{sum(e.count for e in evs)} elementwise_ms="
+            f"{sum(e.count for e in evs)} k1_ms="
+            f"{sum(dev_us(e) for e in k1e) / 1e3:.3f} "
+            f"(x{sum(e.count for e in k1e)}){k1} torch_elementwise_ms="
             f"{sum(dev_us(e) for e in elem) / 1e3:.3f} "
-            f"(x{sum(e.count for e in elem)}){k1} top: "
+            f"(x{sum(e.count for e in elem)}) top: "
             + "; ".join(f"{e.key[:48]}={dev_us(e) / 1e3:.3f}ms x{e.count}"
                         for e in top))
 

@@ -119,11 +119,6 @@ EDITS = {
     materialization (`YDB_TPU_LATE_MAT`) the"""),
     ],
     "query/batch_lane": [
-        ("the port's executor has no enable_fused flag: its fused path "
-         "is always on",
-         """        if not ex.enable_fused:
-            return None
-""", ""),
         ("the port has no mesh: its executor runs on one device",
          """        if ex.mesh is not None and ex.mesh.devices.size > 1:
             return None

@@ -108,7 +108,9 @@ _SIGS = {
                          _P]),
 }
 
-LAUNCHES = {name: 0 for name in _SIGS}
+# "k1": the generated expression-stage kernels (ops/k1.py, launched by
+# ops/cuda/nvrtc.py)
+LAUNCHES = {name: 0 for name in (*_SIGS, "k1")}
 
 
 def reset_launches() -> None:

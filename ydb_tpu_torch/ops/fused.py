@@ -26,12 +26,12 @@ import torch
 
 from ydb_tpu_torch.core.dtypes import Kind
 from ydb_tpu_torch.core.schema import Schema
-from ydb_tpu_torch.ops import ir
+from ydb_tpu_torch.ops import ir, k1
 from ydb_tpu_torch.ops.device import batched_to_host, bucket_capacity
 from ydb_tpu_torch.ops.join import probe_lut_traced
 from ydb_tpu_torch.ops.sort import sort_env
 from ydb_tpu_torch.ops.torch_exec import (
-    PerMember, _eval, _trace_program, compress,
+    PerMember, _trace_program, compress,
 )
 
 # the executor-lifted LIMIT+OFFSET input (companion of the
@@ -262,8 +262,8 @@ def _fused_body(pipe, final_program: Optional[ir.Program],
             ir.expr_columns(a.expr, need)
         need.update(n for (n, _asc, _nf) in sort_spec)
         materialize(sorted(need & set(deferred)))
-        for a in rank_assigns:
-            env[a.name] = _eval(a.expr, env, params, cap, device)
+        if rank_assigns:
+            k1.run_stage(rank_assigns, env, params, None, cap, device)
         if sort_spec:
             arrays = {n: d for n, (d, _v) in env.items()}
             valids = {n: v for n, (d, v) in env.items() if v is not None}

@@ -11,8 +11,10 @@ The non-elementwise work goes through the hand-written CUDA kernels
 (``ops/cuda``): grouped and keyless aggregation (``bucket_agg``), the
 sort (``sort``) and per-group folds (``segment_agg``) of the sorted
 lanes, compaction (``compact``) and composite-key hashing (``hash64``).
-Elementwise expressions (K1 of the kernel table) are plain torch over
-``ops/kernels.py``'s lowerings.
+Elementwise expressions (K1 of the kernel table) run stage by stage —
+each maximal run of Assign and Filter commands — through ``ops/k1.py``:
+one generated kernel per stage on the card. ``_eval`` below, torch over
+``ops/kernels.py``'s lowerings, is K1's plain version.
 
 Group-by lanes, as the reference routes them: keyless; small bounded
 domains (≤ 512 buckets, ``bucket_agg``); medium bounded domains (513 to
@@ -50,7 +52,7 @@ import torch
 from ydb_tpu_torch.core.block import HostBlock
 from ydb_tpu_torch.core.dtypes import Kind
 from ydb_tpu_torch.core.schema import Column, Schema
-from ydb_tpu_torch.ops import ir
+from ydb_tpu_torch.ops import ir, k1
 from ydb_tpu_torch.ops.cuda import bindings as K
 from ydb_tpu_torch.ops.device import (
     DeviceBlock, bucket_capacity, to_device, to_host,
@@ -590,6 +592,35 @@ def _trace_group_by(cmd: ir.GroupBy, env, schema: Schema, sel, length,
 # --------------------------------------------------------------------------
 
 
+_STAGES: dict = {}                  # id(program) -> (program, n, items)
+
+
+def _stages(program: ir.Program) -> list:
+    """The program's commands with each maximal run of Assign/Filter
+    commands grouped into one tuple (a K1 stage), computed once per
+    program object (a stage's tuple is then the same object on every
+    run, which keys K1's memo)."""
+    hit = _STAGES.get(id(program))
+    if hit is not None and hit[0] is program \
+            and hit[1] == len(program.commands):
+        return hit[2]
+    items, run = [], []
+    for cmd in program.commands:
+        if isinstance(cmd, (ir.Assign, ir.Filter)):
+            run.append(cmd)
+            continue
+        if run:
+            items.append(tuple(run))
+            run = []
+        items.append(cmd)
+    if run:
+        items.append(tuple(run))
+    if len(_STAGES) >= 1 << 14:
+        _STAGES.clear()
+    _STAGES[id(program)] = (program, len(program.commands), items)
+    return items
+
+
 def _trace_program(program: ir.Program, in_schema_cols, cap, env, length,
                    params, device, sel=None, aux=None, passthrough=()):
     """env: name -> (data, valid|None); returns (env, length, sel, schema).
@@ -598,17 +629,15 @@ def _trace_program(program: ir.Program, in_schema_cols, cap, env, length,
     live count and overflow flag; `passthrough` names helper columns
     (late-materialization row ids) that survive Projections."""
     schema = Schema(list(in_schema_cols))
-    for cmd in program.commands:
-        if isinstance(cmd, ir.Assign):
-            data, valid = _eval(cmd.expr, env, params, cap, device)
-            env[cmd.name] = (data, valid)
-            dt = ir.infer_expr(cmd.expr, schema)
-            schema = Schema([c for c in schema.columns if c.name != cmd.name]
-                            + [Column(cmd.name, dt)])
-        elif isinstance(cmd, ir.Filter):
-            data, valid = _eval(cmd.pred, env, params, cap, device)
-            mask = data if valid is None else (data & valid)
-            sel = mask if sel is None else (sel & mask)
+    for cmd in _stages(program):
+        if isinstance(cmd, tuple):             # an Assign/Filter stage: K1
+            sel = k1.run_stage(cmd, env, params, sel, cap, device)
+            for c in cmd:
+                if isinstance(c, ir.Assign):
+                    dt = ir.infer_expr(c.expr, schema)
+                    schema = Schema([x for x in schema.columns
+                                     if x.name != c.name]
+                                    + [Column(c.name, dt)])
         elif isinstance(cmd, ir.GroupBy):
             env, length = _trace_group_by(cmd, env, schema, sel, length, cap,
                                           device)

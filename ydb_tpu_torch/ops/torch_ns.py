@@ -83,6 +83,8 @@ class _TorchNS:
     def maximum(x, y):
         if isinstance(y, torch.Tensor):
             return torch.maximum(x, y)
+        if isinstance(y, float) and not x.dtype.is_floating_point:
+            x = x.to(torch.float64)     # numpy's and JAX's promotion
         return torch.clamp_min(x, y)
 
     @staticmethod
@@ -95,14 +97,29 @@ class _TorchNS:
         return torch.ones_like(x, dtype=None if dtype is None
                                else torch_dtype(dtype))
 
+    @staticmethod
+    def sqrt(x):
+        return torch.sqrt(_inexact(x))
+
+    @staticmethod
+    def exp(x):
+        return torch.exp(_inexact(x))
+
+    @staticmethod
+    def log(x):
+        return torch.log(_inexact(x))
+
     abs = staticmethod(torch.abs)
     floor = staticmethod(torch.floor)
     ceil = staticmethod(torch.ceil)
     sign = staticmethod(torch.sign)
-    sqrt = staticmethod(torch.sqrt)
-    exp = staticmethod(torch.exp)
-    log = staticmethod(torch.log)
     power = staticmethod(torch.pow)
+
+
+def _inexact(x):
+    """JAX's float for an int operand of sqrt, exp and log: float64 for
+    int64, float32 (torch's own choice) for narrower ints and bools."""
+    return x.to(torch.float64) if x.dtype == torch.int64 else x
 
 
 TXP = _TorchNS()

@@ -120,6 +120,8 @@ class BatchLane:
             # the per-query path
             return None
         ex = self.engine.executor
+        if not ex.enable_fused:
+            return None
         # working-set gate: vmapped execution materializes B copies of
         # every cap-sized intermediate (masks, filtered columns) whatever
         # the OUTPUT shape — a LIMIT or GROUP BY bounds only the result.

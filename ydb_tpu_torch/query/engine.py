@@ -69,13 +69,16 @@ _ALWAYS_VISIBLE = (
 
 class QueryEngine:
     def __init__(self, catalog: Optional[Catalog] = None, device=None,
-                 block_rows: int = 1 << 20, config=None):
+                 block_rows: Optional[int] = None, config=None):
         from ydb_tpu_torch.utils.config import Config
         self.config = config or Config.load()
+        block_rows = block_rows if block_rows is not None \
+            else self.config.block_rows
         self.device = resolve_device(device)
         self.catalog = catalog or Catalog()
         self.planner = Planner(self.catalog)
         self.executor = Executor(self.catalog, self.device, block_rows)
+        self.executor.enable_fused = self.config.flag("enable_fused")
         # budget priority: explicit env var > config > built-in default
         # (the executor's constructor already read the env)
         if "YDB_TPU_GRACE_BUDGET" not in os.environ:
@@ -157,14 +160,16 @@ class QueryEngine:
         names = self._referenced_tables(stmt)
         fp = (self._table_fingerprint(names), bounds_enabled(),
               late_mat_enabled())
+        use_cache = self.config.flag("enable_plan_cache")
         with self._plan_mu:
-            cached = self._plan_cache.get(sql)
+            cached = self._plan_cache.get(sql) if use_cache else None
             if cached is not None and cached[0] == fp:
                 plan = cached[1]
                 self.plan_cache_hits += 1
             else:
                 plan = self.planner.plan_select(stmt)
-                self._plan_cache[sql] = (fp, plan)
+                if use_cache:
+                    self._plan_cache[sql] = (fp, plan)
         return self._select(plan, snap)
 
     def _select(self, plan, snap) -> HostBlock:

@@ -59,6 +59,9 @@ class Executor:
         # portion size of transient tables (materialized CTEs, derived
         # tables): the capacity their scans run at
         self.block_rows = block_rows
+        # feature flag (utils/config.py): the whole-query fused path; off
+        # sends every SELECT (and build pipeline) down the portioned path
+        self.enable_fused = True
         self.device_cache = DeviceColumnCache(device)
         self._tls = threading.local()
         # build sides above this estimate hash-partition into a GraceJoin
@@ -119,7 +122,8 @@ class Executor:
             else:
                 params[pname] = col.data[0]
                 params[pname + "__valid"] = True
-        fused = self._try_execute_fused(plan, params, snapshot, defer=True)
+        fused = self._try_execute_fused(plan, params, snapshot, defer=True) \
+            if self.enable_fused else None
         if isinstance(fused, tuple):           # tiled lane: (kind, block)
             kind, block = fused
             self.last_path = kind
@@ -1017,7 +1021,8 @@ class Executor:
             # output = keep every column (composite-key builds carry
             # internal hash columns a projection would drop)
             bplan = QueryPlan(pipeline=step.build, params=dict(params))
-            fused = self._try_execute_fused(bplan, params, snapshot)
+            fused = self._try_execute_fused(bplan, params, snapshot) \
+                if self.enable_fused else None
             if isinstance(fused, tuple):
                 built = fused[1]
             elif isinstance(fused, HostBlock):
@@ -1271,8 +1276,9 @@ class Executor:
         Returns (arrays, valids, length, out_schema)."""
         from ydb_tpu_torch.core.dtypes import Kind
         from ydb_tpu_torch.ops.sort import sort_env
+        from ydb_tpu_torch.ops import k1
         from ydb_tpu_torch.ops.torch_exec import (
-            _eval, _trace_program, compress,
+            _trace_program, compress,
         )
         final_prog = plan.final_program
         in_cols = list(in_schema.columns)
@@ -1305,8 +1311,8 @@ class Executor:
                 cap = next(iter(env.values()))[0].shape[0]
             if sel is not None:
                 env, length = compress(env, length, sel, cap, dev)
-        for a in rank_assigns:
-            env[a.name] = _eval(a.expr, env, params, cap, dev)
+        if rank_assigns:
+            k1.run_stage(rank_assigns, env, params, None, cap, dev)
         if sort_spec:
             arrays = {n: d for n, (d, _v) in env.items()}
             valids = {n: v for n, (d, v) in env.items() if v is not None}
