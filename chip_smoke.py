@@ -5,7 +5,7 @@
 Phases, each printing its own line(s):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. the build of the nine CUDA kernel libraries from
+2. the build of the ten CUDA kernel libraries from
    ``ydb_tpu_torch/ops/cuda/csrc`` (one ``nvcc`` per source, in
    parallel), with its seconds, then NVRTC's version and the seconds of
    one trivial K1 stage (its first build);
@@ -60,7 +60,16 @@ Phases, each printing its own line(s):
    into GraceJoin builds and partial aggregates spill to host
    partitions: all 22 queries and the reference tiled-lane test's two
    extra ones, each line with the query's spilled rows, tiles and
-   partition counts (``LaneRecorder``). Every answer must equal its
+   partition counts (``LaneRecorder``); then the mesh path: TPC-H at
+   ``--sf`` loaded with 4 shards through ``QueryEngine(mesh=make_mesh(4,
+   device="cuda:0"))`` (a mesh that lists the card once per shard, so
+   every shard's kernels run on it and an exchange is a copy within its
+   memory): all 22 queries on the ``distributed`` and ``distributed-map``
+   lanes, and the queries whose last join the shuffle join accepts again
+   through an engine over the same catalog whose broadcast budget is 1
+   (``distributed-shuffle-join``), each line with the device ms of the
+   ``segments`` calls and of the exchanges (CUDA events around each
+   call, ``MeshRecorder``). Every answer must equal its
    pandas oracle (``ydb_tpu_torch/bench/{tpch,tpcds,clickbench}_oracle.py``;
    rtol 1e-9 for floats, exact otherwise, row order included where the
    query fixes it), queries whose path a slice fixes must take it
@@ -100,6 +109,16 @@ Phases, each printing its own line(s):
    the storm walls with the lane on and off (the lane-on storm after one
    untimed storm, so that the batched stages' K1 builds fall outside
    it) and one traced batch's device time.
+
+9. ``segments`` (K15a: the send segments of a mesh exchange) against its
+   plain version at the largest probe-row routing of the shuffle join
+   (timed, the table's row) and at q18's partial aggregate (timed), both
+   recorded on the mesh path, and at 3 and 8 targets, a clamped segment
+   (overflow), 0 live rows, int32, float (NaN, ±inf, out of range) and
+   three nullable keys, given targets, the targets alone and 40 columns:
+   counts, the overflow flag and every slot bit for bit; the library
+   time is a floor (a stable sort of the targets and one index_select
+   per column).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -1154,6 +1173,253 @@ def partition_phase(B, feed, li: dict, n: int, live: int,
     return rows
 
 
+def segments_bytes(keys, cols, ndev: int, seg: int) -> int:
+    """segments' bytes: the keys and every column's data and valid read
+    once (a tensor shared by several operands once), each of the ndev x
+    seg slots of every output written once, the counts and the flag."""
+    ins = distinct_bytes([k for k, _v in keys] + [v for _k, v in keys]
+                         + [d for d, _v in cols] + [v for _d, v in cols])
+    outs = ndev * seg * sum(d.element_size() + 1 for d, _v in cols)
+    return ins + outs + 4 * ndev + 1
+
+
+def check_segments(B, length, ndev: int, seg: int, cols, sync, tag,
+                   keys=None, targets=None):
+    """segments against its plain version: counts, the overflow flag and
+    every slot of every output, data (floats bit for bit) and valid.
+    Returns the plain version's outputs."""
+    import torch
+    got = B.segments(length, ndev, seg, cols, keys=keys, targets=targets)
+    want = B.segments_plain(length, ndev, seg, cols, keys=keys,
+                            targets=targets)
+    sync()
+    check(torch.equal(got[1], want[1]), f"segments {tag}: counts "
+          f"{got[1].tolist()} != {want[1].tolist()}")
+    check(bool(got[2]) == bool(want[2]), f"segments {tag}: overflow")
+    for i, ((gd, gv), (wd, wv)) in enumerate(zip(got[0], want[0])):
+        if gd.dtype.is_floating_point:
+            gd, wd = gd.view(torch.int64 if gd.element_size() == 8
+                             else torch.int32), \
+                wd.view(torch.int64 if wd.element_size() == 8
+                        else torch.int32)
+        check(torch.equal(gd, wd), f"segments {tag}: column {i} data")
+        check(torch.equal(gv, wv), f"segments {tag}: column {i} valid")
+    return want
+
+
+def segments_phase(B, calls: dict, device: str = "cuda") -> list:
+    """The segments kernel (K15a) against its plain version: at the two
+    shapes the mesh paths gave it (`calls`, recorded by `MeshRecorder`):
+    the largest probe-row routing of the shuffle join (timed, the table's
+    row) and q18's partial aggregate (timed); then checked at 3 and 8
+    targets, a clamped seg (overflow), 0 live rows, 0 rows, int32, float
+    (NaN, ±inf, out-of-range) and three nullable keys, given targets, the
+    targets alone (`segment_targets`, the reference's `bucket_of`) and
+    more columns than one launch moves."""
+    import torch
+
+    from ydb_tpu_torch.ops import spill as SP
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1515)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def randint(lo, hi, m, dtype=torch.int64):
+        return torch.randint(lo, hi, (m,), generator=g, device=dev,
+                             dtype=dtype)
+
+    def lib(tgt, length, ndev, cols):
+        # the floor of a library formulation: a stable sort of the live
+        # rows' targets and one index_select per column (no [ndev, seg]
+        # layout, no clamp)
+        n = tgt.shape[0]
+        ids = torch.where(torch.arange(n, device=tgt.device) < length, tgt,
+                          torch.full_like(tgt, ndev))
+        order = torch.sort(ids, stable=True).indices
+        return [c.index_select(0, order) for d, v in cols
+                for c in ((d,) if v is None else (d, v))]
+
+    rows = []
+    for tag, label in (("join", "the shuffle join's largest probe-row "
+                        "routing"), ("q18", "q18's partial aggregate")):
+        check(tag in calls, f"segments: no {label} recorded on the mesh "
+              "paths")
+        query, (length, ndev, seg, cols, keys) = calls[tag]
+        n = cols[0][0].shape[0]
+        live = int(length)
+        want = check_segments(B, length, ndev, seg, cols, sync,
+                              f"{tag} ({query})", keys=keys)
+        tgt = B.segment_targets(keys, ndev)
+        shape = (f"n={n} live={live} keys={len(keys)} ndev={ndev} seg={seg} "
+                 f"cols={len(cols)} ({label}, {query})")
+        row = dict(
+            name="segments", route="cuda",
+            source="ydb_tpu_torch/ops/cuda/csrc/segments.cu",
+            replaces="ydb_tpu/parallel/collective.py:56",
+            shape=shape, max_abs_err=0.0,
+            ms=time_ms(lambda: B.segments(length, ndev, seg, cols,
+                                          keys=keys)),
+            plain_ms=time_ms(lambda: B.segments_plain(length, ndev, seg,
+                                                      cols, keys=keys)),
+            library_ms=time_ms(lambda: lib(tgt, length, ndev, cols)),
+            bound_ms=bound_ms(segments_bytes(keys, cols, ndev, seg)),
+            bound_by="bytes")
+        check(not bool(want[2]), f"segments {tag}: overflow")
+        if tag == "join":
+            check(int(want[1].sum()) == live, "segments join: counts")
+            rows.append(row)
+        else:
+            log(f"kernel segments q18 partial: {shape} "
+                f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"library_ms={row['library_ms']:.4f} "
+                f"bound_us={row['bound_ms'] * 1e3:.2f} (bytes)")
+
+    # -- checked, not timed
+    m = (1 << 20) + 333
+    ki = randint(-(1 << 62), 1 << 62, m)
+    kv = randint(0, 10, m) > 1
+    kc = randint(-1, 5000, m, torch.int32)
+    kf = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0, 0.0,
+                       1.5, -2.5, 1e300, -1e300, 9.3e18], dtype=torch.float64,
+                      device=dev)[randint(0, 10, m)]
+    vals = [(ki, kv), (kf, None), (kc, kv),
+            (randint(0, 1 << 30, m).to(torch.int32), None),
+            (kv.clone(), None)]
+    cases = [("3 targets", [(ki, None)], m, 3, m),
+             ("8 targets, nullable", [(ki, kv)], m - 999, 8, m),
+             ("clamped seg", [(ki, None)], m, 4, m // 5),
+             ("0 live rows", [(ki, None)], 0, 4, 1024),
+             ("int32 codes", [(kc, kv)], m, 4, m),
+             ("float key", [(kf, None)], m, 4, m),
+             ("three keys", [(ki, kv), (kc, None), (kf, kv)], m - 1, 7, m)]
+    for tag, keys, ln, ndev, seg in cases:
+        w = check_segments(B, ln, ndev, seg, vals, sync, tag, keys=keys)
+        if tag == "clamped seg":
+            check(bool(w[2]), "segments clamped seg: no overflow")
+        check(torch.equal(B.segment_targets(keys, ndev),
+                          B.segment_targets_plain(keys, ndev)),
+              f"segment_targets {tag}")
+    tgt = B.segment_targets([(ki, kv)], 4)
+    check_segments(B, m, 4, m, vals, sync, "given targets", targets=tgt)
+    check_segments(B, m, 4, m, vals * 8, sync, "40 columns",
+                   keys=[(ki, None)])
+    z = check_segments(B, 0, 4, 16, [(v[:0], None) for v, _ in vals], sync,
+                       "0 rows", keys=[(ki[:0], None)])
+    check(int(z[1].sum()) == 0, "segments 0 rows: counts")
+    top = float((B.splitmix64_plain(SP.as_int64(ki)) < 0)
+                .to(torch.float64).mean())
+    check(top > 0.4, f"segments: {top} of the hashes >= 2^63")
+    return rows
+
+
+class MeshRecorder:
+    """What the mesh paths did in each query run, read by wrapping (not
+    changing) the port's functions while the paths run: the device ms of
+    the `segments` calls and of the exchanges (CUDA events around each
+    call), and the inputs of two `segments` calls that `segments_phase`
+    times, taken on cold runs: the probe-row routing of a shuffle join
+    with the most live rows, and q18's routing of its subquery's
+    l_orderkey groups on the distributed lane.
+    `view(suite)` is the recorder a suite of `slice_phase` takes."""
+
+    def __init__(self, bindings):
+        import torch
+
+        from ydb_tpu_torch.parallel import shuffle, shuffle_join
+        self.calls = {}
+        self.grace = []                 # no GraceJoin on the mesh lanes
+        self.query = self.suite = ""
+        self.in_join = self.cold = False
+        self._events = {"segments": [], "exchange": []}
+        self._restore = []
+        rec = self
+
+        def timed(kind, real, record=False):
+            def fn(*a, **k):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = real(*a, **k)
+                e.record()
+                rec._events[kind].append((s, e))
+                if record:
+                    rec._record(*a, **k)
+                return out
+            return fn
+
+        def joining(real):
+            def run(*a, **k):
+                rec.in_join = True
+                try:
+                    return real(*a, **k)
+                finally:
+                    rec.in_join = False
+            return run
+
+        for owner, name, wrapper in (
+                (bindings, "segments",
+                 lambda r: timed("segments", r, True)),
+                (shuffle, "exchange_segments",
+                 lambda r: timed("exchange", r)),
+                (shuffle_join, "exchange_segments",
+                 lambda r: timed("exchange", r)),
+                (shuffle_join.ShuffleJoin, "run", joining)):
+            real = getattr(owner, name)
+            self._restore.append((owner, name, real))
+            setattr(owner, name, wrapper(real))
+
+    def _record(self, length, ndev, seg, cols, *, keys=None, targets=None):
+        if not self.cold:
+            return
+        if self.in_join:
+            tag = "join"
+        elif self.suite == "tpch_mesh" and self.query == "q18" \
+                and len(keys) == 1:
+            tag = "q18"              # its subquery's l_orderkey groups
+        else:
+            return
+        # the live rows decide (read on cold runs only, whose walls the
+        # builds dominate anyway)
+        size = (int(length), len(cols))
+        old = self.calls.get(tag)
+        if old is None or size > old[2]:
+            self.calls[tag] = (self.query, (length, ndev, seg, list(cols),
+                                            list(keys)), size)
+
+    def view(self, suite: str):
+        rec = self
+
+        class View:
+            grace = rec.grace
+
+            def start(self, query: str) -> None:
+                rec.cold = (suite, query) != (rec.suite, rec.query)
+                rec.suite, rec.query = suite, query
+                for v in rec._events.values():
+                    v.clear()
+
+            def note(self) -> str:
+                return rec.note()
+        return View()
+
+    def note(self) -> str:
+        parts = []
+        for kind, evs in self._events.items():
+            ms = sum(s.elapsed_time(e) for s, e in evs)
+            parts.append(f"{kind}_ms={ms:.3f} ({len(evs)} calls)")
+            evs.clear()
+        return " ".join(parts)
+
+    def close(self) -> None:
+        for owner, name, real in reversed(self._restore):
+            setattr(owner, name, real)
+        self._restore = []
+        self.calls = {k: v[:2] for k, v in self.calls.items()}
+
+
 class LaneRecorder:
     """What the beyond-budget lanes did in each query run, read by
     wrapping (not changing) the port's functions while the path runs:
@@ -1246,11 +1512,8 @@ BEYOND_EXTRA = {
 
 
 def beyond_oracle(name: str, data):
+    """The answers of `BEYOND_EXTRA`'s queries."""
     import pandas as pd
-
-    from ydb_tpu_torch.bench.tpch_oracle import oracle
-    if name not in BEYOND_EXTRA:
-        return oracle(name, data)
     li = pd.DataFrame({c: data.tables["lineitem"][c]
                        for c in ("l_orderkey", "l_quantity")})
     if name == "spill1":
@@ -1461,14 +1724,34 @@ def batched_kernel_phase(B, n: int, hits: dict, orders_n: int,
                                                    (n,)))
         wide.append((f, d, rand((n,)) > 0.05 if a % 3 else None, False))
     check_bucket_agg_batched(B, kid5, 512, masks, wide, sync, "nb=512")
+
+    def lib_512():
+        # as at Q1: a weighted bincount per sum (and one per count) over
+        # flat (member, bucket) ids; min, max and first have no bincount,
+        # so this is a floor of the library's time
+        flat = torch.where(masks, member * 512 + kid5.to(torch.int64)[None, :],
+                           Bm * 512).reshape(-1)
+        out = []
+        for f, d, v, _u in wide:
+            if f not in ("sum", "count"):
+                continue
+            w = None if f == "count" else d.to(torch.float64)
+            if v is not None:
+                w = v.to(torch.float64) if w is None \
+                    else torch.where(v, w, 0.0)
+            out.append(torch.bincount(
+                flat, weights=None if w is None else w.repeat(Bm),
+                minlength=Bm * 512 + 1))
+        return out
     line("bucket_agg_batched", f"nb=512 n={n} aggs=16 B={Bm}",
          time_ms(lambda: B.bucket_agg_batched(kid5, 512, masks, wide)),
          time_ms(lambda: B.bucket_agg_batched_plain(kid5, 512, masks,
                                                     wide)),
-         None,
+         time_ms(lib_512),
          time_ms(lambda: [B.bucket_agg(kid5, 512, masks[b], wide)
                           for b in range(Bm)]),
-         bound_ms(batched_agg_bytes(kid5, 512, masks, wide)))
+         bound_ms(batched_agg_bytes(kid5, 512, masks, wide)),
+         " library: bincounts of the sums and counts only (a floor)")
 
     # -- segment_agg_batched at the batch c40 sends over the 1M hits rows
     #    (c36's URL groups fit the 512-bucket lane, so its batch takes
@@ -1988,21 +2271,52 @@ def main() -> int:
         + "), as SF100 meets the defaults on one card (SF100's 600M "
         "lineitem rows are beyond the host generator and this run's time "
         "limit)")
+    # the mesh path: TPC-H again, loaded with MESH_SHARDS shards, through
+    # an engine whose mesh lists the card once per shard, and through a
+    # second engine over the same catalog whose broadcast budget is 1
+    from ydb_tpu_torch.parallel import make_mesh
+    t0 = time.perf_counter()
+    eng_mesh = QueryEngine(mesh=make_mesh(MESH_SHARDS, device="cuda:0"))
+    load_tpch(eng_mesh.catalog, sf=args.sf, shards=MESH_SHARDS)
+    eng_sj = QueryEngine(catalog=eng_mesh.catalog,
+                         mesh=make_mesh(MESH_SHARDS, device="cuda:0"))
+    eng_sj.executor.dist_broadcast_budget_bytes = 1
+    log(f"mesh: TPC-H sf={args.sf}, {MESH_SHARDS} shards, "
+        f"{sum(len(s.portions) for s in eng_mesh.catalog.table('lineitem').shards)}"
+        f" lineitem portions, mesh {eng_mesh.executor.mesh}, "
+        f"{time.perf_counter() - t0:.1f} s; exchanges are copies within "
+        "one card")
+    mesh_rec = MeshRecorder(bindings)
     recorder = LaneRecorder(eng_bb.executor)
+    answers = {}
+
+    def tpch_oracle(q):
+        # pandas takes seconds a query at SF1: each TPC-H answer is
+        # computed once and shared by the paths over the same data
+        if q not in answers:
+            answers[q] = oracle(q, data)
+        return answers[q].copy()
     suites = {
-        "tpch": (eng, QUERIES, lambda q: oracle(q, data)),
+        "tpch": (eng, QUERIES, tpch_oracle),
         "tpcds": (eng_ds, {**tpcds_oracle.QUERIES, "k13": K13_SQL},
                   lambda q: k13_oracle(raw_ds) if q == "k13"
                   else tpcds_oracle.oracle(q, raw_ds)),
         "clickbench": (eng_cb, clickbench_oracle.QUERIES,
                        lambda q: clickbench_oracle.oracle(q, raw_cb)),
         "tpch_beyond": (eng_bb, {**QUERIES, **BEYOND_EXTRA},
-                        lambda q: beyond_oracle(q, data), recorder),
+                        lambda q: beyond_oracle(q, data) if q in BEYOND_EXTRA
+                        else tpch_oracle(q), recorder),
+        "tpch_mesh": (eng_mesh, QUERIES, tpch_oracle,
+                      mesh_rec.view("tpch_mesh")),
+        "tpch_mesh_sj": (eng_sj, QUERIES, tpch_oracle,
+                         mesh_rec.view("tpch_mesh_sj")),
     }
     try:
         launches = slice_phase(bindings, suites)
     finally:
         recorder.close()
+        mesh_rec.close()
+    del suites["tpch_mesh"], suites["tpch_mesh_sj"], eng_mesh, eng_sj
     served = serving_phase(
         bindings, {"tpch": eng, "clickbench": eng_cb},
         {"tpch": lambda q: oracle(q, data),
@@ -2028,6 +2342,8 @@ def main() -> int:
     li_cols["big"] = (li_cols["l_extendedprice"] > 50_000).contiguous()
     rows += partition_phase(bindings, recorder.largest[1], li_cols, n,
                             li.num_rows)
+    # 9. the segments kernel at the shapes the mesh paths gave it
+    rows += segments_phase(bindings, mesh_rec.calls)
     for r in rows:
         lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"kernel {r['name']}: {r['shape']} kernel_ms={r['ms']:.4f} "
@@ -2079,7 +2395,19 @@ EXPECT_PATH = {
         "union1": "fused-tiled-union",
         **{q: "portioned" for q in ("q4", "q7", "q9", "q12", "q18",
                                     "q21")}},
+    # each mesh lane is taken at least once
+    "tpch_mesh": {"q1": "distributed", "q18": "distributed",
+                  "q15": "distributed-map"},
+    "tpch_mesh_sj": {"q14": "distributed-shuffle-join",
+                     "q12": "distributed-shuffle-join"},
 }
+# the mesh path: TPC-H on a mesh that lists the card once per shard
+MESH_SHARDS = 4
+# the queries whose last join the shuffle join accepts (the rest decline
+# to the distributed lane: no join, or a duplicate-key build)
+MESH_SHUFFLE_JOIN = tuple(f"q{i}" for i in (2, 3, 4, 5, 7, 8, 9, 10, 11,
+                                             12, 14, 17, 18, 19, 20, 21,
+                                             22))
 # beyond-budget queries whose cold run must build a GraceJoin partitioned
 # build (their portioned path probes it through the partition routing)
 EXPECT_GRACE = ("q4", "q7", "q9", "q12", "q18", "q21")
@@ -2118,6 +2446,14 @@ PATHS = (
      + [("spill1", {}), ("union1", {"unordered": True})],
      ("partition", "hash64", "probe", "compact", "bucket_agg", "sort",
       "segment_agg", "k1")),
+    ("TPC-H on a mesh of 4 shards on one card: two-phase aggregations "
+     "merged over the mesh, non-aggregating plans unioned", "tpch_mesh",
+     [(f"q{i}", {}) for i in range(1, 23)],
+     ("segments", "compact", "bucket_agg", "probe", "sort", "segment_agg",
+      "k1")),
+    ("TPC-H on the mesh with the broadcast budget 1: the shuffle join",
+     "tpch_mesh_sj", [(q, {}) for q in MESH_SHUFFLE_JOIN],
+     ("segments", "compact", "probe", "sort", "segment_agg", "k1")),
 )
 
 
@@ -2132,6 +2468,7 @@ def slice_phase(bindings, suites: dict) -> dict:
         eng, queries, oracle, *recorder = suites[suite]
         recorder = recorder[0] if recorder else None
         k1_before = (GLOBAL.get("k1/builds"), GLOBAL.get("k1/build_ms"))
+        t_path = time.perf_counter()
         bindings.reset_launches()
         for name, opts in runs:
             os.environ["YDB_TPU_LATE_MAT"] = opts.get("late", "1")
@@ -2159,7 +2496,7 @@ def slice_phase(bindings, suites: dict) -> dict:
                 else EXPECT_PATH.get(suite, {}).get(name)
             check(want_path is None or path == want_path,
                   f"{name}: path {path}, expected {want_path}")
-            if recorder is not None and name in EXPECT_GRACE:
+            if suite == "tpch_beyond" and name in EXPECT_GRACE:
                 check(notes[0][1], f"{name}: no GraceJoin partitioned build")
             want = oracle(name)
             if suite in ("tpcds", "clickbench"):
@@ -2178,7 +2515,8 @@ def slice_phase(bindings, suites: dict) -> dict:
         launches = dict(bindings.LAUNCHES)
         log(f"launches ({label}): {json.dumps(launches)} k1_builds="
             f"{GLOBAL.get('k1/builds') - k1_before[0]} k1_build_s="
-            f"{(GLOBAL.get('k1/build_ms') - k1_before[1]) / 1e3:.2f}")
+            f"{(GLOBAL.get('k1/build_ms') - k1_before[1]) / 1e3:.2f} "
+            f"path_s={time.perf_counter() - t_path:.1f}")
         missing = [k for k in kernels if launches[k] <= 0]
         check(not missing, f"kernels not launched on {label}: {missing}")
         for k, v in launches.items():

@@ -119,10 +119,6 @@ EDITS = {
     materialization (`YDB_TPU_LATE_MAT`) the"""),
     ],
     "query/batch_lane": [
-        ("the port has no mesh: its executor runs on one device",
-         """        if ex.mesh is not None and ex.mesh.devices.size > 1:
-            return None
-""", ""),
         ("the port's docstring names the pipeline, not the reference's "
          "change history",
          "small-SELECT clients. PR 1's pipeline overlaps their readouts, and",

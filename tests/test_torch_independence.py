@@ -42,6 +42,7 @@ def test_import_leaves_jax_and_reference_out():
             "ydb_tpu_torch.bench.serving, "
             "ydb_tpu_torch.ops.k1, ydb_tpu_torch.ops.cuda.nvrtc, "
             "ydb_tpu_torch.bench.k1_sweep, "
+            "ydb_tpu_torch.parallel, ydb_tpu_torch.parallel.shuffle_join, "
             "ydb_tpu_torch.utils.config\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m == 'ydb_tpu' or m.startswith('ydb_tpu.')]\n"

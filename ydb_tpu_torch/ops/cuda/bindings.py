@@ -26,6 +26,8 @@ a non-zero code raises.
 | expand_gather| ops/join.py _expand_gather                                |
 | partition    | ops/spill.py _partition_sort (ids, counts, the sort and   |
 |              | gathers); query/executor.py _partition_block (routing)    |
+| segments     | parallel/collective.py bucket_of, bucket_segments (the    |
+|              | send segments of a mesh exchange)                         |
 | *_batched    | the member axis of bucket_agg, segment_agg and compact:   |
 |              | what ops/fused.py build_fused_batched_fn's vmap gives     |
 |              | them in the reference                                     |
@@ -102,6 +104,10 @@ _SIGS = {
                              _I32, _PI64, _PI64, _PI64, _PI64, _PI32, _PI32,
                              _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _P, _I32, _P]),
+    "segments": ("segments", "segments_launch",
+                 [_I64, _I32, _PI64, _PI64, _PI32, _P, _P, _P, _I32, _I32,
+                  _P, _P, _P, _P, _P, _P, _I32, _PI64, _PI64, _PI32, _I32,
+                  _P]),
     "compact_batched": ("compact", "compact_batched_launch",
                         [_I64, _I32, _P, _I32, _P, _I64, _I64, _P, _P, _P,
                          _P, _P, _I32, _PI64, _PI64, _PI64, _PI32, _I32,
@@ -1458,3 +1464,175 @@ def partition_plain(hashes, length, nparts: int, cols: list,
         o[:n] = c.index_select(0, order)
         outs.append(o)
     return ids, counts, outs
+
+
+# --------------------------------------------------------------------------
+# segments
+# --------------------------------------------------------------------------
+
+_SEG_KEY_KINDS = {torch.int64: 0, torch.int32: 1, torch.float64: 2}
+_SEG_MAX_KEYS = 16               # segments.cu MAX_KEYS
+_SEG_MAX_TARGETS = 256           # segments.cu MAX_BINS - 1
+
+
+def _seg_keys(keys: list) -> list:
+    """The keys as the kernel reads them: int64, int32 or float64 (the
+    kernel converts float64 as the reference's `astype(int64)` does);
+    any other dtype is converted to int64 first, the same way."""
+    from ydb_tpu_torch.ops.spill import as_int64
+    out = []
+    for d, v in keys:
+        if d.dtype not in _SEG_KEY_KINDS:
+            d = as_int64(d)
+        out.append((d.contiguous(), None if v is None else v.contiguous()))
+    return out
+
+
+def _seg_launch(n: int, dev, keys: list, targets_in, targets_out, length_t,
+                ndev: int, seg: int, counts, ovf, cols: list) -> None:
+    """The launches of one segments call: the count pass with the first
+    chunk of columns, then one launch per further chunk."""
+    ntiles = (n + _PART_TILE - 1) // _PART_TILE
+    e = (ndev + 1) * ntiles
+    ids = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
+    hist = torch.empty(max(e, 1), dtype=torch.int32, device=dev)
+    offs = torch.empty(max(e, 1), dtype=torch.int32, device=dev)
+    chunk_sums = torch.empty(max((e + _PART_SCAN_CHUNK - 1)
+                                 // _PART_SCAN_CHUNK, 1),
+                             dtype=torch.int32, device=dev)
+    chunks = [cols[i:i + _PART_COLS]
+              for i in range(0, len(cols), _PART_COLS)] or [[]]
+    for j, chunk in enumerate(chunks):
+        _launch("segments", n, len(keys),
+                _arr(ctypes.c_int64, [_ptr(d) for d, _v in keys]),
+                _arr(ctypes.c_int64, [_ptr(v) or 0 for _d, v in keys]),
+                _arr(ctypes.c_int32, [_SEG_KEY_KINDS[d.dtype]
+                                      for d, _v in keys]),
+                _ptr(targets_in), _ptr(targets_out), _ptr(length_t), ndev,
+                seg, _ptr(ids), _ptr(hist), _ptr(offs), _ptr(chunk_sums),
+                _ptr(counts), _ptr(ovf), len(chunk),
+                _arr(ctypes.c_int64, [_ptr(src) or 0 for src, _o in chunk]),
+                _arr(ctypes.c_int64, [_ptr(o) for _s, o in chunk]),
+                _arr(ctypes.c_int32, [o.element_size() for _s, o in chunk]),
+                1 if j == 0 else 0, _stream())
+
+
+def _seg_check(n: int, dev, keys: list, targets, ndev: int) -> None:
+    if not 1 <= ndev <= _SEG_MAX_TARGETS:
+        raise ValueError(f"{ndev} targets (1 to {_SEG_MAX_TARGETS})")
+    if n >= 1 << 31:
+        raise ValueError(f"{n} rows")
+    if targets is not None:
+        _check(targets, "targets", dev, n, (torch.int32,))
+    elif not 1 <= len(keys) <= _SEG_MAX_KEYS:
+        raise ValueError(f"{len(keys)} keys (1 to {_SEG_MAX_KEYS})")
+    for i, (d, v) in enumerate(keys):
+        _check(d, f"key {i}", dev, n, tuple(_SEG_KEY_KINDS))
+        if v is not None:
+            _check(v, f"key valid {i}", dev, n, (torch.bool,))
+
+
+def segment_targets(keys: list, ndev: int) -> torch.Tensor:
+    """The target of every row: `hash % ndev` as uint64, where the hash
+    folds splitmix64 of each key (as int64; 0 where its valid is False)
+    with hash_combine — the reference's `bucket_of`. `keys`: [(data,
+    valid | None)]. Returns int32 (n,)."""
+    n = keys[0][0].shape[0]
+    dev = keys[0][0].device
+    if dev.type != "cuda":
+        return segment_targets_plain(keys, ndev)
+    keys = _seg_keys(keys)
+    _seg_check(n, dev, keys, None, ndev)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    _seg_launch(n, dev, keys, None, out, _length_tensor(n, dev), ndev, 0,
+                None, None, [])
+    return out
+
+
+def segments(length, ndev: int, seg: int, cols: list, *,
+             keys: Optional[list] = None,
+             targets: Optional[torch.Tensor] = None):
+    """The send segments of one shard's rows: row r < length goes to its
+    target (`targets[r]`, or computed from `keys` as `segment_targets`
+    does) at its rank among the earlier rows of that target, when the
+    rank is below `seg`.
+
+    `cols`: [(data, valid | None)], each (n,) of any element width.
+    Returns (outs, counts, overflow): per column (data, valid), each
+    (ndev, seg) — slot [t, j] holds the j-th row of target t for j <
+    counts[t], and is zero (valid False) past it; a column without a
+    valid gets True at its live slots —, int32 counts (ndev,) clamped to
+    `seg`, and a 0-d bool: some target had more than `seg` rows."""
+    ref = targets if targets is not None else keys[0][0]
+    n = ref.shape[0]
+    dev = ref.device
+    if dev.type != "cuda":
+        return segments_plain(length, ndev, seg, cols, keys=keys,
+                              targets=targets)
+    keys = [] if targets is not None else _seg_keys(keys)
+    _seg_check(n, dev, keys, targets, ndev)
+    flat, outs = [], []
+    for i, (d, v) in enumerate(cols):
+        _check(d, f"column {i}", dev, n)
+        if d.element_size() not in (1, 2, 4, 8):
+            raise ValueError(f"column {i}: element size {d.element_size()}")
+        if v is not None:
+            _check(v, f"column valid {i}", dev, n, (torch.bool,))
+        od = torch.empty(ndev * seg, dtype=d.dtype, device=dev)
+        ov = torch.empty(ndev * seg, dtype=torch.bool, device=dev)
+        flat += [(d, od), (v, ov)]
+        outs.append((od.view(ndev, seg), ov.view(ndev, seg)))
+    counts = torch.empty(ndev, dtype=torch.int32, device=dev)
+    ovf = torch.empty((), dtype=torch.bool, device=dev)
+    _seg_launch(n, dev, keys, targets, None, _length_tensor(length, dev),
+                ndev, seg, counts, ovf, flat)
+    return outs, counts, ovf
+
+
+def umod64_plain(h: torch.Tensor, n: int) -> torch.Tensor:
+    """`h % n` of int64 bits taken as uint64 (torch has no unsigned
+    64-bit remainder): with h = 2q + b, q = h >>> 1 fits int64."""
+    return ((_lsr(h, 1) % n) * 2 + (h & 1)) % n
+
+
+def segment_targets_plain(keys: list, ndev: int) -> torch.Tensor:
+    """Plain PyTorch version of `segment_targets` (the reference's
+    `bucket_of`)."""
+    from ydb_tpu_torch.ops.spill import as_int64
+    h = None
+    for d, v in keys:
+        x = splitmix64_plain(as_int64(d))
+        if v is not None:
+            x = torch.where(v, x, torch.zeros_like(x))
+        h = x if h is None else hash_combine_plain(h, x)
+    return umod64_plain(h, ndev).to(torch.int32)
+
+
+def segments_plain(length, ndev: int, seg: int, cols: list, *,
+                   keys: Optional[list] = None,
+                   targets: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of `segments`: the reference's formulation,
+    one compaction of the live rows of each target into `seg` slots."""
+    if targets is None:
+        targets = segment_targets_plain(keys, ndev)
+    n = targets.shape[0]
+    dev = targets.device
+    active = torch.arange(n, dtype=torch.int32, device=dev) \
+        < _length_tensor(length, dev)
+    flat = []
+    for d, v in cols:
+        flat += [d, v if v is not None
+                 else torch.ones(n, dtype=torch.bool, device=dev)]
+    per_t, counts, ovf = [], [], torch.zeros((), dtype=torch.bool,
+                                            device=dev)
+    for t in range(ndev):
+        outs, live, new_len, o = compact_plain(
+            flat, active & (targets == t), n, n, seg)
+        per_t.append(outs)
+        counts.append(new_len)
+        ovf = ovf | o
+    outs = []
+    for i in range(len(cols)):
+        outs.append((torch.stack([p[2 * i] for p in per_t]),
+                     torch.stack([p[2 * i + 1] for p in per_t])))
+    return outs, torch.stack(counts).to(torch.int32), ovf

@@ -5,13 +5,15 @@ each into a shared library with a plain C interface.
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
 Libraries land in ``ydb_tpu_torch/_build/`` (ignored by git) under a name
-that carries a hash of the source, so an edited kernel is rebuilt and a
+that carries a hash of the source and of the local headers it includes
+(``#include "x.cuh"``), so an edited kernel or header is rebuilt and a
 built one is reused. Nothing here runs at import time."""
 
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -20,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 KERNELS = ("bucket_agg", "compact", "probe", "sort", "segment_agg",
-           "hash64", "window_scan", "expand", "partition")
+           "hash64", "window_scan", "expand", "partition", "segments")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 
@@ -33,8 +35,22 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or PATH)")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(path: Path, seen: set) -> bytes:
+    """The source with every local header it includes, recursively."""
+    if path in seen:
+        return b""
+    seen.add(path)
+    src = path.read_bytes()
+    return src + b"".join(_source_bytes(CSRC / inc.decode(), seen)
+                          for inc in _LOCAL_INCLUDE.findall(src))
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    digest = hashlib.sha1(
+        _source_bytes(CSRC / f"{name}.cu", set())).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -18,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hash64.cuh"
+
 #define MAX_COLS 16
 
 struct Cols {
@@ -26,12 +28,6 @@ struct Cols {
   int pre[MAX_COLS];
 };
 
-__device__ __forceinline__ uint64_t splitmix64(uint64_t u) {
-  u = (u ^ (u >> 30)) * 0xBF58476D1CE4E5B9ull;
-  u = (u ^ (u >> 27)) * 0x94D049BB133111EBull;
-  return u ^ (u >> 31);
-}
-
 __global__ void hash64_kernel(int64_t n, Cols C, uint64_t* out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -39,7 +35,7 @@ __global__ void hash64_kernel(int64_t n, Cols C, uint64_t* out) {
   for (int j = 0; j < C.n; ++j) {
     uint64_t x = C.c[j][i];
     if (C.pre[j]) x = splitmix64(x);
-    h = j == 0 ? x : h ^ (x + 0x9E3779B97F4A7C15ull + (h << 6) + (h >> 2));
+    h = j == 0 ? x : hash_combine(h, x);
   }
   out[i] = h;
 }

@@ -145,6 +145,27 @@ def build(block: HostBlock, key: str, payload_names: list[str], device,
                       dicts, unique, lut, lut_base, fd_block=fd_block)
 
 
+def place(table: BuildTable, device) -> BuildTable:
+    """The build table on `device` (the broadcast leg of a join on a
+    mesh: every shard probes its own copy). A table already there is
+    returned as it is, not copied."""
+    dev = torch.device(device)
+
+    def put(x):
+        return x.to(dev, non_blocking=True)
+    if table.keys_sorted.device == dev or (
+            dev.type == table.keys_sorted.device.type == "cuda"
+            and dev.index is None):
+        return table
+    return BuildTable(
+        put(table.keys_sorted), table.n,
+        {k: put(v) for k, v in table.payload.items()},
+        {k: put(v) for k, v in table.payload_valid.items()},
+        table.schema, table.dictionaries, table.unique,
+        None if table.lut is None else put(table.lut), table.lut_base,
+        table.anti_has_null)
+
+
 def build_partitioned(block: HostBlock, key: str, payload_names: list[str],
                       budget_bytes: int, device) -> PartitionedBuild:
     """Partition a too-big build side by key hash (splitmix64, matching

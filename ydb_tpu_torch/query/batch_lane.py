@@ -122,6 +122,8 @@ class BatchLane:
         ex = self.engine.executor
         if not ex.enable_fused:
             return None
+        if ex.mesh is not None and ex.mesh.devices.size > 1:
+            return None
         # working-set gate: vmapped execution materializes B copies of
         # every cap-sized intermediate (masks, filtered columns) whatever
         # the OUTPUT shape — a LIMIT or GROUP BY bounds only the result.

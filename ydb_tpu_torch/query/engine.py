@@ -15,8 +15,11 @@ read for the window lane (``enable_device_windows``,
 (``host_lane_max_rows``) and the GraceJoin budget
 (``grace_budget_bytes``, unless ``YDB_TPU_GRACE_BUDGET`` is set).
 `executor.last_path` names the lane a SELECT took: fused, fused-batched,
-fused-tiled, fused-tiled-spill, fused-tiled-union, portioned, set-op or
-literal.
+fused-tiled, fused-tiled-spill, fused-tiled-union, portioned,
+distributed, distributed-shuffle-join, distributed-map, set-op or
+literal. `mesh` (`ydb_tpu_torch.parallel.make_mesh`) runs SELECTs over
+its shards: scans spread over them and aggregation boundaries become
+exchanges between them (`query/executor.py`'s mesh lanes).
 
 A plain SELECT reserves its estimated device bytes under memory
 admission (`query/admission.py`: ``YDB_TPU_ADMISSION_BUDGET``,
@@ -69,7 +72,7 @@ _ALWAYS_VISIBLE = (
 
 class QueryEngine:
     def __init__(self, catalog: Optional[Catalog] = None, device=None,
-                 block_rows: Optional[int] = None, config=None):
+                 block_rows: Optional[int] = None, config=None, mesh=None):
         from ydb_tpu_torch.utils.config import Config
         self.config = config or Config.load()
         block_rows = block_rows if block_rows is not None \
@@ -77,7 +80,8 @@ class QueryEngine:
         self.device = resolve_device(device)
         self.catalog = catalog or Catalog()
         self.planner = Planner(self.catalog)
-        self.executor = Executor(self.catalog, self.device, block_rows)
+        self.executor = Executor(self.catalog, self.device, block_rows,
+                                 mesh=mesh)
         self.executor.enable_fused = self.config.flag("enable_fused")
         # budget priority: explicit env var > config > built-in default
         # (the executor's constructor already read the env)

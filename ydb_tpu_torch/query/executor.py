@@ -23,8 +23,19 @@ Beyond the device budgets (the reference's defaults, `YDB_TPU_*`):
   key-hash partitions (`ops/spill.py`, K14) and merge per partition.
 The batched serving lane (`execute_fused_batched`, driven by
 `query/batch_lane.py`) runs B same-shape SELECTs as one fused execution
-with a member axis on the lifted params that differ. The mesh lanes are
-not ported.
+with a member axis on the lifted params that differ.
+
+On a mesh of more than one shard (`parallel/mesh.py`), a SELECT takes
+one of the mesh lanes before the fused path: scan portions spread
+round-robin over the shards and each shard runs the pipeline on its
+portions. A two-phase aggregation merges its partials over the mesh
+(`distributed`: `parallel/shuffle.DistributedAgg`); when the last join's
+build is above `dist_broadcast_budget_bytes` (`YDB_TPU_DIST_BROADCAST_
+BUDGET`), the build is partitioned over the shards and probe rows are
+routed to their key's shard (`distributed-shuffle-join`:
+`parallel/shuffle_join.ShuffleJoin`); a plan without an aggregation over
+more than one scan source unions the shards' results on the host
+(`distributed-map`).
 """
 
 from __future__ import annotations
@@ -51,7 +62,8 @@ from ydb_tpu_torch.storage.mvcc import MAX_SNAPSHOT, Snapshot
 from ydb_tpu_torch.utils.metrics import GLOBAL
 
 class Executor:
-    def __init__(self, catalog, device, block_rows: int = 1 << 20):
+    def __init__(self, catalog, device, block_rows: int = 1 << 20,
+                 mesh=None):
         from ydb_tpu_torch.query.build_cache import BuildCache
         from ydb_tpu_torch.storage.device_cache import DeviceColumnCache
         self.catalog = catalog
@@ -87,6 +99,15 @@ class Executor:
         # query identity (monotone max) and the chosen capacities
         self._compact_memo: dict = {}
         self._compact_caps: dict = {}
+        # the device mesh of the distributed lanes (None, or a one-shard
+        # mesh: single-device execution)
+        self.mesh = mesh
+        self._dist_aggs: dict = {}
+        self._shuffle_joins: dict = {}
+        # mesh joins: build sides above this estimate partition over the
+        # shards (the shuffle join) instead of being placed on every shard
+        self.dist_broadcast_budget_bytes = int(
+            os.environ.get("YDB_TPU_DIST_BROADCAST_BUDGET", 256 << 20))
 
     @property
     def last_path(self) -> str:
@@ -122,6 +143,28 @@ class Executor:
             else:
                 params[pname] = col.data[0]
                 params[pname + "__valid"] = True
+
+        if self.mesh is not None and self.mesh.devices.size > 1:
+            if self._can_distribute(plan):
+                prebuilt: dict = {}
+                sj = self._try_execute_shuffle_join(plan, params, snapshot,
+                                                    prebuilt)
+                if sj is not None:
+                    self.last_path = "distributed-shuffle-join"
+                    return DeviceResultFuture.completed(
+                        self._project_output(sj, plan.output))
+                self.last_path = "distributed"
+                merged = self._execute_distributed(plan, params, snapshot,
+                                                   prebuilt)
+                return DeviceResultFuture.completed(
+                    self._project_output(merged, plan.output))
+            if self._can_distribute_map(plan, snapshot):
+                self.last_path = "distributed-map"
+                merged = self._execute_distributed_map(plan, params,
+                                                       snapshot)
+                return DeviceResultFuture.completed(
+                    self._project_output(merged, plan.output))
+
         fused = self._try_execute_fused(plan, params, snapshot, defer=True) \
             if self.enable_fused else None
         if isinstance(fused, tuple):           # tiled lane: (kind, block)
@@ -968,13 +1011,307 @@ class Executor:
             union, plan.sort, plan.limit, plan.offset,
             {**store.dictionaries, **plan.result_dicts})
 
+    # -- the mesh lanes ----------------------------------------------------
+
+    def _can_distribute(self, plan: QueryPlan) -> bool:
+        """Distributable = the two-phase aggregation shape: the pipeline
+        ends in a partial GroupBy and the final program starts with the
+        merge GroupBy (the exchange sits between the two)."""
+        pipe = plan.pipeline
+        if pipe.partial is None or not pipe.partial.commands:
+            return False
+        if not isinstance(pipe.partial.commands[-1], ir.GroupBy):
+            return False
+        fp = plan.final_program
+        return bool(fp is not None and fp.commands
+                    and isinstance(fp.commands[0], ir.GroupBy))
+
+    def _can_distribute_map(self, plan: QueryPlan,
+                            snapshot: Snapshot) -> bool:
+        """Map-style distribution: no aggregation boundary, so the scan,
+        filter and join work spreads over the shards and their results
+        union for the final stage. Needs more than one scan source."""
+        pipe = plan.pipeline
+        if pipe.partial is not None and any(
+                isinstance(c, ir.GroupBy) for c in pipe.partial.commands):
+            return False
+        if plan.final_program is not None and any(
+                isinstance(c, ir.GroupBy)
+                for c in plan.final_program.commands):
+            return False
+        return self._scan_source_count(plan, snapshot) > 1
+
+    def _scan_source_count(self, plan: QueryPlan, snapshot: Snapshot) -> int:
+        pipe = plan.pipeline
+        table = self.catalog.table(pipe.scan.table)
+        return sum(len(p) + len(e)
+                   for (p, e) in (s.scan_sources(snapshot,
+                                                 pipe.scan.prune or None)
+                                  for s in table.shards))
+
+    def _execute_distributed_map(self, plan: QueryPlan, params: dict,
+                                 snapshot: Snapshot) -> HostBlock:
+        """Per-shard pipelines (scan, filter, joins), their results
+        unioned on the host, the final stage (expressions, sort, limit)
+        on one device. A sort-limit query takes each shard's top
+        (limit + offset) rows before the union."""
+        import dataclasses
+
+        nsrc = self._scan_source_count(plan, snapshot)
+        # no point placing builds on shards that get no blocks
+        devs = list(self.mesh.devices.flat)[:max(2, min(
+            self.mesh.devices.size, nsrc))]
+        builds = self._prepare_builds(plan.pipeline, params, snapshot)
+        builds_by_dev = [[J.place(b, d) for b in builds] for d in devs]
+        # every shard's pipeline is enqueued before any readout
+        pending = [self._run_block(plan.pipeline, dblock,
+                                   builds_by_dev[di], params)
+                   for di, dblock in self._scan_device_blocks(
+                       plan.pipeline, snapshot, devices=devs)]
+        lim = None if plan.limit is None else plan.limit + (plan.offset or 0)
+        if plan.sort and lim is not None and lim <= (1 << 17):
+            # the sort keys survive the per-shard projection, so the merge
+            # can sort again; the offset applies only at the merge
+            out_names = {n for (n, _lbl) in plan.output}
+            extra = [(sk.name, sk.name) for sk in plan.sort
+                     if sk.name not in out_names]
+            plan_local = dataclasses.replace(
+                plan, offset=None, limit=lim, output=plan.output + extra)
+            outs = [self._finalize(plan_local, [d], params)
+                    for d in pending]
+            union = HostBlock.concat(outs) if len(outs) > 1 else outs[0]
+            plan_merge = dataclasses.replace(
+                plan, final_program=None, output=plan.output + extra)
+            return self._finalize(plan_merge,
+                                  [to_device(union, self.device)], params)
+        outs = [to_host(d) for d in pending]
+        union = HostBlock.concat(outs) if len(outs) > 1 else outs[0]
+        return self._finalize(plan, [to_device(union, self.device)], params)
+
+    def _execute_distributed(self, plan: QueryPlan, params: dict,
+                             snapshot: Snapshot,
+                             prebuilt: Optional[dict] = None) -> HostBlock:
+        """Scan portions round-robin over the shards, the whole pipeline
+        (pushdown, joins, partial aggregate) per block on its shard, the
+        partials merged over the mesh, then the rest of the final
+        program, sort and limit on one device."""
+        pipe = plan.pipeline
+        devs = list(self.mesh.devices.flat)
+        builds = self._prepare_builds(pipe, params, snapshot,
+                                      prebuilt=prebuilt)
+        per_dev = self._shard_partials(pipe, snapshot, devs, builds, params)
+        return self._merge_distributed_partials(plan, per_dev, params)
+
+    def _shard_partials(self, pipe: Pipeline, snapshot: Snapshot, devs: list,
+                        builds: list, params: dict,
+                        until: Optional[int] = None) -> list:
+        """Each shard's pipeline outputs over its round-robin share of the
+        scan portions, the builds placed on every shard; a shard without
+        portions still runs the pipeline once over an empty block (a
+        global aggregate emits its row from it). `until`: as
+        `_run_block_multi`'s."""
+        builds_by_dev = [[J.place(b, d) for b in builds] for d in devs]
+        per_dev = [[] for _ in devs]
+        for di, dblock in self._scan_device_blocks(pipe, snapshot,
+                                                   devices=devs):
+            per_dev[di].extend(self._run_block_multi(
+                pipe, dblock, builds_by_dev[di], params, until=until))
+        for di, dev in enumerate(devs):
+            if not per_dev[di]:
+                empty = to_device(self._empty_scan_block(pipe), dev)
+                per_dev[di].extend(self._run_block_multi(
+                    pipe, empty, builds_by_dev[di], params, until=until))
+        return per_dev
+
+    def _try_execute_shuffle_join(self, plan: QueryPlan, params: dict,
+                                  snapshot: Snapshot,
+                                  prebuilt: Optional[dict] = None):
+        """The shuffle join over the mesh: the LAST join's build side
+        partitions over the shards by key hash and probe rows route to
+        their key's shard (`parallel/shuffle_join.py`). Taken when the
+        build's estimate exceeds `dist_broadcast_budget_bytes`; declined
+        (→ the broadcast lane, None) for kinds it does not cover, NOT IN,
+        float keys, a NULL build key under anti/mark semantics, a
+        dictionary key whose probe dictionary is not derivable, duplicate
+        keys under inner/left/mark, and a payload the partition drops.
+        Every decline after the build ran hands its block over in
+        `prebuilt`, so it never runs twice."""
+        from ydb_tpu_torch.core.dtypes import DType, Kind
+        from ydb_tpu_torch.ops.torch_exec import groupby_tuning
+        from ydb_tpu_torch.parallel import shuffle_join as SJ
+        from ydb_tpu_torch.query.admission import estimate_plan_bytes
+
+        pipe = plan.pipeline
+        join_pos = [i for i, (k, _s) in enumerate(pipe.steps)
+                    if k == "join"]
+        if not join_pos:
+            return None
+        j = join_pos[-1]
+        step = pipe.steps[j][1]
+        if step.kind not in ("inner", "left", "left_semi", "left_anti",
+                             "mark"):
+            return None
+        if step.not_in:
+            return None          # NOT IN null semantics: broadcast lane
+        bp = getattr(step.build, "pipeline", step.build)
+        if not hasattr(bp, "scan"):
+            return None
+        bplan = step.build if isinstance(step.build, QueryPlan) else None
+        est = estimate_plan_bytes(
+            self.catalog,
+            bplan if bplan is not None else QueryPlan(pipeline=step.build),
+            snapshot)
+        if est <= self.dist_broadcast_budget_bytes:
+            return None
+
+        if isinstance(step.build, QueryPlan):
+            built = self.execute(step.build, snapshot)
+        else:
+            built = HostBlock.concat(
+                [to_host(d) for d in
+                 self._run_pipeline(step.build, params, snapshot)])
+        if prebuilt is not None:
+            prebuilt[j] = built
+        if step.build_hash_keys:
+            # composite key: the probe side carries the combined 64-bit
+            # hash in `probe_key`; the build gets the same column, and the
+            # per-key equality checks ride in the post-join programs
+            built = _add_hash_column(built, step.build_hash_keys,
+                                     step.build_key)
+            if prebuilt is not None:
+                prebuilt[j] = built
+        kcd = built.columns.get(step.build_key)
+        if kcd is None or np.issubdtype(kcd.data.dtype, np.floating):
+            return None
+        if step.anti_null_check:
+            # an actually-NULL build key under anti/mark semantics: the
+            # broadcast lane owns the three-valued logic
+            cd0 = built.columns.get(step.anti_null_col or step.build_key)
+            if cd0 is not None and cd0.valid is not None \
+                    and not cd0.valid.all():
+                return None
+        if kcd.dictionary is not None:
+            # remap build codes into the probe side's dictionary, so codes
+            # exchange as plain comparable ints
+            table = self.catalog.table(pipe.scan.table)
+            probe_dicts = dict(table.dictionaries)
+            for (storage, internal) in pipe.scan.columns:
+                if storage in probe_dicts:
+                    probe_dicts[internal] = probe_dicts[storage]
+            probe_dict = probe_dicts.get(step.probe_key)
+            if probe_dict is None:
+                return None
+            if kcd.dictionary is not probe_dict:
+                built = _remap_build_codes(built, step.build_key,
+                                           probe_dict)
+                # values absent from the probe dictionary (code -2) never
+                # match: drop them before the exchange
+                codes2 = built.columns[step.build_key].data
+                if (codes2 == -2).any():
+                    built = built.take(np.nonzero(codes2 != -2)[0])
+                if prebuilt is not None:
+                    prebuilt[j] = built
+        # duplicate keys: the exchange probe is first-match only
+        if step.kind in ("inner", "left", "mark"):
+            enc = built.columns[step.build_key].data
+            if len(enc) > 1 and len(np.unique(enc)) != len(enc):
+                return None
+        devs = list(self.mesh.devices.flat)
+        ndev = len(devs)
+        barrays, pschema, bdicts, _bcap = SJ.partition_build(
+            built, step.build_key, list(step.payload), ndev)
+        if not pschema.names and step.payload:
+            return None
+
+        # stage A: the pipeline prefix per shard (earlier joins broadcast)
+        prefix_builds = self._prepare_builds(pipe, params, snapshot,
+                                             until=j)
+        per_dev = self._shard_partials(pipe, snapshot, devs, prefix_builds,
+                                       params, until=j)
+
+        in_schema = per_dev[0][0].schema
+        payload_cols = [Column(name, pschema.dtype(name).with_nullable(True))
+                        for name in pschema.names]
+        if step.kind == "mark":
+            payload_cols.append(Column(step.mark_col or "__mark",
+                                       DType(Kind.BOOL, False)))
+        rest = [s for (k, s) in pipe.steps[j + 1:]]
+        key = (tuple((c.name, c.dtype.kind.value, c.dtype.nullable)
+                     for c in in_schema.columns),
+               step.probe_key, step.kind,
+               tuple((c.name, c.dtype.kind.value, c.dtype.nullable)
+                     for c in payload_cols),
+               ndev,
+               tuple(p.fingerprint() for p in rest),
+               pipe.partial.fingerprint() if pipe.partial else "",
+               groupby_tuning())
+        sj = self._shuffle_joins.get(key)
+        if sj is None:
+            sj = SJ.ShuffleJoin(self.mesh, in_schema, step.probe_key,
+                                step.kind, payload_cols,
+                                step.mark_col or "__mark", step.not_in,
+                                rest, pipe.partial)
+            self._shuffle_joins[key] = sj
+        dicts = {}
+        for blks in per_dev:
+            for b in blks:
+                dicts.update(b.dictionaries)
+        dicts.update(bdicts)
+        post_blocks = sj.run(per_dev, barrays, params, dicts)
+        GLOBAL.inc("executor/shuffle_joins")
+        return self._merge_distributed_partials(
+            plan, [[b] for b in post_blocks], params)
+
+    def _merge_distributed_partials(self, plan: QueryPlan, per_dev: list,
+                                    params: dict) -> HostBlock:
+        """The mesh lanes' shared tail: the merge of per-shard partial
+        aggregates over the mesh, then the rest of the final program."""
+        import dataclasses
+
+        from ydb_tpu_torch.ops.torch_exec import groupby_tuning
+        from ydb_tpu_torch.parallel.shuffle import DistributedAgg
+
+        ndev = self.mesh.devices.size
+        gb = plan.final_program.commands[0]
+        merge_prog = ir.Program([gb])
+        in_schema = per_dev[0][0].schema
+        # a PROVEN merge group-count bound sizes the exchange's segments:
+        # each shard's partial holds <= out_bound groups, so a segment of
+        # that many rows cannot overflow
+        seg_rows = 0
+        if gb.out_bound:
+            seg_rows = bucket_capacity(max(int(gb.out_bound), 1),
+                                       minimum=128)
+            GLOBAL.inc("bounds/seg_bounded_shuffles")
+        key = (merge_prog.fingerprint(),
+               tuple((c.name, c.dtype.kind.value, c.dtype.nullable)
+                     for c in in_schema.columns), ndev, seg_rows,
+               groupby_tuning())
+        dag = self._dist_aggs.get(key)
+        if dag is None:
+            dag = DistributedAgg(merge_prog, merge_prog, in_schema,
+                                 self.mesh, seg_rows=seg_rows)
+            self._dist_aggs[key] = dag
+        merged = dag.run_device_blocks(per_dev, params)
+        rest = list(plan.final_program.commands[1:])
+        plan2 = dataclasses.replace(
+            plan, final_program=ir.Program(rest) if rest else None)
+        return self._finalize(plan2, [to_device(merged, self.device)],
+                              params)
+
     # -- join builds -------------------------------------------------------
 
     def _prepare_builds(self, pipe: Pipeline, params: dict,
-                        snapshot: Snapshot) -> list:
+                        snapshot: Snapshot, until: Optional[int] = None,
+                        prebuilt: Optional[dict] = None) -> list:
         """Prepare every join build of a pipeline in order, threading the
         probe side's string dictionaries so cross-dictionary string keys
-        remap to probe codes."""
+        remap to probe codes.
+
+        `until`: only the joins among steps[:until] (the shuffle join's
+        prefix). `prebuilt`: {step index: HostBlock} build sides already
+        materialized (a declined shuffle-join attempt hands its block
+        over)."""
         probe_dicts = dict(self.catalog.table(pipe.scan.table).dictionaries)
         for (storage, internal) in pipe.scan.columns:
             if storage in probe_dicts:
@@ -983,38 +1320,49 @@ class Executor:
                    and isinstance(pipe.partial.commands[-1], ir.GroupBy)
                    and len(pipe.partial.commands[-1].keys) >= 2)
         builds = []
-        for kind, step in pipe.steps:
-            if kind != "join":
+        for si, (kind, step) in enumerate(pipe.steps):
+            if kind != "join" or (until is not None and si >= until):
                 continue
             bt = self._prepare_join(step, params, snapshot,
                                     probe_dict=probe_dicts.get(
                                         step.probe_key),
+                                    prebuilt_block=(prebuilt or {}).get(si),
                                     keep_fd=keep_fd)
             builds.append(bt)
             probe_dicts.update(getattr(bt, "dictionaries", None) or {})
         return builds
 
+    def _single_device(self) -> bool:
+        return self.mesh is None or self.mesh.devices.size <= 1
+
     def _prepare_join(self, step: JoinStep, params: dict,
                       snapshot: Snapshot, probe_dict=None,
+                      prebuilt_block: Optional[HostBlock] = None,
                       keep_fd: bool = False) -> J.BuildTable:
         from ydb_tpu_torch.query.build_cache import build_plan_fingerprint
-        cache_key = build_plan_fingerprint(
-            step, params, snapshot, self.catalog,
-            extra=(True, self.grace_budget_bytes, keep_fd))
-        if cache_key is not None:
-            hit = self.build_cache.lookup(cache_key, probe_dict)
-            if hit is not None:
-                return hit
+        cache_key = None
+        if prebuilt_block is None:
+            cache_key = build_plan_fingerprint(
+                step, params, snapshot, self.catalog,
+                extra=(self._single_device(), self.grace_budget_bytes,
+                       keep_fd))
+            if cache_key is not None:
+                hit = self.build_cache.lookup(cache_key, probe_dict)
+                if hit is not None:
+                    return hit
         bt = self._prepare_join_uncached(step, params, snapshot, probe_dict,
-                                         keep_fd=keep_fd)
+                                         prebuilt_block, keep_fd=keep_fd)
         if cache_key is not None:
             self.build_cache.insert(cache_key, bt, probe_dict)
         return bt
 
     def _prepare_join_uncached(self, step: JoinStep, params: dict,
                                snapshot: Snapshot, probe_dict=None,
+                               prebuilt_block: Optional[HostBlock] = None,
                                keep_fd: bool = False) -> J.BuildTable:
-        if isinstance(step.build, QueryPlan):
+        if prebuilt_block is not None:
+            built = prebuilt_block
+        elif isinstance(step.build, QueryPlan):
             built = self.execute(step.build, snapshot)
         else:
             # the build PIPELINE runs through the fused path too. Empty
@@ -1051,8 +1399,9 @@ class Executor:
                         "correlated NOT IN over a subquery producing NULLs "
                         "is not supported yet")
         # GraceJoin: a build side above the device budget hash-
-        # partitions on the host
-        if not step.not_in and built.length:
+        # partitions on the host (single-device execution only: the mesh
+        # lanes place builds on every shard)
+        if self._single_device() and not step.not_in and built.length:
             cols = list(dict.fromkeys([step.build_key] + list(step.payload)))
             row_bytes = sum(built.columns[n].data.itemsize for n in cols)
             if built.length * row_bytes > self.grace_budget_bytes:
@@ -1084,20 +1433,32 @@ class Executor:
                 builds, params)
         return out
 
+    def _run_block(self, pipe: Pipeline, d: DeviceBlock, builds: list,
+                   params: dict) -> DeviceBlock:
+        """Single-stream block runner (the mesh lanes, whose builds are
+        never partitioned)."""
+        out = self._run_block_multi(pipe, d, builds, params)
+        assert len(out) == 1, "partitioned join on the mesh path"
+        return out[0]
+
     def _run_block_multi(self, pipe: Pipeline, d: DeviceBlock, builds: list,
-                         params: dict) -> list:
+                         params: dict, until: Optional[int] = None) -> list:
         """Run one scan block through the pipeline: its programs in
         order, each join a probe of the block, then the partial. A
         GraceJoin-partitioned build forks the stream: probe rows route to
         their key's partition and each partition continues through the
         remaining steps on its own — their partials merge like any other
-        blocks."""
+        blocks.
+
+        `until`: stop BEFORE step index `until` and skip the partial (the
+        shuffle join's prefix)."""
         from ydb_tpu_torch.ops.torch_exec import run_on_device
         if pipe.pre_program is not None:
             d = run_on_device(pipe.pre_program, d, params)
+        stop = len(pipe.steps) if until is None else until
 
         def run_steps(d: DeviceBlock, si: int, bi: int) -> list:
-            while si < len(pipe.steps):
+            while si < stop:
                 kind, step = pipe.steps[si]
                 if kind != "join":
                     d = run_on_device(step, d, params)
@@ -1113,7 +1474,7 @@ class Executor:
                                                    si, bi))
                     return out
                 return self._probe_one(d, table, step, run_steps, si, bi)
-            if pipe.partial is not None:
+            if until is None and pipe.partial is not None:
                 d = run_on_device(pipe.partial, d, params)
             return [d]
 
@@ -1166,28 +1527,43 @@ class Executor:
                 dict(d.dictionaries)))
         return out
 
-    def _scan_device_blocks(self, pipe: Pipeline, snapshot: Snapshot):
+    def _scan_device_blocks(self, pipe: Pipeline, snapshot: Snapshot,
+                            devices=None):
         """Per-portion device blocks via the column cache; committed but
         unindexed inserts, and portions with MVCC delete marks visible at
-        the snapshot, upload uncached."""
+        the snapshot, upload uncached.
+
+        With `devices`, sources are placed round-robin over the mesh's
+        devices and (device index, block) pairs are yielded."""
         table = self.catalog.table(pipe.scan.table)
         storage_names = [s for (s, _i) in pipe.scan.columns]
         rename = {s: i for (s, i) in pipe.scan.columns}
+        i = 0
         for shard in table.shards:
             portions, insert_entries = shard.scan_sources(
                 snapshot, pipe.scan.prune or None)
-            for p in portions:
-                if p.deletes and p.delete_sig(snapshot):
+            sources = [("p", p) for p in portions] \
+                + [("i", e) for e in insert_entries]
+            for kind, src in sources:
+                di = None
+                dev = self.device
+                if devices is not None:
+                    di = i % len(devices)
+                    i += 1
+                    dev = devices[di]
+                if kind == "i":
+                    hb = _rename_block(src.block.select(storage_names),
+                                       rename)
+                    blk = to_device(hb, dev)
+                elif src.deletes and src.delete_sig(snapshot):
                     hb = _rename_block(
-                        p.visible_block(snapshot).select(storage_names),
+                        src.visible_block(snapshot).select(storage_names),
                         rename)
-                    yield to_device(hb, self.device)
-                    continue
-                yield self.device_cache.device_block(p, storage_names,
-                                                     rename)
-            for e in insert_entries:
-                hb = _rename_block(e.block.select(storage_names), rename)
-                yield to_device(hb, self.device)
+                    blk = to_device(hb, dev)
+                else:
+                    blk = self.device_cache.device_block(
+                        src, storage_names, rename, device=dev)
+                yield blk if di is None else (di, blk)
 
     def _empty_scan_block(self, pipe: Pipeline) -> HostBlock:
         """Zero-row block with the scan's schema and dictionaries."""
@@ -1238,7 +1614,8 @@ class Executor:
         sort_params, sort_spec, rank_assigns = self._sort_setup(
             plan, in_schema, dblocks)
         all_params = {**params, **sort_params}
-        dev_params = {k: (to_tensor(v, self.device)
+        dev = _block_device(dblocks[0], self.device)
+        dev_params = {k: (to_tensor(v, dev)
                           if isinstance(v, np.ndarray) else v)
                       for k, v in all_params.items()}
         out_d, out_v, length, out_schema = self._build_finalize(
@@ -1288,7 +1665,7 @@ class Executor:
         limit = plan.limit
         lim2 = None if limit is None else limit + (plan.offset or 0)
         keep = list(dict.fromkeys(n for (n, _lbl) in plan.output))
-        dev = self.device
+        dev = _block_device(dblocks[0], self.device)
 
         masks = [torch.arange(d.capacity, dtype=torch.int32, device=dev)
                  < d.length for d in dblocks]
@@ -1352,6 +1729,14 @@ class Executor:
             cols[lbl] = ColumnData(cd.data, cd.valid, cd.dictionary)
             schema_cols.append(Column(lbl, block.schema.dtype(internal)))
         return HostBlock(Schema(schema_cols), cols, block.length)
+
+
+def _block_device(d: DeviceBlock, default):
+    """The device a block's columns live on (a mesh shard's, or the
+    executor's own)."""
+    for t in d.arrays.values():
+        return t.device
+    return default
 
 
 def _tile_done(device):

@@ -14,6 +14,7 @@ from __future__ import annotations
 from collections import OrderedDict
 
 import numpy as np
+import torch
 
 from ydb_tpu_torch.ops.device import bucket_capacity
 from ydb_tpu_torch.ops.torch_ns import to_tensor
@@ -130,38 +131,42 @@ class DeviceColumnCache:
             self._evict()
             return data, valid
 
-    def column(self, portion, col: str):
+    def column(self, portion, col: str, device=None):
         """(device data, device valid | None) of one portion column,
-        padded to the portion's capacity bucket."""
-        key = (portion.id, col)
+        padded to the portion's capacity bucket, on `device` (a mesh
+        shard's) or the cache's own. Entries are keyed by device too."""
+        dev = torch.device(self.device if device is None else device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = (portion.id, col, str(dev))
         hit = self._lookup(key)
         if hit is not None:
             return hit[0], hit[1]
         cd = portion.block.columns[col]
         cap = bucket_capacity(max(portion.num_rows, 1))
         pad = cap - portion.num_rows
-        data = to_tensor(np.pad(cd.data, (0, pad)) if pad else cd.data,
-                         self.device)
+        data = to_tensor(np.pad(cd.data, (0, pad)) if pad else cd.data, dev)
         valid = None
         nbytes = data.nbytes
         if cd.valid is not None:
             valid = to_tensor(np.pad(cd.valid, (0, pad)) if pad
-                              else cd.valid, self.device)
+                              else cd.valid, dev)
             nbytes += valid.nbytes
         return self._insert(key, data, valid, nbytes)
 
-    def device_block(self, portion, columns: list, rename=None):
-        """A DeviceBlock of a portion's columns from the cache."""
-        import torch
-
+    def device_block(self, portion, columns: list, rename=None,
+                     device=None):
+        """A DeviceBlock of a portion's columns from the cache, on
+        `device` (a mesh shard's) or the cache's own."""
         from ydb_tpu_torch.core.schema import Column, Schema
         from ydb_tpu_torch.ops.device import DeviceBlock
+        dev = self.device if device is None else device
         rename = rename or {}
         cap = bucket_capacity(max(portion.num_rows, 1))
         arrays, valids, dicts, cols = {}, {}, {}, []
         for name in columns:
             out = rename.get(name, name)
-            d, v = self.column(portion, name)
+            d, v = self.column(portion, name, dev)
             arrays[out] = d
             if v is not None:
                 valids[out] = v
@@ -170,7 +175,7 @@ class DeviceColumnCache:
                 dicts[out] = cd.dictionary
             cols.append(Column(out, portion.block.schema.dtype(name)))
         length = torch.tensor(portion.num_rows, dtype=torch.int32,
-                              device=self.device)
+                              device=dev)
         return DeviceBlock(Schema(cols), arrays, valids, length, cap, dicts)
 
     def superblock(self, table, storage_names: list, rename: dict,
