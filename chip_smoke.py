@@ -5,7 +5,7 @@
 Phases, each printing its own line(s):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. the build of the ten CUDA kernel libraries from
+2. the build of the twelve CUDA kernel libraries from
    ``ydb_tpu_torch/ops/cuda/csrc`` (one ``nvcc`` per source, in
    parallel), with its seconds, then NVRTC's version and the seconds of
    one trivial K1 stage (its first build);
@@ -119,6 +119,30 @@ Phases, each printing its own line(s):
    counts, the overflow flag and every slot bit for bit; the library
    time is a floor (a stable sort of the targets and one index_select
    per column).
+
+10. the DQ path, after the serving path (``dq_phase``): TPC-H at
+    ``--sf`` over 4 worker engines (``QueryEngine()``) filled by
+    ``ydb_tpu_torch/bench/cluster_load.py`` (lineitem and orders split
+    by the reference router's INSERT rule, the other six tables
+    replicated), through ``ShardedCluster.query`` as DQ stage graphs:
+    the 8 queries whose graphs run (q1, q3, q5, q6, q10, q12, q14, q19)
+    equal their oracle, the 14 others raise ``ClusterError`` (11 do not
+    lower; q7, q8 and q9 lower and fail in their join stage, as in the
+    reference), the shuffle queries' edges ride the ICI plane
+    (``dq/ici_bytes`` grows, ``dq/channel_bytes`` does not); q3, q10
+    and q12 again on ``YDB_TPU_DQ_PLANE=host``, byte-equal; the quant
+    pass (``YDB_TPU_DQ_QUANT=1``) on the answered shuffle queries as
+    full group-bys: keys and counts exact, revenue within 2e-2,
+    ``dq/quant_bytes_saved`` > 0 and q12's o_orderpriority refused; a
+    hand-built Broadcast ICI graph and a stage with two ICI hash-shuffle
+    outputs (the batched count exchange). Each query line gives its
+    cold and warm walls, ICI bytes, segment sizes, padding efficiency
+    and the device ms of the count exchange, the segments, the codec,
+    the exchange and the compaction (``DqRecorder``). Then
+    ``quantize_blocked``, ``dequantize_blocked``, ``dq_bucket_plane``
+    and ``dq_counts`` against their plain versions at the largest calls
+    of the path (timed) and on NaN, +-inf, all-zero blocks, ties,
+    float32, float64, 0 rows and planes with -1 rows, bit for bit.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -2141,6 +2165,549 @@ def serving_phase(bindings, engines: dict, oracles: dict,
 # --------------------------------------------------------------------------
 
 
+# --------------------------------------------------------------------------
+# the DQ path: TPC-H as stage graphs over in-process worker engines
+# --------------------------------------------------------------------------
+
+DQ_WORKERS = 4
+# each worker engine's device-cache budget: four engines share one card
+DQ_CACHE_BUDGET = 8 << 30
+# the queries whose stage graph the reference's cluster answers; of the
+# 11 that lower, q7, q8 and q9 fail in their join stage in both packages
+# (`unknown column`: the stage keeps a derived table's aliases)
+DQ_ANSWERED = ("q1", "q3", "q5", "q6", "q10", "q12", "q14", "q19")
+DQ_RUN_REFUSED = ("q7", "q8", "q9")
+# the queries with ICI hash-shuffle edges (lineitem and orders both
+# sharded)
+DQ_SHUFFLE = ("q3", "q5", "q7", "q8", "q9", "q10", "q12")
+DQ_HOST_CHECK = ("q3", "q10", "q12")
+# the quant pass: the answered shuffle queries, each held row by row
+# against the exact answer of its full group-by (the query without its
+# top-k), looked up by its group key: a top-k by a quantized sum may trade
+# ranks within the codec's tolerance, the rows it returns may not differ
+# from their exact values past it
+DQ_QUANT = {"q3": ("l_orderkey", "order by revenue desc, o_orderdate\n"
+                   "limit 10"),
+            "q5": ("n_name", None),
+            "q10": ("c_custkey", "order by revenue desc\nlimit 20"),
+            "q12": ("l_shipmode", None)}
+DQ_QUANT_RTOL = 2e-2                 # the reference's declared tolerance
+DQ_KERNELS = ("dq_bucket_plane", "dq_counts", "segments", "compact",
+              "quantize_blocked", "dequantize_blocked", "k1")
+
+
+class DqRecorder:
+    """What the DQ path did in each query run, read by wrapping (not
+    changing) the port's functions while the path runs: the device ms of
+    the count exchange (`dq_bucket_plane` + `dq_counts`), the send
+    segments, the int8 codec (`quantize_blocked` + `dequantize_blocked`),
+    the exchange of segments and the compaction of the received rows
+    (CUDA events around each call), and the inputs of the largest calls
+    of the DQ kernels, which `dq_kernel_phase` checks and times."""
+
+    KINDS = ("counts", "segments", "quantize", "exchange", "compact")
+
+    def __init__(self, bindings):
+        import torch
+
+        from ydb_tpu_torch.dq import ici
+        self.events = {k: [] for k in self.KINDS}
+        self.calls = {}
+        self._restore = []
+        rec = self
+
+        def timed(kind, real, key=None):
+            def fn(*a, **k):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = real(*a, **k)
+                e.record()
+                rec.events[kind].append((s, e))
+                if key is not None:
+                    rec._keep(key(*a, **k), a, k)
+                return out
+            return fn
+
+        def plane_key(keys, *a, **k):
+            return ("dq_bucket_plane", keys.numel())
+
+        def counts_key(planes, ndev):
+            return (f"dq_counts nch={planes.shape[0]}", planes.numel())
+
+        def quant_key(x, *a, **k):
+            return ("quantize_blocked", x.numel())
+
+        for owner, name, kind, key in (
+                (bindings, "dq_bucket_plane", "counts", plane_key),
+                (bindings, "dq_counts", "counts", counts_key),
+                (bindings, "segments", "segments", None),
+                (bindings, "quantize_blocked", "quantize", quant_key),
+                (bindings, "dequantize_blocked", "quantize", None),
+                (ici, "exchange_segments", "exchange", None),
+                (ici, "compact_segments", "compact", None)):
+            real = getattr(owner, name)
+            self._restore.append((owner, name, real))
+            setattr(owner, name, timed(kind, real, key))
+
+    def _keep(self, key, a, k) -> None:
+        name, size = key
+        old = self.calls.get(name)
+        if old is None or size > old[0]:
+            self.calls[name] = (size, a, k)
+
+    def note(self) -> str:
+        parts = []
+        for kind in self.KINDS:
+            evs = self.events[kind]
+            ms = sum(s.elapsed_time(e) for s, e in evs)
+            parts.append(f"{kind}_ms={ms:.3f}({len(evs)})")
+            evs.clear()
+        return " ".join(parts)
+
+    def start(self) -> None:
+        for v in self.events.values():
+            v.clear()
+
+    def close(self) -> None:
+        for owner, name, real in reversed(self._restore):
+            setattr(owner, name, real)
+        self._restore = []
+
+
+def frames_bit_equal(a, b, tag) -> None:
+    """Two answers equal column by column: floats bit for bit (NaN for
+    NaN), everything else exactly."""
+    import numpy as np
+    check(list(a.columns) == list(b.columns), f"{tag}: columns")
+    check(len(a) == len(b), f"{tag}: rows {len(a)} != {len(b)}")
+    for col in a.columns:
+        x, y = a[col].to_numpy(), b[col].to_numpy()
+        if x.dtype.kind == "f" or y.dtype.kind == "f":
+            same = np.array_equal(x.astype(np.float64), y.astype(np.float64),
+                                  equal_nan=True)
+        else:
+            same = np.array_equal(x, y)
+        check(same, f"{tag}: column {col} differs")
+
+
+def _dq_channel_stats(cluster) -> str:
+    rows = [r for r in cluster.last_stage_stats if r["state"] == "channel"]
+    return (f"ici_bytes={sum(r['ici_bytes'] for r in rows)} "
+            f"seg={[r.get('seg', 0) for r in rows]} "
+            f"pad_efficiency={[r['pad_efficiency'] for r in rows]}")
+
+
+def dq_phase(B, data, sf: float, oracle, recorder) -> dict:
+    """The DQ path: TPC-H at `sf` over DQ_WORKERS worker engines
+    (`QueryEngine()`, on the card) filled by the port's loader (lineitem
+    and orders split by the reference router's INSERT rule, the other six
+    tables replicated), through `ShardedCluster.query` on
+    `YDB_TPU_DQ_PLANE=auto`: the 8 answered queries against their oracle,
+    the 14 others refused with `ClusterError`, the shuffle queries on the
+    ICI plane; q3, q10 and q12 again on the host plane (byte-equal); the
+    quant pass; a hand-built Broadcast ICI graph and a stage with two ICI
+    hash-shuffle outputs. The launch counters are set to 0 before the
+    path and read after it; returns them."""
+    import numpy as np
+
+    from ydb_tpu_torch.bench.cluster_load import load_tpch_cluster, worker_of
+    from ydb_tpu_torch.bench.tpch_oracle import QUERIES, assert_frames_match
+    from ydb_tpu_torch.cluster import ShardedCluster
+    from ydb_tpu_torch.cluster.router import ClusterError
+    from ydb_tpu_torch.dq.graph import (BROADCAST, HASH_SHUFFLE, UNION_ALL,
+                                        Channel, Stage, StageGraph)
+    from ydb_tpu_torch.dq.runner import DqTaskRunner, LocalWorker
+    from ydb_tpu_torch.query import QueryEngine
+    from ydb_tpu_torch.utils.metrics import GLOBAL
+
+    t0 = time.perf_counter()
+    engines = [QueryEngine() for _ in range(DQ_WORKERS)]
+    for e in engines:
+        check(e.device.type == "cuda", e.device)
+        e.executor.device_cache.budget = DQ_CACHE_BUDGET
+    _d, replicated, keys = load_tpch_cluster([e.catalog for e in engines],
+                                             sf, data=data)
+    cluster = ShardedCluster([LocalWorker(e, name=f"dq{i}")
+                              for i, e in enumerate(engines)],
+                             merge_engine=engines[0])
+    cluster.replicated, cluster.key_columns = replicated, keys
+    li = [e.catalog.table("lineitem").num_rows for e in engines]
+    log(f"dq: TPC-H sf={sf} over {DQ_WORKERS} worker engines on one card "
+        f"(lineitem rows per worker {li}; {sorted(replicated)} "
+        f"replicated), {time.perf_counter() - t0:.1f} s")
+    check(cluster._ici_devices() == DQ_WORKERS, "dq: no ICI plane")
+
+    def env(plane="auto", quant="0"):
+        os.environ["YDB_TPU_DQ_PLANE"] = plane
+        os.environ["YDB_TPU_DQ_QUANT"] = quant
+
+    def run(sql):
+        recorder.start()
+        t = time.perf_counter()
+        got = cluster.query(sql)
+        ms = (time.perf_counter() - t) * 1e3
+        return got, ms, recorder.note(), _dq_channel_stats(cluster)
+
+    t_path = time.perf_counter()
+    B.reset_launches()
+    answers = {}
+    try:
+        env()
+        for i in range(1, 23):
+            q = f"q{i}"
+            graph = cluster.plan(QUERIES[q]) if q in DQ_ANSWERED \
+                or q in DQ_RUN_REFUSED else None
+            ib0, cb0 = GLOBAL.get("dq/ici_bytes"), \
+                GLOBAL.get("dq/channel_bytes")
+            if q not in DQ_ANSWERED:
+                try:
+                    cluster.query(QUERIES[q])
+                except ClusterError as e:
+                    why = str(e).splitlines()[0][:90]
+                else:
+                    raise AssertionError(f"dq {q}: answered, expected "
+                                         "ClusterError")
+                if q in DQ_SHUFFLE:
+                    check(GLOBAL.get("dq/ici_bytes") > ib0,
+                          f"dq {q}: no ICI bytes before the refusal")
+                check(GLOBAL.get("dq/channel_bytes") == cb0,
+                      f"dq {q}: host-plane bytes")
+                log(f"query dq {q}: refused (ClusterError: {why}) ok")
+                continue
+            shuffle = any(ch.kind == HASH_SHUFFLE
+                          for ch in graph.channels.values())
+            check(shuffle == (q in DQ_SHUFFLE), f"dq {q}: shuffle edges")
+            before = dict(B.LAUNCHES)
+            runs = [run(QUERIES[q]) for _ in range(3)]
+            per_query = {k: v - before[k] for k, v in B.LAUNCHES.items()
+                         if v > before[k]}
+            got = runs[0][0]
+            assert_frames_match(got, oracle(q), ordered=True)
+            for r in runs[1:]:
+                frames_bit_equal(r[0], got, f"dq {q} warm")
+            answers[q] = got
+            if shuffle:
+                check(GLOBAL.get("dq/ici_bytes") > ib0,
+                      f"dq {q}: dq/ici_bytes did not grow")
+            check(GLOBAL.get("dq/channel_bytes") == cb0,
+                  f"dq {q}: dq/channel_bytes moved")
+            warm = min(range(1, 3), key=lambda j: runs[j][1])
+            log(f"query dq {q}: lane=dq plane="
+                f"{'ici' if shuffle else 'none (no worker-bound edge)'} "
+                f"stages={len(graph.stages)} cold_ms={runs[0][1]:.2f} "
+                f"warm_ms={runs[warm][1]:.2f} rows={len(got)} "
+                f"{runs[warm][3]} cold: {runs[0][2]} warm: {runs[warm][2]} "
+                f"ok launches_3_runs={json.dumps(per_query)}")
+
+        # the host plane: frames through the workers' exchange buffers
+        for q in DQ_HOST_CHECK:
+            env(plane="host")
+            cb0 = GLOBAL.get("dq/channel_bytes")
+            t = time.perf_counter()
+            got = cluster.query(QUERIES[q])
+            ms = (time.perf_counter() - t) * 1e3
+            check(GLOBAL.get("dq/channel_bytes") > cb0,
+                  f"dq {q} host: no channel bytes")
+            frames_bit_equal(got, answers[q], f"dq {q} host vs ici")
+            log(f"query dq {q} host plane: wall_ms={ms:.2f} byte-equal to "
+                f"the ICI answer ok")
+        env()
+
+        # the quant pass
+        saved0 = GLOBAL.get("dq/quant_bytes_saved")
+        refused0 = GLOBAL.get("dq/quant_refused")
+        for q, (key, topk) in DQ_QUANT.items():
+            full = QUERIES[q] if topk is None else QUERIES[q].replace(topk,
+                                                                     "")
+            check(topk is None or full != QUERIES[q], f"dq quant {q}: sql")
+            exact, ms_exact, _n, _s = run(full)
+            env(quant="1")
+            s0, r0 = GLOBAL.get("dq/quant_bytes_saved"), \
+                GLOBAL.get("dq/quant_refused")
+            got, ms, note, stats = run(QUERIES[q])
+            env()
+            check(list(got.columns) == list(exact.columns)
+                  and len(got) == len(answers[q]), f"dq quant {q}: shape")
+            check(got[key].is_unique, f"dq quant {q}: keys repeat")
+            want = exact.set_index(key).loc[got[key].to_numpy()] \
+                .reset_index()[list(got.columns)]
+            worst = 0.0
+            for col in got.columns:
+                x, y = got[col].to_numpy(), want[col].to_numpy()
+                if col == "revenue":     # the one sum of quantized inputs
+                    np.testing.assert_allclose(x, y, rtol=DQ_QUANT_RTOL,
+                                               err_msg=f"dq quant {q} {col}")
+                    worst = max(worst, float(np.max(
+                        np.abs(x - y) / np.maximum(np.abs(y), 1e-300))))
+                else:                    # keys, counts, exact columns
+                    frames_bit_equal(got[[col]], want[[col]],
+                                     f"dq quant {q}")
+            log(f"query dq {q} quant: rows={len(got)} exact_full_group_by_ms="
+                f"{ms_exact:.2f} quant_ms={ms:.2f} max_rel_err={worst:.3g} "
+                f"quant_bytes_saved="
+                f"{GLOBAL.get('dq/quant_bytes_saved') - s0} quant_refused="
+                f"{GLOBAL.get('dq/quant_refused') - r0} {stats} {note} ok")
+        check(GLOBAL.get("dq/quant_bytes_saved") > saved0,
+              "dq quant: no bytes saved")
+        check(GLOBAL.get("dq/quant_refused") > refused0,
+              "dq quant: q12's o_orderpriority not refused")
+
+        # a hand-built Broadcast ICI edge over an orders projection
+        n_orders = len(data.tables["orders"]["o_orderkey"])
+        total = float(np.sum(data.tables["orders"]["o_totalprice"]))
+        workers = cluster.workers
+        ch = Channel(id="dqc_chip_b1", kind=BROADCAST, src_stage="s0",
+                     dst_stage="s1", columns=["o_orderkey", "o_totalprice"],
+                     table="__xj_dq_chip_bcast", plane="ici")
+        out = Channel(id="dqc_chip_b2", kind=UNION_ALL, src_stage="s1")
+        g = StageGraph(
+            stages=[Stage(id="s0", sql="select o_orderkey, o_totalprice "
+                          "from orders", outputs=[ch.id]),
+                    Stage(id="s1", sql="select count(*) as c, "
+                          f"sum(o_totalprice) as s from {ch.table}",
+                          inputs=[ch.id], outputs=[out.id]),
+                    Stage(id="merge", inputs=[out.id], on="router")],
+            channels={ch.id: ch, out.id: out}, tag="chipb")
+        recorder.start()
+        t = time.perf_counter()
+        got = DqTaskRunner(workers, engines[0]).run(g)
+        ms = (time.perf_counter() - t) * 1e3
+        check(ch.plane == "ici", "dq broadcast: fell back")
+        check(list(got.c) == [n_orders] * DQ_WORKERS,
+              f"dq broadcast: counts {list(got.c)}")
+        np.testing.assert_allclose(got.s, total, rtol=RTOL)
+        log(f"dq broadcast: every worker saw all {n_orders} orders rows, "
+            f"wall_ms={ms:.2f} {recorder.note()} ok")
+
+        # a stage with two ICI hash-shuffle outputs: the batched count
+        # exchange (one dq_counts launch over both planes)
+        c1 = Channel(id="dqc_chip_h1", kind=HASH_SHUFFLE, src_stage="s0",
+                     dst_stage="s1", key="o_orderkey",
+                     columns=["o_orderkey", "o_custkey", "o_totalprice"],
+                     table="__xj_dq_chip_h1", plane="ici")
+        c2 = Channel(id="dqc_chip_h2", kind=HASH_SHUFFLE, src_stage="s0",
+                     dst_stage="s2", key="o_custkey",
+                     columns=["o_orderkey", "o_custkey", "o_totalprice"],
+                     table="__xj_dq_chip_h2", plane="ici")
+        o1 = Channel(id="dqc_chip_o1", kind=UNION_ALL, src_stage="s1")
+        o2 = Channel(id="dqc_chip_o2", kind=UNION_ALL, src_stage="s2")
+        g = StageGraph(
+            stages=[Stage(id="s0", sql="select o_orderkey, o_custkey, "
+                          "o_totalprice from orders",
+                          outputs=[c1.id, c2.id]),
+                    Stage(id="s1", sql="select count(*) as c, "
+                          f"sum(o_totalprice) as s from {c1.table}",
+                          inputs=[c1.id], outputs=[o1.id]),
+                    Stage(id="s2", sql="select count(*) as c, "
+                          f"sum(o_totalprice) as s from {c2.table}",
+                          inputs=[c2.id], outputs=[o2.id]),
+                    Stage(id="merge", inputs=[o1.id, o2.id], on="router")],
+            channels={c.id: c for c in (c1, c2, o1, o2)}, tag="chiph")
+        nb0 = GLOBAL.get("dq/count_exchange_batched")
+        recorder.start()
+        t = time.perf_counter()
+        got = DqTaskRunner(workers, engines[0]).run(g)
+        ms = (time.perf_counter() - t) * 1e3
+        check(GLOBAL.get("dq/count_exchange_batched") == nb0 + 1,
+              "dq two outputs: no batched count exchange")
+        check(c1.plane == c2.plane == "ici", "dq two outputs: fell back")
+        check("dq_counts nch=2" in recorder.calls,
+              "dq two outputs: no nch=2 counts launch")
+        # each consumer's rows are the ones its key routes to: counts
+        # and sums per (edge, consumer) from the generated orders
+        orders = data.tables["orders"]
+        want_c, want_s = [], []
+        for key in ("o_orderkey", "o_custkey"):
+            dst = worker_of(orders[key], DQ_WORKERS)
+            want_c += np.bincount(dst, minlength=DQ_WORKERS).tolist()
+            want_s += np.bincount(dst, weights=orders["o_totalprice"],
+                                  minlength=DQ_WORKERS).tolist()
+        c = list(got.c)
+        check(c == want_c, f"dq two outputs: counts {c}, want {want_c}")
+        np.testing.assert_allclose(got.s.to_numpy(), want_s, rtol=RTOL)
+        log(f"dq two outputs: per-consumer rows {c}, wall_ms={ms:.2f} "
+            f"{recorder.note()} ok")
+    finally:
+        os.environ.pop("YDB_TPU_DQ_PLANE", None)
+        os.environ.pop("YDB_TPU_DQ_QUANT", None)
+    launches = dict(B.LAUNCHES)
+    log(f"launches (dq): {json.dumps(launches)} "
+        f"path_s={time.perf_counter() - t_path:.1f}")
+    missing = [k for k in DQ_KERNELS if launches[k] <= 0]
+    check(not missing, f"kernels not launched on the DQ path: {missing}")
+    return launches
+
+
+def _bits(t):
+    import torch
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def check_quant(B, x, sync, tag):
+    """quantize_blocked and dequantize_blocked against their plain
+    versions: codes, scales and the decoded values bit for bit (NaN for
+    NaN)."""
+    import torch
+    q, s = B.quantize_blocked(x)
+    pq, ps = B.quantize_blocked_plain(x)
+    sync()
+    check(torch.equal(q, pq), f"quantize {tag}: codes")
+    check(torch.equal(_bits(s), _bits(ps)), f"quantize {tag}: scales")
+    d = B.dequantize_blocked(q, s, x.dtype)
+    pd_ = B.dequantize_blocked_plain(q, s, x.dtype)
+    sync()
+    nan = torch.isnan(pd_)
+    check(torch.equal(torch.isnan(d), nan), f"dequantize {tag}: NaN")
+    check(torch.equal(_bits(d)[~nan], _bits(pd_)[~nan]),
+          f"dequantize {tag}: values")
+    return q, s
+
+
+def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
+    """The DQ kernels against their plain versions, at the largest calls
+    the DQ path gave them (`DqRecorder.calls`, timed: the table's rows):
+    `quantize_blocked` / `dequantize_blocked` at the largest quantized
+    send stack, `dq_bucket_plane` at the largest key plane, `dq_counts`
+    at the largest [1, ndev, cap] and [2, ndev, cap] planes; then checked
+    on NaN, +-inf, all-zero blocks, exact ties, float32, float64, 0 rows
+    and planes with -1 rows."""
+    import torch
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    rows = []
+    for name in ("quantize_blocked", "dq_bucket_plane", "dq_counts nch=1",
+                 "dq_counts nch=2"):
+        check(name in calls, f"dq kernels: no {name} call recorded")
+    # the int8 codec at the largest quantized stack
+    x = calls["quantize_blocked"][1][0]
+    q, s = check_quant(B, x, sync, "largest stack")
+    n = x.numel()
+    shape = f"{tuple(x.shape)} {str(x.dtype)[6:]} (the DQ path's largest)"
+    xb = x.reshape(-1, 128)
+    rows.append(dict(
+        name="quantize_blocked", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/quant.cu",
+        replaces="ydb_tpu/parallel/collective.py:160", shape=shape,
+        max_abs_err=0.0, ms=time_ms(lambda: B.quantize_blocked(x)),
+        plain_ms=time_ms(lambda: B.quantize_blocked_plain(x)),
+        # a floor: the block max-abs alone (no NaN mask, no codes)
+        library_ms=time_ms(lambda: xb.abs().amax(dim=1)),
+        bound_ms=bound_ms(n * x.element_size() + n + s.numel() * 4),
+        bound_by="bytes"))
+    rows.append(dict(
+        name="dequantize_blocked", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/quant.cu",
+        replaces="ydb_tpu/parallel/collective.py:176", shape=shape,
+        max_abs_err=0.0,
+        ms=time_ms(lambda: B.dequantize_blocked(q, s, x.dtype)),
+        plain_ms=time_ms(lambda: B.dequantize_blocked_plain(q, s,
+                                                            x.dtype)),
+        # a floor: the int8 -> float conversion alone
+        library_ms=time_ms(lambda: q.to(x.dtype)),
+        bound_ms=bound_ms(n + s.numel() * 4 + n * x.element_size()),
+        bound_by="bytes"))
+    # the bucket plane at the largest key plane
+    a, k = calls["dq_bucket_plane"][1], calls["dq_bucket_plane"][2]
+    got = B.dq_bucket_plane(*a, **k)
+    want = B.dq_bucket_plane_plain(*a, **k)
+    sync()
+    check(torch.equal(got, want), "dq_bucket_plane: largest plane")
+    keys, valid, lengths = a[0], a[1], a[2]
+    rows.append(dict(
+        name="dq_bucket_plane", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/dq_counts.cu",
+        replaces="ydb_tpu/dq/ici.py:763", max_abs_err=0.0,
+        shape=f"{tuple(keys.shape)} {str(keys.dtype)[6:]} keys, "
+              f"valid={valid is not None}, ndev={a[3]}",
+        ms=time_ms(lambda: B.dq_bucket_plane(*a, **k)),
+        plain_ms=time_ms(lambda: B.dq_bucket_plane_plain(*a, **k)),
+        library_ms=None,            # no PyTorch call computes splitmix64
+        bound_ms=bound_ms(distinct_bytes([keys, valid, lengths])
+                          + keys.numel() * 4),
+        bound_by="bytes"))
+    # the count exchange, solo and batched
+    for nch in (1, 2):
+        (planes, ndev), _k = calls[f"dq_counts nch={nch}"][1:]
+        got = B.dq_counts(planes, ndev)
+        want = B.dq_counts_plain(planes, ndev)
+        sync()
+        check(torch.equal(got, want), f"dq_counts nch={nch}")
+        nch_, nprod, cap = planes.shape
+        # one flat id per (channel, producer, bucket + 1), -1 included
+        ids = (planes.to(torch.int64) + 1 + (ndev + 1) * torch.arange(
+            nch_ * nprod, device=planes.device).reshape(nch_, nprod, 1)
+               ).reshape(-1)
+        row = dict(
+            name="dq_counts", route="cuda",
+            source="ydb_tpu_torch/ops/cuda/csrc/dq_counts.cu",
+            replaces="ydb_tpu/dq/ici.py:457", max_abs_err=0.0,
+            shape=f"[{nch_}, {nprod}, {cap}] planes, ndev={ndev}",
+            ms=time_ms(lambda: B.dq_counts(planes, ndev)),
+            plain_ms=time_ms(lambda: B.dq_counts_plain(planes, ndev)),
+            library_ms=time_ms(lambda: torch.bincount(
+                ids, minlength=nch_ * nprod * (ndev + 1))),
+            bound_ms=bound_ms(planes.numel() * 4 + nch_ * nprod * ndev * 4),
+            bound_by="bytes")
+        if nch == 1:
+            rows.append(row)
+        else:
+            log(f"kernel dq_counts nch=2: {row['shape']} "
+                f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"library_ms={row['library_ms']:.4f} "
+                f"bound_us={row['bound_ms'] * 1e3:.2f} (bytes)")
+    # -- checked, not timed
+    g = torch.Generator(device=dev)
+    g.manual_seed(1616)
+    for dt in (torch.float64, torch.float32):
+        x = torch.randn((4, 2048), generator=g, device=dev,
+                        dtype=torch.float64).mul_(13.0).to(dt)
+        f = x.view(-1)
+        f[:128] = torch.arange(128, device=dev, dtype=dt) - 63.5  # ties
+        f[127] = 127.0
+        f[130], f[131] = float("nan"), float("inf")
+        f[256:384] = 0.0
+        f[389], f[390] = float("-inf"), float("nan")
+        f[512:640] = float("nan")
+        f[640:768] *= 1e-30
+        check_quant(B, x, sync, f"edge cases {dt}")
+        check_quant(B, x[:, :0].contiguous(), sync, f"0 rows {dt}")
+        check_quant(B, x[:1, :128].contiguous(), sync, f"one block {dt}")
+    planes = torch.randint(-1, 4, (2, 4, 100_003), generator=g, device=dev,
+                           dtype=torch.int32)
+    check(torch.equal(B.dq_counts(planes, 4), B.dq_counts_plain(planes, 4)),
+          "dq_counts: -1 rows")
+    check(torch.equal(B.dq_counts(planes[:, :, :0].contiguous(), 4),
+                      B.dq_counts_plain(planes[:, :, :0], 4)),
+          "dq_counts: 0 rows")
+    kk = torch.randint(-(1 << 62), 1 << 62, (4, 70_001), generator=g,
+                       device=dev)
+    kv = torch.rand((4, 70_001), generator=g, device=dev) > 0.2
+    ln = torch.tensor([70_001, 5, 0, 69_999], dtype=torch.int32, device=dev)
+    check(torch.equal(B.dq_bucket_plane(kk, kv, ln, 4),
+                      B.dq_bucket_plane_plain(kk, kv, ln, 4)),
+          "dq_bucket_plane: int keys")
+    codes = torch.randint(-3, 40, (4, 70_001), generator=g, device=dev,
+                          dtype=torch.int32)
+    lut = torch.randint(0, 4, (37,), generator=g, device=dev,
+                        dtype=torch.int32)
+    check(torch.equal(B.dq_bucket_plane(codes, None, ln, 4, lut),
+                      B.dq_bucket_plane_plain(codes, None, ln, 4, lut)),
+          "dq_bucket_plane: string codes")
+    log("kernel dq edge cases: NaN, +-inf, all-zero and all-NaN blocks, "
+        "ties, float32/float64, 0 rows; planes with -1 rows; int and "
+        "string keys ok")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=1.0,
@@ -2324,6 +2891,14 @@ def main() -> int:
         order_keys)
     for k, v in served.items():
         launches[k] += v
+    # the DQ path: TPC-H at --sf as stage graphs over DQ_WORKERS engines
+    dq_rec = DqRecorder(bindings)
+    try:
+        dq_launches = dq_phase(bindings, data, args.sf, tpch_oracle, dq_rec)
+    finally:
+        dq_rec.close()
+    for k, v in dq_launches.items():
+        launches[k] += v
     log(f"launches (all paths): {json.dumps(launches)}")
     if args.profile:
         profile_phase(eng, QUERIES)
@@ -2344,6 +2919,8 @@ def main() -> int:
                             li.num_rows)
     # 9. the segments kernel at the shapes the mesh paths gave it
     rows += segments_phase(bindings, mesh_rec.calls)
+    # 10. the DQ kernels at the largest calls the DQ path gave them
+    rows += dq_kernel_phase(bindings, dq_rec.calls)
     for r in rows:
         lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"kernel {r['name']}: {r['shape']} kernel_ms={r['ms']:.4f} "

@@ -24,7 +24,8 @@ sql/parser sql/ast sql/render query/__init__ query/binder query/plan
 query/planner query/bounds query/latemat query/paramlift query/stats
 query/udf query/build_cache bench/tpch_gen
 progstore/buckets utils/config query/window bench/tpcds_gen
-bench/clickbench_gen query/admission query/batch_lane""".split()
+bench/clickbench_gen query/admission query/batch_lane
+dq/__init__ dq/graph dq/lower cluster/__init__ cluster/exchange""".split()
 
 _NO_HIST = ("the port keeps no histograms: nothing of it reads the "
             "admission wait distribution; the waits and timeouts stay "
@@ -67,17 +68,6 @@ EDITS = {
             t = RowTable(name, schema, key_columns, shards, portion_rows,
                          partition_by)
 """, _NOT_PORTED_ROWS)],
-    "query/planner": [(
-        "NotPorted stub: DQ stage graphs are outside the slice",
-        """        from ydb_tpu_torch.dq.lower import lower_select
-
-        def table_cols(table: str) -> list:
-            return list(self.catalog.table(table).schema.names)
-        return lower_select(sel, topology, table_cols)
-""",
-        """        from ydb_tpu_torch.errors import NotPorted
-        raise NotPorted("DQ stage graphs (dq/lower.py)")
-""")],
     "query/latemat": [(
         "lazy import repointed: the lever lives in ops/torch_exec.py",
         "from ydb_tpu_torch.ops.xla_exec import late_mat_enabled",
@@ -243,6 +233,14 @@ COPIED_FUNCTIONS = {
     "ops/spill": ("PartitionStore", "host_sort_limit"),
     "ops/join": ("build_partitioned",),
     "query/executor": ("_param_values_equal",),
+    # the DQ plane's host codecs and schema specs
+    "dq/ici": ("_classify", "_encode", "_decode", "_wire_bytes_per_row",
+               "_device_specs", "_union_dictionaries"),
+    # the channel tables' host side
+    "dq/task": ("_schema_dtypes", "materialize_device_channel",
+                "materialize_channel", "empty_typed_frame"),
+    # the worker's result payload (LocalWorker.execute)
+    "server/service": ("_frame_rows", "_result_payload"),
 }
 
 # Executor methods the port's executor copies unchanged
@@ -251,6 +249,18 @@ EXECUTOR_METHODS = ("_lift_limit_setup",)
 # (module, name) -> [(reason, reference text after the prefix rewrite,
 # port text)]
 COPIED_FUNCTION_EDITS = {
+    ("dq/ici", "_decode"): [(
+        "the port reads the landed columns back with one batched copy, "
+        "not jax.device_get",
+        "    the caller batches every column through ONE jax.device_get) "
+        "→ the",
+        "    the caller batches every column through ONE device→host copy) "
+        "→ the")],
+    ("dq/ici", "_union_dictionaries"): [(
+        "the code remap is a torch gather in the port",
+        "    (old code → union code) applied device-side via `jnp.take`.\"\"\"",
+        "    (old code → union code) applied device-side as a torch "
+        "gather.\"\"\"")],
     ("ops/spill", "PartitionStore"): [(
         "one batched device→host copy of the partitioned block, columns "
         "in the schema's host dtypes (the port keeps unsigned values in "

@@ -43,7 +43,11 @@ def test_import_leaves_jax_and_reference_out():
             "ydb_tpu_torch.ops.k1, ydb_tpu_torch.ops.cuda.nvrtc, "
             "ydb_tpu_torch.bench.k1_sweep, "
             "ydb_tpu_torch.parallel, ydb_tpu_torch.parallel.shuffle_join, "
-            "ydb_tpu_torch.utils.config\n"
+            "ydb_tpu_torch.utils.config, ydb_tpu_torch.dq, "
+            "ydb_tpu_torch.dq.ici, ydb_tpu_torch.dq.task, "
+            "ydb_tpu_torch.cluster, ydb_tpu_torch.cluster.exchange, "
+            "ydb_tpu_torch.server.service, "
+            "ydb_tpu_torch.bench.cluster_load\n"
             "bad = [m for m in sys.modules if m in ('jax', 'jaxlib') or "
             "m == 'ydb_tpu' or m.startswith('ydb_tpu.')]\n"
             "print(bad)\n")

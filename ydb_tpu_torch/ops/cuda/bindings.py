@@ -28,13 +28,20 @@ a non-zero code raises.
 |              | gathers); query/executor.py _partition_block (routing)    |
 | segments     | parallel/collective.py bucket_of, bucket_segments (the    |
 |              | send segments of a mesh exchange)                         |
+| quantize_blocked, dequantize_blocked                                     |
+|              | parallel/collective.py quantize_blocked,                  |
+|              | dequantize_blocked (the DQ plane's int8 block codec)      |
+| dq_bucket_plane, dq_counts                                               |
+|              | dq/ici.py's bucket plane and _build_counts_fn,            |
+|              | _build_counts_batched_fn (the DQ count exchange)          |
 | *_batched    | the member axis of bucket_agg, segment_agg and compact:   |
 |              | what ops/fused.py build_fused_batched_fn's vmap gives     |
 |              | them in the reference                                     |
 
 Each launch name builds from ``csrc/<library>.cu`` (``expand_counts``
-and ``expand_gather`` share ``expand.cu``; each ``*_batched`` entry is
-in its kernel's source).
+and ``expand_gather`` share ``expand.cu``, the two codec entries
+``quant.cu``, the bucket plane and the counts ``dq_counts.cu``; each
+``*_batched`` entry is in its kernel's source).
 
 Member axis (the batched serving lane): B same-shape queries run as one.
 An input of a ``*_batched`` wrapper is either shared, shape (n,), or per
@@ -112,26 +119,52 @@ _SIGS = {
                         [_I64, _I32, _P, _I32, _P, _I64, _I64, _P, _P, _P,
                          _P, _P, _I32, _PI64, _PI64, _PI64, _PI32, _I32,
                          _P]),
+    "quantize_blocked": ("quant", "quantize_blocked_launch",
+                         [_I64, _I32, _P, _P, _P, _P]),
+    "dequantize_blocked": ("quant", "dequantize_blocked_launch",
+                           [_I64, _I32, _P, _P, _P, _P]),
+    "dq_bucket_plane": ("dq_counts", "dq_bucket_plane_launch",
+                        [_I64, _I32, _I32, _P, _P, _P, _P, _I32, _I32, _P,
+                         _P]),
+    "dq_counts": ("dq_counts", "dq_counts_launch",
+                  [_I64, _I32, _I32, _I32, _P, _P, _P]),
 }
 
 # "k1": the generated expression-stage kernels (ops/k1.py, launched by
 # ops/cuda/nvrtc.py)
 LAUNCHES = {name: 0 for name in (*_SIGS, "k1")}
+# the DQ runner launches from one thread per worker engine at once: a
+# count is read, added to and stored under this lock
+_COUNT_MU = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_MU:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    with _COUNT_MU:
+        LAUNCHES[name] += 1
 
 
 def _fn(name: str):
-    """The kernel's C entry point, building its library on first use."""
+    """The kernel's C entry point, building its library on first use.
+    A library that cannot be built or loaded raises RuntimeError, not
+    the OSError beneath it, which a caller could take for a lost
+    connection."""
     libname, sym, argtypes = _SIGS[name]
     with _MU:
         lib = _LIBS.get(libname)
         if lib is None:
-            path = build.build_all((libname,))[libname]["path"]
-            lib = _LIBS[libname] = ctypes.CDLL(path)
+            try:
+                path = build.build_all((libname,))[libname]["path"]
+                lib = _LIBS[libname] = ctypes.CDLL(path)
+            except OSError as e:
+                raise RuntimeError(
+                    f"CUDA kernel library {libname} failed to build or "
+                    f"load: {e}") from e
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -142,7 +175,7 @@ def _launch(name: str, *args) -> None:
     rc = _fn(name)(*args)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def _stream() -> int:
@@ -1636,3 +1669,183 @@ def segments_plain(length, ndev: int, seg: int, cols: list, *,
         outs.append((torch.stack([p[2 * i] for p in per_t]),
                      torch.stack([p[2 * i + 1] for p in per_t])))
     return outs, torch.stack(counts).to(torch.int32), ovf
+
+
+# --------------------------------------------------------------------------
+# quant: the DQ channel plane's int8 block codec
+# --------------------------------------------------------------------------
+
+QUANT_BLOCK = 128                # quant.cu QBLOCK
+QUANT_NAN_CODE = -128            # outside the symmetric range ±127
+_QUANT_DTYPES = {torch.float64: 0, torch.float32: 1}
+
+
+def quantize_blocked(x: torch.Tensor):
+    """Per-block symmetric int8 codes of a float tensor whose last axis
+    is a multiple of QUANT_BLOCK: `(codes int8 of x's shape, scales
+    float32 of shape x.shape[:-1] + (last // QUANT_BLOCK,))`. NaN
+    encodes as QUANT_NAN_CODE; a
+    block's scale is its NaN-masked max-abs over 127 (1 for an all-zero
+    block)."""
+    if x.device.type != "cuda":
+        return quantize_blocked_plain(x)
+    if x.dtype not in _QUANT_DTYPES:
+        raise ValueError(f"dtype {x.dtype} not in {tuple(_QUANT_DTYPES)}")
+    if x.dim() < 1 or x.shape[-1] % QUANT_BLOCK:
+        raise ValueError(f"shape {tuple(x.shape)}: last axis not a multiple "
+                         f"of {QUANT_BLOCK}")
+    if not x.is_contiguous():
+        raise ValueError("x: not contiguous")
+    n = x.numel()
+    codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty(x.shape[:-1] + (x.shape[-1] // QUANT_BLOCK,),
+                         dtype=torch.float32, device=x.device)
+    _launch("quantize_blocked", n, _QUANT_DTYPES[x.dtype], _ptr(x),
+            _ptr(codes), _ptr(scales), _stream())
+    return codes, scales
+
+
+def quantize_blocked_plain(x: torch.Tensor):
+    """Plain PyTorch version of `quantize_blocked` (the reference's jnp
+    formulation; a NaN quotient, x = +-inf over an inf scale, becomes 0
+    as XLA's float -> int8 conversion makes it)."""
+    shape = x.shape
+    xb = x.reshape(shape[:-1] + (shape[-1] // QUANT_BLOCK, QUANT_BLOCK))
+    nan = torch.isnan(xb)
+    mag = torch.where(nan, torch.zeros_like(xb), xb.abs()).amax(dim=-1)
+    # a tensor divisor: torch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not the IEEE quotient
+    scale = torch.where(mag > 0, mag / torch.full_like(mag, 127.0),
+                        torch.ones_like(mag)).to(torch.float32)
+    q = torch.round(xb / scale[..., None])
+    q = torch.where(torch.isnan(q), torch.zeros_like(q),
+                    q.clamp(-127, 127))
+    q = torch.where(nan, torch.full_like(q, QUANT_NAN_CODE), q)
+    return q.to(torch.int8).reshape(shape), scale
+
+
+def dequantize_blocked(codes: torch.Tensor, scales: torch.Tensor,
+                       dtype) -> torch.Tensor:
+    """Inverse of `quantize_blocked`: `codes * scale` in `dtype` (a
+    torch float dtype) per value, NaN where the code is QUANT_NAN_CODE."""
+    if codes.device.type != "cuda":
+        return dequantize_blocked_plain(codes, scales, dtype)
+    if dtype not in _QUANT_DTYPES:
+        raise ValueError(f"dtype {dtype} not in {tuple(_QUANT_DTYPES)}")
+    want = codes.shape[:-1] + (codes.shape[-1] // QUANT_BLOCK,) \
+        if codes.dim() else None
+    if codes.dtype != torch.int8 or codes.dim() < 1 \
+            or codes.shape[-1] % QUANT_BLOCK:
+        raise ValueError(f"codes: {codes.dtype} {tuple(codes.shape)}")
+    if scales.dtype != torch.float32 or tuple(scales.shape) != tuple(want) \
+            or scales.device != codes.device:
+        raise ValueError(f"scales: {scales.dtype} {tuple(scales.shape)} on "
+                         f"{scales.device}, expected float32 {tuple(want)}")
+    if not (codes.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("codes or scales: not contiguous")
+    out = torch.empty(codes.shape, dtype=dtype, device=codes.device)
+    _launch("dequantize_blocked", codes.numel(), _QUANT_DTYPES[dtype],
+            _ptr(codes), _ptr(scales), _ptr(out), _stream())
+    return out
+
+
+def dequantize_blocked_plain(codes: torch.Tensor, scales: torch.Tensor,
+                             dtype) -> torch.Tensor:
+    """Plain PyTorch version of `dequantize_blocked`."""
+    shape = codes.shape
+    qb = codes.reshape(shape[:-1] + (shape[-1] // QUANT_BLOCK, QUANT_BLOCK))
+    x = qb.to(dtype) * scales[..., None].to(dtype)
+    x = torch.where(qb == QUANT_NAN_CODE, torch.full_like(x, float("nan")),
+                    x)
+    return x.reshape(shape)
+
+
+# --------------------------------------------------------------------------
+# dq_counts: the DQ count exchange and its bucket plane
+# --------------------------------------------------------------------------
+
+_DQ_MAX_TARGETS = 1024           # dq_counts.cu MAX_TARGETS
+
+
+def dq_bucket_plane(keys: torch.Tensor, valid: Optional[torch.Tensor],
+                    lengths: torch.Tensor, ndev: int,
+                    lut: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The target of every row of a [nprod, cap] key plane: -1 past its
+    producer's length or where `valid` is False; else, for int64 keys,
+    splitmix64 of the key mod `ndev` as uint64, or, with `lut` (int32
+    dictionary codes as keys), lut[clamp(code, 0, len(lut) - 1)].
+    Returns int32 [nprod, cap]."""
+    dev = keys.device
+    if dev.type != "cuda":
+        return dq_bucket_plane_plain(keys, valid, lengths, ndev, lut)
+    if keys.dim() != 2 or not keys.is_contiguous():
+        raise ValueError(f"keys: shape {tuple(keys.shape)}, expected a "
+                         "contiguous [nprod, cap]")
+    nprod, cap = keys.shape
+    if lut is None:
+        if keys.dtype != torch.int64:
+            raise ValueError(f"keys: dtype {keys.dtype}, expected int64")
+    else:
+        if keys.dtype != torch.int32:
+            raise ValueError(f"codes: dtype {keys.dtype}, expected int32")
+        _check(lut, "lut", dev, None, (torch.int32,))
+        if lut.shape[0] < 1:
+            raise ValueError("lut: empty")
+    if valid is not None and (tuple(valid.shape) != (nprod, cap)
+                              or valid.dtype != torch.bool
+                              or valid.device != dev
+                              or not valid.is_contiguous()):
+        raise ValueError(f"valid: {valid.dtype} {tuple(valid.shape)}")
+    _check(lengths, "lengths", dev, nprod, (torch.int32,))
+    if not 1 <= ndev <= _DQ_MAX_TARGETS:
+        raise ValueError(f"{ndev} targets (1 to {_DQ_MAX_TARGETS})")
+    plane = torch.empty((nprod, cap), dtype=torch.int32, device=dev)
+    _launch("dq_bucket_plane", cap, nprod, 0 if lut is None else 1,
+            _ptr(keys), _ptr(valid), _ptr(lengths), _ptr(lut),
+            0 if lut is None else lut.shape[0], ndev, _ptr(plane),
+            _stream())
+    return plane
+
+
+def dq_bucket_plane_plain(keys, valid, lengths, ndev: int, lut=None):
+    """Plain PyTorch version of `dq_bucket_plane`."""
+    nprod, cap = keys.shape
+    if lut is None:
+        b = umod64_plain(splitmix64_plain(keys.to(torch.int64)), ndev)
+    else:
+        b = lut.to(torch.int64)[keys.to(torch.int64).clamp(
+            0, lut.shape[0] - 1)]
+    iota = torch.arange(cap, dtype=torch.int64, device=keys.device)
+    active = iota[None, :] < lengths.to(torch.int64)[:, None]
+    if valid is not None:
+        active = active & valid
+    return torch.where(active, b, torch.full_like(b, -1)).to(torch.int32)
+
+
+def dq_counts(planes: torch.Tensor, ndev: int) -> torch.Tensor:
+    """Per (channel, producer, target) live-row counts of [nch, nprod,
+    cap] int32 bucket planes: counts[c, p, d] = number of rows r with
+    planes[c, p, r] == d, for d < ndev (-1 counts nowhere). Returns int32
+    [nch, nprod, ndev]."""
+    dev = planes.device
+    if dev.type != "cuda":
+        return dq_counts_plain(planes, ndev)
+    if planes.dim() != 3 or planes.dtype != torch.int32 \
+            or not planes.is_contiguous():
+        raise ValueError(f"planes: {planes.dtype} {tuple(planes.shape)}, "
+                         "expected a contiguous int32 [nch, nprod, cap]")
+    nch, nprod, cap = planes.shape
+    if not 1 <= ndev <= _DQ_MAX_TARGETS:
+        raise ValueError(f"{ndev} targets (1 to {_DQ_MAX_TARGETS})")
+    counts = torch.zeros((nch, nprod, ndev), dtype=torch.int32, device=dev)
+    if nch and nprod:
+        _launch("dq_counts", cap, nch, nprod, ndev, _ptr(planes),
+                _ptr(counts), _stream())
+    return counts
+
+
+def dq_counts_plain(planes: torch.Tensor, ndev: int) -> torch.Tensor:
+    """Plain PyTorch version of `dq_counts` (the reference's equality
+    reduction, one target at a time)."""
+    return torch.stack([(planes == d).sum(dim=2) for d in range(ndev)],
+                       dim=2).to(torch.int32)

@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 KERNELS = ("bucket_agg", "compact", "probe", "sort", "segment_agg",
-           "hash64", "window_scan", "expand", "partition", "segments")
+           "hash64", "window_scan", "expand", "partition", "segments",
+           "quant", "dq_counts")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 

@@ -289,7 +289,7 @@ class _Launcher:
         stream = torch.cuda.current_stream(index).cuda_stream
         kern.launch(((n + k1.THREADS - 1) // k1.THREADS, grid_y, 1),
                     (k1.THREADS, 1, 1), args + [ctypes.c_int64(n)], stream)
-        bindings.LAUNCHES["k1"] += 1
+        bindings.count_launch("k1")
 
 
 LAUNCHER = _Launcher()

@@ -4,7 +4,9 @@ A ``DeviceBlock`` keeps a block's columns as torch tensors on one device
 between operators. Host round-trips happen only at result egress, and
 there as ONE device→host copy per result: every column (and the length)
 is packed into a single byte buffer on the device, copied once, and
-split back into numpy arrays on the host (`batched_to_host`)."""
+split back into numpy arrays on the host (`batched_to_host`). A
+``DeviceStageBlock`` carries a DQ stage's result to the next stage
+without that copy."""
 
 from __future__ import annotations
 
@@ -116,6 +118,81 @@ def to_host(dblock: DeviceBlock) -> HostBlock:
         cols[c.name] = host_column(host_a[c.name], host_v.get(c.name),
                                    c.dtype, dblock.dictionaries.get(c.name))
     return HostBlock(dblock.schema, cols, n)
+
+
+class DeviceStageBlock(HostBlock):
+    """A stage-boundary block whose columns still live on the device: the
+    DQ stage spine's unit of flow between stages.
+
+    It is a ``HostBlock`` to every consumer that reads only ``schema`` or
+    ``length`` or calls the block protocol, but ``columns`` is a lazy
+    property that reads the columns back ONCE (one `to_host`) the first
+    time a host-only path touches it. Stage plumbing that stays on the
+    device (the planned ICI exchange, the device landing in the channel
+    table, the fused scan's superblock) reads ``.device`` directly and
+    never triggers that readback.
+
+    ``length`` is a host int (read at capture), so shape planning —
+    segment sizing, the count exchange, channel stats — never syncs."""
+
+    def __init__(self, device: DeviceBlock, length: int):
+        # not the dataclass __init__: `columns` is a read-only property
+        # here, not a field
+        self.schema = device.schema
+        self.device = device
+        self.length = int(length)
+        self._cols = None
+
+    @property
+    def columns(self) -> dict:
+        if self._cols is None:
+            self._cols = to_host(
+                DeviceBlock(self.device.schema, self.device.arrays,
+                            self.device.valids, self.length,
+                            self.device.capacity,
+                            self.device.dictionaries)).columns
+        return self._cols
+
+    @property
+    def materialized(self) -> bool:
+        """True once a host path has forced the readback."""
+        return self._cols is not None
+
+    def live_nbytes(self) -> int:
+        """Live payload bytes (length x schema itemsizes + masks): shape
+        arithmetic only, never a device sync."""
+        n = 0
+        for c in self.schema:
+            n += self.length * int(np.dtype(c.dtype.np).itemsize)
+            if c.name in self.device.valids:
+                n += self.length
+        return n
+
+    def project(self, output: list) -> "DeviceStageBlock":
+        """Device-side mirror of the executor's `_project_output` (rename
+        and duplicate-label suffixing): tensor references move, no bytes
+        do."""
+        from ydb_tpu_torch.core.schema import Column
+
+        arrays, valids, dicts = {}, {}, {}
+        schema_cols = []
+        used = set()
+        for (internal, label) in output:
+            lbl = label
+            k = 2
+            while lbl in used:
+                lbl = f"{label}_{k}"
+                k += 1
+            used.add(lbl)
+            arrays[lbl] = self.device.arrays[internal]
+            if internal in self.device.valids:
+                valids[lbl] = self.device.valids[internal]
+            if internal in self.device.dictionaries:
+                dicts[lbl] = self.device.dictionaries[internal]
+            schema_cols.append(Column(lbl, self.schema.dtype(internal)))
+        dev = DeviceBlock(Schema(schema_cols), arrays, valids,
+                          self.device.length, self.device.capacity, dicts)
+        return DeviceStageBlock(dev, self.length)
 
 
 class DeviceResultFuture:

@@ -428,6 +428,33 @@ def fetch_fused_result(data_stacks, valid_stack, length, layout_box: dict,
                               out_schema, out_dicts)
 
 
+def capture_fused_device(data_stacks, valid_stack, length, layout_box: dict,
+                         out_schema: Schema, out_dicts: dict):
+    """Device-resident view of one fused execution: the stage-spine
+    capture. Slices the dtype-stacked output rows back into per-column
+    device tensors BY REFERENCE (views, no copy, no transfer), so a DQ
+    stage hands its result to the next stage or the ICI exchange without
+    the readout `fetch_fused_result` pays. `length` is the host int the
+    caller read; rows past it are dead rows the consumer masks."""
+    from ydb_tpu_torch.ops.device import DeviceBlock
+
+    valid_row = {nm: i for i, nm in enumerate(layout_box["valids"])}
+    arrays, valids, dicts = {}, {}, {}
+    out_cols = []
+    for (name, dtype_key, row) in layout_box["data"]:
+        if not out_schema.has(name):
+            continue
+        arrays[name] = data_stacks[dtype_key][row]
+        if name in valid_row and valid_stack is not None:
+            valids[name] = valid_stack[valid_row[name]]
+        if out_dicts.get(name) is not None:
+            dicts[name] = out_dicts[name]
+        out_cols.append(out_schema.col(name))
+    cap = int(next(iter(arrays.values())).shape[0]) if arrays else 0
+    return DeviceBlock(Schema(out_cols), arrays, valids, length, cap,
+                       dicts)
+
+
 def fetch_fused_batch(data_stacks, valid_stack, lengths, layout_box: dict,
                       out_schema: Schema, out_dicts: dict,
                       member_rows: list):

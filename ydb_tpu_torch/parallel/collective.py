@@ -15,12 +15,10 @@ segments in one pass of the `segments` kernel (K15a); `bucket_of` and
 `compact_segments` compacts the received rows with the `compact` kernel
 (K6). `exchange_segments` and `gather_all` are the collectives: copies
 between the shards' devices, one batched copy per column when every
-shard shares a device. On CPU tensors the wrappers run their plain
-versions.
-
-Not ported here: the int8 block quantizer of collective payloads
-(`quantize_blocked` / `dequantize_blocked`), used only by the DQ channel
-plane.
+shard shares a device. `quantize_blocked` / `dequantize_blocked` are
+the int8 block codec of collective payloads (K15d, the `quant` kernel),
+used by the DQ channel plane's quantized columns. On CPU tensors the
+wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -28,6 +26,10 @@ from __future__ import annotations
 import torch
 
 from ydb_tpu_torch.ops.cuda import bindings as K
+
+# block granularity of the payload codec: one float32 scale per
+# QUANT_BLOCK int8 codes (4 / QUANT_BLOCK bytes a row on top of the code)
+QUANT_BLOCK = K.QUANT_BLOCK
 
 
 def bucket_of(env, key_names, ndev):
@@ -156,3 +158,24 @@ def segment_pad_account(kind: str, ndev: int, seg: int, live_rows: int,
             "live_bytes": live_bytes, "padded_bytes": padded_bytes,
             "efficiency": round(live_bytes / padded_bytes, 3)
             if padded_bytes else None}
+
+
+# -- block quantization (collective payload codec) --------------------------
+
+
+def quantize_blocked(x):
+    """Per-block symmetric int8 quantization of a float tensor whose last
+    axis is a multiple of QUANT_BLOCK. Returns `(codes int8, scales
+    float32)` with `scales.shape = x.shape[:-1] + (last // QUANT_BLOCK,)`.
+    NaN encodes as the reserved code -128 and survives the round trip; a
+    block's scale comes from its NaN-masked max-abs."""
+    return K.quantize_blocked(x.contiguous())
+
+
+def dequantize_blocked(codes, scales, dtype):
+    """Inverse of `quantize_blocked`: int8 codes + per-block scales →
+    float tensor of `dtype` (a numpy or torch dtype; reserved code -128
+    → NaN)."""
+    from ydb_tpu_torch.ops.torch_ns import torch_dtype
+    return K.dequantize_blocked(codes.contiguous(), scales.contiguous(),
+                                torch_dtype(dtype))

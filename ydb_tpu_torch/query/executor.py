@@ -52,8 +52,8 @@ from ydb_tpu_torch.core.schema import Column, Schema
 from ydb_tpu_torch.ops import ir
 from ydb_tpu_torch.ops import join as J
 from ydb_tpu_torch.ops.device import (
-    DeviceBlock, DeviceResultFuture, batched_to_host, bucket_capacity,
-    to_device, to_host,
+    DeviceBlock, DeviceResultFuture, DeviceStageBlock, batched_to_host,
+    bucket_capacity, to_device, to_host,
 )
 from ydb_tpu_torch.ops.torch_ns import storage_array, to_tensor, torch_dtype
 from ydb_tpu_torch.progstore import buckets as shape_buckets
@@ -108,6 +108,31 @@ class Executor:
         # shards (the shuffle join) instead of being placed on every shard
         self.dist_broadcast_budget_bytes = int(
             os.environ.get("YDB_TPU_DIST_BROADCAST_BUDGET", 256 << 20))
+
+    # DQ task-graph runtime (`dq/`): >0 while THIS THREAD runs a
+    # statement as a stage program of a distributed task. Thread-local: a
+    # worker serving a DQ task beside a plain query on another thread
+    # must not count the plain query.
+    @property
+    def dq_stage_depth(self) -> int:
+        return getattr(self._tls, "dq_stage_depth", 0)
+
+    @dq_stage_depth.setter
+    def dq_stage_depth(self, v: int):
+        self._tls.dq_stage_depth = v
+
+    # device-resident stage spine: while True on THIS THREAD, a fused
+    # statement's result comes back as a `DeviceStageBlock` (device
+    # tensors by reference, host readback deferred) instead of through
+    # `fetch_fused_result`. `dq/task.py` arms it around stage statements
+    # so multi-stage plans flow device to device.
+    @property
+    def dq_device_capture(self) -> bool:
+        return getattr(self._tls, "dq_device_capture", False)
+
+    @dq_device_capture.setter
+    def dq_device_capture(self, v: bool):
+        self._tls.dq_device_capture = v
 
     @property
     def last_path(self) -> str:
@@ -284,6 +309,11 @@ class Executor:
                           if out_schema.has(n2)})
         lo = plan.offset or 0
         limit = plan.limit
+        # stage-spine capture: read the thread-local flag at dispatch
+        # time (the future may be resolved on another thread). An OFFSET
+        # tail would force a host slice anyway, so those plans keep the
+        # host readout.
+        capture_device = bool(self.dq_device_capture) and not lo
 
         def fetch() -> HostBlock:
             if aux:
@@ -300,8 +330,21 @@ class Executor:
                     # were dropped on the device. Discard this result and
                     # rerun without the compact. Never serve a truncation.
                     GLOBAL.inc("latemat/compact_overflow_reruns")
-                    return self._try_execute_fused(plan0, params, snapshot,
-                                                   _no_compact=True)
+                    prev_cap = self.dq_device_capture
+                    self.dq_device_capture = capture_device
+                    try:
+                        return self._try_execute_fused(
+                            plan0, params, snapshot, _no_compact=True)
+                    finally:
+                        self.dq_device_capture = prev_cap
+            if capture_device:
+                # device-resident spine: the stage result goes back as
+                # device tensors by reference; only the length crosses
+                n = int(length)
+                dev = F.capture_fused_device(data_stacks, valid_stack, n,
+                                             layout_box, out_schema,
+                                             out_dicts)
+                return DeviceStageBlock(dev, n)
             block = F.fetch_fused_result(data_stacks, valid_stack, length,
                                          layout_box, out_schema, out_dicts)
             return _apply_offset(block, lo, limit)
@@ -1715,6 +1758,11 @@ class Executor:
     # -- output ------------------------------------------------------------
 
     def _project_output(self, block: HostBlock, output: list) -> HostBlock:
+        if isinstance(block, DeviceStageBlock) and not block.materialized:
+            # stage-spine path: rename on the device, references only
+            # (touching `block.columns` would force the readback the
+            # capture exists to avoid)
+            return block.project(output)
         cols = {}
         schema_cols = []
         used = set()

@@ -217,8 +217,11 @@ class Planner:
         catalog's schemas; the cross-process router passes an RPC schema
         probe instead (`cluster/router.py`). `topology`: a
         `dq.lower.DqTopology`."""
-        from ydb_tpu_torch.errors import NotPorted
-        raise NotPorted("DQ stage graphs (dq/lower.py)")
+        from ydb_tpu_torch.dq.lower import lower_select
+
+        def table_cols(table: str) -> list:
+            return list(self.catalog.table(table).schema.names)
+        return lower_select(sel, topology, table_cols)
 
     def _plan_select_locked(self, sel: ast.Select) -> QueryPlan:
         if sel.relation is None:

@@ -5,8 +5,8 @@ uploaded to the engine's device once per data version, then reused
 across queries, LRU-evicted under a byte budget. The fused path reads
 ``superblock``s; the portioned path reads one portion at a time
 (``device_block``), each column cached under the portion's id.
-Device-resident (stage-spine) sources belong to the DQ runtime, which
-the port does not run.
+A landed DQ channel table's source is a ``DeviceStageBlock`` still on
+the device: the superblock stacks its tensors there, with no readback.
 """
 
 from __future__ import annotations
@@ -49,8 +49,24 @@ def enumerate_scan_sources(table, snapshot, prune):
     return sources, src_ids
 
 
+def _device_source(b):
+    """The still-on-device view of a stage-spine scan source (a landed
+    `DeviceStageBlock` channel table), or None for plain host blocks.
+    Reading it instead of `.columns` keeps the admission estimate and
+    the superblock stack from forcing the block's host readback."""
+    return getattr(b, "device", None)
+
+
 def _source_cap(b) -> int:
-    return bucket_capacity(max(b.length, 1))
+    dev = _device_source(b)
+    return dev.capacity if dev is not None \
+        else bucket_capacity(max(b.length, 1))
+
+
+def _source_has_valid(b, s: str) -> bool:
+    dev = _device_source(b)
+    return (s in dev.valids) if dev is not None \
+        else (b.columns[s].valid is not None)
 
 
 def estimate_scan_bytes(sources, storage_names: list,
@@ -59,15 +75,20 @@ def estimate_scan_bytes(sources, storage_names: list,
     max capacity bucket, per column data + validity — the fused-path
     admission estimate (no upload happens to find out it didn't fit).
     `pad_to`: the shape-bucketed row count (padded rows allocate real
-    memory, so the estimate must charge them)."""
+    memory, so the estimate must charge them). Device-resident sources
+    answer from shape metadata, with no readback."""
     if not sources:
         return 0
     K = max(len(sources), pad_to)
     CAP = max(_source_cap(b) for b in sources)
     total = 0
     for s in storage_names:
-        total += K * CAP * sources[0].columns[s].data.itemsize
-        if any(b.columns[s].valid is not None for b in sources):
+        b0 = sources[0]
+        itemsize = int(np.dtype(b0.schema.dtype(s).np).itemsize) \
+            if _device_source(b0) is not None \
+            else b0.columns[s].data.itemsize
+        total += K * CAP * itemsize
+        if any(_source_has_valid(b, s) for b in sources):
             total += K * CAP
     return total
 
@@ -209,6 +230,17 @@ class DeviceColumnCache:
                 arrays[out] = hit[0]
                 if hit[1] is not None:
                     valids[out] = hit[1]
+            elif all(_device_source(b) is not None for b in sources):
+                # device-resident sources (stage-spine channel landings):
+                # stacked on the device, no readback and no re-upload.
+                # Pad regions are zero and validity is clipped to each
+                # length, so the stack equals what the host path builds.
+                d, v = self._stack_device(sources, s, K, CAP)
+                nbytes = d.nbytes + (v.nbytes if v is not None else 0)
+                d, v = self._insert(key, d, v, nbytes)
+                arrays[out] = d
+                if v is not None:
+                    valids[out] = v
             else:
                 dtype = sources[0].columns[s].data.dtype
                 stack = np.zeros((K, CAP), dtype=dtype)
@@ -229,7 +261,9 @@ class DeviceColumnCache:
                 arrays[out] = d
                 if v is not None:
                     valids[out] = v
-            dic = sources[0].columns[s].dictionary
+            dv0 = _device_source(sources[0])
+            dic = dv0.dictionaries.get(s) if dv0 is not None \
+                else sources[0].columns[s].dictionary
             if dic is not None:
                 dicts[out] = dic
 
@@ -241,3 +275,24 @@ class DeviceColumnCache:
         else:
             lengths = lhit[0]
         return arrays, valids, lengths, K, CAP, dicts
+
+    def _stack_device(self, sources, s: str, K: int, CAP: int):
+        """(K, CAP) data and validity (None when no source has a mask)
+        of column `s` over device-resident sources, on the cache's
+        device: each source's live rows, zeros past its length."""
+        has_valid = any(_source_has_valid(b, s) for b in sources)
+        dt = _device_source(sources[0]).arrays[s].dtype
+        d = torch.zeros((K, CAP), dtype=dt, device=self.device)
+        v = torch.zeros((K, CAP), dtype=torch.bool, device=self.device) \
+            if has_valid else None
+        for k, b in enumerate(sources):
+            dv = _device_source(b)
+            n = min(int(b.length), CAP)
+            d[k, :n] = dv.arrays[s][:n]
+            if v is not None:
+                va = dv.valids.get(s)
+                if va is None:
+                    v[k, :n] = True
+                else:
+                    v[k, :n] = va[:n]
+        return d, v
