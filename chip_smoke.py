@@ -5,10 +5,13 @@
 Phases, each printing its own line(s):
 
 1. the card's name and power limit, as ``nvidia-smi`` prints them;
-2. the build of the twelve CUDA kernel libraries from
+2. the build of the thirteen CUDA kernel libraries from
    ``ydb_tpu_torch/ops/cuda/csrc`` (one ``nvcc`` per source, in
-   parallel), with its seconds, then NVRTC's version and the seconds of
-   one trivial K1 stage (its first build);
+   parallel), with its seconds and ``-Xptxas -v``'s registers, stack
+   frame and spills of every ``segment_agg`` and ``bucket_sort`` kernel
+   (a stack frame or a spill in ``segment_agg`` fails the run), then
+   NVRTC's version and the seconds of one trivial K1 stage (its first
+   build);
 3. generation of TPC-H at ``--sf``, TPC-DS at SF1 and ClickBench's hits
    at 1,000,000 rows, each loaded into its own ``QueryEngine()`` (no
    device argument: it must land on ``cuda``);
@@ -21,11 +24,19 @@ Phases, each printing its own line(s):
    ``sort`` at scan capacity (the sorted group-by's sort);
    ``segment_agg`` at q18's subquery shape (timed), q3's (a filter,
    groups of at most 7 rows, an output bound), one group holding half
-   the rows, the medium-domain lane's sort and fold over 60,000 bucket
-   ids, nullable int keys, NaN and -0.0 float keys with every
-   aggregate function, and 0 rows; ``hash64`` over two int64 columns at
-   lineitem's rows (half the hashes >= 2^63); a probe of u64 keys
-   >= 2^63; ``expand_counts`` and ``expand_gather`` at TPC-DS ds25's
+   the rows, nullable int keys, NaN and -0.0 float keys with every
+   aggregate function, more aggregates than one launch takes and 0
+   rows, each called twice and the two calls held bit for bit equal,
+   and q18's groups moved 13 rows on, whose sums must keep their bits;
+   ``bucket_perm`` (K4's counting sort) exactly at 60,000 random
+   buckets, 65,535 with half the rows in one, 2% active, 0 rows and
+   B = 8 members (a shared id over the union of their masks, and
+   per-member ids), then the
+   medium-domain lane (``bucket_perm`` + ``segment_agg``, 60,000
+   buckets) timed against the ``sort_perm`` composition it replaced,
+   bit for bit equal to it, and one ``scatter_reduce``; ``hash64``
+   over two int64 columns at lineitem's rows (half the hashes >=
+   2^63); a probe of u64 keys >= 2^63; ``expand_counts`` and ``expand_gather`` at TPC-DS ds25's
    shape (timed), with one key matching 100,000 build rows (timed),
    LEFT with NULL probe keys, float keys and 0 probes; ``window_scan``
    over store_sales at SF1 by item and date (timed), at ds89's frame
@@ -69,7 +80,11 @@ Phases, each printing its own line(s):
    through an engine over the same catalog whose broadcast budget is 1
    (``distributed-shuffle-join``), each line with the device ms of the
    ``segments`` calls and of the exchanges (CUDA events around each
-   call, ``MeshRecorder``). Every answer must equal its
+   call, ``MeshRecorder``) and the exchanges' byte bound (every stacked
+   segment read and written once); then TPC-H q10 at SF 0.4 through a
+   fourth engine, whose 60,000 customer names take the medium-domain
+   lane (``MediumLaneRecorder``: the lane must run, ``bucket_perm``
+   must launch). Every answer must equal its
    pandas oracle (``ydb_tpu_torch/bench/{tpch,tpcds,clickbench}_oracle.py``;
    rtol 1e-9 for floats, exact otherwise, row order included where the
    query fixes it), queries whose path a slice fixes must take it
@@ -518,15 +533,35 @@ def segment_agg_bytes(perm, keys, active, aggs, oc: int) -> int:
     return distinct_bytes(ins) + oc * (4 + 8 + 16 * len(aggs))
 
 
+def bits(t):
+    """A tensor's raw bits, for bit-for-bit comparisons of floats."""
+    import torch
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def same_bits(a, b) -> bool:
+    """Two results of a kernel (tensors or nested lists / tuples of them)
+    equal bit for bit."""
+    import torch
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_bits(x, y)
+                                        for x, y in zip(a, b))
+    return torch.equal(bits(a), bits(b))
+
+
 def check_segment_agg(B, perm, keys, active, aggs, oc: int, sync,
                       tag) -> float:
     """segment_agg against its plain version: ngroups, leaders, counts
-    and integer results exactly, float sums to RTOL. Returns the largest
-    absolute difference of a float sum."""
+    and integer results exactly (every slot, the zeros past ngroups
+    included), float sums to RTOL; and a second call bit for bit equal
+    to the first. Returns the largest absolute difference of a float
+    sum."""
     import torch
     got = B.segment_agg(perm, keys, active, aggs, oc)
+    again = B.segment_agg(perm, keys, active, aggs, oc)
     want = B.segment_agg_plain(perm, keys, active, aggs, oc)
     sync()
+    check(same_bits(got, again), f"segment_agg {tag}: two calls differ")
     check(int(got[0]) == int(want[0]),
           f"segment_agg {tag} ngroups {int(got[0])} != {int(want[0])}")
     check(torch.equal(got[1], want[1]), f"segment_agg {tag} lead")
@@ -543,6 +578,115 @@ def check_segment_agg(B, perm, keys, active, aggs, oc: int, sync,
         else:
             check(torch.equal(kv, pv), f"segment_agg {tag} {f} {i}")
     return err
+
+
+def bucket_perm_phase(B, n: int, active, rev, dev, sync, rand,
+                      randint) -> list:
+    """K4: `bucket_perm` against its plain version, exactly, at 60,000
+    random buckets, 65,535 buckets with half the rows in one, 2% of the
+    rows active, 0 rows, and B = 8 members over a shared id (the union of
+    their masks) and over per-member ids; then the medium-domain lane
+    (bucket_perm + segment_agg) against the composition it replaced
+    (sort_perm + segment_agg) and one scatter_reduce, timed in this call:
+    the new lane's permutation prefix and folded values must equal the
+    old composition's bit for bit."""
+    import torch
+
+    from ydb_tpu_torch.ops.sort import encode_key
+    nb = 60_000
+
+    def exact(kid, act, nbuckets, tag):
+        got = B.bucket_perm(kid, act, nbuckets)
+        want = B.bucket_perm_plain(kid, act, nbuckets)
+        sync()
+        check(torch.equal(got, want), f"bucket_perm {tag}")
+        return got
+    kid = randint(0, nb, (n,), torch.int32)
+    exact(kid, active, nb, "60,000 buckets")
+    skew = torch.where(rand((n,)) < 0.5, 12_345,
+                       randint(0, 65_535, (n,), torch.int32)).to(torch.int32)
+    exact(skew, active, 65_535, "65,535 buckets, half the rows in one")
+    sparse = active & (rand((n,)) < 0.02)
+    exact(kid, sparse, nb, "2% active")
+    exact(kid[:0], active[:0], nb, "0 rows")
+    exact(kid[:1000], torch.zeros(1000, dtype=torch.bool, device=dev), nb,
+          "no active row")
+    Bm, m = 8, min(1 << 20, n)
+    masks = (rand((Bm, m)) < 0.3) & active[None, :m]
+    exact(kid[:m].contiguous(), masks.any(0), nb, "B=8 shared id, union")
+    per = randint(0, 1200, (Bm, m), torch.int32)
+    exact(per, masks, 1200, "B=8 per-member ids")
+    log("kernel bucket_perm checks: 60,000 buckets, 65,535 with half the "
+        "rows in one, 2% active, 0 rows, no active row, B=8 shared and "
+        "per-member: equal to the plain version")
+
+    # the lane, new and old, and the reference's scatter_reduce
+    kwords = [encode_key(kid.to(torch.int64))]
+    kaggs = [("sum", rev, None, False), ("count", None, None, False)]
+    oc = 65536
+    inactive = encode_key((~active).to(torch.int64))
+
+    def new_perm():
+        return B.bucket_perm(kid, active, nb)
+
+    def old_perm():
+        return B.sort_perm([inactive] + kwords, n, dev)
+
+    def lane(perm_fn):
+        return B.segment_agg(perm_fn(), kwords, active, kaggs, oc)
+    pn, po = new_perm(), old_perm()
+    got, old = lane(new_perm), lane(old_perm)
+    want = B.segment_agg(po, kwords, active, kaggs, oc)
+    plain = B.segment_agg_plain(B.bucket_perm_plain(kid, active, nb), kwords,
+                                active, kaggs, oc)
+    sync()
+    live = int(active.sum())
+    check(torch.equal(pn[:live], po[:live]), "K4 lane: permutation prefix")
+    check(same_bits(got, old) and same_bits(got, want),
+          "K4 lane: folded values differ from the old composition's")
+    check(int(got[0]) == int(plain[0]) and torch.equal(got[1], plain[1])
+          and torch.equal(got[2], plain[2])
+          and torch.equal(got[4][1], plain[4][1]), "K4 lane vs plain")
+    torch.testing.assert_close(got[3][0], plain[3][0], rtol=RTOL, atol=0)
+    err = float((got[3][0] - plain[3][0]).abs().max())
+    kid_l = torch.where(active, kid.to(torch.int64),
+                        torch.full((n,), nb, dtype=torch.int64, device=dev))
+
+    def lib4():
+        return torch.zeros(nb + 1, dtype=torch.float64, device=dev) \
+            .scatter_reduce_(0, kid_l, rev, "sum")
+    t_new, t_old = time_ms(lambda: lane(new_perm)), time_ms(lambda: lane(old_perm))
+    t_perm, t_sort = time_ms(new_perm), time_ms(old_perm)
+    t_fold = time_ms(lambda: B.segment_agg(pn, kwords, active, kaggs, oc))
+    t_plain = time_ms(lambda: B.segment_agg_plain(
+        B.bucket_perm_plain(kid, active, nb), kwords, active, kaggs, oc))
+    t_lib = time_ms(lib4)
+    # the least the lane moves: the ids (int32), the activity and the
+    # summed column read once; per slot a lead, a row count, and a value
+    # and a count per aggregate written once
+    lane_bound = bound_ms(distinct_bytes([kid, active, rev])
+                          + oc * (4 + 8 + 16 * len(kaggs)))
+    log(f"kernel K4 lane medium domain: n={n} buckets={nb} live={live} "
+        f"lane_ms={t_new:.4f} (bucket_perm_ms={t_perm:.4f} "
+        f"segment_agg_ms={t_fold:.4f}) old_lane_ms={t_old:.4f} "
+        f"(sort_perm_ms={t_sort:.4f}) plain_ms={t_plain:.4f} "
+        f"library_ms={t_lib:.4f} bound_us={lane_bound * 1e3:.2f} (bytes) "
+        f"max_abs_err={err:.3g} bit_equal_to_old=True")
+    # bucket_perm's own row: the ids and the activity read once, the
+    # permutation written once; the library call is one stable sort of
+    # the ids with the inactive rows mapped past the buckets
+    return [dict(
+        name="bucket_perm", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/bucket_sort.cu",
+        replaces="ydb_tpu/ops/xla_exec.py:457",
+        shape=f"n={n} buckets={nb} (the K4 lane's order; lane "
+              f"{t_new:.4f} ms with segment_agg, was {t_old:.4f} with "
+              "sort_perm)",
+        max_abs_err=0.0, ms=t_perm,
+        plain_ms=time_ms(lambda: B.bucket_perm_plain(kid, active, nb)),
+        library_ms=time_ms(lambda: torch.sort(kid_l, stable=True)),
+        bound_ms=bound_ms(distinct_bytes([kid, active]) + n * 4),
+        bound_by="bytes")]
 
 
 def sorted_lane_phase(B, n: int, cap: int, live: int,
@@ -601,6 +745,25 @@ def sorted_lane_phase(B, n: int, cap: int, live: int,
         f"bound_us={sort_bound * 1e3:.2f} (bytes)")
     aggs = [("sum", qty, None, False)]
     err = check_segment_agg(B, perm, words, active, aggs, n, sync, "q18")
+    # the same groups 13 rows further on (13 one-row groups of smaller
+    # keys in front): a group of up to 32 rows folds to the same bits
+    # wherever it lies, as two layouts of the same rows (the DQ planes)
+    # need
+    shift = 13
+    pre = torch.arange(shift, device=dev) - shift
+    s_words = [encode_key(torch.cat([pre, okey]))]
+    s_active = torch.cat([torch.ones(shift, dtype=torch.bool, device=dev),
+                          active])
+    s_qty = torch.cat([rand((shift,)), qty])
+    s_perm = perm_of(s_words, s_active)
+    at = B.segment_agg(perm, words, active, aggs, n)
+    moved = B.segment_agg(s_perm, s_words, s_active,
+                          [("sum", s_qty, None, False)], n + shift)
+    sync()
+    ng18 = int(at[0])
+    check(int(moved[0]) == ng18 + shift
+          and same_bits(moved[3][0][shift:shift + ng18], at[3][0][:ng18]),
+          "segment_agg q18: a group's sum depends on its position")
     ng = int(B.segment_agg_plain(perm, words, active, aggs, n)[0])
     # the library call: one scatter_reduce of the sums over group ids
     first = torch.ones(n, dtype=torch.bool, device=dev)
@@ -653,35 +816,14 @@ def sorted_lane_phase(B, n: int, cap: int, live: int,
         f"plain_ms={time_ms(lambda: B.segment_agg_plain(sperm, swords, active, aggs_s, n)):.4f} "
         f"bound_us={bound_ms(segment_agg_bytes(sperm, swords, active, aggs_s, n)) * 1e3:.2f} (bytes)")
 
-    # -- the medium-domain lane's kernels (K4): rows sorted by a bucket
-    #    id (60,000 buckets, as q10 groups customers at SF 0.05), then
-    #    folded per bucket; the reference scatter-reduces instead, which
-    #    is the library call here
-    kid = randint(0, 60_000, (n,))
-    kwords = [encode_key(kid)]
-    kaggs = [("sum", rev, None, False), ("count", None, None, False)]
-
-    def run_k4(sort, seg):
-        kperm = sort([encode_key((~active).to(torch.int64))] + kwords, n,
-                     dev)
-        return seg(kperm, kwords, active, kaggs, 65536)
-    got = run_k4(B.sort_perm, B.segment_agg)
-    want = run_k4(B.sort_perm_plain, B.segment_agg_plain)
-    sync()
-    check(int(got[0]) == int(want[0]) and torch.equal(got[1], want[1])
-          and torch.equal(got[4][1], want[4][1]), "medium domain")
-    torch.testing.assert_close(got[3][0], want[3][0], rtol=RTOL, atol=0)
-    kid_l = torch.where(active, kid, torch.full_like(kid, 60_000))
-
-    def lib4():
-        return torch.zeros(60_001, dtype=torch.float64, device=dev) \
-            .scatter_reduce_(0, kid_l, rev, "sum")
-    log(f"kernel sort+segment_agg medium domain: n={n} buckets=60000 "
-        f"kernel_ms={time_ms(lambda: run_k4(B.sort_perm, B.segment_agg)):.4f} "
-        f"plain_ms={time_ms(lambda: run_k4(B.sort_perm_plain, B.segment_agg_plain)):.4f} "
-        f"library_ms={time_ms(lib4):.4f} "
-        f"bound_us={bound_ms(distinct_bytes([kid, active, rev]) + 65536 * (4 + 8 + 32)) * 1e3:.2f} (bytes)")
-
+    # -- the medium-domain lane (K4): rows ordered by a bucket id (60,000
+    #    buckets, as q10 groups customers at SF 0.4) with bucket_perm,
+    #    then folded per bucket by segment_agg; against the comparison
+    #    sort it replaced (sort_perm, then the same fold) and the
+    #    reference's own method, one scatter_reduce of the sums over the
+    #    bucket ids (the library call)
+    rows += bucket_perm_phase(B, n, active, rev, dev, sync, rand,
+                              randint)
     # -- nullable int keys, NaN and -0.0 float keys, every aggregate
     #    function over float, signed and unsigned values with NULLs, the
     #    multi-launch form (at a row count that ends in a partial
@@ -705,12 +847,13 @@ def sorted_lane_phase(B, n: int, cap: int, live: int,
     check_segment_agg(B, eperm, ewords, am, every, m, sync, "every func")
     check_segment_agg(B, eperm, ewords, am, every * 2, m, sync, "chunked")
     empty = torch.zeros(0, dtype=torch.int64, device=dev)
-    got = B.segment_agg(torch.zeros(0, dtype=torch.int32, device=dev),
-                        [empty], torch.zeros(0, dtype=torch.bool,
-                                             device=dev),
-                        [("sum", empty.to(torch.float64), None, False)], 128)
-    sync()
-    check(int(got[0]) == 0 and int(got[2].sum()) == 0, "segment_agg 0 rows")
+    check_segment_agg(B, torch.zeros(0, dtype=torch.int32, device=dev),
+                      [empty], torch.zeros(0, dtype=torch.bool, device=dev),
+                      [("sum", empty.to(torch.float64), None, False),
+                       ("min", empty, None, False)], 128, sync, "0 rows")
+    log("kernel segment_agg checks: q18, q3, skew, every func, chunked, "
+        "0 rows: equal to the plain version (every slot), two calls bit "
+        "for bit equal")
 
     # -- hash64: hash_combine(hash64(a), hash64(b)) over lineitem's rows
     ha = randint(-(1 << 62), 1 << 62, (n,)) * 2 + randint(0, 2, (n,))
@@ -1358,6 +1501,7 @@ class MeshRecorder:
         self.query = self.suite = ""
         self.in_join = self.cold = False
         self._events = {"segments": [], "exchange": []}
+        self.exchange_bytes = 0
         self._restore = []
         rec = self
 
@@ -1374,6 +1518,18 @@ class MeshRecorder:
                 return out
             return fn
 
+        def exchanged(real):
+            inner = timed("exchange", real)
+
+            def fn(per_dev, names, devices):
+                # K15b's byte bound: every stacked segment (data, valid,
+                # counts) read once and written once
+                rec.exchange_bytes += 2 * sum(
+                    t.numel() * t.element_size() for d, v, c in per_dev
+                    for t in [*d.values(), *v.values(), c] if t is not None)
+                return inner(per_dev, names, devices)
+            return fn
+
         def joining(real):
             def run(*a, **k):
                 rec.in_join = True
@@ -1386,10 +1542,8 @@ class MeshRecorder:
         for owner, name, wrapper in (
                 (bindings, "segments",
                  lambda r: timed("segments", r, True)),
-                (shuffle, "exchange_segments",
-                 lambda r: timed("exchange", r)),
-                (shuffle_join, "exchange_segments",
-                 lambda r: timed("exchange", r)),
+                (shuffle, "exchange_segments", exchanged),
+                (shuffle_join, "exchange_segments", exchanged),
                 (shuffle_join.ShuffleJoin, "run", joining)):
             real = getattr(owner, name)
             self._restore.append((owner, name, real))
@@ -1422,6 +1576,7 @@ class MeshRecorder:
             def start(self, query: str) -> None:
                 rec.cold = (suite, query) != (rec.suite, rec.query)
                 rec.suite, rec.query = suite, query
+                rec.exchange_bytes = 0
                 for v in rec._events.values():
                     v.clear()
 
@@ -1435,6 +1590,10 @@ class MeshRecorder:
             ms = sum(s.elapsed_time(e) for s, e in evs)
             parts.append(f"{kind}_ms={ms:.3f} ({len(evs)} calls)")
             evs.clear()
+        parts.append(f"exchange_bytes={self.exchange_bytes} "
+                     f"exchange_bound_ms="
+                     f"{bound_ms(self.exchange_bytes):.4f}")
+        self.exchange_bytes = 0
         return " ".join(parts)
 
     def close(self) -> None:
@@ -1523,6 +1682,46 @@ class LaneRecorder:
                 delattr(owner, name)
             else:
                 setattr(owner, name, real)
+
+
+class MediumLaneRecorder:
+    """The medium-domain lane (K4) in each query run, read by wrapping
+    (not changing) `torch_exec._groupby_medium_domain` while the path
+    runs: its calls, and its device ms between CUDA events recorded at
+    the lane's entry and at its return (the card's time from the lane's
+    first queued kernel to its last)."""
+
+    def __init__(self):
+        import torch
+
+        from ydb_tpu_torch.ops import torch_exec as X
+        self._X, self._real = X, X._groupby_medium_domain
+        self.calls = 0
+        rec = self
+
+        def lane(*a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = rec._real(*a, **k)
+            e.record()
+            rec.events.append((s, e))
+            return out
+        X._groupby_medium_domain = lane
+        self.start("")
+
+    def start(self, query: str) -> None:
+        self.grace, self.events = [], []
+
+    def note(self) -> str:
+        for _s, e in self.events:
+            e.synchronize()
+        self.calls += len(self.events)
+        return (f"medium_lane_calls={len(self.events)} lane_device_ms="
+                f"{sum(s.elapsed_time(e) for s, e in self.events):.4f}")
+
+    def close(self) -> None:
+        self._X._groupby_medium_domain = self._real
 
 
 # the two extra queries of the reference's tiled-lane test
@@ -2708,6 +2907,32 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
     return rows
 
 
+PTXAS_CHECKED = ("segment_agg", "bucket_sort")
+
+
+def ptxas_functions(text: str) -> list:
+    """Per kernel function of an ``nvcc -Xptxas -v`` log: its (mangled)
+    name, registers, stack frame and spill bytes."""
+    import re
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = {"name": m.group(1), "registers": None}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None and cur["registers"] is None:
+            cur["registers"] = int(m.group(1))
+    return [f for f in out if "stack" in f and f["name"].startswith("_Z")]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sf", type=float, default=1.0,
@@ -2748,9 +2973,23 @@ def main() -> int:
     log(f"build: {len(built)} kernels in {build_s:.2f} s "
         + " ".join(f"{k}={v['seconds']}s" for k, v in built.items()))
     for k, v in built.items():
+        if k in PTXAS_CHECKED:
+            continue
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {k}: {line.strip()}")
+    # K4 and K5: each kernel instantiation's registers, stack frame and
+    # spills; segment_agg's accumulators must live in registers
+    spilled = []
+    for k in PTXAS_CHECKED:
+        for fn in ptxas_functions(built[k]["log"]):
+            log(f"  ptxas {k} {fn['name']}: registers={fn['registers']} "
+                f"stack_frame={fn['stack']} spill_stores={fn['spill_stores']} "
+                f"spill_loads={fn['spill_loads']}")
+            if k == "segment_agg" and (fn["stack"] or fn["spill_stores"]
+                                       or fn["spill_loads"]):
+                spilled.append(fn["name"])
+    check(not spilled, f"segment_agg: a stack frame or spills in {spilled}")
     # K1: NVRTC at first use; a trivial stage first, so a missing
     # libnvrtc or a failed compile ends the run here
     from ydb_tpu_torch.ops import ir, k1
@@ -2855,6 +3094,14 @@ def main() -> int:
         "one card")
     mesh_rec = MeshRecorder(bindings)
     recorder = LaneRecorder(eng_bb.executor)
+    # the medium-domain lane at full width: q10 over TPC-H at Q10_SF
+    t0 = time.perf_counter()
+    eng_q10 = QueryEngine()
+    data_q10 = load_tpch(eng_q10.catalog, sf=Q10_SF)
+    log(f"q10 medium domain: TPC-H sf={Q10_SF}, "
+        f"{eng_q10.catalog.table('customer').num_rows} customers, "
+        f"{time.perf_counter() - t0:.1f} s")
+    q10_rec = MediumLaneRecorder()
     answers = {}
 
     def tpch_oracle(q):
@@ -2877,13 +3124,19 @@ def main() -> int:
                       mesh_rec.view("tpch_mesh")),
         "tpch_mesh_sj": (eng_sj, QUERIES, tpch_oracle,
                          mesh_rec.view("tpch_mesh_sj")),
+        "tpch_q10": (eng_q10, QUERIES, lambda q: oracle(q, data_q10),
+                     q10_rec),
     }
     try:
         launches = slice_phase(bindings, suites)
     finally:
         recorder.close()
         mesh_rec.close()
+        q10_rec.close()
+    check(q10_rec.calls >= 3, "q10 at SF 0.4 did not take the "
+          "medium-domain lane")
     del suites["tpch_mesh"], suites["tpch_mesh_sj"], eng_mesh, eng_sj
+    del suites["tpch_q10"], eng_q10, data_q10
     served = serving_phase(
         bindings, {"tpch": eng, "clickbench": eng_cb},
         {"tpch": lambda q: oracle(q, data),
@@ -2977,7 +3230,12 @@ EXPECT_PATH = {
                   "q15": "distributed-map"},
     "tpch_mesh_sj": {"q14": "distributed-shuffle-join",
                      "q12": "distributed-shuffle-join"},
+    "tpch_q10": {"q10": "fused"},
 }
+# q10 groups by c_name alone: its domain is the name dictionary, 150,000
+# names per SF, so SF 0.4 gives 60,000 buckets, inside the medium-domain
+# lane's 513 to 65,535 (at SF1 the sorted lane takes it)
+Q10_SF = 0.4
 # the mesh path: TPC-H on a mesh that lists the card once per shard
 MESH_SHARDS = 4
 # the queries whose last join the shuffle join accepts (the rest decline
@@ -3031,6 +3289,9 @@ PATHS = (
     ("TPC-H on the mesh with the broadcast budget 1: the shuffle join",
      "tpch_mesh_sj", [(q, {}) for q in MESH_SHUFFLE_JOIN],
      ("segments", "compact", "probe", "sort", "segment_agg", "k1")),
+    ("TPC-H q10 at SF 0.4: the medium-domain lane (its 60,000 customer "
+     "names, bucket_perm then segment_agg)", "tpch_q10", [("q10", {})],
+     ("bucket_perm", "segment_agg", "probe", "k1")),
 )
 
 

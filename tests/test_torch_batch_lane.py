@@ -37,6 +37,7 @@ from ydb_tpu_torch.sql import parse as port_parse
 from ydb_tpu_torch.utils.metrics import GLOBAL
 
 from tests.tpch_util import assert_frames_match
+from tests import torch_threads  # noqa: F401,E402
 
 ROWS = 500
 

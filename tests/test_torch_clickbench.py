@@ -18,6 +18,7 @@ from ydb_tpu_torch.query import QueryEngine as PEngine
 
 from tests.clickbench_util import QUERIES
 from tests.tpch_util import assert_frames_match
+from tests import torch_threads  # noqa: F401,E402
 
 ROWS = 20_000
 

@@ -24,6 +24,7 @@ from ydb_tpu_torch.ops.cuda import bindings as K
 from ydb_tpu_torch.ops.torch_ns import to_tensor
 from ydb_tpu_torch.parallel import collective as PC
 from ydb_tpu_torch.parallel import make_mesh
+from tests import torch_threads  # noqa: F401,E402
 
 CAP = 1024
 

@@ -18,6 +18,7 @@ from ydb_tpu_torch import interop
 from ydb_tpu_torch.query import QueryEngine as PortEngine
 from ydb_tpu_torch.utils.config import Config
 from ydb_tpu_torch.utils.metrics import GLOBAL
+from tests import torch_threads  # noqa: F401,E402
 
 DOC = {"block_rows": 1024,
        "feature_flags": {"enable_fused": False, "enable_plan_cache": False}}

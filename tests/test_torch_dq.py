@@ -32,6 +32,7 @@ from ydb_tpu_torch.errors import NotPorted
 from ydb_tpu_torch.query import QueryEngine
 from ydb_tpu_torch.sql import parse
 from ydb_tpu_torch.utils.metrics import GLOBAL
+from tests import torch_threads  # noqa: F401,E402
 
 SF = 0.002
 NW = 4

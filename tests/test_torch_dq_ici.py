@@ -33,6 +33,7 @@ from ydb_tpu_torch.dq.lower import DqLowerError, DqTopology, lower_select
 from ydb_tpu_torch.dq.runner import DqTaskRunner, LocalWorker
 from ydb_tpu_torch.sql import parse
 from ydb_tpu_torch.utils.metrics import GLOBAL
+from tests import torch_threads  # noqa: F401,E402
 
 # the reference's declared quantization tolerance (tests/test_dq_ici.py)
 QUANT_RTOL = 2e-2

@@ -12,6 +12,7 @@ import re
 from pathlib import Path
 
 import pytest
+from tests import torch_threads  # noqa: F401,E402
 
 ROOT = Path(__file__).resolve().parent.parent
 _IMPORT = re.compile(r"(?m)^(\s*)(from|import) ydb_tpu(?=[. ])")

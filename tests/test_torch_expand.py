@@ -32,6 +32,7 @@ from ydb_tpu_torch.query import QueryEngine as PEngine
 from ydb_tpu_torch.storage.mvcc import WriteVersion as PWriteVersion
 
 from tests.tpch_util import assert_frames_match
+from tests import torch_threads  # noqa: F401,E402
 
 CPU = torch.device("cpu")
 RTOL = 1e-9

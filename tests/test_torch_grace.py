@@ -32,6 +32,7 @@ from ydb_tpu_torch.query.executor import Executor as PortExecutor
 
 from tests.torch_budget_util import engines, run_both  # noqa: F401
 from tests.tpch_util import QUERIES, assert_frames_match
+from tests import torch_threads  # noqa: F401,E402
 
 GRACE = ("q4", "q7", "q9", "q12", "q18", "q21")
 

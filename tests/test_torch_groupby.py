@@ -3,8 +3,8 @@ the reference's.
 
 The same seeded numpy blocks go through `ydb_tpu.ops.xla_exec.
 run_program` and `ydb_tpu_torch.ops.torch_exec.run_program(device=
-"cpu")`, which runs the `sort` and `segment_agg` kernels' plain
-versions. Without an ORDER BY the output order is the lane's own (key
+"cpu")`, which runs the `sort`, `bucket_perm` and `segment_agg`
+kernels' plain versions. Without an ORDER BY the output order is the lane's own (key
 order for the sorted lane, bucket order for the medium one), so rows are
 compared in order: keys, counts, validity and integers exactly, floats
 to rtol 1e-9 (segments are folded directly, the reference takes
@@ -24,6 +24,7 @@ from ydb_tpu_torch.ops import ir as pir, torch_exec
 from ydb_tpu_torch.ops.cuda import bindings
 
 from tests.test_torch_ops import _assert_same_block, _blocks
+from tests import torch_threads  # noqa: F401,E402
 
 AGGS = [("cnt", "count_all", None), ("cv", "count", "v"), ("s", "sum", "v"),
         ("mn", "min", "v"), ("mx", "max", "v"), ("sm", "some", "v")]
@@ -210,18 +211,32 @@ def test_medium_domain(rng, shape, filtered, monkeypatch):
     lane = torch_exec._groupby_medium_domain
     monkeypatch.setattr(torch_exec, "_groupby_medium_domain",
                         lambda *a, **k: calls.append(1) or lane(*a, **k))
+    perms = _count_bucket_perm(monkeypatch)
     _check(spec, arrays, valids, keys, filt=("d", 3) if filtered else None,
            key_domains=doms)
     assert calls, "the medium-domain lane did not run"
+    assert perms, "the medium-domain lane did not call bucket_perm"
 
 
-def test_medium_domain_carried_keys(rng):
+def _count_bucket_perm(monkeypatch) -> list:
+    """The lane's calls of the `bucket_perm` wrapper (K4's counting
+    sort), one entry each."""
+    perms = []
+    real = bindings.bucket_perm
+    monkeypatch.setattr(bindings, "bucket_perm",
+                        lambda *a, **k: perms.append(1) or real(*a, **k))
+    return perms
+
+
+def test_medium_domain_carried_keys(rng, monkeypatch):
     n = 5000
     k = rng.integers(0, 900, n)
     spec = [("k", "int64", False), ("kk", "int64", False),
             ("v", "float64", False)]
     arrays = {"k": k, "kk": k * 7, "v": rng.normal(size=n)}
+    perms = _count_bucket_perm(monkeypatch)
     _check(spec, arrays, {}, ["k"], key_domains=(900,), carry_keys=("kk",))
+    assert perms, "the medium-domain lane did not call bucket_perm"
 
 
 # --------------------------------------------------------------------------

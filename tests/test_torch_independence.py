@@ -7,6 +7,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from tests import torch_threads  # noqa: F401,E402
 
 ROOT = Path(__file__).resolve().parent.parent
 # `ydb_tpu_torch` starts with `ydb_tpu`: match the reference package only

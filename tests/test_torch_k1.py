@@ -45,6 +45,7 @@ from ydb_tpu_torch.bench import k1_sweep
 from ydb_tpu_torch.ops import ir, k1
 from ydb_tpu_torch.ops.kernels import KERNELS
 from ydb_tpu_torch.ops.torch_exec import PerMember
+from tests import torch_threads  # noqa: F401,E402
 
 N = 257
 SEED = 20261017

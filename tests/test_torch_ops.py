@@ -25,6 +25,7 @@ from ydb_tpu_torch.core.schema import Column as PColumn, Schema as PSchema
 from ydb_tpu_torch.ops import fused as pfused, ir as pir, join as pjoin
 from ydb_tpu_torch.ops import sort as psort, torch_exec
 from ydb_tpu_torch.ops.cuda import bindings
+from tests import torch_threads  # noqa: F401,E402
 
 CPU = torch.device("cpu")
 RTOL = 1e-9          # float sums: another summation order than XLA's

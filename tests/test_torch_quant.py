@@ -14,6 +14,7 @@ import torch
 from ydb_tpu.parallel import collective as RC
 from ydb_tpu_torch.ops.cuda import bindings as K
 from ydb_tpu_torch.parallel import collective as PC
+from tests import torch_threads  # noqa: F401,E402
 
 
 def _inputs(shape, dtype, seed):

@@ -20,6 +20,7 @@ from ydb_tpu_torch.query import QueryEngine as PortEngine
 from ydb_tpu_torch.utils.metrics import GLOBAL
 
 from tests.tpch_util import QUERIES, assert_frames_match
+from tests import torch_threads  # noqa: F401,E402
 
 SF = 0.002
 SLICE = tuple(f"q{i}" for i in range(1, 23))
@@ -55,6 +56,7 @@ def test_q10_medium_domain_lane_matches_reference(monkeypatch, late):
     and 65,535 buckets, so its group-by takes the medium-domain lane
     (K4) in both packages."""
     from ydb_tpu_torch.ops import torch_exec
+    from ydb_tpu_torch.ops.cuda import bindings
     monkeypatch.setenv("YDB_TPU_LATE_MAT", late)
     je, pe = _engines(0.01)
     calls = []
@@ -64,9 +66,14 @@ def test_q10_medium_domain_lane_matches_reference(monkeypatch, late):
         calls.append(1)
         return lane(*a, **k)
     monkeypatch.setattr(torch_exec, "_groupby_medium_domain", counted)
+    perms = []
+    real = bindings.bucket_perm
+    monkeypatch.setattr(bindings, "bucket_perm",
+                        lambda *a, **k: perms.append(1) or real(*a, **k))
     want = je.query(QUERIES["q10"])
     got = pe.query(QUERIES["q10"])
     assert calls, "q10 did not take the medium-domain lane"
+    assert perms, "q10's medium-domain lane did not call bucket_perm"
     assert pe.executor.last_path == "fused"
     assert_frames_match(got, want, ordered=True)
 

@@ -32,6 +32,7 @@ from ydb_tpu_torch.ops import spill as PS
 from ydb_tpu_torch.ops.cuda import bindings as B
 from ydb_tpu_torch.ops.device import DeviceBlock
 from ydb_tpu_torch.query.plan import SortKey
+from tests import torch_threads  # noqa: F401,E402
 
 FLOATS = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.5, -2.5, 1e300,
                    9.3e18, -9.3e18, 7.0])

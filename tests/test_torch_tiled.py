@@ -18,6 +18,7 @@ import pytest
 
 from tests.torch_budget_util import engines, run_both  # noqa: F401
 from tests.tpch_util import QUERIES
+from tests import torch_threads  # noqa: F401,E402
 
 LANES = {"fused-tiled": ("q5", "q6", "q14", "q17", "q19"),
          "fused-tiled-spill": ("q1", "q3", "q8", "q10", "q11", "q16", "q22"),

@@ -24,6 +24,7 @@ from ydb_tpu_torch.utils.config import Config as PConfig
 
 from tests.tpcds_util import QUERIES
 from tests.tpch_util import assert_frames_match
+from tests import torch_threads  # noqa: F401,E402
 
 WINDOWED = ("ds12", "ds20", "ds44", "ds47", "ds53", "ds63", "ds67", "ds70",
             "ds89", "ds98")

@@ -27,6 +27,7 @@ from ydb_tpu_torch.parallel import make_mesh
 from ydb_tpu_torch.query import QueryEngine as PortEngine
 
 from tests.tpch_util import QUERIES, assert_frames_match, oracle
+from tests import torch_threads  # noqa: F401,E402
 
 SF = 0.002
 QUICK = ("q1", "q4", "q6", "q11", "q12", "q14", "q15", "q19")

@@ -26,6 +26,7 @@ from ydb_tpu_torch.core.schema import Column as PColumn, Schema as PSchema
 from ydb_tpu_torch.ops import window_dev as pwin
 from ydb_tpu_torch.ops.cuda import bindings
 from ydb_tpu_torch.storage.mvcc import WriteVersion
+from tests import torch_threads  # noqa: F401,E402
 
 RTOL = 1e-9
 UNB_PRE = ("unbounded", -1)

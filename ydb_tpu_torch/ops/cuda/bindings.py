@@ -17,6 +17,9 @@ a non-zero code raises.
 | probe        | ops/join.py probe_lut_traced, bsearch_traced,             |
 |              | _select_and_gather                                        |
 | sort         | ops/sort.py _sort_impl (the lax.sort of the operands)     |
+| bucket_perm  | the order ops/xla_exec.py _groupby_medium_domain folds in |
+|              | (it scatter-reduces; the port sorts by bucket id, then    |
+|              | segment_agg folds each run)                               |
 | segment_agg  | ops/xla_exec.py _trace_group_by_sorted (boundaries, group |
 |              | starts, per-group folds), _groupby_medium_domain          |
 | hash64       | utils/hashing.py splitmix64, hash_combine (device side)   |
@@ -40,8 +43,9 @@ a non-zero code raises.
 
 Each launch name builds from ``csrc/<library>.cu`` (``expand_counts``
 and ``expand_gather`` share ``expand.cu``, the two codec entries
-``quant.cu``, the bucket plane and the counts ``dq_counts.cu``; each
-``*_batched`` entry is in its kernel's source).
+``quant.cu``, the bucket plane and the counts ``dq_counts.cu``;
+``bucket_perm`` is ``bucket_sort.cu``; each ``*_batched`` entry is in
+its kernel's source).
 
 Member axis (the batched serving lane): B same-shape queries run as one.
 An input of a ``*_batched`` wrapper is either shared, shape (n,), or per
@@ -90,6 +94,9 @@ _SIGS = {
                      _PI32, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P, _P, _P, _I32, _P]),
     "hash64": ("hash64", "hash64_launch", [_I64, _I32, _PI64, _PI32, _P, _P]),
+    "bucket_perm": ("bucket_sort", "bucket_perm_launch",
+                    [_I64, _P, _I64, _P, _I32, _I32, _P, _P, _P, _P, _P, _P,
+                     _P, _P, _P]),
     "window_scan": ("window_scan", "window_scan_launch",
                     [_I64, _P, _I32, _I32, _PI64, _I32, _PI32, _PI32, _PI32,
                      _PI64, _PI64, _PI64, _I64, _P, _P, _P, _P, _P, _P]),
@@ -767,10 +774,82 @@ def sort_perm_plain(keys: list, n: int, device) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# bucket_perm
+# --------------------------------------------------------------------------
+
+_MAX_SORT_BUCKETS = 65535        # bucket_sort.cu: 16-bit ids, one spare
+_MAX_SORT_MEMBERS = 65535
+_BS_TILE = 4096                  # rows per block (bin_scan.cuh TILE_ROWS)
+_BS_BINS = 257                   # 256 digits + the inactive rows' bin
+_BS_SCAN_CHUNK = 8192            # bin_scan.cuh SCAN_CHUNK
+
+
+def bucket_perm(kid: torch.Tensor, active: torch.Tensor,
+                nbuckets: int) -> torch.Tensor:
+    """int32 permutation that puts the active rows first, in (bucket id,
+    row id) order, then the inactive rows: on its active prefix what
+    ``sort_perm([encode_key(~active), encode_key(kid)])`` gives.
+
+    kid: int32 bucket ids in [0, nbuckets), nbuckets <= 65,535; active:
+    bool per row. Member form (the batched lane's per-member bucket ids):
+    kid and active (B, cap), and the B·cap rows (member-major, as
+    ``active.reshape(-1)``) ordered by (member, bucket id, row)."""
+    dev = active.device
+    if dev.type != "cuda":
+        return bucket_perm_plain(kid, active, nbuckets)
+    if not 1 <= nbuckets <= _MAX_SORT_BUCKETS:
+        raise ValueError(f"{nbuckets} buckets (1 to {_MAX_SORT_BUCKETS})")
+    members, cap = active.shape if active.dim() == 2 else (0, active.numel())
+    if members > _MAX_SORT_MEMBERS:
+        raise ValueError(f"{members} members (at most {_MAX_SORT_MEMBERS})")
+    if kid.shape != active.shape:
+        raise ValueError(f"kid: shape {tuple(kid.shape)}, expected "
+                         f"{tuple(active.shape)}")
+    if not (kid.is_contiguous() and active.is_contiguous()):
+        raise ValueError("kid, active: not contiguous")
+    n = active.numel()
+    _check(active.reshape(-1), "active", dev, n, (torch.bool,))
+    _check(kid.reshape(-1), "kid", dev, n, (torch.int32,))
+    if n >= 1 << 31:
+        raise ValueError(f"{n} rows (at most 2^31 - 1)")
+    ntiles = (n + _BS_TILE - 1) // _BS_TILE
+    e = max(_BS_BINS * ntiles, 1)
+    i32 = dict(dtype=torch.int32, device=dev)
+    perm = torch.empty(n, **i32)
+    passes = 1 + (nbuckets > 256) + (members > 1) + (members > 256)
+    m = n if passes > 1 else 1
+    ping = [torch.empty(m, **i32) for _ in range(4)]
+    hist = torch.empty(e, **i32)
+    offs = torch.empty(e, **i32)
+    chunk_sums = torch.empty(max((e + _BS_SCAN_CHUNK - 1) // _BS_SCAN_CHUNK,
+                                 1), **i32)
+    _launch("bucket_perm", n, _ptr(kid), cap, _ptr(active), nbuckets,
+            members, _ptr(perm), *[_ptr(t) for t in ping],
+            _ptr(hist), _ptr(offs), _ptr(chunk_sums), _stream())
+    return perm
+
+
+def bucket_perm_plain(kid, active, nbuckets: int) -> torch.Tensor:
+    """Plain PyTorch version of `bucket_perm`: one stable sort of the
+    bucket id, the inactive rows mapped past every bucket (the member
+    form: of member · nbuckets + bucket id)."""
+    if active.dim() == 2:
+        members = active.shape[0]
+        member = torch.arange(members, dtype=torch.int64,
+                              device=active.device)[:, None]
+        key = member * nbuckets + kid.to(torch.int64)
+        key = torch.where(active, key, members * nbuckets).reshape(-1)
+    else:
+        key = torch.where(active, kid.to(torch.int64), nbuckets)
+    return torch.sort(key, stable=True).indices.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
 # segment_agg
 # --------------------------------------------------------------------------
 
-_SEG_TILE = 1024                 # sorted rows per block (segment_agg.cu)
+_SEG_TILE = 2048                 # sorted rows per block (segment_agg.cu)
+_SEG_MAX_AGGS = 8                # aggregates per launch (segment_agg.cu)
 
 
 def segment_agg(perm: torch.Tensor, keys: list, active: torch.Tensor,
@@ -811,19 +890,22 @@ def segment_agg(perm: torch.Tensor, keys: list, active: torch.Tensor,
             _check(valid, f"{func} valid", dev, n, (torch.bool,))
     T = max((n + _SEG_TILE - 1) // _SEG_TILE, 1)
     i64 = dict(dtype=torch.int64, device=dev)
-    flags = torch.empty(n, dtype=torch.uint8, device=dev)
-    tile_cnt = torch.empty(T, dtype=torch.int32, device=dev)
+    # per tile: its group starts, then its head's length in rows
+    tile_cnt = torch.empty(2 * T, dtype=torch.int32, device=dev)
     tile_off = torch.empty(T, **i64)
-    ngroups = torch.zeros((), dtype=torch.int32, device=dev)
-    lead = torch.zeros(oc, dtype=torch.int32, device=dev)
-    present = torch.zeros(oc, **i64)
+    ngroups = torch.empty((), dtype=torch.int32, device=dev)
+    # the kernel writes every slot (zeros past ngroups)
+    lead = torch.empty(oc, dtype=torch.int32, device=dev)
+    present = torch.empty(oc, **i64)
     vals, cnts = [], []
-    chunks = [aggs[i:i + _MAX_AGGS] for i in range(0, len(aggs), _MAX_AGGS)] \
-        or [[]]
+    chunks = [aggs[i:i + _SEG_MAX_AGGS]
+              for i in range(0, len(aggs), _SEG_MAX_AGGS)] or [[]]
+    # per chunk: the tiles' look-back words and the ticket counter
+    status = torch.zeros((len(chunks), T + 1), **i64)
     for j, chunk in enumerate(chunks):
         A = len(chunk)
-        out_val = torch.zeros((A, oc), **i64)
-        out_cnt = torch.zeros((A, oc), **i64)
+        out_val = torch.empty((A, oc), **i64)
+        out_cnt = torch.empty((A, oc), **i64)
         # per-tile head and tail partials: (value, count) per aggregate,
         # and the active row count
         parts = [torch.empty(n_, **i64) for _ in ("head", "tail")
@@ -838,7 +920,7 @@ def segment_agg(perm: torch.Tensor, keys: list, active: torch.Tensor,
                 _arr(ctypes.c_int64, [_ptr(v) or 0 for (_f, _d, v, _u)
                                       in chunk]),
                 _arr(ctypes.c_int32, [AGG_FUNCS[f] for (f, *_r) in chunk]),
-                _arr(ctypes.c_int32, types), oc, _ptr(flags),
+                _arr(ctypes.c_int32, types), oc, _ptr(status[j]),
                 _ptr(tile_cnt), _ptr(tile_off), _ptr(ngroups), _ptr(lead),
                 _ptr(out_val), _ptr(out_cnt), _ptr(present),
                 *[_ptr(p) for p in parts], 1 if j == 0 else 0, _stream())
@@ -935,19 +1017,20 @@ def segment_agg_batched(perm: torch.Tensor, keys: list, masks: torch.Tensor,
     union = masks.any(0)
     T = max((n + _SEG_TILE - 1) // _SEG_TILE, 1)
     i64 = dict(dtype=torch.int64, device=dev)
-    flags = torch.empty(n, dtype=torch.uint8, device=dev)
-    tile_cnt = torch.empty(T, dtype=torch.int32, device=dev)
+    # per tile: its group starts, then its head's length in rows
+    tile_cnt = torch.empty(2 * T, dtype=torch.int32, device=dev)
     tile_off = torch.empty(T, **i64)
-    ngroups_u = torch.zeros((), dtype=torch.int32, device=dev)
-    present = torch.zeros((B, oc), **i64)
+    ngroups_u = torch.empty((), dtype=torch.int32, device=dev)
+    present = torch.empty((B, oc), **i64)      # every slot written
     cols = [present]
     where = []                   # (spec index, "v" | "c") per later column
-    chunks = [specs[i:i + _MAX_AGGS]
-              for i in range(0, len(specs), _MAX_AGGS)]
+    chunks = [specs[i:i + _SEG_MAX_AGGS]
+              for i in range(0, len(specs), _SEG_MAX_AGGS)]
+    status = torch.zeros((len(chunks), T + 1), **i64)
     for j, chunk in enumerate(chunks):
         A = len(chunk)
-        out_val = torch.zeros((B, A, oc), **i64)
-        out_cnt = torch.zeros((B, A, oc), **i64)
+        out_val = torch.empty((B, A, oc), **i64)
+        out_cnt = torch.empty((B, A, oc), **i64)
         parts = [torch.empty(n_, **i64) for _ in ("head", "tail")
                  for n_ in (B * A * T, B * A * T, B * T)]
         types = [0 if (d is not None and d.dtype == torch.float64)
@@ -960,11 +1043,11 @@ def segment_agg_batched(perm: torch.Tensor, keys: list, masks: torch.Tensor,
                 _arr(ctypes.c_int64, [_ptr(c[2]) or 0 for c in chunk]),
                 _arr(ctypes.c_int64, [c[5] for c in chunk]),
                 _arr(ctypes.c_int32, [AGG_FUNCS[c[0]] for c in chunk]),
-                _arr(ctypes.c_int32, types), oc, _ptr(flags),
+                _arr(ctypes.c_int32, types), oc, _ptr(status[j]),
                 _ptr(tile_cnt), _ptr(tile_off), _ptr(ngroups_u),
                 _ptr(out_val), _ptr(out_cnt), _ptr(present),
                 *[_ptr(p) for p in parts], 1 if j == 0 else 0, _stream())
-        base = j * _MAX_AGGS
+        base = j * _SEG_MAX_AGGS
         for a in range(A):
             cols += [out_val[:, a], out_cnt[:, a]]
             where += [(base + a, "v"), (base + a, "c")]

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
 KERNELS = ("bucket_agg", "compact", "probe", "sort", "segment_agg",
            "hash64", "window_scan", "expand", "partition", "segments",
-           "quant", "dq_counts")
+           "quant", "dq_counts", "bucket_sort")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 

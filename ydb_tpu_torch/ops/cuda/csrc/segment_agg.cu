@@ -6,50 +6,80 @@
 // the front of the output capacity, and count / sum / min / max / first
 // per group — what _gather_sorted, _csum_diffs and _segment_scan built for
 // XLA. The medium-domain lane (_groupby_medium_domain) uses it too, with
-// the bucket id as the only key.
+// the bucket id as the only key, after bucket_sort.cu's permutation.
 // Bound on the H100: bytes. Each sorted position reads its permutation
 // entry and, through it, the row's activity, key words and one 8-byte
-// value and validity byte per aggregate; the outputs are a few words per
-// group. The reads through the permutation are gathers: coalesced where
-// the input is already nearly in key order (lineitem by l_orderkey),
-// scattered otherwise.
-// Design: values are read through the permutation inside the kernel, so
-// nothing is gathered into sorted order at scan capacity. Four launches:
-// (1) seg_flags marks each sorted row that starts a group and counts the
-// starts of each 1024-row tile; (2) seg_scan turns the tile counts into
-// each tile's first group id and ngroups; (3) seg_reduce cuts each tile
-// into pieces at its group starts: pieces shorter than 32 rows are folded
-// by one thread in row order, longer ones by one warp (lanes fold rows in
-// registers, then a fixed shuffle tree), so a group holding half the scan
-// spreads over thousands of tiles instead of serializing one warp. Groups
-// that start and end inside a tile are written at once; the piece before
-// a tile's first start (its head) and the piece from its last start to
-// its end (its tail) go to per-tile partials; (4) seg_fix gives a warp to
-// each tile's last group and folds its tail with the heads of the
-// following tiles up to the next start, in tile order. Sums fold each
-// segment directly (no cumulative-sum differences), without atomics, in
-// an order fixed by the input: float sums repeat bit for bit.
+// value and validity byte per aggregate; every output slot (oc of them:
+// lead, present, a value and a count per aggregate) is written once. The
+// reads through the permutation are gathers: coalesced where the input is
+// already nearly in key order (lineitem by l_orderkey), scattered
+// otherwise (the medium-domain lane).
+// Design: two launches and no atomics on values.
+// (1) seg_fold: a block takes the next 2,048 sorted rows by ticket (an
+// atomic counter, so tiles start in order); each of its 8 warps walks
+// 256 rows as 8 strips of 32, one row a lane. A lane reads its
+// permutation entry and the row's activity and key words once; its
+// predecessor's words come from the neighbouring lane (__shfl_up_sync),
+// so a start flag costs no second gather. Rows past the first inactive
+// one are not read (the active rows come first). The block counts its
+// starts and finds its first group id by a decoupled look-back over the
+// earlier tiles' published counts, then folds: each lane loads its
+// row's values once; a strip of 32 rows inside one group that began
+// before it is folded by a fixed shuffle tree and added to the carried
+// group; in any other strip the first lane of every piece (the rows
+// between two starts) folds the piece row by row, taking its rows from
+// the lanes above it by shuffles, and a piece that runs into the next
+// strip is carried in registers, its fold going on there. Across warps,
+// each warp's head (rows before its first start) and tail (its last
+// group so far) are combined in warp order in shared memory; a tile's
+// own head and tail go to per-tile partials. (2) seg_fix: a warp per
+// tile with a start folds the tile's tail with the heads of the
+// following tiles up to the next start, in tile order, and the grid
+// writes zeros to the slots past ngroups, so the caller allocates its
+// outputs without clearing them. A head shorter than SHORT rows joins
+// the group before it row by row (its warp loads the rows again and
+// hands them to one lane in order), not as a partial: so a group of up
+// to SHORT rows is always folded from the identity one row at a time in
+// sorted order — the old kernel's order for such groups — wherever the
+// strips, warps and tiles cut it, and two layouts of the same rows (the
+// DQ planes) give the same bits. Longer groups combine partials in an
+// order fixed by their position. Accumulators live in registers: the
+// fold is a template on the number of aggregates (1, 2, 4 or 8, the
+// slots past a call's count inert; the wrapper runs more aggregates in
+// chunks of 8) and on the member axis, every array indexed by
+// compile-time constants (the key words, read once a row, loop at run
+// time: unrolled, they cost registers and time); both kernels declare
+// one resident block as their floor (__launch_bounds__(THREADS, 1)),
+// without which ptxas held some instantiations below the registers they
+// need and spilled. Every combining order
+// is fixed by the input, so float sums repeat bit for bit from run to
+// run.
 // Member axis (segment_agg_batched_launch, the batched serving lane): B
 // members share one sort — the rows active in any member first, by key —
 // and differ in their masks (and in any per-member value column). The
-// runs of equal keys are cut once, over the union of the masks (launches
-// 1 and 2 as above); seg_reduce stages each tile's permutation and run
-// starts once and folds the tile for each member in turn, and seg_fix
-// takes a warp per (tile, member). Each member gets a partial per run;
-// the caller keeps the runs where the member has rows (compact_batched),
-// which are exactly the groups a sort of that member's rows alone gives.
+// runs of equal keys are cut once, over the union of the masks; the fold
+// loads each member's mask and values through the same rows in turn, and
+// seg_fix takes a warp per (tile, member). Each member gets a partial per
+// run; the caller keeps the runs where the member has rows
+// (compact_batched), which are exactly the groups a sort of that
+// member's rows alone gives.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define MAX_AGGS 16
+#define MAX_AGGS 8
 #define MAX_KEYS 16
-#define TILE 1024
 #define THREADS 256
 #define WARPS (THREADS / 32)
-#define PER_THREAD (TILE / THREADS)
-#define LONG_PIECE 32                     // rows; a warp folds longer ones
+#define STRIPS 8                          // 32-row strips a warp walks
+#define WARP_ROWS (32 * STRIPS)
+#define TILE (WARPS * WARP_ROWS)          // sorted rows per block
 #define FULL 0xffffffffu
+#define SHORT 32                          // rows: a group this short or
+                                          // shorter folds row by row
+#define FLAG_AGG (1ull << 62)             // a tile's own count is published
+#define FLAG_PRE (2ull << 62)             // its inclusive prefix is
+#define VALUE_MASK ((1ull << 62) - 1)
 
 enum { F_COUNT = 0, F_SUM = 1, F_MIN = 2, F_MAX = 3, F_FIRST = 4 };
 enum { T_F64 = 0, T_I64 = 1, T_U64 = 2 };
@@ -129,281 +159,539 @@ __device__ __forceinline__ uint64_t combine(int f, int t, uint64_t a,
   return a;
 }
 
-__device__ __forceinline__ void init(const AggSpec& spec, uint64_t* la,
-                                     uint64_t* lc) {
+// A running fold of A aggregate slots (slots past spec.n_aggs are inert)
+// and the count of active rows. Every loop over it unrolls, so it stays
+// in registers.
+template <int A>
+struct Acc {
+  uint64_t v[A];
+  uint32_t c[A];
+  uint32_t p;
+};
+
+template <int A>
+__device__ __forceinline__ void acc_init(const AggSpec& s, Acc<A>& x) {
 #pragma unroll
-  for (int a = 0; a < MAX_AGGS; ++a) {
-    la[a] = identity(spec.func[a], spec.type[a]);
-    lc[a] = 0;
+  for (int a = 0; a < A; ++a) {
+    x.v[a] = identity(s.func[a], s.type[a]);
+    x.c[a] = 0;
   }
+  x.p = 0;
 }
 
-// fold original row r (an active row of member b) into the running
-// partial; MEMBERS = false (a single query) folds the stride terms away
-template <bool MEMBERS>
-__device__ __forceinline__ void fold_row(const AggSpec& spec, int32_t r,
-                                         int64_t b, uint64_t* la,
-                                         uint64_t* lc) {
+// x = x (+) y, x first
+template <int A>
+__device__ __forceinline__ void acc_add(const AggSpec& s, Acc<A>& x,
+                                        const Acc<A>& y) {
 #pragma unroll
-  for (int a = 0; a < MAX_AGGS; ++a) {
-    const int64_t vr = MEMBERS ? b * spec.vstride[a] + r : r;
-    const int64_t dr = MEMBERS ? b * spec.dstride[a] + r : r;
-    if (a < spec.n_aggs &&
-        (spec.valid[a] == nullptr || spec.valid[a][vr] != 0)) {
-      ++lc[a];
-      const int f = spec.func[a];
-      if (f == F_FIRST) la[a] = combine(f, spec.type[a], la[a], (uint64_t)r);
-      else if (f != F_COUNT)
-        la[a] = combine(f, spec.type[a], la[a], spec.data[a][dr]);
+  for (int a = 0; a < A; ++a)
+    if (a < s.n_aggs) {
+      x.v[a] = combine(s.func[a], s.type[a], x.v[a], y.v[a]);
+      x.c[a] += y.c[a];
     }
-  }
+  x.p += y.p;
 }
 
-__device__ __forceinline__ void warp_fold_all(const AggSpec& spec,
-                                              uint64_t* la, uint64_t* lc,
-                                              uint64_t* lp) {
-  for (int off = 16; off > 0; off >>= 1) {
+// lane `src`'s fold, on every lane
+template <int A>
+__device__ __forceinline__ void acc_bcast(const AggSpec& s, Acc<A>& out,
+                                          const Acc<A>& x, int src) {
 #pragma unroll
-    for (int a = 0; a < MAX_AGGS; ++a) {
-      if (a < spec.n_aggs) {
-        const uint64_t y = __shfl_down_sync(FULL, la[a], off);
-        la[a] = combine(spec.func[a], spec.type[a], la[a], y);
-        lc[a] += __shfl_down_sync(FULL, lc[a], off);
+  for (int a = 0; a < A; ++a)
+    if (a < s.n_aggs) {
+      out.v[a] = __shfl_sync(FULL, x.v[a], src);
+      out.c[a] = __shfl_sync(FULL, x.c[a], src);
+    }
+  out.p = __shfl_sync(FULL, x.p, src);
+}
+
+// the row's contribution: its values where it is active for the member
+// and valid, the identity elsewhere
+template <int A, bool MEMBERS>
+__device__ __forceinline__ void acc_row(const AggSpec& s, int32_t r,
+                                        int64_t b, bool on, Acc<A>& x) {
+#pragma unroll
+  for (int a = 0; a < A; ++a) {
+    uint64_t v = identity(s.func[a], s.type[a]);
+    uint32_t c = 0;
+    if (a < s.n_aggs && on) {
+      const int64_t vr = MEMBERS ? b * s.vstride[a] + r : r;
+      if (s.valid[a] == nullptr || s.valid[a][vr] != 0) {
+        c = 1;
+        if (s.func[a] == F_FIRST) {
+          v = (uint64_t)r;
+        } else if (s.func[a] != F_COUNT) {
+          const int64_t dr = MEMBERS ? b * s.dstride[a] + r : r;
+          v = s.data[a][dr];
+        }
       }
     }
-    *lp += __shfl_down_sync(FULL, *lp, off);
+    x.v[a] = v;
+    x.c[a] = c;
+  }
+  x.p = on ? 1u : 0u;
+}
+
+// rows i0 .. i0 + len - 1 (len <= 32) of the sorted order folded into
+// lane 0's acc one by one, in row order (a short head that ends a group
+// from before): each lane loads one row, lane 0 takes them in turn
+template <int A, bool MEMBERS>
+__device__ __forceinline__ void warp_rows(const AggSpec& s,
+                                          const int32_t* perm,
+                                          const uint8_t* active,
+                                          const uint8_t* mask, int64_t b,
+                                          int64_t i0, int len, Acc<A>& acc) {
+  const int lane = threadIdx.x & 31;
+  int32_t r = 0;
+  bool on = false;
+  if (lane < len) {
+    r = perm[i0 + lane];
+    on = active[r] != 0;
+    if (MEMBERS && on) on = mask[r] != 0;
+  }
+  Acc<A> x;
+  acc_row<A, MEMBERS>(s, r, b, on, x);
+  for (int k = 0; k < len; ++k) {
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+      if (a < s.n_aggs) {
+        const uint64_t y = __shfl_sync(FULL, x.v[a], k);
+        const uint32_t c = __shfl_sync(FULL, x.c[a], k);
+        if (lane == 0) {
+          acc.v[a] = combine(s.func[a], s.type[a], acc.v[a], y);
+          acc.c[a] += c;
+        }
+      }
+    const uint32_t p = __shfl_sync(FULL, x.p, k);
+    if (lane == 0) acc.p += p;
   }
 }
 
-__device__ __forceinline__ void store_raw(const AggSpec& spec, Part P,
-                                          int64_t slot, const uint64_t* la,
-                                          const uint64_t* lc, uint64_t lp) {
-  for (int a = 0; a < spec.n_aggs; ++a) {
-    P.val[a * P.stride + slot] = la[a];
-    P.cnt[a * P.stride + slot] = lc[a];
+// the whole warp's fold, in lane 0 (a fixed shuffle tree)
+template <int A>
+__device__ __forceinline__ void acc_warp_fold(const AggSpec& s, Acc<A>& x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+      if (a < s.n_aggs) {
+        const uint64_t y = __shfl_down_sync(FULL, x.v[a], off);
+        const uint32_t c = __shfl_down_sync(FULL, x.c[a], off);
+        x.v[a] = combine(s.func[a], s.type[a], x.v[a], y);
+        x.c[a] += c;
+      }
+    x.p += __shfl_down_sync(FULL, x.p, off);
   }
-  P.pres[slot] = lp;
+}
+
+template <int A>
+__device__ __forceinline__ void store_raw(const AggSpec& s, Part P,
+                                          int64_t slot, const Acc<A>& x) {
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+    if (a < s.n_aggs) {
+      P.val[a * P.stride + slot] = x.v[a];
+      P.cnt[a * P.stride + slot] = x.c[a];
+    }
+  P.pres[slot] = x.p;
+}
+
+template <int A>
+__device__ __forceinline__ void load_raw(const AggSpec& s, Part P,
+                                         int64_t slot, Acc<A>& x) {
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+    if (a < s.n_aggs) {
+      x.v[a] = P.val[a * P.stride + slot];
+      x.c[a] = (uint32_t)P.cnt[a * P.stride + slot];
+    }
+  x.p = (uint32_t)P.pres[slot];
 }
 
 // a finished group: counts as values for count, typed zero for min / max
 // with no valid row, n for first with none
-__device__ __forceinline__ void store_final(const AggSpec& spec, Part P,
-                                            int64_t slot, const uint64_t* la,
-                                            const uint64_t* lc, uint64_t lp,
-                                            int64_t n) {
-  for (int a = 0; a < spec.n_aggs; ++a) {
-    const int f = spec.func[a];
-    uint64_t v = la[a];
-    if (f == F_COUNT) v = lc[a];
-    else if ((f == F_MIN || f == F_MAX) && lc[a] == 0) v = 0;
-    else if (f == F_FIRST && lc[a] == 0) v = (uint64_t)n;
-    P.val[a * P.stride + slot] = v;
-    P.cnt[a * P.stride + slot] = lc[a];
-  }
-  P.pres[slot] = lp;
-}
-
-__global__ void __launch_bounds__(THREADS)
-seg_flags(int64_t n, const int32_t* perm, Keys K, const uint8_t* active,
-          uint8_t* flags, int32_t* tile_cnt) {
-  const int64_t base = (int64_t)blockIdx.x * TILE;
-  int count = 0;
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int64_t i = base + j * THREADS + threadIdx.x;
-    bool f = false;
-    if (i < n) {
-      const int32_t r = perm[i];
-      if (active[r]) {
-        if (i == 0) {
-          f = true;
-        } else {
-          const int32_t q = perm[i - 1];
-          f = active[q] == 0;
-          for (int k = 0; k < K.n && !f; ++k) f = K.k[k][r] != K.k[k][q];
-        }
-      }
-      flags[i] = f;
+template <int A>
+__device__ __forceinline__ void store_final(const AggSpec& s, Part P,
+                                            int64_t slot, const Acc<A>& x,
+                                            int64_t n, bool write_pres) {
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+    if (a < s.n_aggs) {
+      const int f = s.func[a];
+      uint64_t v = x.v[a];
+      if (f == F_COUNT) v = x.c[a];
+      else if ((f == F_MIN || f == F_MAX) && x.c[a] == 0) v = 0;
+      else if (f == F_FIRST && x.c[a] == 0) v = (uint64_t)n;
+      P.val[a * P.stride + slot] = v;
+      P.cnt[a * P.stride + slot] = x.c[a];
     }
-    count += __syncthreads_count(f);
-  }
-  if (threadIdx.x == 0) tile_cnt[blockIdx.x] = count;
+  if (write_pres) P.pres[slot] = x.p;
 }
 
-// one block: exclusive scan of the tile counts, and their total
-__global__ void seg_scan(int64_t T, const int32_t* tile_cnt,
-                         int64_t* tile_off, int32_t* ngroups) {
-  __shared__ int64_t s[1024];
-  const int64_t per = (T + blockDim.x - 1) / blockDim.x;
-  const int64_t lo = threadIdx.x * per;
-  const int64_t hi = lo + per < T ? lo + per : T;
-  int64_t sum = 0;
-  for (int64_t i = lo; i < hi; ++i) sum += tile_cnt[i];
-  s[threadIdx.x] = sum;
-  __syncthreads();
-  for (int off = 1; off < (int)blockDim.x; off <<= 1) {
-    const int64_t v = threadIdx.x >= (unsigned)off ? s[threadIdx.x - off] : 0;
-    __syncthreads();
-    s[threadIdx.x] += v;
-    __syncthreads();
-  }
-  int64_t run = s[threadIdx.x] - sum;
-  for (int64_t i = lo; i < hi; ++i) {
-    tile_off[i] = run;
-    run += tile_cnt[i];
-  }
-  if (threadIdx.x == blockDim.x - 1) *ngroups = (int32_t)s[blockDim.x - 1];
+__device__ __forceinline__ uint64_t load_status(const uint64_t* p) {
+  return *(const volatile uint64_t*)p;
 }
 
-// B members: member b's activity is masks[b * mask_stride + row]
-template <bool MEMBERS>
-__global__ void __launch_bounds__(THREADS)
-seg_reduce(int64_t n, const int32_t* perm, int B, const uint8_t* masks,
-           int64_t mask_stride, const uint8_t* flags,
-           const int32_t* tile_cnt, const int64_t* tile_off, int64_t oc,
-           AggSpec spec, int write_lead, int32_t* lead, Part out, Part head,
-           Part tail) {
-  __shared__ int32_t s_row[TILE];
-  __shared__ uint8_t s_act[TILE];
-  __shared__ uint8_t s_flag[TILE];
-  __shared__ int16_t s_start[TILE];
-  __shared__ int s_wsum[WARPS];
+__device__ __forceinline__ void store_status(uint64_t* p, uint64_t v) {
+  *(volatile uint64_t*)p = v;
+}
+
+// B members: member b's activity is masks[b * mask_stride + row]; with
+// MEMBERS false `masks` is the single query's activity (= active).
+template <int A, bool MEMBERS>
+__global__ void __launch_bounds__(THREADS, 1)
+seg_fold(int64_t n, const int32_t* perm, Keys K, const uint8_t* active,
+         int B, const uint8_t* masks, int64_t mask_stride, int64_t oc,
+         AggSpec spec, int write_lead, int write_pres, int32_t* lead,
+         Part out, Part head, Part tail, uint64_t* status, int64_t T,
+         int32_t* tile_cnt, int64_t* tile_off, int32_t* ngroups) {
+  __shared__ int64_t s_tile, s_g0;
+  __shared__ int s_cnt[WARPS], s_excl[WARPS], s_hlen[WARPS];
+  __shared__ Acc<A> s_head[WARPS], s_tail[WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t t = blockIdx.x, base = t * TILE;
-  const int len = (int)(n - base < TILE ? n - base : TILE);
-  for (int i = threadIdx.x; i < TILE; i += THREADS) {
-    int32_t r = 0;
-    uint8_t a = 0, f = 0;
-    if (i < len) {
-      r = perm[base + i];
-      if (!MEMBERS) a = masks[r];      // a single query's activity
-      f = flags[base + i];
-    }
-    s_row[i] = r;
-    s_act[i] = a;
-    s_flag[i] = f;
-  }
+  const unsigned below = (1u << lane) - 1u;
+  if (threadIdx.x == 0)
+    s_tile = (int64_t)atomicAdd((unsigned long long*)&status[T], 1ull);
   __syncthreads();
-  // positions of the tile's group starts, in order (block prefix sum)
-  int c = 0;
-  for (int j = 0; j < PER_THREAD; ++j) c += s_flag[threadIdx.x * PER_THREAD + j];
-  int x = c;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(FULL, x, off);
-    if (lane >= off) x += y;
-  }
-  if (lane == 31) s_wsum[warp] = x;
-  __syncthreads();
-  int pos = x - c;
-  for (int w = 0; w < warp; ++w) pos += s_wsum[w];
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int i = threadIdx.x * PER_THREAD + j;
-    if (s_flag[i]) s_start[pos++] = (int16_t)i;
-  }
-  __syncthreads();
-  const int nb = tile_cnt[t];
-  const int64_t g0 = tile_off[t];
-  if (write_lead)
-    for (int j = threadIdx.x; j < nb; j += THREADS)
-      if (g0 + j < oc) lead[g0 + j] = s_row[s_start[j]];
+  const int64_t t = s_tile;
+  const int64_t wbase = t * TILE + (int64_t)warp * WARP_ROWS;
 
-  // piece p in [0, nb]: p = 0 is the head (rows before the first start),
-  // piece p >= 1 starts at the p-th start; piece nb (nb >= 1) is the tail
-  uint64_t la[MAX_AGGS], lc[MAX_AGGS];
-  for (int64_t b = 0; b < B; ++b) {
-    const uint8_t* active = masks + b * mask_stride;
+  // (1) the warp's rows, their activity and start flags
+  int32_t rr[STRIPS];
+  unsigned sm[STRIPS];
+  unsigned act = 0;                       // bit s: this lane's row is active
+  int32_t prev_r = 0;
+  bool prev_a = false;
+  if (wbase > 0 && wbase < n) {           // the row before the warp's first
+    prev_r = perm[wbase - 1];
+    prev_a = active[prev_r] != 0;
+  }
+  // the active rows come first: past an inactive row nothing is read
+  bool live = wbase < n && (wbase == 0 || prev_a);
+#pragma unroll
+  for (int s = 0; s < STRIPS; ++s) {
+    const int64_t i = wbase + s * 32 + lane;
+    rr[s] = live && i < n ? perm[i] : 0;
+  }
+  int cnt = 0;
+  int hlen = WARP_ROWS;                   // rows before the warp's first start
+#pragma unroll
+  for (int s = 0; s < STRIPS; ++s) {
+    const int64_t i = wbase + s * 32 + lane;
+    const int32_t r = rr[s];
+    const bool a = live && i < n && active[r] != 0;
+    int32_t q = __shfl_up_sync(FULL, r, 1);
+    bool qa = __shfl_up_sync(FULL, (int)a, 1) != 0;
+    if (lane == 0) {
+      q = prev_r;
+      qa = prev_a;
+    }
+    bool start = a && !qa;
+    const bool cmp = a && qa;
+#pragma unroll 1
+    for (int k = 0; k < K.n; ++k) {
+      const uint64_t kr = a ? K.k[k][r] : 0;
+      uint64_t kq = __shfl_up_sync(FULL, kr, 1);
+      if (lane == 0 && cmp) kq = K.k[k][q];
+      start = start || (cmp && kr != kq);
+    }
+    sm[s] = __ballot_sync(FULL, start);
+    if (a) act |= 1u << s;
+    if (cnt == 0 && sm[s]) hlen = s * 32 + __ffs(sm[s]) - 1;
+    cnt += __popc(sm[s]);
+    prev_r = __shfl_sync(FULL, r, 31);
+    prev_a = __shfl_sync(FULL, (int)a, 31) != 0;
+    live = __all_sync(FULL, a);           // the active rows come first
+  }
+  if (lane == 0) {
+    s_cnt[warp] = cnt;
+    s_hlen[warp] = hlen;
+  }
+  __syncthreads();
+
+  // the tile's first group id: a decoupled look-back over the earlier
+  // tiles, warp 0 reading 32 of them at a time
+  if (warp == 0) {
+    const int v = lane < WARPS ? s_cnt[lane] : 0;
+    int x = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(FULL, x, off);
+      if (lane >= off) x += y;
+    }
+    if (lane < WARPS) s_excl[lane] = x - v;
+    const int64_t total = __shfl_sync(FULL, x, 31);
+    int64_t excl = 0;
+    if (t == 0) {
+      if (lane == 0) store_status(&status[0], FLAG_PRE | (uint64_t)total);
+    } else {
+      if (lane == 0) store_status(&status[t], FLAG_AGG | (uint64_t)total);
+      for (int64_t j = t - 1;; j -= 32) {
+        const int64_t jj = j - lane;
+        uint64_t w = jj >= 0 ? load_status(&status[jj]) : FLAG_PRE;
+        while (__any_sync(FULL, (w >> 62) == 0))
+          if ((w >> 62) == 0) w = load_status(&status[jj]);
+        const unsigned pre = __ballot_sync(FULL, (w >> 62) == 2);
+        const int stop = pre ? __ffs(pre) - 1 : 31;
+        int64_t part = lane <= stop ? (int64_t)(w & VALUE_MASK) : 0;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          part += __shfl_xor_sync(FULL, part, off);
+        excl += part;
+        if (pre) break;
+      }
+      if (lane == 0)
+        store_status(&status[t], FLAG_PRE | (uint64_t)(excl + total));
+    }
+    if (lane == 0) {
+      s_g0 = excl;
+      tile_cnt[t] = (int32_t)total;
+      tile_cnt[T + t] = s_cnt[0] > 0 ? s_hlen[0] : TILE;   // the tile's head
+      tile_off[t] = excl;
+      if (t == T - 1) *ngroups = (int32_t)(excl + total);
+    }
+  }
+  __syncthreads();
+  const int64_t g0 = s_g0 + s_excl[warp];  // the warp's first group id
+
+  if (write_lead && lead != nullptr) {
+#pragma unroll
+    for (int s = 0, g = 0; s < STRIPS; ++s) {
+      if ((sm[s] >> lane) & 1u) {
+        const int64_t gid = g0 + g + __popc(sm[s] & below);
+        if (gid < oc) lead[gid] = rr[s];
+      }
+      g += __popc(sm[s]);
+    }
+  }
+
+  // (2) fold, member by member
+  for (int b = 0; b < (MEMBERS ? B : 1); ++b) {
+    const uint8_t* mask = masks + (int64_t)b * mask_stride;
     const Part mout = member_part(out, spec.n_aggs, b);
-    const Part mhead = member_part(head, spec.n_aggs, b);
-    const Part mtail = member_part(tail, spec.n_aggs, b);
-    if (MEMBERS) {                       // this member's activity
-      __syncthreads();                   // the previous member is folded
-      for (int i = threadIdx.x; i < TILE; i += THREADS)
-        s_act[i] = i < len ? active[s_row[i]] : 0;
-      __syncthreads();
-    }
-    for (int p = threadIdx.x; p <= nb; p += THREADS) {
-      const int lo = p == 0 ? 0 : s_start[p - 1];
-      const int hi = p < nb ? s_start[p] : len;
-      if (hi - lo >= LONG_PIECE) continue;
-      init(spec, la, lc);
-      uint64_t lp = 0;
-      for (int i = lo; i < hi; ++i)
-        if (s_act[i]) {
-          ++lp;
-          fold_row<MEMBERS>(spec, s_row[i], b, la, lc);
+    Acc<A> carry;
+    acc_init(spec, carry);
+    bool open = false;                    // carry holds a group of this warp
+    int64_t g = g0;                       // the id of the next start
+#pragma unroll
+    for (int s = 0; s < STRIPS; ++s) {
+      const unsigned m = sm[s];
+      const int32_t r = rr[s];
+      // the rows active in the union: a prefix of the strip's lanes
+      const unsigned live_lanes = __ballot_sync(FULL, (act >> s) & 1u);
+      if (live_lanes == 0) continue;      // past the active rows
+      bool on = (act >> s) & 1u;
+      if (MEMBERS && on) on = mask[r] != 0;
+      Acc<A> x;
+      acc_row<A, MEMBERS>(spec, r, b, on, x);
+      if (m == 0 && live_lanes == FULL) {
+        // 32 rows inside a group that began before them: a group of
+        // more than 32 rows, folded by a fixed tree and carried on
+        acc_warp_fold(spec, x);
+        Acc<A> y;
+        acc_bcast(spec, y, x, 0);
+        acc_add(spec, carry, y);
+        continue;
+      }
+      // this lane's piece ends at the next start above it (or at the
+      // last active row)
+      const unsigned above = m & ~((2u << lane) - 1u);
+      const int end = min(above ? __ffs(above) - 1 : 32, __popc(live_lanes));
+      // the first lane of each piece folds it row by row, in row order,
+      // from the identity (piece 0 from the carry): a group's fold does
+      // not depend on where the strips cut it
+      const bool first = ((m >> lane) & 1u) || lane == 0;
+      Acc<A> acc;
+      acc_init(spec, acc);
+      if (lane == 0 && !(m & 1u)) acc = carry;
+      acc_add(spec, acc, x);
+      for (int k = 1; k < 32; ++k) {
+        const bool need = first && lane + k < end;
+        if (!__any_sync(FULL, need)) break;
+#pragma unroll
+        for (int a = 0; a < A; ++a)
+          if (a < spec.n_aggs) {
+            const uint64_t y = __shfl_down_sync(FULL, x.v[a], k);
+            const uint32_t c = __shfl_down_sync(FULL, x.c[a], k);
+            if (need) {
+              acc.v[a] = combine(spec.func[a], spec.type[a], acc.v[a], y);
+              acc.c[a] += c;
+            }
+          }
+        const uint32_t p = __shfl_down_sync(FULL, x.p, k);
+        if (need) acc.p += p;
+      }
+      if (!(m & 1u)) acc_bcast(spec, carry, acc, 0);   // piece 0 joins carry
+      if (m) {
+        if (open) {                       // carry's group ends here
+          if (lane == 0 && g - 1 < oc)
+            store_final(spec, mout, g - 1, carry, n, write_pres);
+        } else if (lane == 0) {
+          s_head[warp] = carry;           // the warp's rows before its start
         }
-      if (p == 0) store_raw(spec, mhead, t, la, lc, lp);
-      else if (p == nb) store_raw(spec, mtail, t, la, lc, lp);
-      else if (g0 + p - 1 < oc)
-        store_final(spec, mout, g0 + p - 1, la, lc, lp, n);
-    }
-    for (int p = warp; p <= nb; p += WARPS) {
-      const int lo = p == 0 ? 0 : s_start[p - 1];
-      const int hi = p < nb ? s_start[p] : len;
-      if (hi - lo < LONG_PIECE) continue;
-      init(spec, la, lc);
-      uint64_t lp = 0;
-      for (int i = lo + lane; i < hi; i += 32)
-        if (s_act[i]) {
-          ++lp;
-          fold_row<MEMBERS>(spec, s_row[i], b, la, lc);
+        if (((m >> lane) & 1u) && above) {
+          const int64_t gid = g + __popc(m & below);
+          if (gid < oc) store_final(spec, mout, gid, acc, n, write_pres);
         }
-      warp_fold_all(spec, la, lc, &lp);
-      if (lane == 0) {
-        if (p == 0) store_raw(spec, mhead, t, la, lc, lp);
-        else if (p == nb) store_raw(spec, mtail, t, la, lc, lp);
-        else if (g0 + p - 1 < oc)
-          store_final(spec, mout, g0 + p - 1, la, lc, lp, n);
+        acc_bcast(spec, carry, acc, 31 - __clz(m));
+        open = true;
+        g += __popc(m);
       }
     }
+    if (lane == 0) {
+      if (open) s_tail[warp] = carry;
+      else s_head[warp] = carry;
+    }
+    __syncthreads();
+    // across warps, in warp order: a warp's last group runs through the
+    // heads of the following warps up to the next start; the tile's head
+    // is the warps' heads up to its first start. A head of fewer than
+    // SHORT rows is folded row by row by its own warp, onto the tail
+    // before it (the group's order, wherever the warps cut it).
+    if (warp > 0 && s_cnt[warp] > 0 && s_hlen[warp] < SHORT &&
+        s_cnt[warp - 1] > 0) {
+      Acc<A> acc = s_tail[warp - 1];
+      warp_rows<A, MEMBERS>(spec, perm, active, mask, b, wbase,
+                            s_hlen[warp], acc);
+      const int64_t gid = s_g0 + s_excl[warp - 1] + s_cnt[warp - 1] - 1;
+      if (lane == 0 && gid < oc)
+        store_final(spec, mout, gid, acc, n, write_pres);
+    }
+    if (threadIdx.x < WARPS) {
+      const int w = threadIdx.x;
+      const bool short_next = w + 1 < WARPS && s_cnt[w + 1] > 0 &&
+                              s_hlen[w + 1] < SHORT;
+      if (s_cnt[w] > 0 && !short_next) {
+        Acc<A> acc = s_tail[w];
+        int w2 = w + 1;
+        for (; w2 < WARPS && s_cnt[w2] == 0; ++w2) acc_add(spec, acc, s_head[w2]);
+        if (w2 < WARPS) {
+          acc_add(spec, acc, s_head[w2]);
+          const int64_t gid = s_g0 + s_excl[w] + s_cnt[w] - 1;
+          if (gid < oc) store_final(spec, mout, gid, acc, n, write_pres);
+        } else {
+          store_raw(spec, member_part(tail, spec.n_aggs, b), t, acc);
+        }
+      }
+    } else if (threadIdx.x == WARPS) {
+      Acc<A> acc = s_head[0];
+      for (int w2 = 0; s_cnt[w2] == 0 && w2 + 1 < WARPS;) {
+        ++w2;
+        acc_add(spec, acc, s_head[w2]);
+      }
+      store_raw(spec, member_part(head, spec.n_aggs, b), t, acc);
+    }
+    __syncthreads();                      // s_head / s_tail are reused
   }
 }
 
-// one warp per (tile with a group start, member): that tile's last group
-// is its tail plus the heads of the following tiles, through the next
-// tile that holds a start (whose head ends at that start)
-__global__ void __launch_bounds__(THREADS)
-seg_fix(int64_t T, int64_t n, const int32_t* tile_cnt,
-        const int64_t* tile_off, int64_t oc, AggSpec spec, Part out_all,
-        Part head_all, Part tail_all) {
+// (a) one warp per (tile with a group start, member): that tile's last
+// group is its tail plus the heads of the following tiles, through the
+// next tile that holds a start (whose head ends at that start); a head
+// shorter than SHORT rows is folded row by row (the group's order, as in
+// seg_fold); (b) every slot past ngroups gets zeros. tile_cnt holds the
+// tiles' start counts, then their head lengths.
+template <int A, bool MEMBERS>
+__global__ void __launch_bounds__(THREADS, 1)
+seg_fix(int64_t T, int64_t n, const int32_t* perm, const uint8_t* active,
+        const uint8_t* masks, int64_t mask_stride, const int32_t* tile_cnt,
+        const int64_t* tile_off, const int32_t* ngroups, int64_t oc,
+        AggSpec spec, int write_lead, int write_pres, int32_t* lead,
+        Part out_all, Part head_all, Part tail_all) {
   const int lane = threadIdx.x & 31;
-  const Part out = member_part(out_all, spec.n_aggs, blockIdx.y);
-  const Part head = member_part(head_all, spec.n_aggs, blockIdx.y);
-  const Part tail = member_part(tail_all, spec.n_aggs, blockIdx.y);
-  const int64_t t = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (t >= T || tile_cnt[t] == 0) return;          // whole warp together
-  const int64_t g = tile_off[t] + tile_cnt[t] - 1;
-  if (g >= oc) return;
-  int64_t e = T;
-  for (int64_t b = t + 1; b < T; b += 32) {
-    const int64_t j = b + lane;
-    const unsigned m = __ballot_sync(FULL, j < T && tile_cnt[j] > 0);
-    if (m) {
-      e = b + __ffs(m) - 1;
-      break;
+  const int64_t b = blockIdx.y;
+  const uint8_t* mask = masks + b * mask_stride;
+  const Part out = member_part(out_all, spec.n_aggs, b);
+  const Part head = member_part(head_all, spec.n_aggs, b);
+  const Part tail = member_part(tail_all, spec.n_aggs, b);
+  const int64_t nwarps = (int64_t)gridDim.x * WARPS;
+  for (int64_t t = (int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5); t < T;
+       t += nwarps) {
+    if (tile_cnt[t] == 0) continue;       // whole warp together
+    const int64_t g = tile_off[t] + tile_cnt[t] - 1;
+    if (g >= oc) continue;
+    int64_t e = T;
+    for (int64_t j0 = t + 1; j0 < T; j0 += 32) {
+      const int64_t j = j0 + lane;
+      const unsigned m = __ballot_sync(FULL, j < T && tile_cnt[j] > 0);
+      if (m) {
+        e = j0 + __ffs(m) - 1;
+        break;
+      }
+    }
+    if (e < T && e == t + 1 && tile_cnt[T + e] < SHORT) {
+      Acc<A> x;
+      load_raw(spec, tail, t, x);
+      warp_rows<A, MEMBERS>(spec, perm, active, mask, b, e * TILE,
+                            tile_cnt[T + e], x);
+      if (lane == 0) store_final(spec, out, g, x, n, write_pres);
+      continue;
+    }
+    const int64_t last = e < T ? e : T - 1;
+    Acc<A> acc;
+    acc_init(spec, acc);
+    for (int64_t j = t + 1 + lane; j <= last; j += 32) {
+      Acc<A> h;
+      load_raw(spec, head, j, h);
+      acc_add(spec, acc, h);
+    }
+    acc_warp_fold(spec, acc);
+    if (lane == 0) {
+      Acc<A> x;
+      load_raw(spec, tail, t, x);
+      acc_add(spec, x, acc);
+      store_final(spec, out, g, x, n, write_pres);
     }
   }
-  const int64_t last = e < T ? e : T - 1;
-  uint64_t la[MAX_AGGS], lc[MAX_AGGS];
-  init(spec, la, lc);
-  uint64_t lp = 0;
-  for (int64_t j = t + 1 + lane; j <= last; j += 32) {
-    for (int a = 0; a < spec.n_aggs; ++a) {
-      la[a] = combine(spec.func[a], spec.type[a], la[a],
-                      head.val[a * head.stride + j]);
-      lc[a] += head.cnt[a * head.stride + j];
-    }
-    lp += head.pres[j];
+  const int64_t ng = *ngroups;
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  for (int64_t slot = ng + (int64_t)blockIdx.x * THREADS + threadIdx.x;
+       slot < oc; slot += stride) {
+#pragma unroll
+    for (int a = 0; a < A; ++a)
+      if (a < spec.n_aggs) {
+        out.val[a * out.stride + slot] = 0;
+        out.cnt[a * out.stride + slot] = 0;
+      }
+    if (write_pres) out.pres[slot] = 0;
+    if (write_lead && b == 0) lead[slot] = 0;
   }
-  warp_fold_all(spec, la, lc, &lp);
-  if (lane == 0) {
-    uint64_t va[MAX_AGGS], vc[MAX_AGGS];
-    for (int a = 0; a < spec.n_aggs; ++a) {
-      va[a] = combine(spec.func[a], spec.type[a],
-                      tail.val[a * tail.stride + t], la[a]);
-      vc[a] = tail.cnt[a * tail.stride + t] + lc[a];
-    }
-    store_final(spec, out, g, va, vc, tail.pres[t] + lp, n);
-  }
+}
+
+template <int A>
+static cudaError_t launch_a(int64_t n, const int32_t* perm, const Keys& K,
+                            const uint8_t* active, int B,
+                            const uint8_t* masks, int64_t mask_stride,
+                            int64_t oc, const AggSpec& spec, int write_lead,
+                            int write_pres, int32_t* lead, Part out,
+                            Part head, Part tail, uint64_t* status,
+                            int64_t T, int32_t* tile_cnt, int64_t* tile_off,
+                            int32_t* ngroups, cudaStream_t s) {
+  if (B > 1)
+    seg_fold<A, true><<<(unsigned)T, THREADS, 0, s>>>(
+        n, perm, K, active, B, masks, mask_stride, oc, spec, write_lead,
+        write_pres, lead, out, head, tail, status, T, tile_cnt, tile_off,
+        ngroups);
+  else
+    seg_fold<A, false><<<(unsigned)T, THREADS, 0, s>>>(
+        n, perm, K, active, 1, active, 0, oc, spec, write_lead, write_pres,
+        lead, out, head, tail, status, T, tile_cnt, tile_off, ngroups);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // enough warps for the tiles, and enough threads for the zero slots
+  int64_t blocks = (T + WARPS - 1) / WARPS;
+  const int64_t zero_blocks = (oc + THREADS * 8 - 1) / (THREADS * 8);
+  if (zero_blocks > blocks) blocks = zero_blocks < 4096 ? zero_blocks : 4096;
+  const dim3 grid((unsigned)blocks, B);
+  if (B > 1)
+    seg_fix<A, true><<<grid, THREADS, 0, s>>>(
+        T, n, perm, active, masks, mask_stride, tile_cnt, tile_off, ngroups,
+        oc, spec, write_lead, write_pres, lead, out, head, tail);
+  else
+    seg_fix<A, false><<<grid, THREADS, 0, s>>>(
+        T, n, perm, active, active, 0, tile_cnt, tile_off, ngroups, oc,
+        spec, write_lead, write_pres, lead, out, head, tail);
+  return cudaGetLastError();
 }
 
 static int launch(
@@ -411,7 +699,7 @@ static int launch(
     const void* active, int B, const void* masks, int64_t mask_stride,
     int n_aggs, const int64_t* data_ptrs, const int64_t* data_strides,
     const int64_t* valid_ptrs, const int64_t* valid_strides,
-    const int32_t* funcs, const int32_t* types, int64_t oc, void* flags,
+    const int32_t* funcs, const int32_t* types, int64_t oc, void* status,
     void* tile_cnt, void* tile_off, void* ngroups, void* lead,
     void* out_val, void* out_cnt, void* out_pres, void* head_val,
     void* head_cnt, void* head_pres, void* tail_val, void* tail_cnt,
@@ -419,7 +707,22 @@ static int launch(
   if (n_keys < 1 || n_keys > MAX_KEYS || n_aggs < 0 || n_aggs > MAX_AGGS ||
       oc < 1 || n >= (int64_t)1 << 31 || B < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (n == 0) {                           // no group: every slot is zero
+    const size_t slots = (size_t)B * oc * 8;
+    if ((err = cudaMemsetAsync(out_val, 0, slots * n_aggs, s)) ||
+        (err = cudaMemsetAsync(out_cnt, 0, slots * n_aggs, s)))
+      return (int)err;
+    if (first_chunk) {
+      if ((err = cudaMemsetAsync(out_pres, 0, slots, s)) ||
+          (err = cudaMemsetAsync(ngroups, 0, sizeof(int32_t), s)))
+        return (int)err;
+      if (write_lead && (err = cudaMemsetAsync(lead, 0, oc * 4, s)))
+        return (int)err;
+    }
+    return (int)cudaSuccess;
+  }
   Keys K;
   K.n = n_keys;
   for (int k = 0; k < MAX_KEYS; ++k)
@@ -444,53 +747,37 @@ static int launch(
                      (uint64_t*)head_pres, T};
   const Part tail = {(uint64_t*)tail_val, (uint64_t*)tail_cnt,
                      (uint64_t*)tail_pres, T};
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (first_chunk) {
-    seg_flags<<<(unsigned)T, THREADS, 0, s>>>(
-        n, (const int32_t*)perm, K, (const uint8_t*)active, (uint8_t*)flags,
-        (int32_t*)tile_cnt);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    seg_scan<<<1, 1024, 0, s>>>(T, (const int32_t*)tile_cnt,
-                                (int64_t*)tile_off, (int32_t*)ngroups);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (B > 1)
-    seg_reduce<true><<<(unsigned)T, THREADS, 0, s>>>(
-        n, (const int32_t*)perm, B, (const uint8_t*)masks, mask_stride,
-        (const uint8_t*)flags, (const int32_t*)tile_cnt,
-        (const int64_t*)tile_off, oc, spec, write_lead, (int32_t*)lead, out,
-        head, tail);
-  else
-    seg_reduce<false><<<(unsigned)T, THREADS, 0, s>>>(
-        n, (const int32_t*)perm, B, (const uint8_t*)masks, mask_stride,
-        (const uint8_t*)flags, (const int32_t*)tile_cnt,
-        (const int64_t*)tile_off, oc, spec, write_lead, (int32_t*)lead, out,
-        head, tail);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 fix_grid((unsigned)((T + WARPS - 1) / WARPS), B);
-  seg_fix<<<fix_grid, THREADS, 0, s>>>(
-      T, n, (const int32_t*)tile_cnt, (const int64_t*)tile_off, oc, spec,
-      out, head, tail);
-  return (int)cudaGetLastError();
+#define LAUNCH_A(A_)                                                        \
+  launch_a<A_>(n, (const int32_t*)perm, K, (const uint8_t*)active, B,       \
+               (const uint8_t*)masks, mask_stride, oc, spec,                \
+               write_lead && first_chunk, first_chunk, (int32_t*)lead, out, \
+               head, tail, (uint64_t*)status, T, (int32_t*)tile_cnt,       \
+               (int64_t*)tile_off, (int32_t*)ngroups, s)
+  if (n_aggs <= 1) err = LAUNCH_A(1);
+  else if (n_aggs <= 2) err = LAUNCH_A(2);
+  else if (n_aggs <= 4) err = LAUNCH_A(4);
+  else err = LAUNCH_A(8);
+#undef LAUNCH_A
+  return (int)err;
 }
 
+// status: T + 1 zeroed words (T = ceil(n / 2048)): the tiles' look-back
+// words and the ticket counter; tile_cnt: 2T ints (the tiles' start
+// counts, then their head lengths). Later chunks (first_chunk = 0) write the
+// values and counts of their aggregates only.
 extern "C" int segment_agg_launch(
     int64_t n, const void* perm, int n_keys, const int64_t* key_ptrs,
     const void* active, int n_aggs, const int64_t* data_ptrs,
     const int64_t* valid_ptrs, const int32_t* funcs, const int32_t* types,
-    int64_t oc, void* flags, void* tile_cnt, void* tile_off, void* ngroups,
+    int64_t oc, void* status, void* tile_cnt, void* tile_off, void* ngroups,
     void* lead, void* out_val, void* out_cnt, void* out_pres,
     void* head_val, void* head_cnt, void* head_pres, void* tail_val,
     void* tail_cnt, void* tail_pres, int first_chunk, void* stream) {
   return launch(n, perm, n_keys, key_ptrs, active, 1, active, 0, n_aggs,
                 data_ptrs, nullptr, valid_ptrs, nullptr, funcs, types, oc,
-                flags, tile_cnt, tile_off, ngroups, lead, out_val, out_cnt,
+                status, tile_cnt, tile_off, ngroups, lead, out_val, out_cnt,
                 out_pres, head_val, head_cnt, head_pres, tail_val, tail_cnt,
-                tail_pres, first_chunk, first_chunk, stream);
+                tail_pres, first_chunk, 1, stream);
 }
 
 // B members over one shared sort: `active` is the union of the masks
@@ -503,14 +790,14 @@ extern "C" int segment_agg_batched_launch(
     const void* active, int B, const void* masks, int64_t mask_stride,
     int n_aggs, const int64_t* data_ptrs, const int64_t* data_strides,
     const int64_t* valid_ptrs, const int64_t* valid_strides,
-    const int32_t* funcs, const int32_t* types, int64_t oc, void* flags,
+    const int32_t* funcs, const int32_t* types, int64_t oc, void* status,
     void* tile_cnt, void* tile_off, void* ngroups, void* out_val,
     void* out_cnt, void* out_pres, void* head_val, void* head_cnt,
     void* head_pres, void* tail_val, void* tail_cnt, void* tail_pres,
     int first_chunk, void* stream) {
   return launch(n, perm, n_keys, key_ptrs, active, B, masks, mask_stride,
                 n_aggs, data_ptrs, data_strides, valid_ptrs, valid_strides,
-                funcs, types, oc, flags, tile_cnt, tile_off, ngroups,
+                funcs, types, oc, status, tile_cnt, tile_off, ngroups,
                 nullptr, out_val, out_cnt, out_pres, head_val, head_cnt,
                 head_pres, tail_val, tail_cnt, tail_pres, first_chunk, 0,
                 stream);

@@ -9,8 +9,9 @@ gathering, and every reduction masks by ``row < length``.
 
 The non-elementwise work goes through the hand-written CUDA kernels
 (``ops/cuda``): grouped and keyless aggregation (``bucket_agg``), the
-sort (``sort``) and per-group folds (``segment_agg``) of the sorted
-lanes, compaction (``compact``) and composite-key hashing (``hash64``).
+sort (``sort``), the counting sort by bucket id (``bucket_perm``) and
+per-group folds (``segment_agg``) of the sorted lanes, compaction
+(``compact``) and composite-key hashing (``hash64``).
 Elementwise expressions (K1 of the kernel table) run stage by stage —
 each maximal run of Assign and Filter commands — through ``ops/k1.py``:
 one generated kernel per stage on the card. ``_eval`` below, torch over
@@ -18,13 +19,14 @@ one generated kernel per stage on the card. ``_eval`` below, torch over
 
 Group-by lanes, as the reference routes them: keyless; small bounded
 domains (≤ 512 buckets, ``bucket_agg``); medium bounded domains (513 to
-65,535 buckets: sorted by bucket id, folded by ``segment_agg``, emitted
-in bucket order); everything else sorted by its key words and folded
-per run (``segment_agg``). The reference's levers
-``YDB_TPU_GROUPBY_TILE_ROWS``, ``YDB_TPU_GATHER_BATCH_CAP`` and
-``YDB_TPU_GROUPBY_LEGACY`` shaped its XLA programs (gather tiling,
-batching, the pre-tiling lowering) and never changed an answer; this
-lowering has no such programs and reads none of them.
+65,535 buckets: ordered by bucket id with ``bucket_perm``, folded by
+``segment_agg``, emitted in bucket order); everything else sorted by its
+key words (``sort``) and folded per run (``segment_agg``). The
+reference's levers ``YDB_TPU_GROUPBY_TILE_ROWS``,
+``YDB_TPU_GATHER_BATCH_CAP`` and ``YDB_TPU_GROUPBY_LEGACY`` shaped its
+XLA programs (gather tiling, batching, the pre-tiling lowering) and
+never changed an answer; this lowering has no such programs and reads
+none of them.
 
 The member axis (the batched serving lane, ``ops/fused.
 build_fused_batched_fn``): B same-shape queries run as one, and every
@@ -401,31 +403,39 @@ def _unsigned_keys(names, schema: Schema) -> frozenset:
                      if schema.has(n) and schema.dtype(n).kind == Kind.UINT64)
 
 
-def _sorted_groups(key_words: list, cmd: ir.GroupBy, env, schema: Schema,
-                   active, cap: int, oc: int, device, B: int = 0):
-    """The sort-then-fold core of both lanes below: the ``sort`` kernel
-    orders the rows by (inactive rank, key words, row id) at scan
-    capacity, then ``segment_agg`` folds each run of equal words.
-    Returns (new_env of the aggregates at `oc` slots, ngroups, lead).
+def _key_order(words: list, active, n: int, device) -> torch.Tensor:
+    """The sorted lane's permutation: the ``sort`` kernel over (inactive
+    rank, key words, row id)."""
+    inactive = encode_key((~active).to(torch.int64))
+    return K.sort_perm([inactive] + words, n, device)
 
-    B members: with shared key words, ONE sort over the union of the
-    members' masks and ``segment_agg_batched`` (each member's groups,
-    (B,) ngroups, (B, oc) slots); with a per-member word, one sort of
-    the B·cap rows with the member id as the leading word
+
+def _sorted_groups(key_words: list, cmd: ir.GroupBy, env, schema: Schema,
+                   active, cap: int, oc: int, device, B: int = 0,
+                   order=_key_order):
+    """The sort-then-fold core of both lanes below: `order(words, active,
+    n, device)` gives the permutation that puts the active rows first in
+    key order (row id breaking ties), then ``segment_agg`` folds each run
+    of equal words. Returns (new_env of the aggregates at `oc` slots,
+    ngroups, lead).
+
+    B members: with shared key words, ONE permutation over the union of
+    the members' masks and ``segment_agg_batched`` (each member's groups,
+    (B,) ngroups, (B, oc) slots); with a per-member word, one permutation
+    of the B·cap rows with the member id as the leading word
     (`_member_key_groups`)."""
     specs, slots = _agg_specs(cmd, env, schema)
     if B and any(w.dim() == 2 for w in key_words):
         ngroups, lead, present, vals, cnts = _member_key_groups(
-            key_words, _member_masks(active, B), specs, cap, oc, device)
+            key_words, _member_masks(active, B), specs, cap, oc, device,
+            order)
     elif B:
         masks = _member_masks(active, B)
-        inactive = encode_key((~masks.any(0)).to(torch.int64))
-        perm = K.sort_perm([inactive] + key_words, cap, device)
+        perm = order(key_words, masks.any(0), cap, device)
         ngroups, lead, present, vals, cnts = K.segment_agg_batched(
             perm, key_words, masks, specs, oc)
     else:
-        inactive = encode_key((~active).to(torch.int64))
-        perm = K.sort_perm([inactive] + key_words, cap, device)
+        perm = order(key_words, active, cap, device)
         ngroups, lead, present, vals, cnts = K.segment_agg(
             perm, key_words, active, specs, oc)
     new_env = _agg_outputs(cmd, env, slots, vals, cnts, present, cap)
@@ -433,13 +443,13 @@ def _sorted_groups(key_words: list, cmd: ir.GroupBy, env, schema: Schema,
 
 
 def _member_key_groups(key_words: list, masks, specs, cap: int, oc: int,
-                       device):
-    """Groups whose key words differ per member: the B·cap rows sorted
-    once by (inactive, member, words), folded as one query by
-    ``segment_agg`` at B·oc slots (the members' groups come out member
-    by member), then each member's run of groups taken into its (B, oc)
-    row. Returns segment_agg_batched's (ngroups, lead, present, vals,
-    cnts)."""
+                       device, order=_key_order):
+    """Groups whose key words differ per member: the B·cap rows ordered
+    once by (member, words) — `order` over the flattened words with the
+    member id leading — folded as one query by ``segment_agg`` at B·oc
+    slots (the members' groups come out member by member), then each
+    member's run of groups taken into its (B, oc) row. Returns
+    segment_agg_batched's (ngroups, lead, present, vals, cnts)."""
     B = masks.shape[0]
     n = B * cap
     member = torch.arange(B, dtype=torch.int64,
@@ -448,8 +458,7 @@ def _member_key_groups(key_words: list, masks, specs, cap: int, oc: int,
         (w if w.dim() == 2 else w.unsqueeze(0).expand(B, cap))
         .reshape(-1).contiguous() for w in key_words]
     active = masks.reshape(-1)
-    inactive = encode_key((~active).to(torch.int64))
-    perm = K.sort_perm([inactive] + words, n, device)
+    perm = order(words, active, n, device)
     flat = [(f, None if d is None else K._per_member(d, B).reshape(-1)
              .contiguous(),
              None if v is None else K._per_member(v, B).reshape(-1)
@@ -488,16 +497,23 @@ def _member_key_groups(key_words: list, masks, specs, cap: int, oc: int,
 def _groupby_medium_domain(cmd: ir.GroupBy, env, schema: Schema, sel,
                            length, cap: int, device, B: int = 0):
     """Bounded domains too wide for bucket_agg (513 to 65,535 buckets):
-    the rows are sorted by bucket id and folded per bucket run (the
-    reference scatter-reduces instead), the per-group results are
-    scattered to their bucket slots, and the shared epilogue emits the
-    non-empty buckets in bucket order, as the reference does."""
+    the rows are ordered by bucket id with ``bucket_perm`` (a counting
+    sort) and folded per bucket run (the reference scatter-reduces
+    instead), the per-group results are scattered to their bucket slots,
+    and the shared epilogue emits the non-empty buckets in bucket order,
+    as the reference does."""
     active = _active(length, sel, cap, device)
     kid, nbuckets, strides = _bucket_ids(cmd, env, cap, device)
     oc = min(bucket_capacity(nbuckets, minimum=128), cap)
     words = [encode_key(kid.to(torch.int64))]
+
+    def order(_words, act, _n, _device):
+        # the per-member form sorts the B·cap rows by (member, bucket id)
+        return K.bucket_perm(kid, act.reshape(kid.shape), nbuckets) \
+            if kid.dim() == 2 else K.bucket_perm(kid, act, nbuckets)
     grp_env, ngroups, lead = _sorted_groups(words, cmd, env, schema,
-                                            active, cap, oc, device, B)
+                                            active, cap, oc, device, B,
+                                            order)
     # group slot g holds bucket kid[lead[g]]; slots past ngroups spill
     live = torch.arange(oc, device=device) < (ngroups[:, None] if B
                                               else ngroups)
