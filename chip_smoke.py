@@ -8,8 +8,9 @@ Phases, each printing its own line(s):
 2. the build of the thirteen CUDA kernel libraries from
    ``ydb_tpu_torch/ops/cuda/csrc`` (one ``nvcc`` per source, in
    parallel), with its seconds and ``-Xptxas -v``'s registers, stack
-   frame and spills of every ``segment_agg`` and ``bucket_sort`` kernel
-   (a stack frame or a spill in ``segment_agg`` fails the run), then
+   frame and spills of every ``segment_agg``, ``bucket_sort``, ``sort``
+   and ``window_scan`` kernel (a stack frame or a spill in
+   ``segment_agg``, ``sort`` or ``window_scan`` fails the run), then
    NVRTC's version and the seconds of one trivial K1 stage (its first
    build);
 3. generation of TPC-H at ``--sf``, TPC-DS at SF1 and ClickBench's hits
@@ -21,7 +22,10 @@ Phases, each printing its own line(s):
    Q1/Q6/Q14's shapes (nulls, an all-null bucket, LUT misses and a
    forced compact overflow included), ``bucket_agg`` at 512 buckets and
    16 aggregates and keyless, and each wrapper's multi-launch form;
-   ``sort`` at scan capacity (the sorted group-by's sort);
+   ``sort`` at scan capacity (the sorted group-by's sort; two calls
+   bit for bit equal), at n = 0, 1, 1,023, 1,024, 1,025 and 8,193, with
+   every word equal, 16 words, one live bit, words >= 2^63 and the
+   member form at B = 8 over 2^20 rows (each twice, bit for bit);
    ``segment_agg`` at q18's subquery shape (timed), q3's (a filter,
    groups of at most 7 rows, an output bound), one group holding half
    the rows, nullable int keys, NaN and -0.0 float keys with every
@@ -38,10 +42,14 @@ Phases, each printing its own line(s):
    over two int64 columns at lineitem's rows (half the hashes >=
    2^63); a probe of u64 keys >= 2^63; ``expand_counts`` and ``expand_gather`` at TPC-DS ds25's
    shape (timed), with one key matching 100,000 build rows (timed),
-   LEFT with NULL probe keys, float keys and 0 probes; ``window_scan``
+   LEFT with NULL probe keys, float keys and 0 probes; ``sort`` on
+   random keys: the window lane's store_sales partition sort (the
+   63-bit partition hash and the date word, timed against a stable
+   ``sort`` of the hash word); ``window_scan``
    over store_sales at SF1 by item and date (timed), at ds89's frame
-   (timed), one partition, one row per partition, NULL values and its
-   multi-launch form; K1 (the generated expression-stage kernels,
+   (timed), one partition, one row per partition, NULL values, its
+   multi-launch form and one partition of 2^22 + 333 rows (timed), each
+   called twice and held bit for bit equal; K1 (the generated expression-stage kernels,
    ``ydb_tpu_torch/ops/k1.py``, built by NVRTC at first use) on every
    stage q1, q6 and q19 hand over on the fused path, q19's batched
    stages at B = 8 with per-member params, and the op sweep of
@@ -120,7 +128,7 @@ Phases, each printing its own line(s):
    lane-off answer, the validation member to its oracle, the batched
    templates coalesced (Q3's literals sit on its build sides, so it
    runs as singles), wrapper calls per batch equal at B = 2 and B = 8
-   (a sort of B x cap rows runs more merge passes inside its one call);
+   (a sort of B x cap rows sorts more rows inside its one call);
    the storm walls with the lane on and off (the lane-on storm after one
    untimed storm, so that the batched stages' K1 builds fall outside
    it) and one traced batch's device time.
@@ -510,7 +518,7 @@ def kernel_phase(B, n: int, q6_compact_cap: int, n_part: int,
     run_k = lambda: B.sort_perm(keys, m, dev)                   # noqa: E731
     run_p = lambda: B.sort_perm_plain(keys, m, dev)             # noqa: E731
     check(torch.equal(run_k(), run_p()), "sort")
-    # a scan-capacity sort as well: merge passes across tiles
+    # a sort past the one-block path: the census and the digit passes
     big = [encode_key(randint(-5, 5, (1 << 16,))),
            encode_key(rand((1 << 16,)) - 0.5)]
     check(torch.equal(B.sort_perm(big, 1 << 16, dev),
@@ -523,6 +531,57 @@ def kernel_phase(B, n: int, q6_compact_cap: int, n_part: int,
         library_ms=time_ms(lambda: torch.sort(keys[1], stable=True)),
         bound_ms=bound_ms(m * 8 * len(keys) + m * 4), bound_by="bytes"))
     return rows
+
+
+def sort_checks(B, device: str = "cuda") -> None:
+    """K9's edges against the plain version, each called twice and the
+    two calls held bit for bit equal: n = 0, 1, 1,023, 1,024, 1,025 (the
+    one-block path), 8,193 (the radix passes' smallest), every word
+    equal, 16 words, one live bit, words >= 2^63, and the member form at
+    B = 8 over 2^20 rows (member id, inactive rank, key)."""
+    import torch
+
+    from ydb_tpu_torch.ops.sort import encode_key
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(999)
+
+    def randint(lo, hi, m):
+        return torch.randint(lo, hi, (m,), generator=g, device=dev)
+
+    def exact(keys, m, tag):
+        a = B.sort_perm(keys, m, dev)
+        b = B.sort_perm(keys, m, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        check(torch.equal(a, B.sort_perm_plain(keys, m, dev))
+              and torch.equal(a, b), f"sort {tag}: n={m}")
+    cases = []
+    for m in (0, 1, 1023, 1024, 1025, 8193):
+        exact([encode_key(randint(0, 2, m)), encode_key(randint(-9, 9, m)),
+               encode_key(torch.rand(m, generator=g, device=dev,
+                                     dtype=torch.float64) - 0.5)], m,
+              "mixed")
+        cases.append(f"n={m}")
+    m = 100_000
+    exact([torch.full((m,), 7, dtype=torch.int64, device=dev)] * 2, m,
+          "every word equal")
+    exact([torch.full((1000,), 7, dtype=torch.int64, device=dev)] * 2, 1000,
+          "every word equal (one block)")
+    exact([randint(0, 3, m) for _ in range(16)], m, "16 words")
+    exact([randint(0, 2, m) << 41], m, "one live bit")
+    exact([randint(-(1 << 62), 1 << 62, m) - (randint(0, 2, m) << 63)], m,
+          "words >= 2^63")
+    Bm, cap = 8, 1 << 17
+    member = torch.arange(Bm, device=dev)[:, None].expand(Bm, cap).reshape(-1)
+    act = torch.rand(Bm * cap, generator=g, device=dev) < 0.3
+    exact([encode_key(member), encode_key((~act).to(torch.int64)),
+           encode_key(randint(0, 5000, Bm * cap))], Bm * cap,
+          "member form B=8")
+    log("kernel sort checks: " + " ".join(cases) + ", every word equal "
+        "(radix and one block), 16 words, one live bit, words >= 2^63, "
+        f"member form B={Bm} x {cap}: equal to the plain version, two "
+        "calls bit for bit ok")
 
 
 def segment_agg_bytes(perm, keys, active, aggs, oc: int) -> int:
@@ -735,8 +794,9 @@ def sorted_lane_phase(B, n: int, cap: int, live: int,
     words = [encode_key(okey)]
     sort_keys = [encode_key((~active).to(torch.int64))] + words
     perm = B.sort_perm(sort_keys, n, dev)
-    check(torch.equal(perm, B.sort_perm_plain(sort_keys, n, dev)),
-          "sort at scan capacity")
+    check(torch.equal(perm, B.sort_perm_plain(sort_keys, n, dev))
+          and torch.equal(perm, B.sort_perm(sort_keys, n, dev)),
+          "sort at scan capacity (plain, two calls)")
     sort_bound = bound_ms(n * 8 * len(sort_keys) + n * 4)
     log(f"kernel sort at scan capacity: n={n} keys={len(sort_keys)} "
         f"kernel_ms={time_ms(lambda: B.sort_perm(sort_keys, n, dev)):.4f} "
@@ -1065,12 +1125,18 @@ def window_scan_bytes(perm, part_words, order_words, aggs) -> int:
 
 def check_window_scan(B, perm, pw, ow, aggs, sync, tag) -> float:
     """window_scan against its plain version: starts, ends, ranks, counts,
-    integer scans and min / max exactly, float sums to RTOL. Returns the
+    integer scans and min / max exactly, float sums to RTOL; and a
+    second call bit for bit equal to the first (the float carries are
+    folded in tile order, whichever tile published first). Returns the
     largest absolute difference of a float sum."""
     import torch
     got = B.window_scan(perm, pw, ow, aggs)
+    again = B.window_scan(perm, pw, ow, aggs)
     want = B.window_scan_plain(perm, pw, ow, aggs)
     sync()
+    check(same_bits(list(got[:4]) + [list(x) for x in got[4]],
+                    list(again[:4]) + [list(x) for x in again[4]]),
+          f"window_scan {tag}: two calls differ")
     for i, what in enumerate(("seg_start", "seg_end", "grp_start",
                               "dense")):
         check(torch.equal(got[i], want[i]), f"window_scan {tag}: {what}")
@@ -1090,7 +1156,11 @@ def k13_phase(B, ss: dict, device: str = "cuda") -> list:
     """The window scans (K13) against their plain version: over
     store_sales at SF1 (`ss`: its columns as tensors) partitioned by
     ss_item_sk and ordered by ss_sold_date_sk (timed), at ds89's frame
-    (timed), one partition, every row its own partition, NULL values."""
+    (timed), one partition, every row its own partition, NULL values,
+    and one partition of 2^22 + 333 rows (timed); every case called
+    twice and the calls held bit for bit equal. Before them, K9 on
+    random keys: the store_sales partition sort (timed against a stable
+    sort of the hash word)."""
     import torch
 
     from ydb_tpu_torch.ops.sort import encode_key
@@ -1118,6 +1188,19 @@ def k13_phase(B, ss: dict, device: str = "cuda") -> list:
     pw = [part_word(ss["ss_item_sk"])]
     ow = [encode_key(ss["ss_sold_date_sk"])]
     perm = B.sort_perm(pw + ow, n, dev)
+    # -- K9 on random keys: the window lane's partition sort of
+    #    store_sales (the 63-bit partition hash, then the date word),
+    #    against a stable sort of the hash word alone
+    check(torch.equal(perm, B.sort_perm_plain(pw + ow, n, dev))
+          and torch.equal(perm, B.sort_perm(pw + ow, n, dev)),
+          "sort random keys (plain, two calls)")
+    t_k = time_ms(lambda: B.sort_perm(pw + ow, n, dev))
+    t_l = time_ms(lambda: torch.sort(pw[0], stable=True))
+    log(f"kernel sort random keys (store_sales partition sort): n={n} "
+        f"keys=2 kernel_ms={t_k:.4f} "
+        f"plain_ms={time_ms(lambda: B.sort_perm_plain(pw + ow, n, dev)):.4f} "
+        f"library_ms={t_l:.4f} kernel/library={t_k / t_l:.3f} "
+        f"bound_us={bound_ms(n * 8 * 2 + n * 4) * 1e3:.2f} (bytes)")
     aggs = [("sum", ss["ss_ext_sales_price"], None),
             ("sum", ss["ss_sales_price"], None),
             ("max", ss["ss_net_profit"], None)]
@@ -1145,6 +1228,12 @@ def k13_phase(B, ss: dict, device: str = "cuda") -> list:
     pid = torch.randperm(m, generator=g, device=dev) // 12
     pw9 = [part_word(pid % 2, pid, pid % 57)]
     perm9 = B.sort_perm(pw9, m, dev)
+    check(torch.equal(perm9, B.sort_perm_plain(pw9, m, dev)),
+          "sort ds89 partition sort")
+    log(f"kernel sort ds89 partition sort: n={m} keys=1 "
+        f"kernel_ms={time_ms(lambda: B.sort_perm(pw9, m, dev)):.4f} "
+        f"library_ms={time_ms(lambda: torch.sort(pw9[0], stable=True)):.4f} "
+        f"bound_us={bound_ms(m * 8 + m * 4) * 1e3:.2f} (bytes)")
     aggs9 = [("sum", rand(m) * 1e4, None)]
     check_window_scan(B, perm9, pw9, [], aggs9, sync, "ds89")
     log(f"kernel window_scan ds89 frame: n={m} "
@@ -1173,6 +1262,25 @@ def k13_phase(B, ss: dict, device: str = "cuda") -> list:
         p_ = B.sort_perm(words + order, k, dev)
         check_window_scan(B, p_, words, order, every, sync, tag)
     check_window_scan(B, p_, words, order, every * 3, sync, "chunked")
+    # -- one partition over 2^22 + 333 rows: every tile's carry comes
+    #    from the walk back over the tiles before it
+    k = (1 << 22) + 333
+    vals = rand(k) * 200 + 1
+    ints = torch.randint(-1000, 1000, (k,), generator=g, device=dev)
+    valid = rand(k) > 0.2
+    longest = [("sum", vals, valid), ("sum", ints, None),
+               ("max", rand(k) - 0.5, valid)]
+    words = [part_word(ints * 0)]
+    order = [encode_key(torch.randint(0, 90, (k,), generator=g,
+                                      device=dev))]
+    p_ = B.sort_perm(words + order, k, dev)
+    check_window_scan(B, p_, words, order, longest, sync, "one partition "
+                      f"of {k} rows")
+    log(f"kernel window_scan one partition: n={k} aggs={len(longest)} "
+        f"kernel_ms={time_ms(lambda: B.window_scan(p_, words, order, longest)):.4f} "
+        f"bound_us={bound_ms(window_scan_bytes(p_, words, order, longest)) * 1e3:.2f} "
+        "(bytes); checked against the plain version, two calls bit for "
+        "bit")
     return rows
 
 
@@ -2171,20 +2279,12 @@ def _storm(eng, texts):
     return wall, out
 
 
-def _merge_passes(n: int) -> int:
-    """merge_pass launches of one sort.cu call over n rows: one per
-    doubling of the 512-row tiles up to n."""
-    passes, w = 0, 512
-    while w < n:
-        passes, w = passes + 1, w * 2
-    return passes
-
-
 @contextlib.contextmanager
 def _sort_sizes(bindings):
     """The row counts of the `sort_perm` calls made inside the block
-    (each is one wrapper call and 1 + _merge_passes(n) kernel
-    launches)."""
+    (each is one wrapper call: one launch up to 8,192 rows, else the
+    census and 8 digit passes a key word, those that the census finds
+    dead returning at entry)."""
     real, sizes = bindings.sort_perm, []
 
     def recording(keys, n, device):
@@ -2264,8 +2364,8 @@ def serving_phase(bindings, engines: dict, oracles: dict,
     must coalesce (`batch/batches`, `last_path`), Q3 (literals on its
     build sides) must run as singles; a direct execute_fused_batched
     must call the same kernel wrappers, as many times, at B = 2 and
-    B = 8 (a sort over B x cap rows runs more merge passes inside its
-    call; they are logged).
+    B = 8 (a sort over B x cap rows sorts more rows inside its one
+    call; the rows sorted are logged).
     Returns this path's launches."""
     import torch
 
@@ -2335,14 +2435,14 @@ def serving_phase(bindings, engines: dict, oracles: dict,
                 per_b[b] = {k: v - before[k]
                             for k, v in bindings.LAUNCHES.items()
                             if v > before[k]}
-                merges[b] = sum(_merge_passes(m) for m in sizes)
+                merges[b] = sum(sizes)
             b_lo, b_hi = sorted(per_b)
             check(per_b[b_lo] == per_b[b_hi],
                   f"{name}: wrapper calls per batch depend on B: {per_b}")
             dev_ms = _device_ms(lambda: _batched_call(on, texts))
             note = (f" wrapper_calls_per_batch={sum(per_b[b_hi].values())} "
                     f"{json.dumps(per_b[b_hi])} (equal at B={b_lo} and "
-                    f"B={b_hi}) sort_merge_passes={merges[b_lo]} at "
+                    f"B={b_hi}) sort_rows={merges[b_lo]} at "
                     f"B={b_lo}, {merges[b_hi]} at B={b_hi} "
                     f"traced_batch_device_ms={dev_ms:.3f}")
         k1_storm = GLOBAL.get("k1/builds") - k1_b0
@@ -2907,7 +3007,10 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
     return rows
 
 
-PTXAS_CHECKED = ("segment_agg", "bucket_sort")
+PTXAS_CHECKED = ("segment_agg", "bucket_sort", "sort", "window_scan")
+# the kernels whose every function must keep its state in registers: a
+# stack frame or a spill fails the run
+PTXAS_NO_SPILL = ("segment_agg", "sort", "window_scan")
 
 
 def ptxas_functions(text: str) -> list:
@@ -2978,18 +3081,19 @@ def main() -> int:
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {k}: {line.strip()}")
-    # K4 and K5: each kernel instantiation's registers, stack frame and
-    # spills; segment_agg's accumulators must live in registers
+    # K4, K5, K9 and K13: each kernel function's registers, stack frame
+    # and spills; segment_agg's accumulators, the sort's tile and the
+    # window scan's rows must live in registers
     spilled = []
     for k in PTXAS_CHECKED:
         for fn in ptxas_functions(built[k]["log"]):
             log(f"  ptxas {k} {fn['name']}: registers={fn['registers']} "
                 f"stack_frame={fn['stack']} spill_stores={fn['spill_stores']} "
                 f"spill_loads={fn['spill_loads']}")
-            if k == "segment_agg" and (fn["stack"] or fn["spill_stores"]
-                                       or fn["spill_loads"]):
+            if k in PTXAS_NO_SPILL and (fn["stack"] or fn["spill_stores"]
+                                        or fn["spill_loads"]):
                 spilled.append(fn["name"])
-    check(not spilled, f"segment_agg: a stack frame or spills in {spilled}")
+    check(not spilled, f"a stack frame or spills in {spilled}")
     # K1: NVRTC at first use; a trivial stage first, so a missing
     # libnvrtc or a failed compile ends the run here
     from ydb_tpu_torch.ops import ir, k1
@@ -3040,6 +3144,7 @@ def main() -> int:
     rows = kernel_phase(bindings, n, q6_cap, n_part, lut_span)
     rows += sorted_lane_phase(bindings, n, CAP,
                               max(p.num_rows for p in portions))
+    sort_checks(bindings)
     rows += k8_phase(bindings)
     ss = {c: torch.as_tensor(raw_ds["store_sales"][c], device="cuda")
           for c in ("ss_item_sk", "ss_sold_date_sk", "ss_ext_sales_price",
@@ -3155,6 +3260,8 @@ def main() -> int:
     log(f"launches (all paths): {json.dumps(launches)}")
     if args.profile:
         profile_phase(eng, QUERIES)
+        # the store_sales window query: K9's partition sorts, K13
+        profile_phase(eng_ds, {"k13": K13_SQL}, names=["k13"])
         profile_beyond_phase(eng_bb, {**QUERIES, **BEYOND_EXTRA})
     os.environ.pop("YDB_TPU_LATE_MAT", None)
 
@@ -3624,18 +3731,19 @@ def k1_bound_bytes(eng, sql: str) -> int:
     return table.num_rows * (sum(width[r] for r in read) + written)
 
 
-def profile_phase(eng, queries: dict) -> None:
-    """One warm run per query under torch.profiler: host wall time, the
-    summed device time of its kernels, the device's idle share of the
-    wall, the kernels that took most of it, the time and count of K1's
-    generated kernels (`k1_stage`) and of torch's elementwise kernels
+def profile_phase(eng, queries: dict, names=None) -> None:
+    """One warm run per query (TPC-H's 22 unless `names`) under
+    torch.profiler: host wall time, the summed device time of its
+    kernels, the device's idle share of the wall, the kernels that took
+    most of it, the time and count of K1's generated kernels
+    (`k1_stage`), of K9's (`rs_*`) and of torch's elementwise kernels
     that remain (index gathers and the like), with, for q6 and q19, K1's
     byte bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     os.environ["YDB_TPU_LATE_MAT"] = "1"
-    for name in (f"q{i}" for i in range(1, 23)):
+    for name in names or [f"q{i}" for i in range(1, 23)]:
         eng.query(queries[name])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -3654,6 +3762,10 @@ def profile_phase(eng, queries: dict) -> None:
         dev_ms = sum(dev_us(e) for e in evs) / 1e3
         top = sorted(evs, key=lambda e: -dev_us(e))[:8]
         elem = [e for e in evs if "elementwise" in e.key]
+        # K9's kernels (sort.cu: rs_census, rs_pass, rs_block)
+        sorts = [e for e in evs if e.key.startswith("rs_")]
+        check(not any("merge_pass" in e.key for e in evs),
+              f"profile {name}: a merge_pass kernel ran")
         k1e = [e for e in evs if e.key.startswith(K1_ENTRY)]
         k1 = ""
         if name in ("q6", "q19"):
@@ -3665,7 +3777,9 @@ def profile_phase(eng, queries: dict) -> None:
             f"{sum(dev_us(e) for e in k1e) / 1e3:.3f} "
             f"(x{sum(e.count for e in k1e)}){k1} torch_elementwise_ms="
             f"{sum(dev_us(e) for e in elem) / 1e3:.3f} "
-            f"(x{sum(e.count for e in elem)}) top: "
+            f"(x{sum(e.count for e in elem)}) sort_ms="
+            f"{sum(dev_us(e) for e in sorts) / 1e3:.3f} "
+            f"(x{sum(e.count for e in sorts)}) top: "
             + "; ".join(f"{e.key[:48]}={dev_us(e) / 1e3:.3f}ms x{e.count}"
                         for e in top))
 

@@ -88,7 +88,8 @@ _SIGS = {
               [_I64, _P, _I32, _P, _P, _I32, _P, _I64, _I64, _P, _I64, _I64,
                _I64, _I32, _I32, _I32, _P, _P, _P, _I32, _PI64, _PI64, _PI64,
                _PI64, _PI32, _P]),
-    "sort": ("sort", "sort_launch", [_I64, _I32, _PI64, _P, _P, _P]),
+    "sort": ("sort", "sort_launch",
+             [_I64, _I32, _PI64, _I32, _P, _P, _P, _P, _I64, _P]),
     "segment_agg": ("segment_agg", "segment_agg_launch",
                     [_I64, _P, _I32, _PI64, _P, _I32, _PI64, _PI64, _PI32,
                      _PI32, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -99,7 +100,7 @@ _SIGS = {
                      _P, _P, _P]),
     "window_scan": ("window_scan", "window_scan_launch",
                     [_I64, _P, _I32, _I32, _PI64, _I32, _PI32, _PI32, _PI32,
-                     _PI64, _PI64, _PI64, _I64, _P, _P, _P, _P, _P, _P]),
+                     _PI64, _PI64, _PI64, _I64, _P, _I32, _I32, _P, _P, _P]),
     "expand_counts": ("expand", "expand_counts_launch",
                       [_I64, _P, _I32, _P, _P, _P, _I64, _I64, _I32, _P, _P,
                        _P, _P, _P, _P, _P]),
@@ -742,6 +743,39 @@ def probe_plain(key, kvalid, sel, *, lut, lut_base, keys_sorted, n_build,
 # --------------------------------------------------------------------------
 
 _MAX_KEYS = 16
+_SORT_TILE = 4096                # rows a tile of a digit pass (sort.cu RTILE)
+_SORT_BINS = 256                 # 8-bit digits
+_SORT_BLOCK_MAX = 8192           # the one-block path's most rows (BLOCK_MAX)
+_SORT_PASS_INTS = 8              # ints of a pass-table entry (sort.cu Pass)
+
+
+def sort_plan(n: int, n_keys: int) -> dict:
+    """What `sort_perm` launches for `n` rows of `n_keys` words, from the
+    shapes alone (no sync): "none" for 0 rows; "block" (one launch: the
+    digit passes inside one block over `block_rows`, the power of two
+    >= n, in `smem` bytes of shared memory); or "radix": the
+    census, then one launch per pass of the maximal list `passes`
+    ((word, digit) pairs, the least significant digit of the last word
+    first: 8 a word), over `tiles` tiles, with `key_scratch` int64 and
+    `row_scratch` int32 ping-pong words and `ctl_words` zeroed int64
+    words (look-back words, census, tickets, pass table; sort.cu
+    ctl_words). The census decides on the card which passes run."""
+    if n == 0:
+        return {"path": "none", "launches": 0}
+    rows = 1 << max(n - 1, 0).bit_length()
+    if rows <= _SORT_BLOCK_MAX:
+        # sort.cu block_smem: two words, two row ids and a rank a row,
+        # and the eight warps' counts of the 256 bins
+        return {"path": "block", "block_rows": rows,
+                "smem": rows * 26 + 8 * _SORT_BINS * 4, "launches": 1}
+    tiles = -(-n // _SORT_TILE)
+    passes = [(n_keys - 1 - p // 8, p % 8) for p in range(8 * n_keys)]
+    ints = n_keys * 8 * _SORT_BINS + 8 * n_keys + 1 \
+        + _SORT_PASS_INTS * 8 * n_keys
+    return {"path": "radix", "tiles": tiles, "passes": passes,
+            "launches": 1 + len(passes), "key_scratch": 2 * n,
+            "row_scratch": 2 * n,
+            "ctl_words": tiles * _SORT_BINS + (ints + 1) // 2}
 
 
 def sort_perm(keys: list, n: int, device) -> torch.Tensor:
@@ -756,10 +790,21 @@ def sort_perm(keys: list, n: int, device) -> torch.Tensor:
     for i, k in enumerate(keys):
         _check(k, f"key {i}", dev, n, (torch.int64,))
     perm = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = torch.empty(n, dtype=torch.int32, device=dev)
-    _launch("sort", n, len(keys), _arr(ctypes.c_int64,
-                                       [_ptr(k) for k in keys]),
-            _ptr(perm), _ptr(scratch), _stream())
+    plan = sort_plan(n, max(len(keys), 1))
+    if plan["path"] == "none":
+        return perm
+    if not keys:                  # no key: the identity, as one equal word
+        keys = [torch.zeros(n, dtype=torch.int64, device=dev)]
+    ptrs = _arr(ctypes.c_int64, [_ptr(k) for k in keys])
+    if plan["path"] == "block":
+        _launch("sort", n, len(keys), ptrs, plan["block_rows"], _ptr(perm),
+                None, None, None, 0, _stream())
+        return perm
+    kbuf = torch.empty(plan["key_scratch"], dtype=torch.int64, device=dev)
+    rbuf = torch.empty(plan["row_scratch"], dtype=torch.int32, device=dev)
+    ctl = torch.zeros(plan["ctl_words"], dtype=torch.int64, device=dev)
+    _launch("sort", n, len(keys), ptrs, 0, _ptr(perm), _ptr(kbuf),
+            _ptr(rbuf), _ptr(ctl), plan["ctl_words"], _stream())
     return perm
 
 
@@ -1189,6 +1234,10 @@ _SCAN_OPS = {("sum", torch.int64): 0, ("sum", torch.float64): 1,
 _PART_IDX, _ORDER_IDX, _ORDER_CNT, _VALUE, _VALID_CNT = range(5)
 
 
+_SCAN_STATUS: dict = {}          # (device type, index, stream) -> status
+_SCAN_MU = threading.Lock()
+
+
 def window_scan(perm: torch.Tensor, part_words: list, order_words: list,
                 aggs: list):
     """Segmented scans over the rows taken in the order `perm` (int32),
@@ -1234,37 +1283,55 @@ def window_scan(perm: torch.Tensor, part_words: list, order_words: list,
     chunks = [list(range(i, min(i + per, len(aggs))))
               for i in range(0, len(aggs), per)] or [[]]
     T = max((n + _SCAN_TILE - 1) // _SCAN_TILE, 1)
-    flags = torch.empty(n, dtype=torch.uint8, device=dev)
-    for chunk in chunks:
-        # every launch recomputes the boundaries and the three structure
-        # scans; scan 0 must be the partition start (seg_end reads it)
-        q = [("max", _PART_IDX, None, None, seg_start),
-             ("max", _ORDER_IDX, None, None, grp_start),
-             ("sum", _ORDER_CNT, None, None, dense)]
-        for a in chunk:
-            op, data, valid = aggs[a]
-            q.append((op, _VALUE, data, valid, scans[a][0]))
-            q.append(("sum", _VALID_CNT, None, valid, scans[a][1]))
-        Q = len(q)
-        tile_flag = torch.empty(Q * T, dtype=torch.uint8, device=dev)
-        tile_val = torch.empty(Q * T, **i64)
-        carry = torch.empty(Q * T, **i64)
-        _launch("window_scan", n, _ptr(perm), len(part_words), len(words),
-                _arr(ctypes.c_int64, [_ptr(w) for w in words]), Q,
-                _arr(ctypes.c_int32,
-                     [_SCAN_OPS[(op, d.dtype if d is not None
-                                 else torch.int64)]
-                      for (op, _s, d, _v, _o) in q]),
-                _arr(ctypes.c_int32, [int(s not in (_PART_IDX, _ORDER_IDX))
-                                      for (_op, s, _d, _v, _o) in q]),
-                _arr(ctypes.c_int32, [s for (_op, s, _d, _v, _o) in q]),
-                _arr(ctypes.c_int64, [_ptr(d) or 0 for (_op, _s, d, _v, _o)
-                                      in q]),
-                _arr(ctypes.c_int64, [_ptr(v) or 0 for (_op, _s, _d, v, _o)
-                                      in q]),
-                _arr(ctypes.c_int64, [_ptr(o) for (_op, _s, _d, _v, o) in q]),
-                T, _ptr(flags), _ptr(tile_flag), _ptr(tile_val), _ptr(carry),
-                _ptr(seg_end), _stream())
+    # the tiles' aggregates and prefixes, written before they are read
+    lookback = torch.empty(2 * _MAX_SCANS * T, **i64)
+    key = (dev.type, dev.index, _stream())
+    need = len(chunks) * (T + 1)
+    with _SCAN_MU:
+        # per launch T + 1 status words (the tiles' flags, the ticket),
+        # kept per stream: zero on entry, and the last launch leaves
+        # them zero for the next call on the stream
+        status = _SCAN_STATUS.get(key)
+        if status is None or status.numel() < need:
+            status = _SCAN_STATUS[key] = torch.zeros(
+                need, dtype=torch.int32, device=dev)
+        done = False
+        try:
+            for c, chunk in enumerate(chunks):
+                # every launch recomputes the boundaries and the three
+                # structure scans; scan 0 must be the partition start
+                # (seg_end reads it)
+                q = [("max", _PART_IDX, None, None, seg_start),
+                     ("max", _ORDER_IDX, None, None, grp_start),
+                     ("sum", _ORDER_CNT, None, None, dense)]
+                for a in chunk:
+                    op, data, valid = aggs[a]
+                    q.append((op, _VALUE, data, valid, scans[a][0]))
+                    q.append(("sum", _VALID_CNT, None, valid, scans[a][1]))
+                _launch(
+                    "window_scan", n, _ptr(perm), len(part_words),
+                    len(words),
+                    _arr(ctypes.c_int64, [_ptr(w) for w in words]), len(q),
+                    _arr(ctypes.c_int32,
+                         [_SCAN_OPS[(op, d.dtype if d is not None
+                                     else torch.int64)]
+                          for (op, _s, d, _v, _o) in q]),
+                    _arr(ctypes.c_int32,
+                         [int(s not in (_PART_IDX, _ORDER_IDX))
+                          for (_op, s, _d, _v, _o) in q]),
+                    _arr(ctypes.c_int32, [s for (_op, s, _d, _v, _o) in q]),
+                    _arr(ctypes.c_int64, [_ptr(d) or 0
+                                          for (_op, _s, d, _v, _o) in q]),
+                    _arr(ctypes.c_int64, [_ptr(v) or 0
+                                          for (_op, _s, _d, v, _o) in q]),
+                    _arr(ctypes.c_int64, [_ptr(o)
+                                          for (_op, _s, _d, _v, o) in q]),
+                    T, _ptr(status), c, len(chunks), _ptr(lookback),
+                    _ptr(seg_end), _stream())
+            done = True
+        finally:
+            if not done:           # a launch that did not run leaves them
+                _SCAN_STATUS.pop(key, None)
     return seg_start, seg_end, grp_start, dense, scans
 
 
