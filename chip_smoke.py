@@ -8,9 +8,10 @@ Phases, each printing its own line(s):
 2. the build of the thirteen CUDA kernel libraries from
    ``ydb_tpu_torch/ops/cuda/csrc`` (one ``nvcc`` per source, in
    parallel), with its seconds and ``-Xptxas -v``'s registers, stack
-   frame and spills of every ``segment_agg``, ``bucket_sort``, ``sort``
-   and ``window_scan`` kernel (a stack frame or a spill in
-   ``segment_agg``, ``sort`` or ``window_scan`` fails the run), then
+   frame and spills of every ``segment_agg``, ``bucket_sort``, ``sort``,
+   ``window_scan``, ``bucket_agg`` and ``compact`` kernel (a stack frame
+   or a spill in ``segment_agg``, ``sort``, ``window_scan`` or K2's and
+   K6 xB's kernels fails the run), then
    NVRTC's version and the seconds of one trivial K1 stage (its first
    build);
 3. generation of TPC-H at ``--sf``, TPC-DS at SF1 and ClickBench's hits
@@ -21,7 +22,19 @@ Phases, each printing its own line(s):
    ``bucket_agg``, ``compact``, ``probe`` and ``sort`` at
    Q1/Q6/Q14's shapes (nulls, an all-null bucket, LUT misses and a
    forced compact overflow included), ``bucket_agg`` at 512 buckets and
-   16 aggregates and keyless, and each wrapper's multi-launch form;
+   16 aggregates, and each wrapper's multi-launch form; K2, the keyless
+   ``bucket_agg_keyless`` (one launch): every function with nulls, the
+   streaming body at one to four float and integer sums and counts, odd
+   row counts and an unaligned column, and Q14's two float64 sums timed
+   against ``sum(0)`` of the pre-masked matrix, called twice and held
+   bit for bit (the ``bucket_agg_keyless`` row); F1, more key words than
+   a kernel takes in one launch: ``sort_perm`` at 17 and 33 words (2^20
+   and 5,000 rows, twice, bit for bit), ``segment_agg`` and its member
+   form at 17 and 33, ``window_scan`` at 20 words and ``segments`` at 20
+   keys, each exactly against its plain version, and after the K1 phase
+   a GROUP BY over lineitem's 16 columns and the same columns under
+   ORDER BY ... LIMIT on the card, each equal to the pandas oracle and
+   to the same catalog's plain path (the CPU);
    ``sort`` at scan capacity (the sorted group-by's sort; two calls
    bit for bit equal), at n = 0, 1, 1,023, 1,024, 1,025 and 8,193, with
    every word equal, 16 words, one live bit, words >= 2^63 and the
@@ -114,11 +127,14 @@ Phases, each printing its own line(s):
    and values; ``segment_agg_batched`` at the batch c40 sends over the
    1M hits rows (timed); ``compact_batched`` at the point-lookup batch
    over orders' capacity (timed) and at 8 top-k masks over lineitem
-   (timed); B = 1, identical members, an empty member and B = 64. Each
-   line also times B launches of the single-query kernel; the bound is
-   the single kernel's byte count extended by the member axis, a shared
-   input counted once (``compact_batched`` also logs the bytes its
-   zero-filled full-capacity outputs write beyond it);
+   (timed), with no mask, a shared mask and more columns than one
+   launch takes; B = 1, identical members, an empty member and B = 64.
+   ``compact_batched`` is held on its counts and on every member's live
+   prefix (the rest of its outputs is undefined), and its lines log the
+   bytes the wrapper zero-fills beyond the kernel (``zero_fill_bytes``,
+   measured: it must be 0). Each line also times B launches of the
+   single-query kernel; the bound is the single kernel's byte count
+   extended by the member axis, a shared input counted once;
 8. the batched serving path, after the others (``serving_phase``): per
    template of ``ydb_tpu_torch/bench/serving.py`` (TPC-H Q1, Q6, Q12,
    Q14, Q19 and Q3 with qgen parameters, 64 point lookups of orders,
@@ -363,19 +379,53 @@ def kernel_phase(B, n: int, q6_compact_cap: int, n_part: int,
         f"plain_ms={time_ms(lambda: B.bucket_agg_plain(kid5, 512, active, wide)):.4f} "
         f"bound_us={wide_bound * 1e3:.2f} (bytes)")
 
-    # -- bucket_agg keyless (Q6, Q14: no ids, one bucket; the kernel
-    #    takes its own path for it): every func with nulls checked, and
-    #    Q14's two float64 sums over the whole scan (late
-    #    materialization off) timed, printed on a line of its own
+    # -- K2, keyless bucket_agg (Q6, Q14: no ids, one bucket; one launch,
+    #    bucket_agg_keyless): every func with nulls checked (the folding
+    #    body), the streaming body at one to four sums (float64, int64,
+    #    uint64) and counts, odd row counts and an unaligned column (the
+    #    folding body again); then Q14's two float64 sums over the whole
+    #    scan (late materialization off) timed and called twice, bit for
+    #    bit, printed on a line of its own and as K2's row
     check_bucket_agg(B, None, 1, active, wide, sync, "keyless")
+    ints = randint(-(1 << 40), 1 << 40, (n,))
+    streams = [aggs[:1], aggs[:2] + [("count", None, None, False)],
+               aggs[:3], [("sum", ints, None, False)] + aggs[:2]
+               + [("sum", ints, None, True)], [("count", None, None, False)],
+               []]
+    for i, spec in enumerate(streams):
+        check_bucket_agg(B, None, 1, active, spec, sync, f"keyless stream {i}")
+    for m in (1, 4095, 4097, 12345, 1 << 20):
+        check_bucket_agg(B, None, 1, active[:m], [(f, d[:m], None, u) for
+                                                  (f, d, _v, u) in aggs[:2]],
+                         sync, f"keyless n={m}")
+    check_bucket_agg(B, None, 1, active[1:], [("sum", aggs[0][1][1:], None,
+                                               False)], sync,
+                     "keyless unaligned")
     two = aggs[:2]
+    first = B.bucket_agg(None, 1, active, two)
+    again = B.bucket_agg(None, 1, active, two)
+    sync()
+    check(same_bits(list(first[0]) + list(first[1]) + [first[2]],
+                    list(again[0]) + list(again[1]) + [again[2]]),
+          "bucket_agg keyless: two calls differ")
+    err2 = check_bucket_agg(B, None, 1, active, two, sync, "keyless Q14")
     masked2 = stacked[:, :2].contiguous()    # the two sums, pre-masked
+    k2_ms = time_ms(lambda: B.bucket_agg(None, 1, active, two))
+    k2_plain = time_ms(lambda: B.bucket_agg_plain(None, 1, active, two))
+    k2_lib = time_ms(lambda: masked2.sum(0))
+    k2_bound = bound_ms(agg_bytes(None, 1, active, two))
     log(f"kernel bucket_agg keyless: n={n} aggs={len(two)} "
-        f"kernel_ms={time_ms(lambda: B.bucket_agg(None, 1, active, two)):.4f} "
-        f"plain_ms={time_ms(lambda: B.bucket_agg_plain(None, 1, active, two)):.4f} "
-        f"library_ms={time_ms(lambda: masked2.sum(0)):.4f} "
-        f"bound_us={bound_ms(agg_bytes(None, 1, active, two)) * 1e3:.2f} "
-        "(bytes)")
+        f"kernel_ms={k2_ms:.4f} plain_ms={k2_plain:.4f} "
+        f"library_ms={k2_lib:.4f} bound_us={k2_bound * 1e3:.2f} (bytes) "
+        f"kernel/library={k2_ms / k2_lib:.3f} kernel/bound="
+        f"{k2_ms / k2_bound:.3f} bit_equal=True")
+    rows.append(dict(
+        name="bucket_agg_keyless", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/bucket_agg.cu",
+        replaces="ydb_tpu/ops/xla_exec.py:301",
+        shape=f"n={n} aggs=2 float64 sums (Q14, keyless)",
+        max_abs_err=err2, ms=k2_ms, plain_ms=k2_plain, library_ms=k2_lib,
+        bound_ms=k2_bound, bound_by="bytes"))
 
     # -- compact at Q6's shape: n rows → the sized compact capacity,
     #    4 columns of the filtered env; then a forced overflow
@@ -582,6 +632,159 @@ def sort_checks(B, device: str = "cuda") -> None:
         "(radix and one block), 16 words, one live bit, words >= 2^63, "
         f"member form B={Bm} x {cap}: equal to the plain version, two "
         "calls bit for bit ok")
+
+
+def f1_phase(B, device: str = "cuda") -> None:
+    """More key words than a kernel takes in one launch (ROADMAP Queue 3
+    F1), each wrapper exactly against its plain version: `sort_perm` at
+    17 and 33 words over 2^20 rows and 5,000 rows (the one-block path),
+    each twice and bit for bit; `segment_agg` (and its member form) at
+    17 and 33 words; `window_scan` at 20 words; `segments` and
+    `segment_targets` at 20 keys with NULLs."""
+    import torch
+
+    from ydb_tpu_torch.ops.sort import encode_key
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1111)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def words(width, m):
+        # small domains: many rows equal in every word
+        return [encode_key(torch.randint(-2, 3, (m,), generator=g,
+                                         device=dev)) for _ in range(width)]
+
+    def rand(m):
+        return torch.rand(m, generator=g, device=dev, dtype=torch.float64)
+    for width in (17, 33):
+        for m in (1 << 20, 5000):
+            w = words(width, m)
+            a = B.sort_perm(w, m, dev)
+            b = B.sort_perm(w, m, dev)
+            sync()
+            check(torch.equal(a, B.sort_perm_plain(w, m, dev))
+                  and torch.equal(a, b), f"f1 sort {width} words n={m}")
+    m = 1 << 20
+    for width in (17, 33):
+        w = words(width, m)
+        active = rand(m) < 0.9
+        perm = B.sort_perm([encode_key((~active).to(torch.int64))] + w, m,
+                           dev)
+        aggs = [("sum", rand(m), rand(m) < 0.9, False),
+                ("count", None, None, False),
+                ("first", None, None, False)]
+        got = B.segment_agg(perm, w, active, aggs, m)
+        want = B.segment_agg_plain(perm, w, active, aggs, m)
+        sync()
+        check(all(torch.equal(x, y) for x, y in zip(got[:3], want[:3])),
+              f"f1 segment_agg {width} words: groups")
+        for i, (x, y) in enumerate(zip(got[3] + got[4], want[3] + want[4])):
+            if x.dtype == torch.float64:
+                torch.testing.assert_close(x, y, rtol=RTOL, atol=0)
+            else:
+                check(torch.equal(x, y), f"f1 segment_agg {width} words {i}")
+        masks = (rand(4 * m).reshape(4, m) < 0.5) & active[None, :]
+        bperm = B.sort_perm([encode_key((~masks.any(0)).to(torch.int64))]
+                            + w, m, dev)
+        check_segment_agg_batched(B, bperm, w, masks.contiguous(), aggs[:2],
+                                  m, sync, f"f1 {width} words")
+    w = words(20, m)
+    perm = B.sort_perm(w, m, dev)
+    scans = [("sum", rand(m), rand(m) < 0.9),
+             ("max", torch.randint(-99, 99, (m,), generator=g, device=dev),
+              None)]
+    got = B.window_scan(perm, w[:6], w[6:], scans)
+    want = B.window_scan_plain(perm, w[:6], w[6:], scans)
+    sync()
+    check(all(torch.equal(x, y) for x, y in zip(got[:4], want[:4])),
+          "f1 window_scan 20 words: structure")
+    for (gv, gc), (wv, wc) in zip(got[4], want[4]):
+        check(torch.equal(gc, wc), "f1 window_scan 20 words: counts")
+        torch.testing.assert_close(gv, wv, rtol=RTOL, atol=0)
+    keys = [(torch.randint(-3, 3, (m,), generator=g, device=dev)
+             if i % 3 else rand(m) * 1e3, rand(m) < 0.8 if i % 2 else None)
+            for i in range(20)]
+    cols = [(rand(m), None), (torch.randint(0, 99, (m,), generator=g,
+                                            device=dev), rand(m) < 0.5)]
+    check(torch.equal(B.segment_targets(keys, 4),
+                      B.segment_targets_plain(keys, 4)),
+          "f1 segment_targets 20 keys")
+    got = B.segments(m - 7, 4, m, cols, keys=keys)
+    want = B.segments_plain(m - 7, 4, m, cols, keys=keys)
+    sync()
+    check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+          "f1 segments 20 keys: counts")
+    for (gd, gv), (wd, wv) in zip(got[0], want[0]):
+        live = torch.arange(m, device=dev)[None, :] < got[1][:, None]
+        check(torch.equal(torch.where(live, gd, 0), torch.where(live, wd, 0))
+              and torch.equal(gv & live, wv & live),
+              "f1 segments 20 keys: rows")
+    log("kernel F1 checks: sort_perm at 17 and 33 words (n=2^20 and 5000, "
+        "two calls bit for bit), segment_agg and segment_agg_batched at 17 "
+        "and 33 words, window_scan at 6 + 14 words, segments and "
+        "segment_targets at 20 keys: equal to the plain versions ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+# the 16 lineitem columns: a GROUP BY over them sorts 17 words (the
+# inactive rank first), an ORDER BY 22 (K9 sorts past 16 words in two
+# launches of the chain)
+F1_COLUMNS = ("l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+              "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+              "l_returnflag", "l_linestatus", "l_shipdate", "l_commitdate",
+              "l_receiptdate", "l_shipinstruct", "l_shipmode", "l_comment")
+F1_ORDER_KEY_BELOW = 50_000        # about 200,000 lineitem rows at SF1
+F1_SQL = {
+    "group_by_16": f"select {', '.join(F1_COLUMNS)}, count(*) as n "
+                   f"from lineitem where l_orderkey < {F1_ORDER_KEY_BELOW} "
+                   f"group by {', '.join(F1_COLUMNS)}",
+    "order_by_16": f"select {', '.join(F1_COLUMNS)} from lineitem "
+                   f"where l_orderkey < {F1_ORDER_KEY_BELOW} order by "
+                   + ", ".join(f"{c} desc" if i % 2 else c
+                               for i, c in enumerate(F1_COLUMNS))
+                   + " limit 100",
+}
+
+
+def f1_oracle(name: str, data):
+    from ydb_tpu_torch.bench.tpch_oracle import frames
+    li = frames(data)["lineitem"]
+    d = li[li.l_orderkey < F1_ORDER_KEY_BELOW][list(F1_COLUMNS)]
+    if name == "group_by_16":
+        return d.groupby(list(F1_COLUMNS), sort=True).size() \
+            .reset_index(name="n")
+    return d.sort_values(list(F1_COLUMNS),
+                         ascending=[i % 2 == 0 for i in range(16)],
+                         kind="stable").head(100)
+
+
+def f1_query_phase(bindings, eng, eng_plain, data) -> None:
+    """F1 through the main path: the two 16-column queries on the card,
+    each matching the pandas oracle and the same engine's plain path
+    (`eng_plain`, the CPU over the same catalog); the sort chain must
+    have run (more `sort` launches than sorts)."""
+    from ydb_tpu_torch.bench.tpch_oracle import assert_frames_match
+    for name, sql in F1_SQL.items():
+        before = dict(bindings.LAUNCHES)
+        t0 = time.perf_counter()
+        got = eng.query(sql)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {k: v - before[k] for k, v in bindings.LAUNCHES.items()
+                    if v > before[k]}
+        check(launches.get("sort", 0) >= 2, f"f1 {name}: {launches}")
+        ordered = name == "order_by_16"
+        assert_frames_match(got, f1_oracle(name, data), ordered=ordered)
+        t0 = time.perf_counter()
+        plain = eng_plain.query(sql)
+        plain_wall = (time.perf_counter() - t0) * 1e3
+        assert_frames_match(got, plain, ordered=ordered)
+        log(f"query f1 {name}: rows={len(got)} cold_ms={wall:.2f} "
+            f"plain_cpu_ms={plain_wall:.2f} path={eng.executor.last_path} "
+            f"ok launches={json.dumps(launches)}")
 
 
 def segment_agg_bytes(perm, keys, active, aggs, oc: int) -> int:
@@ -1920,6 +2123,9 @@ def check_segment_agg_batched(B, perm, keys, masks, aggs, oc, sync,
 
 
 def check_compact_batched(B, cols, masks, lengths, n, new_cap, sync, tag):
+    """compact_batched against its plain version: live, new_len and
+    overflow exactly, and every member's live prefix [0, new_len)
+    exactly (the kernel leaves the rest of its row undefined)."""
     import torch
     Bm = masks.shape[0]
     ko, kl, kn, kf = B.compact_batched(cols, masks, lengths, n, new_cap, Bm)
@@ -1928,9 +2134,34 @@ def check_compact_batched(B, cols, masks, lengths, n, new_cap, sync, tag):
     sync()
     check(torch.equal(kl, pl) and torch.equal(kn, pn)
           and torch.equal(kf, pf), f"compact_batched {tag} lengths")
+    live = torch.arange(new_cap, device=kn.device)[None, :] \
+        < kn.to(torch.int64)[:, None]
     for a, b in zip(ko, po):
-        check(torch.equal(a, b), f"compact_batched {tag} column")
+        zero = torch.zeros((), dtype=a.dtype, device=a.device)
+        check(torch.equal(torch.where(live, a, zero),
+                          torch.where(live, b, zero)),
+              f"compact_batched {tag} column")
     return int(kl.sum())
+
+
+def zero_fill_bytes(fn) -> int:
+    """Bytes that one call of `fn` allocates through `torch.zeros` (after
+    a first call, so per-stream scratch made once is not counted): what a
+    wrapper clears beyond its kernel's own writes."""
+    import torch
+    fn()
+    real, seen = torch.zeros, []
+
+    def zeros(*a, **k):
+        t = real(*a, **k)
+        seen.append(t.numel() * t.element_size())
+        return t
+    torch.zeros = zeros
+    try:
+        fn()
+    finally:
+        torch.zeros = real
+    return sum(seen)
 
 
 def compact_batched_bytes(masks, live: int, cols) -> int:
@@ -2173,11 +2404,14 @@ def batched_kernel_phase(B, n: int, hits: dict, orders_n: int,
     lib = time_ms(lib_point)
     singles = time_ms(lambda: [B.compact(ocols, pmasks[b], plen, orders_n,
                                          orders_n) for b in range(Bp)])
-    width = sum(c.element_size() for c in ocols)
     bound = bound_ms(compact_batched_bytes(pmasks, plive, ocols))
-    # what the wrapper writes beyond the bound: B full-capacity outputs,
-    # zero-filled before the scatter
-    fill = f" zero_fill_bytes={Bp * orders_n * width} live_rows={plive}"
+    # what the wrapper clears beyond the bound (it used to zero-fill B
+    # full-capacity outputs before the kernels ran)
+    zf = zero_fill_bytes(lambda: B.compact_batched(ocols, pmasks, plen,
+                                                   orders_n, orders_n, Bp))
+    check(zf == 0, f"compact_batched point: {zf} bytes zero-filled")
+    fill = (f" zero_fill_bytes={zf} live_rows={plive} kernel/library="
+            f"{k / lib:.3f} kernel/bound={k / bound:.3f}")
     rows.append(dict(
         name="compact_batched", route="cuda",
         source="ydb_tpu_torch/ops/cuda/csrc/compact.cu",
@@ -2195,16 +2429,45 @@ def batched_kernel_phase(B, n: int, hits: dict, orders_n: int,
     def lib_topk():
         idx = torch.nonzero(tmasks)
         return [c[idx[:, 1]] for c in lcols]
-    line("compact_batched", f"top-k n={n} B={Bm}",
-         time_ms(lambda: B.compact_batched(lcols, tmasks, n, n, n, Bm)),
+    k = time_ms(lambda: B.compact_batched(lcols, tmasks, n, n, n, Bm))
+    lib = time_ms(lib_topk)
+    bound = bound_ms(compact_batched_bytes(tmasks, tlive, lcols))
+    zf = zero_fill_bytes(lambda: B.compact_batched(lcols, tmasks, n, n, n,
+                                                   Bm))
+    check(zf == 0, f"compact_batched top-k: {zf} bytes zero-filled")
+    line("compact_batched", f"top-k n={n} B={Bm}", k,
          time_ms(lambda: B.compact_batched_plain(lcols, tmasks, n, n, n,
                                                  Bm)),
-         time_ms(lib_topk),
+         lib,
          time_ms(lambda: [B.compact(lcols, tmasks[b], n, n, n)
                           for b in range(Bm)]),
-         bound_ms(compact_batched_bytes(tmasks, tlive, lcols)),
-         f" zero_fill_bytes={Bm * n * sum(c.element_size() for c in lcols)}"
-         f" live_rows={tlive}")
+         bound, f" zero_fill_bytes={zf} live_rows={tlive} kernel/library="
+         f"{k / lib:.3f} kernel/bound={k / bound:.3f}")
+    # the look-back's other shapes: no mask (every row to its length),
+    # one shared mask, more columns than one launch takes (a second
+    # launch reads the first one's offsets), and two calls held equal
+    many = [lcols[i % 2] for i in range(B._MAX_COLS + 3)]
+    check_compact_batched(B, many, tmasks, n - 3, n, 1 << 16, sync,
+                          "top-k chunked")
+    pm = tmasks[0]
+    ko, kl, kn, _kf = B.compact_batched(lcols, pm, n - 9, n, n, Bm)
+    po, pl, pn, _pf = B.compact_batched_plain(lcols, pm, n - 9, n, n, Bm)
+    sync()
+    check(torch.equal(kl, pl) and all(torch.equal(a[:, :int(pn[0])],
+                                                  b[:, :int(pn[0])])
+                                      for a, b in zip(ko, po)),
+          "compact_batched shared mask")
+    m = min(100_003, n - 1)
+    ko, kl, kn, _kf = B.compact_batched([lcols[1][:m]], None,
+                                        torch.randint(0, m, (Bm,),
+                                                      generator=g,
+                                                      device=dev,
+                                                      dtype=torch.int32),
+                                        m, m, Bm)
+    sync()
+    check(all(torch.equal(ko[0][b, :int(kn[b])], lcols[1][:int(kn[b])])
+              for b in range(Bm)) and torch.equal(kl, kn),
+          "compact_batched no mask")
 
     # -- edge cases, checked: B = 1, every member identical, a member
     #    with no live row, B = 64 (a member per block row)
@@ -3007,10 +3270,14 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
     return rows
 
 
-PTXAS_CHECKED = ("segment_agg", "bucket_sort", "sort", "window_scan")
+PTXAS_CHECKED = ("segment_agg", "bucket_sort", "sort", "window_scan",
+                 "bucket_agg", "compact")
 # the kernels whose every function must keep its state in registers: a
 # stack frame or a spill fails the run
 PTXAS_NO_SPILL = ("segment_agg", "sort", "window_scan")
+# and in bucket_agg and compact, the kernels of K2 and K6 xB (by name)
+PTXAS_NO_SPILL_FUNCTIONS = ("keyless_stream", "keyless_fold",
+                            "compact_members")
 
 
 def ptxas_functions(text: str) -> list:
@@ -3081,17 +3348,20 @@ def main() -> int:
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {k}: {line.strip()}")
-    # K4, K5, K9 and K13: each kernel function's registers, stack frame
-    # and spills; segment_agg's accumulators, the sort's tile and the
-    # window scan's rows must live in registers
+    # K2, K3, K4, K5, K6, K9 and K13: each kernel function's registers,
+    # stack frame and spills; segment_agg's accumulators, the sort's
+    # tile, the window scan's rows, the keyless folds' loads and the
+    # member compaction's bitmaps must live in registers
     spilled = []
     for k in PTXAS_CHECKED:
         for fn in ptxas_functions(built[k]["log"]):
             log(f"  ptxas {k} {fn['name']}: registers={fn['registers']} "
                 f"stack_frame={fn['stack']} spill_stores={fn['spill_stores']} "
                 f"spill_loads={fn['spill_loads']}")
-            if k in PTXAS_NO_SPILL and (fn["stack"] or fn["spill_stores"]
-                                        or fn["spill_loads"]):
+            strict = k in PTXAS_NO_SPILL or any(
+                f in fn["name"] for f in PTXAS_NO_SPILL_FUNCTIONS)
+            if strict and (fn["stack"] or fn["spill_stores"]
+                           or fn["spill_loads"]):
                 spilled.append(fn["name"])
     check(not spilled, f"a stack frame or spills in {spilled}")
     # K1: NVRTC at first use; a trivial stage first, so a missing
@@ -3145,6 +3415,7 @@ def main() -> int:
     rows += sorted_lane_phase(bindings, n, CAP,
                               max(p.num_rows for p in portions))
     sort_checks(bindings)
+    f1_phase(bindings)
     rows += k8_phase(bindings)
     ss = {c: torch.as_tensor(raw_ds["store_sales"][c], device="cuda")
           for c in ("ss_item_sk", "ss_sold_date_sk", "ss_ext_sales_price",
@@ -3170,6 +3441,12 @@ def main() -> int:
     rows += batched_kernel_phase(bindings, n, hits, orders_n, point_b)
     del hits
     rows += k1_phase(bindings, eng, QUERIES)
+    # F1 through the main path: the 16-column queries on the card, each
+    # held against the oracle and against the plain path (the CPU)
+    t0 = time.perf_counter()
+    f1_query_phase(bindings, eng, QueryEngine(catalog=eng.catalog,
+                                              device="cpu"), data)
+    log(f"f1 queries: {time.perf_counter() - t0:.1f} s")
 
     # 5. the main path, path by path, through QueryEngine.query; the
     # beyond-budget path runs a second engine over the TPC-H data with
@@ -3364,7 +3641,8 @@ PATHS = (
     ("q1 q6 q14, late materialization on and off", "tpch",
      [("q1", {"late": "1"}), ("q6", {"late": "1"}), ("q14", {"late": "1"}),
       ("q1", {"late": "0"}), ("q14", {"late": "0"})],
-     ("bucket_agg", "compact", "probe", "sort", "k1")),
+     ("bucket_agg", "bucket_agg_keyless", "compact", "probe", "sort",
+      "k1")),
     ("the other 19 queries: sorted and medium-domain group-by, hashing, "
      "CTEs and derived tables", "tpch",
      [(f"q{i}", {}) for i in range(2, 23) if i not in (6, 14)],

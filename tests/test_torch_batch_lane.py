@@ -18,6 +18,9 @@
 (c) Each member-axis plain version against B calls of the single-query
     plain version, and `_eval` of every function of `ops/kernels.py`
     with a per-member param against B single evaluations.
+(d) The serving templates at B = 8 with `compact_batched_plain`'s tails
+    poisoned where the kernel leaves them undefined: the answers equal
+    the clean lane's and the reference's.
 """
 
 import dataclasses
@@ -653,3 +656,85 @@ def test_eval_with_per_member_param_is_b_single_evals(op):
         else:
             vb = v[b] if v.dim() == 2 else v
             assert torch.equal(vb, wv), b
+
+
+# -- (d) the lane's consumers of an undefined compaction tail ---------------
+#
+# On the card `compact_batched` writes only each member's live prefix
+# [0, new_len); the rest of a (B, cap) output holds whatever the memory
+# held. Here its plain version's tails are poisoned (NaN, -1 and the
+# integer extremes, True) wherever the wrapper leaves them undefined, and
+# every serving template must still answer as the lane without the
+# patch and as the JAX engine do: nothing after a compaction reads a
+# tail as a value that reaches an answer, as an index or as a length.
+
+POISON_TEMPLATES = ("q1", "q6", "q12", "q14", "q19", "point", "c36", "c37",
+                    "c40", "c42")
+POISON_B = 8
+POISON_COMPACTS = ("q1", "q12", "point", "c36", "c37")
+
+
+def _poisoned(real):
+    def compact_batched_plain(cols, masks, lengths, n, new_cap, B,
+                              zero_tail=False):
+        outs, live, new_len, ovf = real(cols, masks, lengths, n, new_cap, B)
+        if zero_tail:                     # the wrapper zeroes these
+            return outs, live, new_len, ovf
+        slot = torch.arange(new_cap)
+        tail = slot[None, :] >= new_len.to(torch.int64)[:, None]
+        bad = []
+        for o in outs:
+            if o.dtype == torch.bool:
+                fill = torch.ones_like(o)
+            elif o.dtype.is_floating_point:
+                fill = torch.full_like(o, float("nan"))
+            else:
+                info = torch.iinfo(o.dtype)
+                cyc = torch.tensor([-1, info.min, info.max], dtype=o.dtype)
+                fill = cyc[slot % 3].expand_as(o)
+            bad.append(torch.where(tail, fill, o))
+        return bad, live, new_len, ovf
+    return compact_batched_plain
+
+
+@pytest.fixture(scope="module")
+def hits_engines():
+    from ydb_tpu.bench.clickbench_gen import load_hits as jax_load_hits
+    from ydb_tpu_torch.bench.clickbench_gen import load_hits
+    je = JaxEngine(block_rows=1 << 13)
+    jax_load_hits(je.catalog, n_rows=20_000, shards=2, portion_rows=1 << 12)
+    pe = PortEngine(device="cpu", block_rows=1 << 13)
+    load_hits(pe.catalog, n_rows=20_000, shards=2, portion_rows=1 << 12)
+    return je, pe
+
+
+def _template_texts(name, pe):
+    if name == "point":
+        keys = pe.query("select o_orderkey from orders")["o_orderkey"]
+        return serving.point_variants(np.asarray(keys), POISON_B, seed=5)
+    return serving.variants(name, POISON_B, seed=5)
+
+
+@pytest.mark.parametrize("name", POISON_TEMPLATES)
+def test_poisoned_compaction_tails_change_no_answer(
+        request, monkeypatch, entry_calls, name):
+    from ydb_tpu_torch.ops.cuda import bindings as K
+    je, pe = request.getfixturevalue(
+        "hits_engines" if name.startswith("c") else "tpch_engines")
+    texts = _template_texts(name, pe)
+    assert len(set(texts)) == POISON_B
+    want, _ = _batched(je, jax_parse, texts)
+    clean, _ = _batched(pe, port_parse, texts)
+    calls = dict(entry_calls)
+    monkeypatch.setattr(K, "compact_batched_plain",
+                        _poisoned(K.compact_batched_plain))
+    got, _ = _batched(pe, port_parse, texts)
+    assert want is not None and clean is not None
+    _assert_blocks_match(clean, want, texts)
+    _assert_blocks_match(got, clean, texts)
+    # the templates whose batch compacts through compact_batched (q6,
+    # q14 and q19 are keyless; c40 and c42 compact inside
+    # segment_agg_batched, which zeroes its tails)
+    compacted = entry_calls.get("compact_batched", 0) > calls.get(
+        "compact_batched", 0)
+    assert compacted == (name in POISON_COMPACTS), entry_calls

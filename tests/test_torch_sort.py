@@ -9,7 +9,8 @@ live bit, words >= 2^63, 16 words, `encode_key` of floats with -0.0,
 NaN and +-inf, and the member form's leading member word. The wrappers
 take the plain version for CPU tensors only: CUDA tensors (made here
 under `FakeTensorMode`, which needs no card) with a wrong dtype, length
-or word count raise, and right ones go to the launch with the pass list
+or device raise (past 16 words too), and right ones go to the launch
+with the pass list
 and scratch sizes of `sort_plan`, never to the plain version;
 `window_scan` launches once per chunk of aggregates, with status words
 zeroed once per stream and kept (the last launch leaves them zero), the
@@ -219,8 +220,10 @@ def test_sort_perm_checks_cuda_tensors(monkeypatch):
         with pytest.raises(ValueError, match="shape"):
             K.sort_perm([torch.empty(63, dtype=torch.int64, device="cuda")],
                         64, "cuda")
-        with pytest.raises(ValueError, match="sort keys"):
-            K.sort_perm([good] * 17, 64, "cuda")
+        with pytest.raises(ValueError, match="dtype"):   # past 16 words too
+            K.sort_perm([good] * 17 + [torch.empty(64, dtype=torch.int32,
+                                                   device="cuda")], 64,
+                        "cuda")
         with pytest.raises(ValueError, match="on cpu"):
             K.sort_perm([torch.empty(64, dtype=torch.int64)], 64, "cuda")
 

@@ -12,7 +12,8 @@ a non-zero code raises.
 
 | kernel       | replaces (ydb_tpu)                                        |
 |--------------|-----------------------------------------------------------|
-| bucket_agg   | ops/xla_exec.py _groupby_global, _groupby_small_domain    |
+| bucket_agg   | ops/xla_exec.py _groupby_small_domain                     |
+| bucket_agg_keyless | ops/xla_exec.py _groupby_global                     |
 | compact      | ops/xla_exec.py compress, compact_env                     |
 | probe        | ops/join.py probe_lut_traced, bsearch_traced,             |
 |              | _select_and_gather                                        |
@@ -41,7 +42,8 @@ a non-zero code raises.
 |              | what ops/fused.py build_fused_batched_fn's vmap gives     |
 |              | them in the reference                                     |
 
-Each launch name builds from ``csrc/<library>.cu`` (``expand_counts``
+Each launch name builds from ``csrc/<library>.cu`` (``bucket_agg`` and
+``bucket_agg_keyless`` share ``bucket_agg.cu``, ``expand_counts``
 and ``expand_gather`` share ``expand.cu``, the two codec entries
 ``quant.cu``, the bucket plane and the counts ``dq_counts.cu``;
 ``bucket_perm`` is ``bucket_sort.cu``; each ``*_batched`` entry is in
@@ -76,14 +78,20 @@ _I32 = ctypes.c_int
 _PI64 = ctypes.POINTER(ctypes.c_int64)
 _PI32 = ctypes.POINTER(ctypes.c_int32)
 
+# compact.cu's one entry, for the single query (B = 1) and the members
+_COMPACT_ARGS = [_I64, _I32, _P, _I32, _I64, _P, _I64, _I64, _P, _I64, _P,
+                 _P, _P, _I32, _PI64, _PI64, _PI64, _PI32, _I32, _P]
+
 # launch name -> (library, C symbol, argtypes)
 _SIGS = {
     "bucket_agg": ("bucket_agg", "bucket_agg_launch",
                    [_I64, _I32, _P, _P, _I32, _PI64, _PI64, _PI32, _PI32,
                     _I64, _I32, _P, _P, _P, _P, _P, _P, _P]),
-    "compact": ("compact", "compact_launch",
-                [_I64, _P, _P, _I64, _P, _P, _P, _P, _P, _I32, _PI64, _PI64,
-                 _PI32, _I32, _P]),
+    "bucket_agg_keyless": ("bucket_agg", "bucket_agg_keyless_launch",
+                           [_I64, _P, _I32, _PI64, _PI64, _PI32, _PI32,
+                            _I64, _I32, _I32, _P, _P, _P, _P, _P, _P, _P,
+                            _P]),
+    "compact": ("compact", "compact_launch", _COMPACT_ARGS),
     "probe": ("probe", "probe_launch",
               [_I64, _P, _I32, _P, _P, _I32, _P, _I64, _I64, _P, _I64, _I64,
                _I64, _I32, _I32, _I32, _P, _P, _P, _I32, _PI64, _PI64, _PI64,
@@ -123,10 +131,7 @@ _SIGS = {
                  [_I64, _I32, _PI64, _PI64, _PI32, _P, _P, _P, _I32, _I32,
                   _P, _P, _P, _P, _P, _P, _I32, _PI64, _PI64, _PI32, _I32,
                   _P]),
-    "compact_batched": ("compact", "compact_batched_launch",
-                        [_I64, _I32, _P, _I32, _P, _I64, _I64, _P, _P, _P,
-                         _P, _P, _I32, _PI64, _PI64, _PI64, _PI32, _I32,
-                         _P]),
+    "compact_batched": ("compact", "compact_launch", _COMPACT_ARGS),
     "quantize_blocked": ("quant", "quantize_blocked_launch",
                          [_I64, _I32, _P, _P, _P, _P]),
     "dequantize_blocked": ("quant", "dequantize_blocked_launch",
@@ -264,7 +269,8 @@ def bucket_agg(kid: Optional[torch.Tensor], nb: int, active: torch.Tensor,
     for float columns, int64 otherwise; the row count for count; the
     first matching row index (n when none) for first; min/max are 0 where
     no row counted — and the (nb,) int64 count of rows that fed it, plus
-    the (nb,) int64 count of active rows per bucket."""
+    the (nb,) int64 count of active rows per bucket. Keyless calls launch
+    ``bucket_agg_keyless`` (K2), keyed ones ``bucket_agg`` (K3)."""
     n = active.shape[0]
     dev = active.device
     if dev.type != "cuda":
@@ -286,6 +292,8 @@ def bucket_agg(kid: Optional[torch.Tensor], nb: int, active: torch.Tensor,
             raise ValueError(f"{func} needs data")
         if valid is not None:
             _check(valid, f"{func} valid", dev, n, (torch.bool,))
+    if kid is None:
+        return _bucket_agg_keyless(n, active, aggs, dev)
     vals, cnts, present = [], [], None
     G = max(1, min((n + 511) // 512, _PARTIAL_BLOCKS))   # 512-row tiles
     chunks = [aggs[i:i + _MAX_AGGS] for i in range(0, len(aggs), _MAX_AGGS)] \
@@ -298,8 +306,7 @@ def bucket_agg(kid: Optional[torch.Tensor], nb: int, active: torch.Tensor,
         out_val = torch.empty((A, nb), dtype=torch.int64, device=dev)
         out_cnt = torch.empty((A, nb), dtype=torch.int64, device=dev)
         out_pres = torch.empty(nb, dtype=torch.int64, device=dev)
-        types = [0 if (d is not None and d.dtype == torch.float64)
-                 else (2 if u else 1) for (_f, d, _v, u) in chunk]
+        types = _agg_types(chunk)
         _launch("bucket_agg", n, nb, _ptr(kid), _ptr(active), A,
                 _arr(ctypes.c_int64, [_ptr(d) or 0 for (_f, d, _v, _u)
                                       in chunk]),
@@ -316,6 +323,97 @@ def bucket_agg(kid: Optional[torch.Tensor], nb: int, active: torch.Tensor,
                 v = v.view(torch.float64)
             vals.append(v)
             cnts.append(out_cnt[a])
+        present = out_pres
+    return vals, cnts, present
+
+
+def _agg_types(chunk) -> list:
+    """The kernels' value type per aggregate spec: 0 float64, 1 int64,
+    2 uint64 (int64 storage of unsigned values)."""
+    return [0 if (d is not None and d.dtype == torch.float64)
+            else (2 if u else 1) for (_f, d, _v, u, *_r) in chunk]
+
+
+_KL_GRID = 264                   # bucket_agg.cu KL_GRID: 2 blocks a SM
+_KL_MAX_SUMS = 4                 # bucket_agg.cu KL_MAX_SUMS
+_KL_WARPS = 8                    # bucket_agg.cu WARPS
+
+
+def keyless_plan(n: int, aggs: list, aligned: bool) -> dict:
+    """What `bucket_agg` launches for one keyless chunk, from the shapes
+    alone: `aggs` [(func, has data, has valid)], `aligned` that the mask
+    is 2-byte and every data column 16-byte aligned. One launch either
+    way: "stream" (the common spec: counts and at most four sums, none
+    with a validity) with `J` 16-byte loads a sum a lane a step, over
+    `grid` blocks of the fixed persistent grid; else "fold" over up to
+    528 blocks of 512 rows. `grid` blocks write `grid` partials."""
+    sums = [f for (f, has_data, _v) in aggs if f == "sum"]
+    common = aligned and len(sums) <= _KL_MAX_SUMS and all(
+        not has_valid and ((f == "count" and not has_data)
+                           or (f == "sum" and has_data))
+        for (f, has_data, has_valid) in aggs)
+    if common:
+        J = 8 if len(sums) <= 2 else 4
+        step = _KL_WARPS * 64 * J
+        return {"path": "stream", "J": J,
+                "grid": max(1, min(-(-n // step), _KL_GRID)), "launches": 1}
+    return {"path": "fold", "J": 0,
+            "grid": max(1, min(-(-n // 512), _PARTIAL_BLOCKS)), "launches": 1}
+
+
+_TICKETS: dict = {}              # (device type, index, stream) -> int32
+_TICKET_MU = threading.Lock()
+
+
+def _ticket(dev) -> torch.Tensor:
+    """A zeroed int32 word per stream: a kernel's ticket counter, which
+    the last block of each launch resets to zero for the next launch."""
+    key = (dev.type, dev.index, _stream())
+    with _TICKET_MU:
+        t = _TICKETS.get(key)
+        if t is None:
+            t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                            device=dev)
+    return t
+
+
+def _bucket_agg_keyless(n: int, active: torch.Tensor, aggs: list, dev):
+    """K2: keyless `bucket_agg` on the card, one launch per chunk of
+    _MAX_AGGS aggregates (`keyless_plan`)."""
+    vals, cnts, present = [], [], None
+    chunks = [aggs[i:i + _MAX_AGGS] for i in range(0, len(aggs), _MAX_AGGS)] \
+        or [[]]
+    i64 = dict(dtype=torch.int64, device=dev)
+    for chunk in chunks:
+        A = len(chunk)
+        aligned = _ptr(active) % 2 == 0 and all(
+            _ptr(d) % 16 == 0 for (_f, d, _v, _u) in chunk if d is not None)
+        plan = keyless_plan(n, [(f, d is not None, v is not None)
+                                for (f, d, v, _u) in chunk], aligned)
+        G = plan["grid"]
+        part_val = torch.empty(G * A, **i64)
+        part_cnt = torch.empty(G * A, **i64)
+        part_pres = torch.empty(G, **i64)
+        out_val = torch.empty((A, 1), **i64)
+        out_cnt = torch.empty((A, 1), **i64)
+        out_pres = torch.empty(1, **i64)
+        _launch("bucket_agg_keyless", n, _ptr(active), A,
+                _arr(ctypes.c_int64, [_ptr(d) or 0 for (_f, d, _v, _u)
+                                      in chunk]),
+                _arr(ctypes.c_int64, [_ptr(v) or 0 for (_f, _d, v, _u)
+                                      in chunk]),
+                _arr(ctypes.c_int32, [AGG_FUNCS[f] for (f, *_r) in chunk]),
+                _arr(ctypes.c_int32, _agg_types(chunk)), n, plan["J"], G,
+                _ptr(part_val), _ptr(part_cnt), _ptr(part_pres),
+                _ptr(_ticket(dev)), _ptr(out_val), _ptr(out_cnt),
+                _ptr(out_pres), _stream())
+        for a, (func, d, _v, _u) in enumerate(chunk):
+            v = out_val.select(0, a)
+            if d is not None and d.dtype == torch.float64 \
+                    and func in ("sum", "min", "max"):
+                v = v.view(torch.float64)
+            vals.append(v)
+            cnts.append(out_cnt.select(0, a))
         present = out_pres
     return vals, cnts, present
 
@@ -376,7 +474,8 @@ def bucket_agg_batched(kid: Optional[torch.Tensor], nb: int,
     Returns (vals, cnts, present) as `bucket_agg`'s with a leading member
     axis: per aggregate a (B, nb) value and (B, nb) count, and the (B, nb)
     active-row counts. Member b's results equal `bucket_agg` over its
-    rows; its float sums fold in the same order as a single query's."""
+    rows; with keys, its float sums fold in the same order as a single
+    query's (keyless members fold in an order of their own)."""
     B, n = masks.shape
     dev = masks.device
     if dev.type != "cuda":
@@ -417,8 +516,7 @@ def bucket_agg_batched(kid: Optional[torch.Tensor], nb: int,
         out_val = torch.empty((B, A, nb), dtype=torch.int64, device=dev)
         out_cnt = torch.empty((B, A, nb), dtype=torch.int64, device=dev)
         out_pres = torch.empty((B, nb), dtype=torch.int64, device=dev)
-        types = [0 if (d is not None and d.dtype == torch.float64)
-                 else (2 if u else 1) for (_f, d, _v, u, _ds, _vs) in chunk]
+        types = _agg_types(chunk)
         _launch("bucket_agg_batched", n, nb, _ptr(kid), ks, B,
                 _ptr(masks), ms, A,
                 _arr(ctypes.c_int64, [_ptr(c[1]) or 0 for c in chunk]),
@@ -486,7 +584,8 @@ def compact(cols: list, mask: Optional[torch.Tensor], length, n: int,
     Returns (outs, live, new_len, overflow): the compacted columns — rows
     [0, new_len) are the active rows in order, the rest zero — and 0-d
     tensors live (int32 active count), new_len = min(live, new_cap)
-    (int32) and overflow = live > new_cap (bool)."""
+    (int32) and overflow = live > new_cap (bool). On the card it is the
+    member kernel's B = 1 (one launch a chunk of columns)."""
     dev = mask.device if mask is not None else (
         cols[0].device if cols else (length.device
                                      if isinstance(length, torch.Tensor)
@@ -497,28 +596,11 @@ def compact(cols: list, mask: Optional[torch.Tensor], length, n: int,
         _check(mask, "mask", dev, n, (torch.bool,))
     for i, c in enumerate(cols):
         _check(c, f"column {i}", dev, n)
-        if c.element_size() not in (1, 2, 4, 8):
-            raise ValueError(f"column {i}: element size {c.element_size()}")
-    length_t = _length_tensor(length, dev)
-    nblocks = max((n + 1023) // 1024, 1)
-    block_counts = torch.empty(nblocks, dtype=torch.int32, device=dev)
-    block_offsets = torch.empty(nblocks, dtype=torch.int32, device=dev)
-    live = torch.empty((), dtype=torch.int32, device=dev)
-    new_len = torch.empty((), dtype=torch.int32, device=dev)
-    ovf = torch.empty((), dtype=torch.bool, device=dev)
-    outs = [torch.zeros(new_cap, dtype=c.dtype, device=dev) for c in cols]
-    chunks = [list(range(i, min(i + _MAX_COLS, len(cols))))
-              for i in range(0, len(cols), _MAX_COLS)] or [[]]
-    for j, chunk in enumerate(chunks):
-        _launch("compact", n, _ptr(length_t), _ptr(mask), new_cap,
-                _ptr(block_counts), _ptr(block_offsets), _ptr(live),
-                _ptr(new_len), _ptr(ovf), len(chunk),
-                _arr(ctypes.c_int64, [_ptr(cols[i]) for i in chunk]),
-                _arr(ctypes.c_int64, [_ptr(outs[i]) for i in chunk]),
-                _arr(ctypes.c_int32, [cols[i].element_size()
-                                      for i in chunk]),
-                1 if j == 0 else 0, _stream())
-    return outs, live, new_len, ovf
+    outs, live, new_len, ovf = _compact_members(
+        "compact", cols, [0] * len(cols), mask, 0, length, n, new_cap, 1,
+        True, dev)
+    return ([o.reshape(new_cap) for o in outs], live.reshape(()),
+            new_len.reshape(()), ovf.reshape(()))
 
 
 def compact_plain(cols: list, mask, length, n: int, new_cap: int):
@@ -541,8 +623,25 @@ def compact_plain(cols: list, mask, length, n: int, new_cap: int):
     return outs, live, new_len, live > new_cap
 
 
+_CM_TILE = 32768                 # compact.cu CM_TILE: mask rows a block
+_CM_EPOCHS = (1 << 30) - 1       # compact.cu: epochs 1 .. 2^30 - 1
+_CM_STATUS: dict = {}            # (device type, index, stream) -> [words,
+_CM_MU = threading.Lock()        # last epoch]
+
+
+def compact_batched_plan(n: int, B: int) -> dict:
+    """What `compact_batched` (and `compact`, B = 1) launches, from the
+    shapes alone: one launch a chunk of _MAX_COLS columns, of `blocks` =
+    B x `tiles` blocks (each a member's tile of 32,768 rows, at least one
+    a member), over `status_words` int64 words (the ticket and a
+    look-back word a block)."""
+    tiles = max(-(-n // _CM_TILE), 1)
+    return {"tiles": tiles, "blocks": B * tiles, "status_words": 1 + B * tiles,
+            "launches": 1}
+
+
 def compact_batched(cols: list, masks: Optional[torch.Tensor], lengths,
-                    n: int, new_cap: int, B: int):
+                    n: int, new_cap: int, B: int, zero_tail: bool = False):
     """`compact` for B members at once: member b keeps the rows r <
     lengths[b] (and masks[b, r]) of each column, in order, in row b of a
     (B, new_cap) output.
@@ -551,53 +650,85 @@ def compact_batched(cols: list, masks: Optional[torch.Tensor], lengths,
     masks: bool (B, n), shared (n,), or None; lengths: int32 (B,), or one
     length for every member (an int or 0-d tensor).
 
-    Returns (outs, live, new_len, overflow): (B, new_cap) columns (rows
-    past a member's new_len are zero) and (B,) live counts (int32),
-    new_len = min(live, new_cap) and overflow = live > new_cap."""
+    Returns (outs, live, new_len, overflow): (B, new_cap) columns and (B,)
+    live counts (int32), new_len = min(live, new_cap) and overflow = live
+    > new_cap. Only each member's live prefix [0, new_len[b]) is defined:
+    the kernel writes nothing past it, unless `zero_tail` asks for outputs
+    zeroed first (the plain version's zeros)."""
     dev = masks.device if masks is not None else (
         cols[0].device if cols else lengths.device)
     if dev.type != "cuda":
-        return compact_batched_plain(cols, masks, lengths, n, new_cap, B)
+        return compact_batched_plain(cols, masks, lengths, n, new_cap, B,
+                                     zero_tail=zero_tail)
     ms = 0
     if masks is not None:
         ms = _member_stride(masks, "masks", dev, B, n, (torch.bool,))
-    strides = []
+    strides = [_member_stride(c, f"column {i}", dev, B, n)
+               for i, c in enumerate(cols)]
+    return _compact_members("compact_batched", cols, strides, masks, ms,
+                            lengths, n, new_cap, B, zero_tail, dev)
+
+
+def _compact_members(name: str, cols: list, strides: list, masks, ms: int,
+                     lengths, n: int, new_cap: int, B: int, zero_tail: bool,
+                     dev):
+    """The launches of `compact` (B = 1) and `compact_batched`, counted
+    under `name`: one a chunk of _MAX_COLS columns, the first counting.
+    `cols`, `masks` and `lengths` are checked; `strides` and `ms` are
+    their member strides."""
     for i, c in enumerate(cols):
-        strides.append(_member_stride(c, f"column {i}", dev, B, n))
         if c.element_size() not in (1, 2, 4, 8):
             raise ValueError(f"column {i}: element size {c.element_size()}")
+    # a host length goes by value: copying it to the card would wait
+    # for the stream
+    lengths_t, ls, length = None, 0, 0
     if isinstance(lengths, torch.Tensor) and lengths.dim() == 1:
         _check(lengths, "lengths", dev, B, (torch.int32,))
         lengths_t, ls = lengths, 1
+    elif isinstance(lengths, torch.Tensor):
+        lengths_t = _length_tensor(lengths, dev)
     else:
-        lengths_t, ls = _length_tensor(lengths, dev), 0
-    nblocks = max((n + 1023) // 1024, 1)
-    block_counts = torch.empty(B * nblocks, dtype=torch.int32, device=dev)
-    block_offsets = torch.empty(B * nblocks, dtype=torch.int32, device=dev)
+        length = int(lengths)
+    if n >= 1 << 31:
+        raise ValueError(f"{n} rows (at most 2^31 - 1)")
+    plan = compact_batched_plan(n, B)
     live = torch.empty(B, dtype=torch.int32, device=dev)
     new_len = torch.empty(B, dtype=torch.int32, device=dev)
     ovf = torch.empty(B, dtype=torch.bool, device=dev)
-    outs = [torch.zeros((B, new_cap), dtype=c.dtype, device=dev)
-            for c in cols]
+    alloc = torch.zeros if zero_tail else torch.empty
+    outs = [alloc((B, new_cap), dtype=c.dtype, device=dev) for c in cols]
     chunks = [list(range(i, min(i + _MAX_COLS, len(cols))))
               for i in range(0, len(cols), _MAX_COLS)] or [[]]
-    for j, chunk in enumerate(chunks):
-        _launch("compact_batched", n, B, _ptr(lengths_t), ls, _ptr(masks),
-                ms, new_cap, _ptr(block_counts), _ptr(block_offsets),
-                _ptr(live), _ptr(new_len), _ptr(ovf), len(chunk),
-                _arr(ctypes.c_int64, [_ptr(cols[i]) for i in chunk]),
-                _arr(ctypes.c_int64, [strides[i] for i in chunk]),
-                _arr(ctypes.c_int64, [_ptr(outs[i]) for i in chunk]),
-                _arr(ctypes.c_int32, [cols[i].element_size()
-                                      for i in chunk]),
-                1 if j == 0 else 0, _stream())
+    key = (dev.type, dev.index, _stream())
+    with _CM_MU:
+        # the look-back words and the ticket, kept per stream: zeroed
+        # once; each call tags its words with a new epoch, and the
+        # kernel leaves the ticket zero
+        ent = _CM_STATUS.get(key)
+        if ent is None or ent[0].numel() < plan["status_words"]:
+            ent = _CM_STATUS[key] = [torch.zeros(
+                plan["status_words"], dtype=torch.int64, device=dev), 0]
+        ent[1] = ent[1] % _CM_EPOCHS + 1
+        status, epoch = ent
+        for j, chunk in enumerate(chunks):
+            _launch(name, n, B, _ptr(lengths_t), ls, length, _ptr(masks),
+                    ms, new_cap, _ptr(status), epoch, _ptr(live),
+                    _ptr(new_len), _ptr(ovf), len(chunk),
+                    _arr(ctypes.c_int64, [_ptr(cols[i]) for i in chunk]),
+                    _arr(ctypes.c_int64, [strides[i] for i in chunk]),
+                    _arr(ctypes.c_int64, [_ptr(outs[i]) for i in chunk]),
+                    _arr(ctypes.c_int32, [cols[i].element_size()
+                                          for i in chunk]),
+                    1 if j == 0 else 0, _stream())
     return outs, live, new_len, ovf
 
 
 def compact_batched_plain(cols: list, masks, lengths, n: int, new_cap: int,
-                          B: int):
+                          B: int, zero_tail: bool = False):
     """Plain PyTorch version of `compact_batched` (a rank per member by
-    cumulative sum, then one scatter over the B·new_cap slots)."""
+    cumulative sum, then one scatter over the B·new_cap slots). Its tails
+    are always zero, `zero_tail` or not: zeros are one of the values an
+    undefined tail may hold."""
     dev = masks.device if masks is not None else (
         cols[0].device if cols else lengths.device)
     iota = torch.arange(n, dtype=torch.int32, device=dev)
@@ -781,14 +912,15 @@ def sort_plan(n: int, n_keys: int) -> dict:
 def sort_perm(keys: list, n: int, device) -> torch.Tensor:
     """int32 permutation sorting rows by `keys` (int64 tensors holding
     order-preserving unsigned 64-bit keys, most significant first), the
-    row id breaking ties."""
+    row id breaking ties. Any number of words: past the kernel's 16,
+    `sort_perm_chained` sorts them 16 at a time."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return sort_perm_plain(keys, n, dev)
-    if len(keys) > _MAX_KEYS:
-        raise ValueError(f"{len(keys)} sort keys (at most {_MAX_KEYS})")
     for i, k in enumerate(keys):
         _check(k, f"key {i}", dev, n, (torch.int64,))
+    if len(keys) > _MAX_KEYS:
+        return sort_perm_chained(keys, n, dev, sort_perm)
     perm = torch.empty(n, dtype=torch.int32, device=dev)
     plan = sort_plan(n, max(len(keys), 1))
     if plan["path"] == "none":
@@ -816,6 +948,114 @@ def sort_perm_plain(keys: list, n: int, device) -> torch.Tensor:
         order = torch.sort((k ^ _I64_MIN)[perm], stable=True).indices
         perm = perm[order]
     return perm.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# wide keys: more words than a kernel takes in one launch
+# --------------------------------------------------------------------------
+#
+# The sort, segment_agg, window_scan and segments kernels read at most 16
+# key words (hash64 16 columns). Past that, each wrapper hands its kernel
+# a narrower input computed on the card, with no host sync, through one
+# of the chains below. Each takes the <= `width`-word primitive as an
+# argument, so a test can run it over a plain version capped at 16
+# words and hold it against the uncapped one.
+
+
+def sort_perm_chained(keys: list, n: int, device, sort16,
+                      width: int = _MAX_KEYS) -> torch.Tensor:
+    """`sort_perm` of any number of words through `sort16`, a sort of at
+    most `width` words: the last `width` words first, then each earlier
+    group gathered through the permutation so far, the permutations
+    composed. Exact: each sort is stable (the row id breaks ties), so it
+    keeps the order of the words after its group, as one sort of all the
+    words would."""
+    perm = None
+    for hi in range(len(keys), 0, -width):
+        group = keys[max(hi - width, 0):hi]
+        if perm is None:
+            perm = sort16(group, n, device)
+        else:
+            step = sort16([k.index_select(0, perm) for k in group], n,
+                          device)
+            perm = perm.index_select(0, step)
+    return sort16([], n, device) if perm is None else perm
+
+
+def group_word(perm: torch.Tensor, words: list) -> torch.Tensor:
+    """One int64 word, in row order, that changes between rows adjacent
+    in `perm`'s order exactly where one of `words` does: the number of
+    changes up to the row's sorted position. `perm` is a permutation of
+    all the rows."""
+    n = perm.shape[0]
+    i64 = dict(dtype=torch.int64, device=perm.device)
+    if n == 0:
+        return torch.zeros(0, **i64)
+    step = torch.zeros(n - 1, dtype=torch.bool, device=perm.device)
+    for w in words:
+        ws = w.index_select(0, perm)
+        step = step | (ws.narrow(0, 1, n - 1) != ws.narrow(0, 0, n - 1))
+    gid = torch.cumsum(torch.cat([torch.zeros(1, **i64),
+                                  step.to(torch.int64)]), 0)
+    return torch.zeros_like(gid).scatter(0, perm.to(torch.int64), gid)
+
+
+def fold_words(perm: torch.Tensor, words: list,
+               width: int = _MAX_KEYS) -> list:
+    """`words` when they fit `width`, else their `group_word`: the same
+    runs of equal rows along `perm`."""
+    return list(words) if len(words) <= width else [group_word(perm, words)]
+
+
+def segment_agg_chained(perm, keys: list, active, aggs: list, oc: int,
+                        agg16, width: int = _MAX_KEYS):
+    """`segment_agg` (or, with masks for `active`, `segment_agg_batched`)
+    of any number of key words through `agg16`, which takes at most
+    `width`: past that, one group word (`group_word`), whose runs along
+    `perm` are the words' runs."""
+    return agg16(perm, fold_words(perm, keys, width), active, aggs, oc)
+
+
+def window_scan_chained(perm, part_words: list, order_words: list,
+                        aggs: list, scan16, width: int = _MAX_KEYS):
+    """`window_scan` of any number of words through `scan16`, which takes
+    at most `width` in all: past that, the partition words as one
+    partition-id word and the order words as one dense-rank word (an
+    order group starts where a partition or an order word changes, so
+    the order words may fold apart from the partition words)."""
+    if len(part_words) + len(order_words) > width:
+        part_words = [group_word(perm, part_words)]
+        order_words = [group_word(perm, order_words)] if order_words \
+            else []
+    return scan16(perm, part_words, order_words, aggs)
+
+
+def hash64_chained(cols: list, pre: list, hash16,
+                   width: int = 16) -> torch.Tensor:
+    """`hash64` of any number of columns through `hash16`, which takes at
+    most `width`: each later call folds the running hash, taken as it is
+    (pre False), with the next columns. Exact: hash64 is a left fold."""
+    h = hash16(cols[:width], pre[:width])
+    for i in range(width, len(cols), width - 1):
+        h = hash16([h] + cols[i:i + width - 1],
+                   [False] + list(pre[i:i + width - 1]))
+    return h
+
+
+def wide_targets(keys: list, ndev: int, hash16,
+                 width: int = 16) -> torch.Tensor:
+    """`segment_targets` of any number of keys through `hash16` (a
+    `hash64` of at most `width` columns): each key as int64, zeroed where
+    it is not valid (splitmix64 maps 0 to 0, so that is the kernel's
+    zeroed hash), hashed and folded `width` columns at a time, then the
+    unsigned `% ndev`."""
+    from ydb_tpu_torch.ops.spill import as_int64
+    xs = []
+    for d, v in keys:
+        x = as_int64(d)
+        xs.append(x if v is None else torch.where(v, x, torch.zeros_like(x)))
+    h = hash64_chained(xs, [True] * len(xs), hash16, width)
+    return umod64_plain(h, ndev).to(torch.int32)
 
 
 # --------------------------------------------------------------------------
@@ -919,10 +1159,12 @@ def segment_agg(perm: torch.Tensor, keys: list, active: torch.Tensor,
         return segment_agg_plain(perm, keys, active, aggs, oc)
     _check(perm, "perm", dev, n, (torch.int32,))
     _check(active, "active", dev, n, (torch.bool,))
-    if not 1 <= len(keys) <= _MAX_KEYS:
-        raise ValueError(f"{len(keys)} key words (1 to {_MAX_KEYS})")
+    if not keys:
+        raise ValueError("no key words")
     for i, k in enumerate(keys):
         _check(k, f"key {i}", dev, n, (torch.int64,))
+    if len(keys) > _MAX_KEYS:
+        return segment_agg_chained(perm, keys, active, aggs, oc, segment_agg)
     for func, data, valid, _u in aggs:
         if func not in AGG_FUNCS:
             raise ValueError(func)
@@ -955,8 +1197,7 @@ def segment_agg(perm: torch.Tensor, keys: list, active: torch.Tensor,
         # and the active row count
         parts = [torch.empty(n_, **i64) for _ in ("head", "tail")
                  for n_ in (max(A, 1) * T, max(A, 1) * T, T)]
-        types = [0 if (d is not None and d.dtype == torch.float64)
-                 else (2 if u else 1) for (_f, d, _v, u) in chunk]
+        types = _agg_types(chunk)
         _launch("segment_agg", n, _ptr(perm), len(keys),
                 _arr(ctypes.c_int64, [_ptr(k) for k in keys]),
                 _ptr(active), A,
@@ -1040,10 +1281,13 @@ def segment_agg_batched(perm: torch.Tensor, keys: list, masks: torch.Tensor,
     ms = _member_stride(masks, "masks", dev, B, n, (torch.bool,))
     if ms == 0:
         raise ValueError("masks: one row per member")
-    if not 1 <= len(keys) <= _MAX_KEYS:
-        raise ValueError(f"{len(keys)} key words (1 to {_MAX_KEYS})")
+    if not keys:
+        raise ValueError("no key words")
     for i, k in enumerate(keys):
         _check(k, f"key {i}", dev, n, (torch.int64,))
+    if len(keys) > _MAX_KEYS:
+        return segment_agg_chained(perm, keys, masks, aggs, oc,
+                                   segment_agg_batched)
     # the member's first row per group rides as one more `first`
     specs = []
     for func, data, valid, u in list(aggs) + [("first", None, None, False)]:
@@ -1078,8 +1322,7 @@ def segment_agg_batched(perm: torch.Tensor, keys: list, masks: torch.Tensor,
         out_cnt = torch.empty((B, A, oc), **i64)
         parts = [torch.empty(n_, **i64) for _ in ("head", "tail")
                  for n_ in (B * A * T, B * A * T, B * T)]
-        types = [0 if (d is not None and d.dtype == torch.float64)
-                 else (2 if u else 1) for (_f, d, _v, u, _ds, _vs) in chunk]
+        types = _agg_types(chunk)
         _launch("segment_agg_batched", n, _ptr(perm), len(keys),
                 _arr(ctypes.c_int64, [_ptr(k) for k in keys]), _ptr(union),
                 B, _ptr(masks), ms, A,
@@ -1098,7 +1341,8 @@ def segment_agg_batched(perm: torch.Tensor, keys: list, masks: torch.Tensor,
             where += [(base + a, "v"), (base + a, "c")]
     # each member keeps the runs where it has rows, in key order
     outs, _live, ngroups, _ovf = compact_batched(cols, present > 0,
-                                                 ngroups_u, oc, oc, B)
+                                                 ngroups_u, oc, oc, B,
+                                                 zero_tail=True)
     present = outs[0]
     vals = [None] * len(specs)
     cnts = [None] * len(specs)
@@ -1183,10 +1427,12 @@ def hash64(cols: list, pre: Optional[list] = None) -> torch.Tensor:
     if dev.type != "cuda":
         return hash64_plain(cols, pre)
     n = cols[0].shape[0]
-    if not 1 <= len(cols) <= _MAX_HASH_COLS or len(pre) != len(cols):
-        raise ValueError(f"{len(cols)} hash columns (1 to {_MAX_HASH_COLS})")
+    if not cols or len(pre) != len(cols):
+        raise ValueError(f"{len(cols)} hash columns, {len(pre)} flags")
     for i, c in enumerate(cols):
         _check(c, f"column {i}", dev, n, (torch.int64,))
+    if len(cols) > _MAX_HASH_COLS:
+        return hash64_chained(cols, pre, hash64, _MAX_HASH_COLS)
     out = torch.empty(n, dtype=torch.int64, device=dev)
     _launch("hash64", n, len(cols),
             _arr(ctypes.c_int64, [_ptr(c) for c in cols]),
@@ -1263,11 +1509,14 @@ def window_scan(perm: torch.Tensor, part_words: list, order_words: list,
         return window_scan_plain(perm, part_words, order_words, aggs)
     _check(perm, "perm", dev, n, (torch.int32,))
     words = list(part_words) + list(order_words)
-    if not part_words or len(words) > _MAX_WINDOW_WORDS:
+    if not part_words:
         raise ValueError(f"{len(part_words)} partition and "
                          f"{len(order_words)} order words")
     for i, w in enumerate(words):
         _check(w, f"word {i}", dev, n, (torch.int64,))
+    if len(words) > _MAX_WINDOW_WORDS:
+        return window_scan_chained(perm, part_words, order_words, aggs,
+                                   window_scan, _MAX_WINDOW_WORDS)
     for op, data, valid in aggs:
         _check(data, f"{op} data", dev, n, (torch.int64, torch.float64))
         if (op, data.dtype) not in _SCAN_OPS:
@@ -1707,8 +1956,8 @@ def _seg_check(n: int, dev, keys: list, targets, ndev: int) -> None:
         raise ValueError(f"{n} rows")
     if targets is not None:
         _check(targets, "targets", dev, n, (torch.int32,))
-    elif not 1 <= len(keys) <= _SEG_MAX_KEYS:
-        raise ValueError(f"{len(keys)} keys (1 to {_SEG_MAX_KEYS})")
+    elif not keys:
+        raise ValueError("no keys")
     for i, (d, v) in enumerate(keys):
         _check(d, f"key {i}", dev, n, tuple(_SEG_KEY_KINDS))
         if v is not None:
@@ -1726,6 +1975,8 @@ def segment_targets(keys: list, ndev: int) -> torch.Tensor:
         return segment_targets_plain(keys, ndev)
     keys = _seg_keys(keys)
     _seg_check(n, dev, keys, None, ndev)
+    if len(keys) > _SEG_MAX_KEYS:
+        return wide_targets(keys, ndev, hash64, _MAX_HASH_COLS)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     _seg_launch(n, dev, keys, None, out, _length_tensor(n, dev), ndev, 0,
                 None, None, [])
@@ -1754,6 +2005,8 @@ def segments(length, ndev: int, seg: int, cols: list, *,
                               targets=targets)
     keys = [] if targets is not None else _seg_keys(keys)
     _seg_check(n, dev, keys, targets, ndev)
+    if len(keys) > _SEG_MAX_KEYS:
+        targets, keys = segment_targets(keys, ndev), []
     flat, outs = [], []
     for i, (d, v) in enumerate(cols):
         _check(d, f"column {i}", dev, n)

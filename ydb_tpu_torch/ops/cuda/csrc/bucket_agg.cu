@@ -19,13 +19,23 @@
 // per tile follows the rows, not the number of buckets. Each block writes
 // one partial per (aggregate, bucket); a second launch folds the partials
 // in block order. Tiles are dealt to blocks in a fixed pattern, so float
-// sums are bit-for-bit repeatable. Keyless aggregation (TPC-H Q6, Q14)
-// has nothing to order and takes its own partial kernel, which folds rows
-// straight from device memory in registers.
+// sums are bit-for-bit repeatable.
+// Keyless aggregation (K2: TPC-H Q6, Q14, every keyless aggregate;
+// bucket_agg_keyless_launch) has nothing to order. Its bound is the mask
+// byte and one 8-byte value per sum a row, read once: 107 MB at Q14's
+// shape (6,291,456 rows, two float64 sums), 0.0319 ms at 3.35 TB/s. It
+// lives on bytes in flight, so its design is one launch over a
+// persistent grid of KL_GRID blocks, two 256-thread blocks on each SM:
+// each lane issues a step's loads (J 2-byte mask loads and J 16-byte
+// loads a sum, every one coalesced across the warp) before it folds any,
+// about 8.7 KB a warp and 139 KB a SM in flight at two sums; the common
+// spec folds by a branch fixed for the launch, not per element; and the
+// last block to finish folds the partials, so there is no second
+// launch. See the note above keyless_finish.
 // Member axis (bucket_agg_batched_launch, the batched serving lane): B
 // members with their own masks over shared (or per-member) ids and
-// values; see the notes above each partial kernel. The single-query
-// entry is the case B = 1.
+// values; see the notes above each partial kernel. The keyed
+// single-query entry is the case B = 1.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -297,14 +307,223 @@ bucket_agg_partial(int64_t n, int nb, const int32_t* kid, Members M,
     part_present[part * nb + b] = pres[b];
 }
 
-// Keyless (one bucket, no ids): no staging and no ordering. Each thread
-// folds the rows r = its global index + k * grid size in registers, lanes
-// fold through the shuffle tree, and the block's first threads fold the
-// warps in warp order: the same fixed order on every run.
+// Keyless (K2: one bucket, no ids), one launch. Nothing is staged or
+// ordered: each block folds its rows in registers, writes one partial per
+// aggregate, and the last block to finish (a ticket) folds the partials
+// in block order. Two bodies write the same partials:
+// - keyless_stream, the common spec (TPC-H Q6, Q14): every aggregate a
+//   count or a sum (float64, int64 or uint64) with no validity, at most
+//   KL_MAX_SUMS sums, the columns 16-byte aligned. A warp takes 64 * J
+//   rows a step; lane l reads the mask bytes of rows 2q, 2q + 1 as one
+//   16-bit load and each sum's two values as one 16-byte load, for q =
+//   step + 32 j + l, j < J: every load of a step is coalesced and issued
+//   before any is folded. The sums are folded by a branch uniform over
+//   the launch (float or integer), not by `combine`.
+// - keyless_fold, any other spec: each thread folds the rows r = its
+//   global index + k * grid size through `combine`, two rows in flight.
+// Lanes fold through the shuffle tree, a block's warps in warp order, and
+// the partials in block order: a fixed order, so float sums repeat bit
+// for bit. The ticket is a word per stream that the last block resets.
+#define KL_GRID 264                       // 2 blocks a SM on the H100's 132
+#define KL_MAX_SUMS 4
+#define KL_MAX_G 528                      // keyless_fold's most blocks
+#define KL_STAGE 4                        // outputs the last block folds
+                                          // a round
+
+// The last block to arrive folds every block's partials: warp w takes
+// outputs w, w + WARPS, ... (each aggregate, then the row count); lane l
+// folds partials l, l + 32, ... in order, then the shuffle tree.
+__device__ void keyless_finish(const AggSpec& spec, int64_t cap,
+                               const uint64_t* part_val,
+                               const unsigned long long* part_cnt,
+                               const unsigned long long* part_present,
+                               unsigned* ticket, uint64_t* out_val,
+                               int64_t* out_cnt, int64_t* out_present) {
+  __shared__ bool s_last;
+  const int A = spec.n_aggs, G = gridDim.x;
+  __threadfence();                      // this block's partials, then
+  __syncthreads();                      // its ticket
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(ticket, 1u);
+    s_last = t == (unsigned)G - 1;
+    if (s_last) *ticket = 0;            // every block has drawn: reset
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the G partials of each output, loaded all at once (a fold of them
+  // in place would wait on one L2 round trip a partial), KL_STAGE
+  // outputs a round
+  __shared__ unsigned long long sv[KL_STAGE][KL_MAX_G];
+  __shared__ unsigned long long sc[KL_STAGE][KL_MAX_G];
+  for (int i0 = 0; i0 <= A; i0 += KL_STAGE) {
+    const int m = A + 1 - i0 < KL_STAGE ? A + 1 - i0 : KL_STAGE;
+    for (int k = threadIdx.x; k < m * G; k += blockDim.x) {
+      const int j = k / G, g = k - j * G, i = i0 + j;
+      if (i < A) {
+        sv[j][g] = __ldcg((const unsigned long long*)part_val +
+                          (size_t)g * A + i);
+        sc[j][g] = __ldcg(part_cnt + (size_t)g * A + i);
+      } else {
+        sc[j][g] = __ldcg(part_present + g);
+      }
+    }
+    __syncthreads();
+    // warp j folds output i0 + j: lane l the partials l, l + 32, ... in
+    // order, then the shuffle tree
+    if (warp < m) {
+      const int i = i0 + warp;
+      const int f = i < A ? spec.func[i] : F_COUNT;
+      const int ty = i < A ? spec.type[i] : T_I64;
+      uint64_t acc = identity(f, ty);
+      unsigned long long c = 0;
+      for (int g = lane; g < G; g += 32) {
+        if (f != F_COUNT) acc = combine(f, ty, acc, sv[warp][g]);
+        c += sc[warp][g];
+      }
+      if (f != F_COUNT) acc = warp_fold(f, ty, acc);
+      for (int off = 16; off > 0; off >>= 1)
+        c += __shfl_down_sync(0xffffffffu, c, off);
+      if (lane == 0) {
+        if (i == A) {
+          *out_present = (int64_t)c;
+        } else {
+          if (f == F_COUNT) acc = c;
+          else if ((f == F_MIN || f == F_MAX) && c == 0) acc = 0;  // typed 0
+          else if (f == F_FIRST && c == 0) acc = (uint64_t)cap;
+          out_val[i] = acc;
+          out_cnt[i] = (int64_t)c;
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Streaming loads: read once, so they skip L1 (L1::no_allocate).
+__device__ __forceinline__ ulonglong2 load_stream(const uint64_t* p) {
+  ulonglong2 r;
+  asm volatile("ld.global.nc.L1::no_allocate.v2.u64 {%0, %1}, [%2];"
+               : "=l"(r.x), "=l"(r.y) : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ unsigned load_stream(const uint8_t* p) {
+  unsigned short r;                     // two mask bytes
+  asm volatile("ld.global.nc.L1::no_allocate.u16 %0, [%1];"
+               : "=h"(r) : "l"(p));
+  return r;
+}
+
+// The common spec's sums: column d of `data`, float64 where bit d of
+// `fmask` is set (else a wrapping integer sum). Aggregate a is a sum
+// where bit a of `sums` is set, of column popc(sums & ((1 << a) - 1)),
+// else a count.
+struct StreamSpec {
+  const uint64_t* data[KL_MAX_SUMS];
+  unsigned fmask;
+  unsigned sums;
+};
+
+template <int D, int J>
+__global__ void __launch_bounds__(THREADS, 2)
+keyless_stream(int64_t n, const uint8_t* active, StreamSpec S, AggSpec spec,
+               int64_t cap, uint64_t* part_val,
+               unsigned long long* part_cnt,
+               unsigned long long* part_present, unsigned* ticket,
+               uint64_t* out_val, int64_t* out_cnt, int64_t* out_present) {
+  __shared__ uint64_t wsum[WARPS][D > 0 ? D : 1];
+  __shared__ unsigned wcnt[WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t step_rows = (int64_t)WARPS * 64 * J;
+  const int64_t steps = (n + step_rows - 1) / step_rows;
+  double fs[D > 0 ? D : 1];
+  uint64_t is[D > 0 ? D : 1];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    fs[d] = 0.0;
+    is[d] = 0;
+  }
+  unsigned cnt = 0;
+  for (int64_t s = blockIdx.x; s < steps; s += gridDim.x) {
+    const int64_t w0 = s * step_rows + (int64_t)warp * 64 * J;
+    unsigned m[J];
+    ulonglong2 x[D > 0 ? D : 1][J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int64_t e = w0 + 64 * j + 2 * lane;     // rows e, e + 1
+      if (e + 1 < n) {
+        m[j] = load_stream(active + e);
+#pragma unroll
+        for (int d = 0; d < D; ++d) x[d][j] = load_stream(S.data[d] + e);
+      } else {
+        const bool one = e < n;
+        m[j] = one ? active[e] : 0u;
+#pragma unroll
+        for (int d = 0; d < D; ++d)
+          x[d][j] = make_ulonglong2(one ? S.data[d][e] : 0ull, 0ull);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const bool a0 = (m[j] & 0xFFu) != 0, a1 = (m[j] >> 8) != 0;
+      cnt += (unsigned)a0 + (unsigned)a1;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        if ((S.fmask >> d) & 1u) {
+          fs[d] += a0 ? __longlong_as_double(x[d][j].x) : 0.0;
+          fs[d] += a1 ? __longlong_as_double(x[d][j].y) : 0.0;
+        } else {
+          is[d] += a0 ? x[d][j].x : 0ull;
+          is[d] += a1 ? x[d][j].y : 0ull;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const bool fl = (S.fmask >> d) & 1u;
+    uint64_t v = fl ? (uint64_t)__double_as_longlong(fs[d]) : is[d];
+    v = warp_fold(F_SUM, fl ? T_F64 : T_I64, v);
+    if (lane == 0) wsum[warp][d] = v;
+  }
+  const unsigned c = __reduce_add_sync(0xffffffffu, cnt);
+  if (lane == 0) wcnt[warp] = c;
+  __syncthreads();
+  const int A = spec.n_aggs;
+  const size_t g = blockIdx.x;
+  if ((int)threadIdx.x < A) {
+    const int a = threadIdx.x;
+    const int d = ((S.sums >> a) & 1u) ? __popc(S.sums & ((1u << a) - 1u))
+                                       : -1;
+    uint64_t acc = 0;
+    if (d >= 0) {
+      const int ty = ((S.fmask >> d) & 1u) ? T_F64 : T_I64;
+      for (int w = 0; w < WARPS; ++w)
+        acc = combine(F_SUM, ty, acc, wsum[w][d]);
+    }
+    unsigned long long tc = 0;
+    for (int w = 0; w < WARPS; ++w) tc += wcnt[w];
+    part_val[g * A + a] = acc;
+    part_cnt[g * A + a] = tc;
+  }
+  if (threadIdx.x == 0) {
+    unsigned long long tc = 0;
+    for (int w = 0; w < WARPS; ++w) tc += wcnt[w];
+    part_present[g] = tc;
+  }
+  keyless_finish(spec, cap, part_val, part_cnt, part_present, ticket,
+                 out_val, out_cnt, out_present);
+}
+
+// Any other spec: each thread folds the rows r = its global index + k *
+// grid size in registers through `combine`, two rows in flight.
 __global__ void __launch_bounds__(THREADS)
-bucket_agg_keyless(int64_t n, const uint8_t* active, AggSpec spec,
-                   uint64_t* part_val, unsigned long long* part_cnt,
-                   unsigned long long* part_present) {
+keyless_fold(int64_t n, const uint8_t* active, AggSpec spec, int64_t cap,
+             uint64_t* part_val, unsigned long long* part_cnt,
+             unsigned long long* part_present, unsigned* ticket,
+             uint64_t* out_val, int64_t* out_cnt, int64_t* out_present) {
   __shared__ uint64_t wval[WARPS][MAX_AGGS];
   __shared__ unsigned wcnt[WARPS][MAX_AGGS + 1];
   const int A = spec.n_aggs;
@@ -320,12 +539,11 @@ bucket_agg_keyless(int64_t n, const uint8_t* active, AggSpec spec,
   const int64_t stride = (int64_t)gridDim.x * THREADS;
   for (int64_t r0 = (int64_t)blockIdx.x * THREADS + threadIdx.x; r0 < n;
        r0 += 2 * stride) {
-    // every load of both rows is issued before any is tested
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int64_t r = r0 + u * stride;
       if (r >= n) break;
-      const bool on = active == nullptr || active[r];
+      const bool on = active[r];
       lp += on;
 #pragma unroll
       for (int a = 0; a < MAX_AGGS; ++a) {
@@ -356,7 +574,7 @@ bucket_agg_keyless(int64_t n, const uint8_t* active, AggSpec spec,
   const unsigned p = __reduce_add_sync(0xffffffffu, lp);
   if (lane == 0) wcnt[warp][MAX_AGGS] = p;
   __syncthreads();
-  if (threadIdx.x < A) {
+  if ((int)threadIdx.x < A) {
     const int a = threadIdx.x, f = spec.func[a], ty = spec.type[a];
     uint64_t acc = identity(f, ty);
     unsigned long long c = 0;
@@ -372,6 +590,8 @@ bucket_agg_keyless(int64_t n, const uint8_t* active, AggSpec spec,
     for (int w = 0; w < WARPS; ++w) c += wcnt[w][MAX_AGGS];
     part_present[blockIdx.x] = c;
   }
+  keyless_finish(spec, cap, part_val, part_cnt, part_present, ticket,
+                 out_val, out_cnt, out_present);
 }
 
 #define SLOTS 8                           // keyless members' register slots
@@ -536,21 +756,11 @@ extern "C" size_t bucket_agg_smem_bytes(int n_aggs, int nb) {
          (size_t)TILE * 2;
 }
 
-static int launch(int64_t n, int nb, const void* kid, Members M, int n_aggs,
-                  const int64_t* data_ptrs, const int64_t* data_strides,
-                  const int64_t* valid_ptrs, const int64_t* valid_strides,
-                  const int32_t* funcs, const int32_t* types, int64_t cap,
-                  int G, void* part_val, void* part_cnt, void* part_present,
-                  void* out_val, void* out_cnt, void* out_present,
-                  void* stream) {
-  // keyless members: as many per block as their slots hold
-  const int per_block = kid != nullptr || n_aggs > SLOTS ? 1
-                        : SLOTS / (n_aggs > 0 ? n_aggs : 1);
-  const int rows = (M.B + per_block - 1) / per_block;
-  if (n_aggs < 0 || n_aggs > MAX_AGGS || nb < 1 || nb > MAX_BUCKETS ||
-      G < 1 || (kid == nullptr && nb != 1) || M.B < 1 || rows > 65535 ||
-      (kid == nullptr && M.B > 1 && n_aggs > SLOTS))
-    return (int)cudaErrorInvalidValue;
+static AggSpec make_spec(int n_aggs, const int64_t* data_ptrs,
+                         const int64_t* data_strides,
+                         const int64_t* valid_ptrs,
+                         const int64_t* valid_strides, const int32_t* funcs,
+                         const int32_t* types) {
   AggSpec spec;
   spec.n_aggs = n_aggs;
   for (int a = 0; a < MAX_AGGS; ++a) {
@@ -564,14 +774,32 @@ static int launch(int64_t n, int nb, const void* kid, Members M, int n_aggs,
     spec.vstride[a] = on && valid_strides && spec.valid[a]
                           ? valid_strides[a] : 0;
   }
+  return spec;
+}
+
+// Keyed (nb buckets) and member-axis aggregation: the partial kernel,
+// then bucket_agg_final.
+static int launch(int64_t n, int nb, const void* kid, Members M, int n_aggs,
+                  const int64_t* data_ptrs, const int64_t* data_strides,
+                  const int64_t* valid_ptrs, const int64_t* valid_strides,
+                  const int32_t* funcs, const int32_t* types, int64_t cap,
+                  int G, void* part_val, void* part_cnt, void* part_present,
+                  void* out_val, void* out_cnt, void* out_present,
+                  void* stream) {
+  // keyless members: as many per block as their slots hold
+  const int per_block = kid != nullptr || n_aggs > SLOTS ? 1
+                        : SLOTS / (n_aggs > 0 ? n_aggs : 1);
+  const int rows = (M.B + per_block - 1) / per_block;
+  if (n_aggs < 0 || n_aggs > MAX_AGGS || nb < 1 || nb > MAX_BUCKETS ||
+      G < 1 || (kid == nullptr && nb != 1) || M.B < 1 || rows > 65535 ||
+      (kid == nullptr && n_aggs > SLOTS))
+    return (int)cudaErrorInvalidValue;
+  const AggSpec spec = make_spec(n_aggs, data_ptrs, data_strides,
+                                 valid_ptrs, valid_strides, funcs, types);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   const dim3 grid(G, rows);
-  if (kid == nullptr && M.B == 1) {     // a single keyless query
-    bucket_agg_keyless<<<G, THREADS, 0, s>>>(
-        n, M.active, spec, (uint64_t*)part_val,
-        (unsigned long long*)part_cnt, (unsigned long long*)part_present);
-  } else if (kid == nullptr) {          // keyless members: nb == 1
+  if (kid == nullptr) {                 // keyless members: nb == 1
     bucket_agg_keyless_batched<<<grid, THREADS, 0, s>>>(
         n, M, per_block, spec, (uint64_t*)part_val,
         (unsigned long long*)part_cnt, (unsigned long long*)part_present);
@@ -629,4 +857,84 @@ extern "C" int bucket_agg_batched_launch(
   return launch(n, nb, kid, M, n_aggs, data_ptrs, data_strides, valid_ptrs,
                 valid_strides, funcs, types, cap, G, part_val, part_cnt,
                 part_present, out_val, out_cnt, out_present, stream);
+}
+
+template <int D, int J>
+static void stream_launch(int G, cudaStream_t s, int64_t n,
+                          const uint8_t* active, const StreamSpec& S,
+                          const AggSpec& spec, int64_t cap, void* pv,
+                          void* pc, void* pp, void* ticket, void* ov,
+                          void* oc, void* op) {
+  keyless_stream<D, J><<<G, THREADS, 0, s>>>(
+      n, active, S, spec, cap, (uint64_t*)pv, (unsigned long long*)pc,
+      (unsigned long long*)pp, (unsigned*)ticket, (uint64_t*)ov,
+      (int64_t*)oc, (int64_t*)op);
+}
+
+// A single keyless query (K2), one launch. J = 0 takes keyless_fold; J >
+// 0 keyless_stream with J 16-byte loads a sum a lane a step (the wrapper's
+// plan: 8 for up to two sums, else 4), which needs the common spec and
+// aligned columns. Partials G * n_aggs values and counts, G row counts;
+// `ticket` one zeroed word per stream; outputs n_aggs values and counts
+// and the row count.
+extern "C" int bucket_agg_keyless_launch(
+    int64_t n, const void* active, int n_aggs, const int64_t* data_ptrs,
+    const int64_t* valid_ptrs, const int32_t* funcs, const int32_t* types,
+    int64_t cap, int J, int G, void* part_val, void* part_cnt,
+    void* part_present, void* ticket, void* out_val, void* out_cnt,
+    void* out_present, void* stream) {
+  if (n_aggs < 0 || n_aggs > MAX_AGGS || G < 1 || active == nullptr ||
+      ticket == nullptr || (J != 0 && J != 4 && J != 8) ||
+      G > (J == 0 ? KL_MAX_G : KL_GRID))
+    return (int)cudaErrorInvalidValue;
+  const AggSpec spec = make_spec(n_aggs, data_ptrs, nullptr, valid_ptrs,
+                                 nullptr, funcs, types);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (J == 0) {
+    keyless_fold<<<G, THREADS, 0, s>>>(
+        n, (const uint8_t*)active, spec, cap, (uint64_t*)part_val,
+        (unsigned long long*)part_cnt, (unsigned long long*)part_present,
+        (unsigned*)ticket, (uint64_t*)out_val, (int64_t*)out_cnt,
+        (int64_t*)out_present);
+    return (int)cudaGetLastError();
+  }
+  StreamSpec S;
+  S.fmask = 0;
+  S.sums = 0;
+  int D = 0;
+  bool ok = (uintptr_t)active % 2 == 0;
+  for (int d = 0; d < KL_MAX_SUMS; ++d) S.data[d] = nullptr;
+  for (int a = 0; a < n_aggs && ok; ++a) {
+    if (spec.valid[a] != nullptr) ok = false;
+    else if (spec.func[a] == F_COUNT) ok = spec.data[a] == nullptr;
+    else if (spec.func[a] != F_SUM || spec.data[a] == nullptr ||
+             D == KL_MAX_SUMS || (uintptr_t)spec.data[a] % 16 != 0)
+      ok = false;
+    else {
+      S.sums |= 1u << a;
+      S.data[D] = spec.data[a];
+      if (spec.type[a] == T_F64) S.fmask |= 1u << D;
+      ++D;
+    }
+  }
+  if (!ok || J != (D <= 2 ? 8 : 4)) return (int)cudaErrorInvalidValue;
+  const uint8_t* act = (const uint8_t*)active;
+  switch (D) {
+    case 0: stream_launch<0, 8>(G, s, n, act, S, spec, cap, part_val,
+                                part_cnt, part_present, ticket, out_val,
+                                out_cnt, out_present); break;
+    case 1: stream_launch<1, 8>(G, s, n, act, S, spec, cap, part_val,
+                                part_cnt, part_present, ticket, out_val,
+                                out_cnt, out_present); break;
+    case 2: stream_launch<2, 8>(G, s, n, act, S, spec, cap, part_val,
+                                part_cnt, part_present, ticket, out_val,
+                                out_cnt, out_present); break;
+    case 3: stream_launch<3, 4>(G, s, n, act, S, spec, cap, part_val,
+                                part_cnt, part_present, ticket, out_val,
+                                out_cnt, out_present); break;
+    default: stream_launch<4, 4>(G, s, n, act, S, spec, cap, part_val,
+                                 part_cnt, part_present, ticket, out_val,
+                                 out_cnt, out_present); break;
+  }
+  return (int)cudaGetLastError();
 }

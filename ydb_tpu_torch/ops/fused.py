@@ -187,6 +187,17 @@ def _fused_body(pipe, final_program: Optional[ir.Program],
                     env.pop(m["row_col"], None)
                     env.pop(m["found_col"], None)
 
+        def live_index(idx):
+            # a member's compacted rows past its length are undefined
+            # (`compress` writes only the live prefix): no gather takes
+            # its index from them
+            if not members:
+                return idx
+            iota = torch.arange(idx.shape[-1], device=idx.device)
+            live = iota < (length[:, None] if length.dim() == 1
+                           else length)
+            return torch.where(live, idx, torch.zeros_like(idx))
+
         def materialize(names):
             # the deferred gather: runs at the CURRENT capacity — after a
             # compact/limit slice that is the bound, not the scan
@@ -195,7 +206,7 @@ def _fused_body(pipe, final_program: Optional[ir.Program],
                 if src is None:
                     continue
                 if src[0] == "scan":
-                    pos = env[LM_POS][0]
+                    pos = live_index(env[LM_POS][0])
                     d = sb[src[1]].reshape(cap0)[pos]
                     v = (sbv[src[1]].reshape(cap0)[pos]
                          if src[1] in sb_valid_names else None)
@@ -203,7 +214,7 @@ def _fused_body(pipe, final_program: Optional[ir.Program],
                 else:
                     _k, j, s = src
                     m = join_metas[j]
-                    row = env[m["row_col"]][0]
+                    row = live_index(env[m["row_col"]][0])
                     ok = env[m["found_col"]][0]
                     pv = builds[j]["pvalid"].get(s)
                     d = builds[j]["payload"][s][row]
