@@ -9,9 +9,10 @@ Phases, each printing its own line(s):
    ``ydb_tpu_torch/ops/cuda/csrc`` (one ``nvcc`` per source, in
    parallel), with its seconds and ``-Xptxas -v``'s registers, stack
    frame and spills of every ``segment_agg``, ``bucket_sort``, ``sort``,
-   ``window_scan``, ``bucket_agg`` and ``compact`` kernel (a stack frame
-   or a spill in ``segment_agg``, ``sort``, ``window_scan`` or K2's and
-   K6 xB's kernels fails the run), then
+   ``window_scan``, ``bucket_agg``, ``compact`` and ``expand`` kernel (a
+   stack frame or a spill in ``segment_agg``, ``sort``, ``window_scan``
+   or the kernels of K2, K3 and K2/K3 xB, K6 xB and K8's counts fails the
+   run), then
    NVRTC's version and the seconds of one trivial K1 stage (its first
    build);
 3. generation of TPC-H at ``--sf``, TPC-DS at SF1 and ClickBench's hits
@@ -21,8 +22,11 @@ Phases, each printing its own line(s):
    card, on seeded random inputs at the shapes the queries give it.
    ``bucket_agg``, ``compact``, ``probe`` and ``sort`` at
    Q1/Q6/Q14's shapes (nulls, an all-null bucket, LUT misses and a
-   forced compact overflow included), ``bucket_agg`` at 512 buckets and
-   16 aggregates, and each wrapper's multi-launch form; K2, the keyless
+   forced compact overflow included), ``bucket_agg`` (K3, the keyed
+   member kernel at one member) at Q1's shape called twice and held bit
+   for bit, at an odd row count with unaligned inputs, and at 512
+   buckets and 16 aggregates (timed beside a floor: bincounts of its sums
+   and counts), and each wrapper's multi-launch form; K2, the keyless
    ``bucket_agg_keyless`` (one launch): every function with nulls, the
    streaming body at one to four float and integer sums and counts, odd
    row counts and an unaligned column, and Q14's two float64 sums timed
@@ -53,9 +57,12 @@ Phases, each printing its own line(s):
    buckets) timed against the ``sort_perm`` composition it replaced,
    bit for bit equal to it, and one ``scatter_reduce``; ``hash64``
    over two int64 columns at lineitem's rows (half the hashes >=
-   2^63); a probe of u64 keys >= 2^63; ``expand_counts`` and ``expand_gather`` at TPC-DS ds25's
-   shape (timed), with one key matching 100,000 build rows (timed),
-   LEFT with NULL probe keys, float keys and 0 probes; ``sort`` on
+   2^63); a probe of u64 keys >= 2^63; ``expand_counts`` (one launch)
+   and ``expand_gather`` at TPC-DS ds25's shape (timed), with one key
+   matching 100,000 build rows (timed, the counts beside two
+   ``searchsorted``), LEFT with NULL probe keys, float keys, 0, 1,
+   2,047, 2,049 and 333,333 probes at a shortened length, a float skew
+   and two calls, each bit for bit against the plain version; ``sort`` on
    random keys: the window lane's store_sales partition sort (the
    63-bit partition hash and the date word, timed against a stable
    ``sort`` of the hash word); ``window_scan``
@@ -85,7 +92,10 @@ Phases, each printing its own line(s):
    on, and Q1 and Q14 again with it off, on the fused path; 36 TPC-DS
    queries at SF1 (the 25 the third slice opened and the reference
    bench's subset), the ten windowed ones again on the device window
-   lane, and a window query over all of store_sales; the 43 ClickBench
+   lane, and a window query over all of store_sales; the other 37 TPC-DS
+   queries once each, cold (``TPCDS_REST``; every TPC-DS oracle answer
+   is made by ``TPCDS_ORACLE_WORKERS`` worker processes while the card
+   works on the earlier phases); the 43 ClickBench
    queries; and TPC-H again through a second engine over the same data
    whose device budgets are the defaults over 100 (``BEYOND_BUDGETS``),
    so scans stream through the tiled lane, large build sides partition
@@ -122,9 +132,15 @@ Phases, each printing its own line(s):
    and moved columns bit for bit;
 7. the batched serving lane's member-axis entries, before the paths
    (``batched_kernel_phase``): ``bucket_agg_batched`` at Q1's shape with
-   8 members' masks from 8 DELTAs (timed), keyless at Q6's (timed), at
-   512 buckets x 16 aggregates (timed), every function, per-member ids
-   and values; ``segment_agg_batched`` at the batch c40 sends over the
+   8 members' masks from 8 DELTAs (timed), keyless at Q6's through the
+   streaming member body (timed, the ``bucket_agg_keyless_batched``
+   row), at 512 buckets x 16 aggregates (timed), every function,
+   per-member ids and values; member b bit for bit a single
+   ``bucket_agg`` over its mask at Q1 and 512 x 16, two calls bit for
+   bit (keyed and keyless), the streaming body at 0 to 4 sums with
+   counts, unaligned masks and columns (the keyed body with one
+   bucket), and B = 1, 3, 8, 32 at an odd row count with shared and
+   per-member ids and keyless; ``segment_agg_batched`` at the batch c40 sends over the
    1M hits rows (timed); ``compact_batched`` at the point-lookup batch
    over orders' capacity (timed) and at 8 top-k masks over lineitem
    (timed), with no mask, a shared mask and more columns than one
@@ -327,6 +343,18 @@ def kernel_phase(B, n: int, q6_compact_cap: int, n_part: int,
     run_k = lambda: B.bucket_agg(kid, 12, active, aggs)           # noqa: E731
     run_p = lambda: B.bucket_agg_plain(kid, 12, active, aggs)     # noqa: E731
     err = check_bucket_agg(B, kid, 12, active, aggs, sync, "Q1")
+    # the keyed body (bucket_agg_members at one member): two calls bit
+    # for bit; an odd row count, and unaligned ids, mask and columns
+    first = B.bucket_agg(kid, 12, active, aggs)
+    again = B.bucket_agg(kid, 12, active, aggs)
+    sync()
+    check(same_bits(list(first[0]) + list(first[1]) + [first[2]],
+                    list(again[0]) + list(again[1]) + [again[2]]),
+          "bucket_agg Q1: two calls differ")
+    m = n - 333
+    check_bucket_agg(B, kid[1:m + 1], 12, active[1:m + 1],
+                     [(f, None if d is None else d[1:m + 1], v, u)
+                      for (f, d, v, u) in aggs], sync, "Q1 odd unaligned")
     # every func on the same rows with NULLs, bucket 6 all NULL, checked
     # (not timed): float sums, counts, min / max / first, integer sums,
     # signed and unsigned min / max
@@ -374,10 +402,32 @@ def kernel_phase(B, n: int, q6_compact_cap: int, n_part: int,
         wide.append((f, d, rand((n,)) > 0.05 if a % 3 else None, False))
     check_bucket_agg(B, kid5, 512, active, wide, sync, "nb=512")
     wide_bound = bound_ms(agg_bytes(kid5, 512, active, wide))
+    kid5_l = torch.where(active, kid5.to(torch.int64), 512)
+
+    def lib_512():
+        # a bincount per sum and per count over the bucket ids (inactive
+        # rows and NULLs in a dump bin): min, max and first have none,
+        # so this is a floor of the library's time
+        out = []
+        for f, d, v, _u in wide:
+            if f == "sum":
+                w = d.to(torch.float64) if v is None \
+                    else torch.where(v, d.to(torch.float64), 0.0)
+                out.append(torch.bincount(kid5_l, weights=w, minlength=513))
+            elif f == "count":
+                out.append(torch.bincount(
+                    kid5_l if v is None else torch.where(v, kid5_l, 512),
+                    minlength=513))
+        return out
+    k5 = time_ms(lambda: B.bucket_agg(kid5, 512, active, wide))
+    lib5 = time_ms(lib_512)
     log(f"kernel bucket_agg at nb=512: n={n} aggs={len(wide)} "
-        f"kernel_ms={time_ms(lambda: B.bucket_agg(kid5, 512, active, wide)):.4f} "
+        f"kernel_ms={k5:.4f} "
         f"plain_ms={time_ms(lambda: B.bucket_agg_plain(kid5, 512, active, wide)):.4f} "
-        f"bound_us={wide_bound * 1e3:.2f} (bytes)")
+        f"library_ms={lib5:.4f} (bincounts of the sums and counts only, "
+        f"a floor) kernel/library={k5 / lib5:.3f} "
+        f"bound_us={wide_bound * 1e3:.2f} (bytes) "
+        f"kernel/bound={k5 / wide_bound:.3f}")
 
     # -- K2, keyless bucket_agg (Q6, Q14: no ids, one bucket; one launch,
     #    bucket_agg_keyless): every func with nulls checked (the folding
@@ -1297,8 +1347,15 @@ def k8_phase(B, device: str = "cuda") -> list:
     scounts, scols, scap = check_expand(B, skey, None, length, skeys, snb,
                                         False, [skey], spay, sync, "skew")
     st = int(scounts[3])
+    sk_ms = time_ms(lambda: B.expand_counts(skey, None, length, skeys, snb,
+                                            False))
+    sk_lib = time_ms(lambda: (torch.searchsorted(skeys, skey),
+                              torch.searchsorted(skeys, skey, right=True)))
     log(f"kernel expand skew: n={n} build={snb} out={st} "
-        f"counts_ms={time_ms(lambda: B.expand_counts(skey, None, length, skeys, snb, False)):.4f} "
+        f"counts_ms={sk_ms:.4f} counts_plain_ms="
+        f"{time_ms(lambda: B.expand_counts_plain(skey, None, length, skeys, snb, False)):.4f} "
+        f"counts_library_ms={sk_lib:.4f} (two searchsorted) "
+        f"counts_bound_us={bound_ms(n * 24 + skeys.shape[0] * 8) * 1e3:.2f} "
         f"gather_ms={time_ms(lambda: B.expand_gather(*scounts, scap, skeys.shape[0], scols)):.4f} "
         f"gather_plain_ms={time_ms(lambda: B.expand_gather_plain(*scounts, scap, skeys.shape[0], scols)):.4f} "
         f"gather_bound_us={bound_ms(n * 16 + st * 32) * 1e3:.2f} (bytes)")
@@ -1314,6 +1371,26 @@ def k8_phase(B, device: str = "cuda") -> list:
         z = check_expand(B, key[:0], None, 0, keys, nb, left, [key[:0]],
                          payloads, sync, f"0 probes left={left}")
         check(int(z[0][3]) == 0, "0 probes: total")
+    # one launch (the look-back across tiles): odd row counts, one tile,
+    # a float skew with a hot key, LEFT at a shortened length, a
+    # host-int length, and two calls equal
+    for m in (1, 2047, 2049, 333_333):
+        check_expand(B, key[:m], kv[:m], m - 1, keys, nb, m % 2 == 1,
+                     [key[:m]], payloads, sync, f"n={m}")
+    fsk, fsnb = padded_build_keys(bvals.to(torch.float64) / 8)
+    check_expand(B, skey.to(torch.float64) / 8, kv, n - 12_345, fsk, fsnb,
+                 True, [skey], [(rand(fsk.shape[0]), None)], sync,
+                 "float skew left")
+    before = B.LAUNCHES["expand_counts"]
+    a1 = B.expand_counts(skey, None, length, skeys, snb, False)
+    a2 = B.expand_counts(skey, None, length, skeys, snb, False)
+    sync()
+    check(B.LAUNCHES["expand_counts"] - before == 2
+          and all(torch.equal(x, y) for x, y in zip(a1, a2)),
+          "expand_counts: one launch a call, two calls equal")
+    log("kernel expand_counts checks: ds25, skew, LEFT with NULLs, float "
+        "keys, length < n, 0, 1, 2047, 2049 and 333,333 probes, a float "
+        "skew, two calls equal: bit-equal to the plain version ok")
     return rows
 
 
@@ -2244,7 +2321,28 @@ def batched_kernel_phase(B, n: int, hits: dict, orders_n: int,
         max_abs_err=err, ms=k, plain_ms=p, library_ms=lib, bound_ms=bound,
         bound_by="bytes"))
     line("bucket_agg_batched", f"Q1 n={n} nb=12 aggs=10 B={Bm}", k, p, lib,
-         singles, bound)
+         singles, bound, f" kernel/library={k / lib:.3f} "
+         f"kernel/bound={k / bound:.3f}")
+
+    def flat(r):
+        return list(r[0]) + list(r[1]) + [r[2]]
+
+    def members_are_singles(kid_, nb_, masks_, aggs_, tag):
+        # the keyed member form: member b equals a single bucket_agg over
+        # its mask bit for bit, and two calls repeat bit for bit
+        got = B.bucket_agg_batched(kid_, nb_, masks_, aggs_)
+        again = B.bucket_agg_batched(kid_, nb_, masks_, aggs_)
+        sync()
+        check(same_bits(flat(got), flat(again)),
+              f"bucket_agg_batched {tag}: two calls differ")
+        for b in range(masks_.shape[0]):
+            one = B.bucket_agg(kid_ if kid_.dim() == 1 else kid_[b], nb_,
+                               masks_[b], aggs_)
+            sync()
+            check(same_bits([x[b] for x in flat(got)], flat(one)),
+                  f"bucket_agg_batched {tag}: member {b} is not a single "
+                  "call")
+    members_are_singles(kid, 12, masks, aggs, "Q1")
     # every function, NULLs, a per-member value column and per-member
     # ids, checked
     v = rand((n,)) > 0.05
@@ -2261,20 +2359,55 @@ def batched_kernel_phase(B, n: int, hits: dict, orders_n: int,
                              "per-member ids")
 
     # -- keyless at Q6's shape: sum(l_extendedprice * l_discount) under 8
-    #    members' (DATE, DISCOUNT, QUANTITY) masks
+    #    members' (DATE, DISCOUNT, QUANTITY) masks: the streaming member
+    #    body (bucket_agg_keyless_batched, one launch); every function,
+    #    per-member values and unaligned inputs take the keyed body with
+    #    one bucket
     q6 = [("sum", aggs[0][1], None, False)]
     q6_masks = (live[None, :] & (rand((Bm, n)) < 0.02)).contiguous()
-    check_bucket_agg_batched(B, None, 1, q6_masks, q6, sync, "Q6 keyless")
+    err6 = check_bucket_agg_batched(B, None, 1, q6_masks, q6, sync,
+                                    "Q6 keyless")
     check_bucket_agg_batched(B, None, 1, q6_masks, funcs, sync,
                              "keyless funcs")
+    stream_before = B.LAUNCHES["bucket_agg_keyless_batched"]
+    ints = randint(-(1 << 40), 1 << 40, (n,))
+    cnt = ("count", None, None, False)
+    for i, spec in enumerate([[], [cnt], q6 + [cnt], aggs[:2],
+                              aggs[:2] + [("sum", ints, None, False), cnt],
+                              [("sum", ints, None, True)] + aggs[:3]]):
+        check_bucket_agg_batched(B, None, 1, q6_masks, spec, sync,
+                                 f"keyless stream {i}")
+    check(B.LAUNCHES["bucket_agg_keyless_batched"] - stream_before == 6,
+          "keyless members: the streaming body did not take the common "
+          "spec")
+    first6 = B.bucket_agg_batched(None, 1, q6_masks, aggs[:2])
+    again6 = B.bucket_agg_batched(None, 1, q6_masks, aggs[:2])
+    sync()
+    check(same_bits(flat(first6), flat(again6)),
+          "bucket_agg_batched keyless: two calls differ")
+    check_bucket_agg_batched(B, None, 1, q6_masks[:, 1:],
+                             [("sum", aggs[0][1][:-1], None, False)], sync,
+                             "keyless unaligned masks")
+    check_bucket_agg_batched(B, None, 1, q6_masks[:, :-1],
+                             [("sum", aggs[0][1][1:], None, False)], sync,
+                             "keyless unaligned column")
     q6mf = q6_masks.to(torch.float64)
-    line("bucket_agg_batched", f"Q6 keyless n={n} aggs=1 B={Bm}",
-         time_ms(lambda: B.bucket_agg_batched(None, 1, q6_masks, q6)),
-         time_ms(lambda: B.bucket_agg_batched_plain(None, 1, q6_masks, q6)),
-         time_ms(lambda: q6mf @ aggs[0][1]),
+    k6 = time_ms(lambda: B.bucket_agg_batched(None, 1, q6_masks, q6))
+    lib6 = time_ms(lambda: q6mf @ aggs[0][1])
+    bound6 = bound_ms(batched_agg_bytes(None, 1, q6_masks, q6))
+    rows.append(dict(
+        name="bucket_agg_keyless_batched", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/bucket_agg.cu",
+        replaces="ydb_tpu/ops/fused.py:299",
+        shape=f"n={n} aggs=1 B={Bm} (Q6 keyless)", max_abs_err=err6,
+        ms=k6, plain_ms=time_ms(
+            lambda: B.bucket_agg_batched_plain(None, 1, q6_masks, q6)),
+        library_ms=lib6, bound_ms=bound6, bound_by="bytes"))
+    line("bucket_agg_batched", f"Q6 keyless n={n} aggs=1 B={Bm}", k6,
+         rows[-1]["plain_ms"], lib6,
          time_ms(lambda: [B.bucket_agg(None, 1, q6_masks[b], q6)
-                          for b in range(Bm)]),
-         bound_ms(batched_agg_bytes(None, 1, q6_masks, q6)))
+                          for b in range(Bm)]), bound6,
+         f" kernel/library={k6 / lib6:.3f} kernel/bound={k6 / bound6:.3f}")
 
     # -- 512 buckets x 16 aggregates, 8 members
     kid5 = randint(0, 512, (n,), torch.int32)
@@ -2305,15 +2438,45 @@ def batched_kernel_phase(B, n: int, hits: dict, orders_n: int,
                 flat, weights=None if w is None else w.repeat(Bm),
                 minlength=Bm * 512 + 1))
         return out
-    line("bucket_agg_batched", f"nb=512 n={n} aggs=16 B={Bm}",
-         time_ms(lambda: B.bucket_agg_batched(kid5, 512, masks, wide)),
+    k5 = time_ms(lambda: B.bucket_agg_batched(kid5, 512, masks, wide))
+    lib5 = time_ms(lib_512)
+    bound5 = bound_ms(batched_agg_bytes(kid5, 512, masks, wide))
+    line("bucket_agg_batched", f"nb=512 n={n} aggs=16 B={Bm}", k5,
          time_ms(lambda: B.bucket_agg_batched_plain(kid5, 512, masks,
                                                     wide)),
-         time_ms(lib_512),
+         lib5,
          time_ms(lambda: [B.bucket_agg(kid5, 512, masks[b], wide)
                           for b in range(Bm)]),
-         bound_ms(batched_agg_bytes(kid5, 512, masks, wide)),
-         " library: bincounts of the sums and counts only (a floor)")
+         bound5, " library: bincounts of the sums and counts only (a "
+         f"floor) kernel/library={k5 / lib5:.3f} "
+         f"kernel/bound={k5 / bound5:.3f}")
+    members_are_singles(kid5, 512, masks, wide, "nb=512")
+
+    # -- B = 1, 3, 8 and 32 at an odd row count, Q1's and the 512-bucket
+    #    specs, shared and per-member ids, against the plain version
+    ms_ = min((1 << 18) + 333, n - 1)
+    for Bs in (1, 3, 8, 32):
+        bm = (rand((Bs, ms_)) < 0.9) & (rand((1, ms_)) < 0.98)
+        check_bucket_agg_batched(B, kid[:ms_], 12, bm, [
+            (f, None if d is None else d[:ms_], v, u)
+            for (f, d, v, u) in aggs], sync, f"Q1 B={Bs} odd")
+        check_bucket_agg_batched(B, kid5[:ms_], 512, bm, [
+            (f, None if d is None else d[:ms_],
+             None if v is None else v[:ms_], u) for (f, d, v, u) in wide],
+            sync, f"nb=512 B={Bs} odd")
+        check_bucket_agg_batched(B, randint(0, 40, (Bs, ms_), torch.int32),
+                                 40, bm, [(f, None if d is None else d[:ms_],
+                                           None if v is None else v[:ms_], u)
+                                          for (f, d, v, u) in funcs[:5]],
+                                 sync, f"per-member ids B={Bs} odd")
+        check_bucket_agg_batched(B, None, 1, bm, [
+            ("sum", aggs[0][1][:ms_], None, False),
+            ("sum", ints[:ms_], None, False), cnt], sync,
+            f"keyless stream B={Bs} odd")
+    log("kernel bucket_agg_batched checks: member b = a single call bit "
+        "for bit at Q1 and nb=512, two calls bit for bit (keyed, keyless), "
+        "keyless streaming specs of 0-4 sums, unaligned inputs, B=1,3,8,32 "
+        "at an odd row count (shared and per-member ids, keyless) ok")
 
     # -- segment_agg_batched at the batch c40 sends over the 1M hits rows
     #    (c36's URL groups fit the 512-bucket lane, so its batch takes
@@ -2511,8 +2674,9 @@ SERVING_TEMPLATES = (("q1", "tpch", 8), ("q6", "tpch", 8),
                      ("point", "tpch", 64), ("c36", "clickbench", 8),
                      ("c37", "clickbench", 8), ("c40", "clickbench", 8),
                      ("c42", "clickbench", 8))
-SERVING_KERNELS = ("bucket_agg_batched", "segment_agg_batched",
-                   "compact_batched", "probe", "sort", "k1")
+SERVING_KERNELS = ("bucket_agg_batched", "bucket_agg_keyless_batched",
+                   "segment_agg_batched", "compact_batched", "probe", "sort",
+                   "k1")
 
 
 def _storm(eng, texts):
@@ -3271,13 +3435,15 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
 
 
 PTXAS_CHECKED = ("segment_agg", "bucket_sort", "sort", "window_scan",
-                 "bucket_agg", "compact")
+                 "bucket_agg", "compact", "expand")
 # the kernels whose every function must keep its state in registers: a
 # stack frame or a spill fails the run
 PTXAS_NO_SPILL = ("segment_agg", "sort", "window_scan")
-# and in bucket_agg and compact, the kernels of K2 and K6 xB (by name)
+# and in bucket_agg, compact and expand, the kernels of K2, K2/K3 xB,
+# K3, K6 xB and K8's counts (by name)
 PTXAS_NO_SPILL_FUNCTIONS = ("keyless_stream", "keyless_fold",
-                            "compact_members")
+                            "keyless_members", "bucket_agg_members",
+                            "compact_members", "ex_counts")
 
 
 def ptxas_functions(text: str) -> list:
@@ -3397,6 +3563,25 @@ def main() -> int:
     log(f"data: TPC-DS sf=1 store_sales="
         f"{eng_ds.catalog.table('store_sales').num_rows} rows, "
         f"{time.perf_counter() - t0:.1f} s")
+    # the TPC-DS queries' oracle answers, in worker processes beside the
+    # card's phases: pandas takes about 2 s a query at SF1, the card
+    # about 0.1 (daemonic workers: they end with this process)
+    import multiprocessing
+    ds_names = tuple(dict.fromkeys(TPCDS_QUERIES + TPCDS_REST))
+    oracle_pool = multiprocessing.get_context("spawn").Pool(
+        TPCDS_ORACLE_WORKERS)
+    ds_parts = oracle_pool.map_async(
+        tpcds_oracles, [ds_names[i::TPCDS_ORACLE_WORKERS]
+                        for i in range(TPCDS_ORACLE_WORKERS)])
+    ds_answers = {}
+
+    def tpcds_answer(q):
+        if q == "k13":
+            return k13_oracle(raw_ds)
+        if not ds_answers:
+            for part in ds_parts.get():
+                ds_answers.update(part)
+        return ds_answers[q].copy()
     t0 = time.perf_counter()
     eng_cb = QueryEngine()
     raw_cb = load_hits(eng_cb.catalog, n_rows=CLICKBENCH_ROWS)
@@ -3495,8 +3680,7 @@ def main() -> int:
     suites = {
         "tpch": (eng, QUERIES, tpch_oracle),
         "tpcds": (eng_ds, {**tpcds_oracle.QUERIES, "k13": K13_SQL},
-                  lambda q: k13_oracle(raw_ds) if q == "k13"
-                  else tpcds_oracle.oracle(q, raw_ds)),
+                  tpcds_answer),
         "clickbench": (eng_cb, clickbench_oracle.QUERIES,
                        lambda q: clickbench_oracle.oracle(q, raw_cb)),
         "tpch_beyond": (eng_bb, {**QUERIES, **BEYOND_EXTRA},
@@ -3515,6 +3699,8 @@ def main() -> int:
         recorder.close()
         mesh_rec.close()
         q10_rec.close()
+        oracle_pool.terminate()
+        oracle_pool.join()
     check(q10_rec.calls >= 3, "q10 at SF 0.4 did not take the "
           "medium-domain lane")
     del suites["tpch_mesh"], suites["tpch_mesh_sj"], eng_mesh, eng_sj
@@ -3596,6 +3782,28 @@ TPCDS_QUERIES = tuple(dict.fromkeys(
        "ds25", "ds29", "ds59", "ds72")
     + ("ds3", "ds7", "ds27", "ds42", "ds43", "ds52", "ds55", "ds62",
        "ds67", "ds70", "ds89", "ds94", "ds96", "ds97", "ds98")))
+# the other 37 of the port's 73 TPC-DS queries, in the oracle's order:
+# each runs once, cold (the keyed bucket_agg body under their
+# small-domain group-bys)
+TPCDS_REST = ("ds19", "ds65", "ds73", "ds13", "ds15", "ds18", "ds21",
+              "ds22", "ds26", "ds32", "ds34", "ds37", "ds40", "ds45",
+              "ds46", "ds48", "ds50", "ds58", "ds69", "ds79", "ds82",
+              "ds85", "ds92", "ds93", "ds6", "ds8", "ds35", "ds38", "ds41",
+              "ds66", "ds68", "ds74", "ds78", "ds80", "ds87", "ds95",
+              "ds99")
+TPCDS_ORACLE_WORKERS = 4
+
+
+def tpcds_oracles(names) -> dict:
+    """The port's TPC-DS oracle answers of `names` at SF1 (a worker
+    process's job): the tables made again from the generator's seed, as
+    the engine's were."""
+    from ydb_tpu_torch.bench import tpcds_oracle
+    from ydb_tpu_torch.bench.tpcds_gen import gen_tpcds
+    raw = gen_tpcds(1.0)
+    return {q: tpcds_oracle.oracle(q, raw) for q in names}
+
+
 # the execution path each query must end on, where a slice fixes it
 EXPECT_PATH = {
     "tpcds": {"ds25": "portioned", "ds29": "portioned", "ds59": "portioned",
@@ -3657,6 +3865,9 @@ PATHS = (
      + [("k13", {})],
      ("window_scan", "expand_counts", "expand_gather", "sort", "hash64",
       "probe", "compact", "k1")),
+    ("TPC-DS at SF1: the other 37 queries, once each, cold", "tpcds",
+     [(q, {"once": True}) for q in TPCDS_REST],
+     ("bucket_agg", "compact", "probe", "sort", "segment_agg", "k1")),
     ("ClickBench, 1,000,000 rows", "clickbench",
      [(q, {}) for q in CLICKBENCH_QUERIES],
      ("bucket_agg", "compact", "sort", "segment_agg", "k1")),
@@ -3701,7 +3912,7 @@ def slice_phase(bindings, suites: dict) -> dict:
             walls, notes = [], []
             b0 = (GLOBAL.get("k1/builds"), GLOBAL.get("k1/build_ms"))
             try:
-                for _ in range(3):
+                for _ in range(1 if opts.get("once") else 3):
                     if recorder is not None:
                         recorder.start(name)
                     before = dict(bindings.LAUNCHES)
@@ -3725,16 +3936,19 @@ def slice_phase(bindings, suites: dict) -> dict:
             if suite in ("tpcds", "clickbench"):
                 want.columns = list(got.columns)
             assert_frames_match(got, want, ordered=not opts.get("unordered"))
-            tag = " ".join(f"{k}={v}" for k, v in opts.items())
+            tag = " ".join(f"{k}={v}" for k, v in opts.items()
+                           if k != "once")
             lanes = f" cold: {notes[0][0]} warm: {notes[-1][0]}" \
                 if notes else ""
             builds = (f" k1_builds={GLOBAL.get('k1/builds') - b0[0]} "
                       f"k1_build_ms="
                       f"{GLOBAL.get('k1/build_ms') - b0[1]:.1f}")
+            warm = f"{min(walls[1:]):.2f}" if walls[1:] else "—"
             log(f"query {name}{' ' + tag if tag else ''}: "
-                f"cold_ms={walls[0]:.2f} warm_ms={min(walls[1:]):.2f} "
+                f"cold_ms={walls[0]:.2f} warm_ms={warm} "
                 f"rows={len(got)} path={path} ok "
-                f"warm_launches={json.dumps(per_query)}{lanes}{builds}")
+                f"{'launches' if opts.get('once') else 'warm_launches'}="
+                f"{json.dumps(per_query)}{lanes}{builds}")
         launches = dict(bindings.LAUNCHES)
         log(f"launches ({label}): {json.dumps(launches)} k1_builds="
             f"{GLOBAL.get('k1/builds') - k1_before[0]} k1_build_s="

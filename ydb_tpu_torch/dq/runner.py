@@ -26,10 +26,13 @@ resource ledgers.
 from __future__ import annotations
 
 import dataclasses
+import re
+import threading
 import time
 
 import pandas as pd
 
+from ydb_tpu_torch.cluster.exchange import ExchangeBuffer
 from ydb_tpu_torch.dq.graph import StageGraph
 from ydb_tpu_torch.sql import ast, render
 from ydb_tpu_torch.utils.metrics import GLOBAL
@@ -552,22 +555,71 @@ class DqTaskRunner:
                 pass
 
 
+def frame_order(src: str, seq) -> tuple:
+    """Where a landed frame goes in its channel's drain: by producer,
+    numbers in its name compared as numbers (task `...w2` before
+    `...w10`), then by the producer's frame sequence."""
+    parts = re.split(r"(\d+)", src)
+    return (tuple(int(t) if i % 2 else t for i, t in enumerate(parts)),
+            -1 if seq is None else int(seq))
+
+
+class OrderedExchangeBuffer(ExchangeBuffer):
+    """An `ExchangeBuffer` whose channels drain by (producer, seq)
+    (`frame_order`), not in the order their frames landed. Producer tasks
+    run on the runner's thread pool and ship frames from a pool of their
+    own, so the landing order changes from run to run; a consumer stage's
+    float sum over the drained rows changed its last bits with it. The
+    drain order is the ICI plane's, which lands producers' rows in worker
+    order, so the two planes give the same bits."""
+
+    def __init__(self, budget_bytes: int = 1 << 30):
+        super().__init__(budget_bytes)
+        # outside the base's lock, always taken before it
+        self._order_mu = threading.Lock()
+        self._order: dict = {}            # guarded-by: _order_mu
+
+    def put(self, channel: str, df: pd.DataFrame, nbytes: int,
+            src: str = "", seq=None) -> bool:
+        with self._order_mu:
+            landed = super().put(channel, df, nbytes, src=src, seq=seq)
+            if landed:
+                self._order.setdefault(channel, []).append(
+                    frame_order(src, seq))
+            return landed
+
+    def take2(self, channel: str):
+        with self._order_mu:
+            keys = self._order.pop(channel, [])
+            with self._mu:
+                frames = self._frames.get(channel)
+                if frames:
+                    # stable: a producer's unsequenced frames keep their
+                    # landing order
+                    rank = sorted(range(len(frames)), key=keys.__getitem__)
+                    frames[:] = [frames[i] for i in rank]
+            return super().take2(channel)
+
+    def drop(self, channel: str) -> None:
+        with self._order_mu:
+            self._order.pop(channel, None)
+            super().drop(channel)
+
+
 class LocalWorker:
     """In-process worker: the control surface the runner drives
     (execute / dq_run_task / ici_land / channel_open / channel_close /
     dq_tasks / counters) over a local QueryEngine, with an in-process
-    exchange buffer — the 1-worker degenerate case, and N-engine
-    single-process clusters. `device` is the engine's device: the ICI
-    plane's exchange runs over the workers' devices."""
+    exchange buffer that drains by producer and sequence
+    (`OrderedExchangeBuffer`) — the 1-worker degenerate case, and
+    N-engine single-process clusters. `device` is the engine's device:
+    the ICI plane's exchange runs over the workers' devices."""
 
     def __init__(self, engine, name: str = ""):
-        import threading
-
-        from ydb_tpu_torch.cluster.exchange import ExchangeBuffer
         from ydb_tpu_torch.utils.metrics import Counters
         self.engine = engine
         self.endpoint = f"local:{name or hex(id(engine))[2:]}"
-        self.exchange = ExchangeBuffer()
+        self.exchange = OrderedExchangeBuffer()
         # device-resident channel landings (the planned ICI exchange):
         # channel → DeviceStageBlock, with the same (src, seq)
         # idempotency the frame path gets from ExchangeBuffer.put

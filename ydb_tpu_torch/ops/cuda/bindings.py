@@ -40,10 +40,13 @@ a non-zero code raises.
 |              | _build_counts_batched_fn (the DQ count exchange)          |
 | *_batched    | the member axis of bucket_agg, segment_agg and compact:   |
 |              | what ops/fused.py build_fused_batched_fn's vmap gives     |
-|              | them in the reference                                     |
+|              | them in the reference (bucket_agg_keyless_batched: the    |
+|              | keyless members' streaming body)                          |
 
-Each launch name builds from ``csrc/<library>.cu`` (``bucket_agg`` and
-``bucket_agg_keyless`` share ``bucket_agg.cu``, ``expand_counts``
+Each launch name builds from ``csrc/<library>.cu`` (``bucket_agg``,
+``bucket_agg_keyless`` and the two member entries share
+``bucket_agg.cu``; ``bucket_agg`` and ``bucket_agg_batched`` are one C
+entry, the single query its one member, ``expand_counts``
 and ``expand_gather`` share ``expand.cu``, the two codec entries
 ``quant.cu``, the bucket plane and the counts ``dq_counts.cu``;
 ``bucket_perm`` is ``bucket_sort.cu``; each ``*_batched`` entry is in
@@ -82,11 +85,14 @@ _PI32 = ctypes.POINTER(ctypes.c_int32)
 _COMPACT_ARGS = [_I64, _I32, _P, _I32, _I64, _P, _I64, _I64, _P, _I64, _P,
                  _P, _P, _I32, _PI64, _PI64, _PI64, _PI32, _I32, _P]
 
+# bucket_agg.cu's keyed entry, for the single query (B = 1) and members
+_MEMBERS_ARGS = [_I64, _I32, _P, _I64, _I32, _P, _I64, _I32, _PI64, _PI64,
+                 _PI64, _PI64, _PI32, _PI32, _I64, _PI32, _P, _P, _P, _P,
+                 _P, _P]
+
 # launch name -> (library, C symbol, argtypes)
 _SIGS = {
-    "bucket_agg": ("bucket_agg", "bucket_agg_launch",
-                   [_I64, _I32, _P, _P, _I32, _PI64, _PI64, _PI32, _PI32,
-                    _I64, _I32, _P, _P, _P, _P, _P, _P, _P]),
+    "bucket_agg": ("bucket_agg", "bucket_agg_members_launch", _MEMBERS_ARGS),
     "bucket_agg_keyless": ("bucket_agg", "bucket_agg_keyless_launch",
                            [_I64, _P, _I32, _PI64, _PI64, _PI32, _PI32,
                             _I64, _I32, _I32, _P, _P, _P, _P, _P, _P, _P,
@@ -111,17 +117,20 @@ _SIGS = {
                      _PI64, _PI64, _PI64, _I64, _P, _I32, _I32, _P, _P, _P]),
     "expand_counts": ("expand", "expand_counts_launch",
                       [_I64, _P, _I32, _P, _P, _P, _I64, _I64, _I32, _P, _P,
-                       _P, _P, _P, _P, _P]),
+                       _P, _P, _P, _P, _P, _I64, _I32, _P]),
     "expand_gather": ("expand", "expand_gather_launch",
                       [_I64, _I64, _P, _P, _P, _P, _I64, _I32, _PI64, _PI64,
                        _PI32, _PI32, _P]),
     "partition": ("partition", "partition_launch",
                   [_I64, _P, _P, _I32, _P, _P, _P, _P, _P, _I32, _PI64,
                    _PI64, _PI32, _I32, _P]),
-    "bucket_agg_batched": ("bucket_agg", "bucket_agg_batched_launch",
-                           [_I64, _I32, _P, _I64, _I32, _P, _I64,
-                            _I32, _PI64, _PI64, _PI64, _PI64, _PI32, _PI32,
-                            _I64, _I32, _P, _P, _P, _P, _P, _P, _P]),
+    "bucket_agg_batched": ("bucket_agg", "bucket_agg_members_launch",
+                           _MEMBERS_ARGS),
+    "bucket_agg_keyless_batched": ("bucket_agg",
+                                   "bucket_agg_keyless_batched_launch",
+                                   [_I64, _I32, _P, _I64, _I32, _PI64, _PI32,
+                                    _PI32, _I32, _I32, _P, _P, _P, _P, _P,
+                                    _P, _P, _P]),
     "segment_agg_batched": ("segment_agg", "segment_agg_batched_launch",
                             [_I64, _P, _I32, _PI64, _P, _I32, _P, _I64,
                              _I32, _PI64, _PI64, _PI64, _PI64, _PI32, _PI32,
@@ -252,7 +261,10 @@ def _check(t: torch.Tensor, what: str, device, n: Optional[int] = None,
 AGG_FUNCS = {"count": 0, "sum": 1, "min": 2, "max": 3, "first": 4}
 _MAX_AGGS = 16
 _MAX_BUCKETS = 512               # the small-domain lane's bound
-_PARTIAL_BLOCKS = 528            # fixed: the fold order is part of the result
+_PARTIAL_BLOCKS = 528            # keyless_fold's most blocks (K2); the
+                                 # keyed bodies' partials follow the grid
+                                 # of bucket_agg_plan, a function of the
+                                 # shape alone
 
 
 def bucket_agg(kid: Optional[torch.Tensor], nb: int, active: torch.Tensor,
@@ -294,37 +306,11 @@ def bucket_agg(kid: Optional[torch.Tensor], nb: int, active: torch.Tensor,
             _check(valid, f"{func} valid", dev, n, (torch.bool,))
     if kid is None:
         return _bucket_agg_keyless(n, active, aggs, dev)
-    vals, cnts, present = [], [], None
-    G = max(1, min((n + 511) // 512, _PARTIAL_BLOCKS))   # 512-row tiles
-    chunks = [aggs[i:i + _MAX_AGGS] for i in range(0, len(aggs), _MAX_AGGS)] \
-        or [[]]
-    for chunk in chunks:
-        A = len(chunk)
-        part_val = torch.empty(G * A * nb, dtype=torch.int64, device=dev)
-        part_cnt = torch.empty(G * A * nb, dtype=torch.int64, device=dev)
-        part_pres = torch.empty(G * nb, dtype=torch.int64, device=dev)
-        out_val = torch.empty((A, nb), dtype=torch.int64, device=dev)
-        out_cnt = torch.empty((A, nb), dtype=torch.int64, device=dev)
-        out_pres = torch.empty(nb, dtype=torch.int64, device=dev)
-        types = _agg_types(chunk)
-        _launch("bucket_agg", n, nb, _ptr(kid), _ptr(active), A,
-                _arr(ctypes.c_int64, [_ptr(d) or 0 for (_f, d, _v, _u)
-                                      in chunk]),
-                _arr(ctypes.c_int64, [_ptr(v) or 0 for (_f, _d, v, _u)
-                                      in chunk]),
-                _arr(ctypes.c_int32, [AGG_FUNCS[f] for (f, *_r) in chunk]),
-                _arr(ctypes.c_int32, types), n, G, _ptr(part_val),
-                _ptr(part_cnt), _ptr(part_pres), _ptr(out_val),
-                _ptr(out_cnt), _ptr(out_pres), _stream())
-        for a, (func, d, _v, _u) in enumerate(chunk):
-            v = out_val[a]
-            if d is not None and d.dtype == torch.float64 \
-                    and func in ("sum", "min", "max"):
-                v = v.view(torch.float64)
-            vals.append(v)
-            cnts.append(out_cnt[a])
-        present = out_pres
-    return vals, cnts, present
+    vals, cnts, present = _bucket_agg_members(
+        "bucket_agg", kid, 0, nb, active.unsqueeze(0), 0, n,
+        [(f, d, v, u, 0, 0) for (f, d, v, u) in aggs], dev)
+    return ([v.select(0, 0) for v in vals], [c.select(0, 0) for c in cnts],
+            present.select(0, 0))
 
 
 def _agg_types(chunk) -> list:
@@ -459,8 +445,104 @@ def bucket_agg_plain(kid, nb: int, active: torch.Tensor, aggs: list):
     return vals, cnts, present
 
 
-_TILE_ROWS = 512                 # bucket_agg.cu TILE
-_KEYLESS_SLOTS = 8               # bucket_agg.cu SLOTS
+_KT_TILE = 1024                  # bucket_agg.cu KT_TILE: rows a tile
+_KT_TILE_BYTES = 7 * _KT_TILE    # bucket_agg.cu KT_TILE_BYTES
+_KT_MAX_SMEM = 114_688           # bucket_agg.cu KT_MAX_SMEM: 2 blocks a SM
+_KT_SLOT_BYTES = 12              # a slot's value and count a bucket
+_KT_BLOCKS_PER_SM = 3            # bucket_agg_members' __launch_bounds__
+_SM_SMEM = 233_472               # the H100's shared memory a SM
+_SM_BLOCK_EXTRA = 2048           # a block's static shared memory and the
+                                 # 1 KB the card reserves for it
+_SMS = 132                       # the H100's SMs
+_KT_FINAL_LANES = 2048           # slots x buckets of a member at most for
+                                 # the warp-per-output final pass
+_KM_GRID = 264                   # keyless_members: 2 blocks a SM
+
+
+def bucket_agg_plan(n: int, nb: int, n_aggs: int, B: int = 1,
+                    shared_ids: bool = True) -> dict:
+    """What `bucket_agg` (B = 1) and `bucket_agg_batched` launch for one
+    chunk through the keyed body (bucket_agg.cu `bucket_agg_members`, then
+    its final pass), from the shapes alone: `n_aggs` distinct aggregates
+    (`fold_slots`), each member's slots those and its row count.
+
+    P (copies of the accumulators, one per partition of a tile's chunks)
+    and F (tile groups, the grid's y: block f folds the tiles f, f + F,
+    ...) fix the fold order. They follow n, nb and n_aggs, never B, so a
+    batch's member b folds as a single query over its mask does, and
+    they fill the card at the single query's footprint. Y block rows of
+    SR slots: with shared ids every member's slots in aggregate-major
+    order, as many a row as its shared memory takes; with per-member ids
+    `rpm` rows a member. The F partials of every slot and bucket are
+    folded in order by a second kernel: a warp an output ("lanes") where
+    a member has few, else a thread an output with coalesced reads."""
+    S1 = n_aggs + 1
+    slot = nb * _KT_SLOT_BYTES
+    P = next((p for p in (4, 2)
+              if p * S1 * slot + _KT_TILE_BYTES <= _KT_MAX_SMEM), 1)
+    most = max(1, (_KT_MAX_SMEM - _KT_TILE_BYTES) // (P * slot))
+    single = P * min(most, S1) * slot + _KT_TILE_BYTES
+    per_sm = max(1, min(_KT_BLOCKS_PER_SM,
+                        _SM_SMEM // (single + _SM_BLOCK_EXTRA)))
+    F = max(1, min(-(-n // _KT_TILE), _SMS * per_sm))
+    if shared_ids:
+        SR = min(most, S1 * B)
+        rpm, Y = 0, -(-(S1 * B) // SR)
+    else:
+        SR = min(most, S1)
+        rpm = -(-S1 // SR)
+        Y = B * rpm
+    return {"F": F, "Y": Y, "P": P, "SR": SR, "rpm": rpm,
+            "final": "lanes" if S1 * nb <= _KT_FINAL_LANES else "threads",
+            "smem": P * SR * slot + _KT_TILE_BYTES,
+            "partial_bytes": F * S1 * B * nb * _KT_SLOT_BYTES,
+            "launches": 1}
+
+
+def keyless_members_plan(n: int, B: int, aggs: list, aligned: bool) -> dict:
+    """What `bucket_agg_batched` launches for one keyless chunk, from the
+    shapes alone: `aggs` [(func, has data, has valid, shared)], `aligned`
+    that every mask row is 2-byte and every data column 16-byte aligned.
+    "stream" (`keyless_members`, one launch with the ticket finish) for
+    counts and at most four sums, none with a validity, over shared
+    columns: `members` a block row (8 up to two sums, else 4), `rows`
+    block rows, `grid` blocks a row, `J` 16-byte loads a sum a lane a
+    step; else the keyed body with one bucket ("keyed", its plan)."""
+    sums = [f for (f, _d, _v, _s) in aggs if f == "sum"]
+    if aligned and len(sums) <= _KL_MAX_SUMS and all(
+            not has_valid and ((f == "count" and not has_data)
+                               or (f == "sum" and has_data and shared))
+            for (f, has_data, has_valid, shared) in aggs):
+        D = len(sums)
+        MB = 8 if D <= 2 else 4
+        J = 4 if D <= 1 else 2
+        step = _KL_WARPS * 64 * J
+        return {"path": "stream", "members": MB, "J": J,
+                "rows": -(-B // MB),
+                "grid": max(1, min(-(-n // step), _KM_GRID)), "launches": 1}
+    return {"path": "keyed", **bucket_agg_plan(n, 1, len(aggs), B)}
+
+
+def fold_slots(specs: list) -> tuple:
+    """The aggregates a keyed launch folds, and where each result of
+    `specs` [(func, data, valid, unsigned, data stride, valid stride)]
+    comes from: a count with no validity is the row count (slot -1), and
+    aggregates of the same function and type over the same data and
+    validity tensors (the same objects, strides included) fold once.
+    Returns (indices into `specs` of the distinct ones, slot per spec)."""
+    keys, distinct, slots = {}, [], []
+    types = _agg_types(specs)
+    for i, (f, d, v, _u, ds, vs) in enumerate(specs):
+        if f == "count" and v is None:
+            slots.append(-1)
+            continue
+        key = (f, types[i], id(d) if f in ("sum", "min", "max") else None,
+               ds, id(v), vs)
+        if key not in keys:
+            keys[key] = len(distinct)
+            distinct.append(i)
+        slots.append(keys[key])
+    return distinct, slots
 
 
 def bucket_agg_batched(kid: Optional[torch.Tensor], nb: int,
@@ -474,8 +556,8 @@ def bucket_agg_batched(kid: Optional[torch.Tensor], nb: int,
     Returns (vals, cnts, present) as `bucket_agg`'s with a leading member
     axis: per aggregate a (B, nb) value and (B, nb) count, and the (B, nb)
     active-row counts. Member b's results equal `bucket_agg` over its
-    rows; with keys, its float sums fold in the same order as a single
-    query's (keyless members fold in an order of their own)."""
+    rows; with keys, its float sums equal that call's bit for bit
+    (keyless members fold in an order of their own)."""
     B, n = masks.shape
     dev = masks.device
     if dev.type != "cuda":
@@ -504,38 +586,105 @@ def bucket_agg_batched(kid: Optional[torch.Tensor], nb: int,
             vs = _member_stride(valid, f"{func} valid", dev, B, n,
                                 (torch.bool,))
         specs.append((func, data, valid, u, ds, vs))
-    G = max(1, min((n + _TILE_ROWS - 1) // _TILE_ROWS, _PARTIAL_BLOCKS))
-    vals, cnts, present = [], [], None
-    per = _KEYLESS_SLOTS if kid is None else _MAX_AGGS
-    chunks = [specs[i:i + per] for i in range(0, len(specs), per)] or [[]]
-    for chunk in chunks:
+    if kid is None:
+        return _keyless_members(n, B, masks, ms, specs, dev)
+    return _bucket_agg_members("bucket_agg_batched", kid, ks, nb, masks, ms,
+                               n, specs, dev)
+
+
+def _outputs(specs: list, slots: list, out_val, out_cnt):
+    """Per aggregate its value (a float64 view for float sums, min and
+    max) and count from its slot of the (B, slots, nb) outputs."""
+    vals, cnts = [], []
+    for (func, d, *_r), j in zip(specs, slots):
+        v = out_val.select(1, j)
+        if d is not None and d.dtype == torch.float64 \
+                and func in ("sum", "min", "max"):
+            v = v.view(torch.float64)
+        vals.append(v)
+        cnts.append(out_cnt.select(1, j))
+    return vals, cnts
+
+
+def _bucket_agg_members(name: str, kid, ks: int, nb: int, masks, ms: int,
+                        n: int, specs: list, dev):
+    """The keyed launches of `bucket_agg` (B = 1) and `bucket_agg_batched`
+    (and of keyless members off the streaming body), counted under
+    `name`: one a chunk of _MAX_AGGS distinct aggregates (`fold_slots`).
+    `masks` (B, n) rows `ms` apart; `specs` checked, with member
+    strides."""
+    B = masks.shape[0]
+    distinct, slots = fold_slots(specs)
+    chunks = [distinct[i:i + _MAX_AGGS]
+              for i in range(0, len(distinct), _MAX_AGGS)] or [[]]
+    i64 = dict(dtype=torch.int64, device=dev)
+    vals, cnts = [None] * len(specs), [None] * len(specs)
+    present = None
+    for c0, chunk in zip(range(0, len(distinct) or 1, _MAX_AGGS), chunks):
         A = len(chunk)
-        part_val = torch.empty(B * G * A * nb, dtype=torch.int64, device=dev)
-        part_cnt = torch.empty(B * G * A * nb, dtype=torch.int64, device=dev)
-        part_pres = torch.empty(B * G * nb, dtype=torch.int64, device=dev)
-        out_val = torch.empty((B, A, nb), dtype=torch.int64, device=dev)
-        out_cnt = torch.empty((B, A, nb), dtype=torch.int64, device=dev)
-        out_pres = torch.empty((B, nb), dtype=torch.int64, device=dev)
-        types = _agg_types(chunk)
-        _launch("bucket_agg_batched", n, nb, _ptr(kid), ks, B,
-                _ptr(masks), ms, A,
-                _arr(ctypes.c_int64, [_ptr(c[1]) or 0 for c in chunk]),
-                _arr(ctypes.c_int64, [c[4] for c in chunk]),
-                _arr(ctypes.c_int64, [_ptr(c[2]) or 0 for c in chunk]),
-                _arr(ctypes.c_int64, [c[5] for c in chunk]),
-                _arr(ctypes.c_int32, [AGG_FUNCS[c[0]] for c in chunk]),
-                _arr(ctypes.c_int32, types), n, G, _ptr(part_val),
-                _ptr(part_cnt), _ptr(part_pres), _ptr(out_val),
+        sub = [specs[i] for i in chunk]
+        plan = bucket_agg_plan(n, nb, A, B, shared_ids=ks == 0)
+        part = plan["F"] * (A + 1) * B * nb
+        part_val = torch.empty(part, **i64)
+        part_cnt = torch.empty(part, dtype=torch.int32, device=dev)
+        out_val = torch.empty((B, A, nb), **i64)
+        out_cnt = torch.empty((B, A, nb), **i64)
+        out_pres = torch.empty((B, nb), **i64)
+        _launch(name, n, nb, _ptr(kid), ks, B, _ptr(masks), ms, A,
+                _arr(ctypes.c_int64, [_ptr(c[1]) or 0 for c in sub]),
+                _arr(ctypes.c_int64, [c[4] for c in sub]),
+                _arr(ctypes.c_int64, [_ptr(c[2]) or 0 for c in sub]),
+                _arr(ctypes.c_int64, [c[5] for c in sub]),
+                _arr(ctypes.c_int32, [AGG_FUNCS[c[0]] for c in sub]),
+                _arr(ctypes.c_int32, _agg_types(sub)), n,
+                _arr(ctypes.c_int32, [plan["F"], plan["Y"], plan["P"],
+                                      plan["SR"], plan["rpm"],
+                                      int(plan["final"] == "lanes")]),
+                _ptr(part_val), _ptr(part_cnt), _ptr(out_val),
                 _ptr(out_cnt), _ptr(out_pres), _stream())
-        for a, (func, d, *_r) in enumerate(chunk):
-            v = out_val[:, a]
-            if d is not None and d.dtype == torch.float64 \
-                    and func in ("sum", "min", "max"):
-                v = v.view(torch.float64)
-            vals.append(v)
-            cnts.append(out_cnt[:, a])
         present = out_pres
+        mine = [(i, j - c0) for i, j in enumerate(slots)
+                if c0 <= j < c0 + A]
+        v, c = _outputs([specs[i] for i, _j in mine], [j for _i, j in mine],
+                        out_val, out_cnt)
+        for (i, _j), vi, ci in zip(mine, v, c):
+            vals[i], cnts[i] = vi, ci
+    for i, j in enumerate(slots):
+        if j < 0:
+            vals[i] = cnts[i] = present
     return vals, cnts, present
+
+
+def _keyless_members(n: int, B: int, masks, ms: int, specs: list, dev):
+    """Keyless members: one launch a chunk of _MAX_AGGS aggregates, the
+    streaming body (`bucket_agg_keyless_batched`) where
+    `keyless_members_plan` takes it, else the keyed body with one
+    bucket."""
+    aligned = _ptr(masks) % 2 == 0 and ms % 2 == 0 and all(
+        _ptr(c[1]) % 16 == 0 for c in specs if c[1] is not None)
+    plan = keyless_members_plan(
+        n, B, [(c[0], c[1] is not None, c[2] is not None, c[4] == 0)
+               for c in specs], aligned)
+    if plan["path"] != "stream" or len(specs) > _MAX_AGGS:
+        return _bucket_agg_members("bucket_agg_batched", None, 0, 1, masks,
+                                   ms, n, specs, dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    A, G = len(specs), plan["grid"]
+    part_val = torch.empty(G * B * A, **i64)
+    part_cnt = torch.empty(G * B * A, **i64)
+    part_pres = torch.empty(G * B, **i64)
+    out_val = torch.empty((B, A, 1), **i64)
+    out_cnt = torch.empty((B, A, 1), **i64)
+    out_pres = torch.empty((B, 1), **i64)
+    _launch("bucket_agg_keyless_batched", n, B, _ptr(masks), ms, A,
+            _arr(ctypes.c_int64, [_ptr(c[1]) or 0 for c in specs]),
+            _arr(ctypes.c_int32, [AGG_FUNCS[c[0]] for c in specs]),
+            _arr(ctypes.c_int32, _agg_types(specs)), G, plan["rows"],
+            _ptr(part_val), _ptr(part_cnt), _ptr(part_pres),
+            _ptr(_ticket(dev)), _ptr(out_val), _ptr(out_cnt), _ptr(out_pres),
+            _stream())
+    vals, cnts = _outputs(specs, list(range(A)), out_val, out_cnt)
+    return vals, cnts, out_pres
 
 
 def bucket_agg_batched_plain(kid, nb: int, masks: torch.Tensor, aggs: list):
@@ -1660,7 +1809,11 @@ def window_scan_plain(perm, part_words: list, order_words: list, aggs: list):
 # expand_counts, expand_gather
 # --------------------------------------------------------------------------
 
-_EXPAND_TILE = 1024              # rows per block of the prefix (expand.cu)
+_EX_TILE = 2048                  # expand.cu EX_TILE: probe rows a tile
+_EX_GRID = 264                   # expand.cu EX_GRID: 2 blocks a SM
+_EX_EPOCHS = (1 << 62) - 1       # expand.cu: epochs 1 .. 2^62 - 1
+_EX_STATUS: dict = {}            # (device type, index, stream) -> [flags,
+_EX_MU = threading.Lock()        # sums, prefixes, last epoch]
 _MAX_GATHER_COLS = 32
 EXPAND_MODES = {"probe": 0, "build": 1, "build_valid": 2}
 
@@ -1689,19 +1842,47 @@ def expand_counts(key: torch.Tensor, kvalid: Optional[torch.Tensor],
         raise ValueError("expand needs a pow2-padded build")
     if kvalid is not None:
         _check(kvalid, "key valid", dev, n, (torch.bool,))
+    if n >= 1 << 31:
+        raise ValueError(f"{n} probe rows (at most 2^31 - 1)")
     length_t = _length_tensor(length, dev)
     lo = torch.empty(n, dtype=torch.int32, device=dev)
     mcounts = torch.empty(n, dtype=torch.int32, device=dev)
     offsets = torch.empty(n, dtype=torch.int64, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
-    T = max((n + _EXPAND_TILE - 1) // _EXPAND_TILE, 1)
-    tile_sum = torch.empty(T, dtype=torch.int64, device=dev)
-    tile_off = torch.empty(T, dtype=torch.int64, device=dev)
-    _launch("expand_counts", n, _ptr(key), int(key.dtype == torch.float64),
-            _ptr(kvalid), _ptr(length_t), _ptr(keys_sorted), kc, int(n_build),
-            int(bool(left)), _ptr(lo), _ptr(mcounts), _ptr(offsets),
-            _ptr(total), _ptr(tile_sum), _ptr(tile_off), _stream())
+    plan = expand_counts_plan(n)
+    T = plan["tiles"]
+    key_ = (dev.type, dev.index, _stream())
+    with _EX_MU:
+        # the look-back words, kept per stream: the flags (and the
+        # ticket) zeroed once, each call's tagged with a new epoch; a
+        # tile's sum and prefix in words of their own, read only after
+        # the tile's flag
+        ent = _EX_STATUS.get(key_)
+        if ent is None or ent[1].numel() < T:
+            ent = _EX_STATUS[key_] = [
+                torch.zeros(1 + T, dtype=torch.int64, device=dev),
+                torch.empty(T, dtype=torch.int64, device=dev),
+                torch.empty(T, dtype=torch.int64, device=dev), 0]
+        ent[3] = ent[3] % _EX_EPOCHS + 1
+        flags, sums, prefixes, epoch = ent
+        _launch("expand_counts", n, _ptr(key),
+                int(key.dtype == torch.float64), _ptr(kvalid),
+                _ptr(length_t), _ptr(keys_sorted), kc, int(n_build),
+                int(bool(left)), _ptr(lo), _ptr(mcounts), _ptr(offsets),
+                _ptr(total), _ptr(flags), _ptr(sums), _ptr(prefixes), epoch,
+                plan["grid"], _stream())
     return lo, mcounts, offsets, total
+
+
+def expand_counts_plan(n: int) -> dict:
+    """What `expand_counts` launches, from the row count alone: one
+    launch of `grid` blocks (at most 264, two a SM) that draw the
+    `tiles` tiles of 2,048 probe rows by ticket, over `status_words`
+    zeroed flag words (the ticket and a look-back word a tile) and two
+    words a tile for its sum and prefix."""
+    tiles = max(-(-n // _EX_TILE), 1)
+    return {"tiles": tiles, "grid": min(tiles, _EX_GRID),
+            "status_words": 1 + tiles, "launches": 1}
 
 
 def expand_counts_plain(key, kvalid, length, keys_sorted, n_build: int,
