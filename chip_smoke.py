@@ -57,7 +57,11 @@ Phases, each printing its own line(s):
    buckets) timed against the ``sort_perm`` composition it replaced,
    bit for bit equal to it, and one ``scatter_reduce``; ``hash64``
    over two int64 columns at lineitem's rows (half the hashes >=
-   2^63); a probe of u64 keys >= 2^63; ``expand_counts`` (one launch)
+   2^63); a probe of u64 keys >= 2^63; ``probe_checks`` (the sorted-keys
+   search at every kcap = 2^k, k = 0 .. 21, int64 and float64 keys with
+   NaN, ±inf and -0.0, all five kinds, NOT IN, 17 payloads, offset views,
+   sorted keys off a 16-byte boundary, 1 to 100,003 rows, 0 rows; two
+   calls bit for bit); ``expand_counts`` (one launch)
    and ``expand_gather`` at TPC-DS ds25's shape (timed), with one key
    matching 100,000 build rows (timed, the counts beside two
    ``searchsorted``), LEFT with NULL probe keys, float keys, 0, 1,
@@ -125,11 +129,19 @@ Phases, each printing its own line(s):
    builds (NVRTC compilations) its runs made and their milliseconds, each
    path's launch line their totals;
 6. ``partition`` against its plain version at the largest spill feed of
-   the beyond-budget path (timed), at a GraceJoin routing of lineitem's
-   superblock rows by l_orderkey into 8 partitions (timed), and at 1 and
-   256 partitions, 0 live rows, nullable, float (NaN, ±inf, -0.0) and
-   two-column keys, hashes >= 2^63, 36 columns and 0 rows: ids, counts
-   and moved columns bit for bit;
+   the beyond-budget path (timed, no ids, as the paths call it), at a
+   GraceJoin routing of lineitem's superblock rows by l_orderkey into 8
+   partitions (timed, no ids, its own kernel row with its launches a
+   call and a bound that counts the zero tail), and at 1 and 256
+   partitions, 0 live rows, nullable, float (NaN, ±inf, -0.0) and
+   two-column keys, hashes >= 2^63, 36 columns and 0 rows; then
+   ``partition_checks``: the length at 0, 1, 4,095, 4,096, 4,097 and n,
+   1, 2, 8 and 256 partitions, 33 columns of widths 8, 4, 2 and 1,
+   out_rows > n, ids on and off, views off a 16-byte boundary, 2^20 +
+   333 rows into 256 (ids, counts and moved columns bit for bit, two
+   calls bit for bit); then ``probe`` at q9's sorted-keys probe of
+   partsupp (recorded from one q9 run: its key count and kcap printed;
+   timed beside ``searchsorted``, its own kernel row);
 7. the batched serving lane's member-axis entries, before the paths
    (``batched_kernel_phase``): ``bucket_agg_batched`` at Q1's shape with
    8 members' masks from 8 DELTAs (timed), keyless at Q6's through the
@@ -567,15 +579,19 @@ def kernel_phase(B, n: int, q6_compact_cap: int, n_part: int,
         for (gd, gv), (wd, wv) in zip(got[3], want[3]):
             check(torch.equal(gd, wd) and torch.equal(gv, wv),
                   f"probe {tag} payload")
+    a, b = run_k(), run_k()
+    sync()
+    check(same_probe(a, b), "probe: two calls differ")
     rows.append(dict(
         name="probe", route="cuda",
         source="ydb_tpu_torch/ops/cuda/csrc/probe.cu",
         replaces="ydb_tpu/ops/join.py:218",
-        shape=f"n={n} lut={lut_span}", max_abs_err=0.0,
-        ms=time_ms(run_k), plain_ms=time_ms(run_p),
+        shape=f"n={n} lut={lut_span} (Q14's l_partkey into part's LUT)",
+        max_abs_err=0.0, ms=time_ms(run_k), plain_ms=time_ms(run_p),
         library_ms=time_ms(lambda: torch.searchsorted(keys_sorted, key)),
         bound_ms=bound_ms(n * (8 + 1 + 1) + n * (1 + 4 + 1)
                           + lut_span * 4), bound_by="bytes"))
+    probe_checks(B, device)
 
     # -- the wrappers' multi-launch forms (more aggregates, compacted
     #    columns or gathered payloads than one launch takes), checked at
@@ -631,6 +647,352 @@ def kernel_phase(B, n: int, q6_compact_cap: int, n_part: int,
         library_ms=time_ms(lambda: torch.sort(keys[1], stable=True)),
         bound_ms=bound_ms(m * 8 * len(keys) + m * 4), bound_by="bytes"))
     return rows
+
+
+def same_probe(got, want) -> bool:
+    """Every output of a probe call equal to another's (floats bit for
+    bit)."""
+    import torch
+    if not all(torch.equal(x, y) for x, y in zip(got[:3], want[:3])):
+        return False
+    return len(got[3]) == len(want[3]) and all(
+        torch.equal(gd.view(torch.uint8), wd.view(torch.uint8))
+        and torch.equal(gv, wv)
+        for (gd, gv), (wd, wv) in zip(got[3], want[3]))
+
+
+def probe_bytes(key, kvalid, sel, kcap: int, payloads=()) -> int:
+    """probe's bytes: the probe side read once (key, validity,
+    selection), found, the row id and the selection written once, the
+    sorted keys read once (kcap x 8), and per payload its gathered
+    element and validity written once."""
+    n = key.shape[0]
+    ins = n * (key.element_size() + 1) + (0 if kvalid is None else n)
+    return ins + n * (1 + 4 + 1) + kcap * 8 + sum(
+        n * (src.element_size() + 1) for src, _v in payloads)
+
+
+def record_probes(B, eng, sql: str) -> list:
+    """Every probe call of one run of `sql` on `eng`: (key, key validity,
+    selection, keyword arguments), the tensors copied."""
+    calls = []
+    real = B.probe
+
+    def recording(key, kvalid, sel, **kw):
+        calls.append((key.clone(), None if kvalid is None
+                      else kvalid.clone(), sel.clone(), dict(kw)))
+        return real(key, kvalid, sel, **kw)
+    B.probe = recording
+    try:
+        eng.query(sql)
+    finally:
+        B.probe = real
+    return calls
+
+
+def probe_q9_phase(B, calls: list) -> list:
+    """K7's sorted-keys search at q9's shape: the largest probe of one q9
+    run that has no LUT (partsupp's composite key is sparse), against
+    its plain version (every output, two calls bit for bit), timed
+    beside ``torch.searchsorted`` on the same keys; the key count and
+    kcap come from the build q9 made."""
+    import torch
+    search = [c for c in calls if c[3]["lut"] is None]
+    check(search, "q9 made no sorted-keys probe")
+    key, kvalid, sel, kw = max(search, key=lambda c: c[0].shape[0])
+    n, kcap = key.shape[0], kw["keys_sorted"].shape[0]
+    want = B.probe_plain(key, kvalid, sel, **kw)
+    a, b = B.probe(key, kvalid, sel, **kw), B.probe(key, kvalid, sel, **kw)
+    if key.is_cuda:
+        torch.cuda.synchronize()
+    check(same_probe(a, want), "probe q9 sorted keys: not the plain version")
+    check(same_probe(a, b), "probe q9 sorted keys: two calls differ")
+    ref = kw["keys_sorted"]
+    row = dict(
+        name="probe", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/probe.cu",
+        replaces="ydb_tpu/ops/join.py:199",
+        shape=f"n={n} keys={kw['n_build']} kcap={kcap} kind={kw['kind']} "
+              f"active={int(sel.sum())} (q9's sorted-keys probe of "
+              "partsupp)",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: B.probe(key, kvalid, sel, **kw)),
+        plain_ms=time_ms(lambda: B.probe_plain(key, kvalid, sel, **kw)),
+        library_ms=time_ms(lambda: torch.searchsorted(ref, key)),
+        bound_ms=bound_ms(probe_bytes(key, kvalid, sel, kcap,
+                                      kw["payloads"])),
+        bound_by="bytes")
+    log(f"kernel probe q9 sorted keys: n={n} keys={kw['n_build']} "
+        f"kcap={kcap} kernel_ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+        f"bound_us={row['bound_ms'] * 1e3:.2f} (bytes: the probe side, "
+        "its outputs and kcap x 8)")
+    return [row]
+
+
+def probe_checks(B, device: str = "cuda") -> str:
+    """K7 against its plain version at its edges, every output bit for
+    bit, each case called twice and the calls held bit for bit: the
+    sorted-keys search at every kcap = 2^k for k = 0 .. 24, 26 and 29
+    (all levels in shared memory up to 2^14; then levels a key a load,
+    one to four groups of three-level nodes from the table and the last
+    window) over int64 keys with the sentinel padding, and over float64
+    keys with NaN, +-inf and -0.0 among the probes; all five kinds, with
+    the NOT IN rule and a NULL on the build side; 17 payloads of widths
+    1, 2, 4 and 8 (with and without validity) on both paths; views that
+    start off a 16-byte boundary, the sorted keys too (no node table, no
+    window); odd row counts from 1 to 100,003, around a warp's 256 rows
+    and 4,096; 0 rows."""
+    import torch
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(707)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def rand(m):
+        return torch.rand((m,), generator=g, device=dev, dtype=torch.float64)
+
+    def randint(lo, hi, m):
+        return torch.randint(lo, hi, (m,), generator=g, device=dev)
+
+    def run(tag, key, kvalid, sel, **kw):
+        want = B.probe_plain(key, kvalid, sel, **kw)
+        a = B.probe(key, kvalid, sel, **kw)
+        b = B.probe(key, kvalid, sel, **kw)
+        sync()
+        check(same_probe(a, want), f"probe {tag}: not the plain version")
+        check(same_probe(a, b), f"probe {tag}: two calls differ")
+
+    kinds = list(B.JOIN_KINDS)
+    m = 70_001
+    cases = 0
+    for floating in (False, True):
+        for k in [*range(25), 26, 29]:
+            kcap = 1 << k
+            nb = max(1, 3 * kcap // 4)
+            if k > 21:
+                # sorted without a sort: the running sum of random gaps
+                if floating:
+                    special = torch.tensor([-float("inf"), -0.0, 0.5],
+                                           device=dev, dtype=torch.float64)
+                    real = torch.sort(torch.cat([special, torch.cumsum(
+                        rand(nb - 3) + 1e-3, 0) - nb / 4])).values
+                    keys = torch.cat([real, torch.full(
+                        (kcap - nb,), float("inf"), device=dev,
+                        dtype=torch.float64)])
+                    odd = torch.tensor([float("nan"), float("inf"),
+                                        -float("inf"), -0.0, 0.0, 1e308],
+                                       device=dev, dtype=torch.float64)
+                    miss = (rand(m) - 0.5) * (nb / 2)
+                else:
+                    real = torch.cumsum(randint(1, 1 << 12, nb), 0) \
+                        - (1 << 40)
+                    keys = torch.cat([real, torch.full(
+                        (kcap - nb,), torch.iinfo(torch.int64).max,
+                        device=dev, dtype=torch.int64)])
+                    odd = torch.tensor([torch.iinfo(torch.int64).max,
+                                        torch.iinfo(torch.int64).min, 0,
+                                        -1], device=dev, dtype=torch.int64)
+                    miss = randint(-(1 << 40), 1 << 40, m)
+                del real
+            elif floating:
+                special = torch.tensor([-float("inf"), -0.0, 0.5],
+                                       device=dev, dtype=torch.float64)
+                real = torch.sort(torch.cat([
+                    special[:min(nb, 3)],
+                    (rand(nb - min(nb, 3)) - 0.5) * 1e3])).values
+                keys = torch.cat([real, torch.full(
+                    (kcap - nb,), float("inf"), device=dev,
+                    dtype=torch.float64)])
+                odd = torch.tensor([float("nan"), float("inf"),
+                                    -float("inf"), -0.0, 0.0, 1e308],
+                                   device=dev, dtype=torch.float64)
+                miss = (rand(m) - 0.5) * 1e3
+            else:
+                real = torch.sort(torch.unique(randint(
+                    -(1 << 40), 1 << 40, 2 * nb + 8))[:nb]).values
+                nb = real.shape[0]
+                keys = torch.cat([real, torch.full(
+                    (kcap - nb,), torch.iinfo(torch.int64).max, device=dev,
+                    dtype=torch.int64)])
+                odd = torch.tensor([torch.iinfo(torch.int64).max,
+                                    torch.iinfo(torch.int64).min, 0, -1],
+                                   device=dev, dtype=torch.int64)
+                miss = randint(-(1 << 40), 1 << 40, m)
+            u = rand(m)
+            key = torch.where(u < 0.5, keys[randint(0, nb, m)],
+                              torch.where(u < 0.8, miss,
+                                          odd[randint(0, odd.shape[0], m)]))
+            kind = kinds[k % len(kinds)]
+            pays = [] if k % 3 or k > 24 else [
+                (randint(0, 1 << 40, kcap), rand(kcap) > 0.3),
+                (rand(kcap), None),
+                (randint(0, 1 << 30, kcap).to(torch.int32), None),
+                (rand(kcap) > 0.5, rand(kcap) > 0.5)]
+            run(f"{'float' if floating else 'int'} kcap=2^{k} {kind}", key,
+                rand(m) > 0.1, rand(m) < 0.7, lut=None, lut_base=0,
+                keys_sorted=keys, n_build=nb, pcap=kcap, kind=kind,
+                not_in=kind == "left_anti" and k % 2 == 1,
+                has_null=kind == "left_anti" and k % 4 == 3, payloads=pays)
+            cases += 1
+    # the LUT and the search: every kind, NOT IN with and without a NULL
+    # on the build side, 17 payloads of mixed widths, at odd row counts
+    span, nb = 1 << 16, 50_000
+    lut = torch.full((span,), -1, dtype=torch.int32, device=dev)
+    lut[randint(0, span, nb)] = randint(0, nb, nb).to(torch.int32)
+    keys = torch.cat([torch.sort(torch.unique(randint(0, 1 << 20, 3 * nb))
+                                 [:nb]).values,
+                      torch.full((span - nb,), torch.iinfo(torch.int64).max,
+                                 device=dev, dtype=torch.int64)])
+    pays = []
+    for i in range(17):
+        w = (torch.int64, torch.float64, torch.int32, torch.int16,
+             torch.bool)[i % 5]
+        src = (rand(span) * 3e4).to(w) if w != torch.bool \
+            else rand(span) > 0.5
+        pays.append((src, rand(span) > 0.2 if i % 2 else None))
+    for n in (1, 15, 16, 17, 255, 257, 1023, 1025, 4095, 4097, 100_003):
+        key = randint(-100, span + 100, n)
+        skey = torch.where(rand(n) < 0.6, keys[randint(0, nb, n)], key)
+        kv, sel = rand(n) > 0.05, rand(n) < 0.8
+        for kind in kinds:
+            for not_in, has_null in ((False, False), (True, False),
+                                     (True, True)):
+                if not_in and kind != "left_anti":
+                    continue
+                base = dict(lut_base=-7, n_build=nb, pcap=span, kind=kind,
+                            not_in=not_in, has_null=has_null,
+                            payloads=pays if n == 100_003 else pays[:3])
+                run(f"lut n={n} {kind} not_in={not_in}", key, kv, sel,
+                    lut=lut, keys_sorted=keys, **base)
+                run(f"search n={n} {kind} not_in={not_in}", skey, kv, sel,
+                    lut=None, keys_sorted=keys, **base)
+                cases += 2
+    # views that start off a 16-byte boundary (a flattened member axis, a
+    # GraceJoin partition slice), and 0 rows
+    n = 100_003
+    key = randint(-100, span + 100, n + 8)
+    skey = torch.where(rand(n + 8) < 0.6, keys[randint(0, nb, n + 8)], key)
+    kv, sel = rand(n + 8) > 0.05, rand(n + 8) < 0.8
+    for off in (1, 3, 5):
+        base = dict(lut_base=0, n_build=nb, pcap=span, kind="left",
+                    not_in=False, has_null=False, payloads=pays[:5])
+        run(f"lut offset {off}", key[off:off + n], kv[off + 1:off + 1 + n],
+            sel[off + 2:off + 2 + n], lut=lut, keys_sorted=keys, **base)
+        run(f"search offset {off}", skey[off:off + n],
+            kv[off + 1:off + 1 + n], sel[off + 2:off + 2 + n], lut=None,
+            keys_sorted=keys, **base)
+        cases += 2
+    # sorted keys off a 16-byte boundary: every level a key a load
+    big = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                     torch.sort(randint(-(1 << 40), 1 << 40, 1 << 20)).values])
+    ukeys = big[1:]
+    probes = torch.where(rand(n) < 0.5, ukeys[randint(0, 1 << 20, n)],
+                         randint(-(1 << 40), 1 << 40, n))
+    run("search unaligned keys kcap=2^20", probes, kv[:n], sel[:n],
+        lut=None, lut_base=0, keys_sorted=ukeys, n_build=(1 << 20) - 5,
+        pcap=1 << 20, kind="left", not_in=False, has_null=False,
+        payloads=[])
+    cases += 1
+    z = B.probe(key[:0], None, sel[:0], lut=None, lut_base=0,
+                keys_sorted=keys, n_build=nb, pcap=span, kind="inner",
+                not_in=False, has_null=False, payloads=pays[:2])
+    check(z[0].shape == (0,) and z[3][0][0].shape == (0,), "probe 0 rows")
+    msg = (f"kernel probe checks: {cases} cases, kcap 1 .. 2^24, 2^26, "
+           "2^29 (int64 and "
+           "float64 keys, sentinels, NaN, +-inf, -0.0), all five kinds, "
+           "NOT IN, 17 payloads, offset views, unaligned sorted keys, "
+           "1 .. 100,003 rows, 0 rows: "
+           "equal to the plain version, two calls bit for bit")
+    log(msg)
+    return msg
+
+
+def partition_checks(B, device: str = "cuda") -> str:
+    """K14 against its plain version, ids, counts and every column bit
+    for bit, each case called twice and the calls held bit for bit: the
+    length at 0, 1, a tile - 1, a tile, a tile + 1 and n; 1, 2, 8 and
+    256 partitions; 33 columns of widths 8, 4, 2 and 1 (two launches of
+    the scatter); out_rows > n; the ids asked for and not; views that
+    start off a 16-byte boundary; many tiles at 256 partitions."""
+    import torch
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1313)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def randint(lo, hi, m, dtype=torch.int64):
+        return torch.randint(lo, hi, (m,), generator=g, device=dev,
+                             dtype=dtype)
+
+    def columns(m, k):
+        fl = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                           0.0, 1.5], dtype=torch.float64, device=dev)
+        out = []
+        for i in range(k):
+            w = i % 5
+            out.append(fl[randint(0, 6, m)] if w == 0 else
+                       randint(-(1 << 31), 1 << 31, m, torch.int32) if w == 1
+                       else randint(-(1 << 15), 1 << 15, m, torch.int16)
+                       if w == 2 else randint(0, 255, m, torch.uint8)
+                       if w == 3 else randint(0, 2, m) > 0)
+        return out
+
+    def run(tag, h, length, nparts, cols, out_rows, ids):
+        want = B.partition_plain(h, length, nparts, cols, out_rows, ids=ids)
+        a = B.partition(h, length, nparts, cols, out_rows, ids=ids)
+        b = B.partition(h, length, nparts, cols, out_rows, ids=ids)
+        sync()
+        for got, what in ((a, "not the plain version"),
+                          (b, "two calls differ")):
+            check((got[0] is None) == (not ids)
+                  and (not ids or torch.equal(got[0], want[0])),
+                  f"partition {tag}: ids {what}")
+            check(torch.equal(got[1], want[1]),
+                  f"partition {tag}: counts {what}")
+            for i, (x, y) in enumerate(zip(got[2], want[2])):
+                check(torch.equal(x.view(torch.uint8), y.view(torch.uint8)),
+                      f"partition {tag}: column {i} {what}")
+
+    tile = 4096
+    n = 3 * tile + 333
+    h = randint(-(1 << 62), 1 << 62, n) * 2 + randint(0, 2, n)
+    cols = columns(n, 33)
+    cases = 0
+    for nparts in (1, 2, 8, 256):
+        for length in (0, 1, tile - 1, tile, tile + 1, n):
+            run(f"nparts={nparts} length={length}", h, length, nparts, cols,
+                n + 777, ids=(length + nparts) % 2 == 0)
+            cases += 1
+    # views off a 16-byte boundary, the length on the device
+    big = columns(n + 8, 5)
+    hb = randint(-(1 << 62), 1 << 62, n + 8)
+    for off in (1, 3):
+        run(f"offset {off}", hb[off:off + n],
+            torch.tensor(n - 999, dtype=torch.int32, device=dev), 8,
+            [c[off + i:off + i + n] for i, c in enumerate(big)], 2 * n,
+            ids=off == 1)
+        cases += 1
+    # many tiles into 256 partitions (long look-back chains), and 1 row
+    m = (1 << 20) + 333
+    hm = randint(-(1 << 62), 1 << 62, m)
+    run("2^20 + 333 rows into 256", hm, m - 5, 256, columns(m, 6), m + 9,
+        ids=True)
+    run("one row", hm[:1], 1, 16, columns(1, 3), 5, ids=True)
+    cases += 2
+    msg = (f"kernel partition checks: {cases} cases, length 0, 1, 4095, "
+           "4096, 4097 and n; 1, 2, 8 and 256 partitions; 33 columns of "
+           "widths 8, 4, 2 and 1; out_rows > n; ids on and off; offset "
+           "views; 2^20 + 333 rows into 256: equal to the plain version, "
+           "two calls bit for bit")
+    log(msg)
+    return msg
 
 
 def sort_checks(B, device: str = "cuda") -> None:
@@ -1606,10 +1968,15 @@ def k13_oracle(raw: dict):
                            kind="stable").head(100).reset_index(drop=True)
 
 
-def partition_bytes(n: int, cols, nparts: int) -> int:
-    """partition's bytes: the hashes in and the ids out, each moved column
-    read and written once, the counts out."""
-    return n * (8 + 4) + 2 * n * sum(c.element_size() for c in cols) \
+def partition_bytes(n: int, cols, nparts: int, out_rows=None,
+                    ids: bool = False) -> int:
+    """partition's bytes: the hashes in, the ids out when they are asked
+    for (the paths do not ask), each moved column read and written once,
+    the zero tail (out_rows - n) of each column written once, the counts
+    out."""
+    width = sum(c.element_size() for c in cols)
+    tail = (n if out_rows is None else out_rows) - n
+    return n * (8 + (4 if ids else 0)) + 2 * n * width + tail * width \
         + 8 * nparts
 
 
@@ -1668,36 +2035,70 @@ def partition_phase(B, feed, li: dict, n: int, live: int,
     want = check_partition(B, h, dblock.length, nparts, cols, sync,
                            "spill feed")
     ids = want[0]
+    # timed as the paths call it: no ids
     rows = [dict(
         name="partition", route="cuda",
         source="ydb_tpu_torch/ops/cuda/csrc/partition.cu",
         replaces="ydb_tpu/ops/spill.py:35",
         shape=f"n={m} live={int(dblock.length)} keys={len(keys)} "
               f"nparts={nparts} cols={len(cols)} (largest spill feed, "
-              f"{query})",
+              f"{query}; no ids)",
         max_abs_err=0.0,
-        ms=time_ms(lambda: B.partition(h, dblock.length, nparts, cols)),
+        ms=time_ms(lambda: B.partition(h, dblock.length, nparts, cols,
+                                       ids=False)),
         plain_ms=time_ms(lambda: B.partition_plain(h, dblock.length, nparts,
-                                                   cols)),
+                                                   cols, ids=False)),
         library_ms=time_ms(lambda: lib(ids, cols)),
         bound_ms=bound_ms(partition_bytes(m, cols, nparts)),
         bound_by="bytes")]
 
     # -- GraceJoin routing: lineitem's superblock rows by l_orderkey into
     #    8 partitions, the block's columns moved into 2n-row buffers as the
-    #    executor moves them
+    #    executor moves them (no ids; the zero tail of n rows written)
     length = torch.tensor(live, dtype=torch.int32, device=dev)
     hk = B.hash64([SP.as_int64(li["l_orderkey"])])
     lcols = list(li.values())
     want = check_partition(B, hk, length, 8, lcols, sync, "grace routing",
                            out_rows=2 * n)
     gids = want[0]
+    plan = B.partition_plan(n, 8, len(lcols), 2 * n)
+    # the kernels a call launches, counted in a trace of three calls
+    traced = traced_kernels(lambda: B.partition(hk, length, 8, lcols, 2 * n,
+                                                ids=False), calls=3)
+    ours = {k: c for k, c in traced.items()
+            if "part_census" in k or "part_scatter" in k}
+    rest = {k: c for k, c in traced.items() if k not in ours}
+    n_kern, n_rest = sum(ours.values()) / 3, sum(rest.values()) / 3
+    check(n_kern == plan["launches"],
+          f"partition routing: {n_kern} kernels a call traced, the plan "
+          f"says {plan['launches']}: {traced}")
+    check(n_rest <= 1,
+          f"partition routing: more than one launch a call besides its "
+          f"kernels: {rest}")
+    rows.append(dict(
+        name="partition", route="cuda",
+        source="ydb_tpu_torch/ops/cuda/csrc/partition.cu",
+        replaces="ydb_tpu/query/executor.py:2151",
+        shape=f"n={n} live={live} nparts=8 cols={len(lcols)} "
+              f"out_rows={2 * n} "
+              f"(GraceJoin routing of lineitem by l_orderkey; no ids; "
+              f"traced: {n_kern:g} kernel launches a call, "
+              f"{n_rest:g} fill of the control words)",
+        max_abs_err=0.0,
+        ms=time_ms(lambda: B.partition(hk, length, 8, lcols, 2 * n,
+                                       ids=False)),
+        plain_ms=time_ms(lambda: B.partition_plain(hk, length, 8, lcols,
+                                                   2 * n, ids=False)),
+        library_ms=time_ms(lambda: lib(gids, lcols)),
+        bound_ms=bound_ms(partition_bytes(n, lcols, 8, 2 * n)),
+        bound_by="bytes"))
+    r = rows[-1]
     log(f"kernel partition grace routing: n={n} live={live} nparts=8 "
         f"cols={len(lcols)} (lineitem by l_orderkey) "
-        f"kernel_ms={time_ms(lambda: B.partition(hk, length, 8, lcols, 2 * n)):.4f} "
-        f"plain_ms={time_ms(lambda: B.partition_plain(hk, length, 8, lcols, 2 * n)):.4f} "
-        f"library_ms={time_ms(lambda: lib(gids, lcols)):.4f} "
-        f"bound_us={bound_ms(partition_bytes(n, lcols, 8)) * 1e3:.2f} (bytes)")
+        f"traced_3_calls={traced} kernel_ms={r['ms']:.4f} "
+        f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+        f"bound_us={r['bound_ms'] * 1e3:.2f} (bytes: the hashes, each "
+        "column read and written once, the zero tail of n rows, no ids)")
     top = float((hk < 0).to(torch.float64).mean())
     check(top > 0.4, f"partition: {top} of the hashes >= 2^63")
 
@@ -1725,6 +2126,7 @@ def partition_phase(B, feed, li: dict, n: int, live: int,
     z = check_partition(B, ki[:0], 0, 8, [v[:0] for v in vals], sync,
                         "0 rows")
     check(int(z[1].sum()) == 0, "partition 0 rows: counts")
+    partition_checks(B, device)
     return rows
 
 
@@ -2738,6 +3140,31 @@ def _batched_call(eng, texts):
         pb, [(p, dict(p.params)) for p in plans], eng.snapshot())
 
 
+def traced_kernels(fn, calls: int = 3) -> dict:
+    """The device work of `calls` calls of `fn`, counted in a
+    torch.profiler trace: {kernel or memory op: launches}. The trace's
+    first step only warms the tracer up (an unwarmed trace can lose the
+    first launches it sees); the counts come from its second step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    got = {}
+
+    def ready(prof):
+        got.update({e.key: e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and not e.key.startswith("ProfilerStep")})
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=ready) as prof:
+        for _step in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return got
+
+
 def _device_ms(fn) -> float:
     """Device time of one call of `fn` under torch.profiler."""
     import torch
@@ -3435,10 +3862,11 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
 
 
 PTXAS_CHECKED = ("segment_agg", "bucket_sort", "sort", "window_scan",
-                 "bucket_agg", "compact", "expand")
+                 "bucket_agg", "compact", "expand", "partition", "probe")
 # the kernels whose every function must keep its state in registers: a
 # stack frame or a spill fails the run
-PTXAS_NO_SPILL = ("segment_agg", "sort", "window_scan")
+PTXAS_NO_SPILL = ("segment_agg", "sort", "window_scan", "partition",
+                  "probe")
 # and in bucket_agg, compact and expand, the kernels of K2, K2/K3 xB,
 # K3, K6 xB and K8's counts (by name)
 PTXAS_NO_SPILL_FUNCTIONS = ("keyless_stream", "keyless_fold",
@@ -3740,6 +4168,9 @@ def main() -> int:
     li_cols["big"] = (li_cols["l_extendedprice"] > 50_000).contiguous()
     rows += partition_phase(bindings, recorder.largest[1], li_cols, n,
                             li.num_rows)
+    # 7. the probe kernel at q9's sorted-keys probe (partsupp)
+    rows += probe_q9_phase(bindings, record_probes(bindings, eng,
+                                                   QUERIES["q9"]))
     # 9. the segments kernel at the shapes the mesh paths gave it
     rows += segments_phase(bindings, mesh_rec.calls)
     # 10. the DQ kernels at the largest calls the DQ path gave them
@@ -3751,7 +4182,8 @@ def main() -> int:
             f"bound_us={r['bound_ms'] * 1e3:.2f} "
             f"max_abs_err={r['max_abs_err']:.3g}")
 
-    table = [{k: r[k] for k in ("name", "route", "source", "replaces")}
+    table = [{k: r[k] for k in ("name", "route", "source", "replaces",
+                                "shape")}
              | {"launches": launches[r["name"]],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4228,7 +4660,8 @@ def profile_phase(eng, queries: dict, names=None) -> None:
     torch.profiler: host wall time, the summed device time of its
     kernels, the device's idle share of the wall, the kernels that took
     most of it, the time and count of K1's generated kernels
-    (`k1_stage`), of K9's (`rs_*`) and of torch's elementwise kernels
+    (`k1_stage`), of K9's (`rs_*`), of K7's (`probe_rows`,
+    `probe_table`) and of torch's elementwise kernels
     that remain (index gathers and the like), with, for q6 and q19, K1's
     byte bound."""
     import torch
@@ -4254,8 +4687,11 @@ def profile_phase(eng, queries: dict, names=None) -> None:
         dev_ms = sum(dev_us(e) for e in evs) / 1e3
         top = sorted(evs, key=lambda e: -dev_us(e))[:8]
         elem = [e for e in evs if "elementwise" in e.key]
-        # K9's kernels (sort.cu: rs_census, rs_pass, rs_block)
+        # K9's kernels (sort.cu: rs_census, rs_pass, rs_block); K7's
+        # (probe.cu: probe_rows, probe_table)
         sorts = [e for e in evs if e.key.startswith("rs_")]
+        probes = [e for e in evs if "probe_rows" in e.key
+                  or "probe_table" in e.key]
         check(not any("merge_pass" in e.key for e in evs),
               f"profile {name}: a merge_pass kernel ran")
         k1e = [e for e in evs if e.key.startswith(K1_ENTRY)]
@@ -4271,7 +4707,9 @@ def profile_phase(eng, queries: dict, names=None) -> None:
             f"{sum(dev_us(e) for e in elem) / 1e3:.3f} "
             f"(x{sum(e.count for e in elem)}) sort_ms="
             f"{sum(dev_us(e) for e in sorts) / 1e3:.3f} "
-            f"(x{sum(e.count for e in sorts)}) top: "
+            f"(x{sum(e.count for e in sorts)}) probe_ms="
+            f"{sum(dev_us(e) for e in probes) / 1e3:.3f} "
+            f"(x{sum(e.count for e in probes)}) top: "
             + "; ".join(f"{e.key[:48]}={dev_us(e) / 1e3:.3f}ms x{e.count}"
                         for e in top))
 

@@ -101,7 +101,7 @@ _SIGS = {
     "probe": ("probe", "probe_launch",
               [_I64, _P, _I32, _P, _P, _I32, _P, _I64, _I64, _P, _I64, _I64,
                _I64, _I32, _I32, _I32, _P, _P, _P, _I32, _PI64, _PI64, _PI64,
-               _PI64, _PI32, _P]),
+               _PI64, _PI32, _P, _P, _I64, _I32]),
     "sort": ("sort", "sort_launch",
              [_I64, _I32, _PI64, _I32, _P, _P, _P, _P, _I64, _P]),
     "segment_agg": ("segment_agg", "segment_agg_launch",
@@ -122,8 +122,8 @@ _SIGS = {
                       [_I64, _I64, _P, _P, _P, _P, _I64, _I32, _PI64, _PI64,
                        _PI32, _PI32, _P]),
     "partition": ("partition", "partition_launch",
-                  [_I64, _P, _P, _I32, _P, _P, _P, _P, _P, _I32, _PI64,
-                   _PI64, _PI32, _I32, _P]),
+                  [_I64, _P, _P, _I32, _P, _P, _P, _I64, _I32, _I32, _I64,
+                   _I32, _PI64, _PI64, _PI32, _P]),
     "bucket_agg_batched": ("bucket_agg", "bucket_agg_members_launch",
                            _MEMBERS_ARGS),
     "bucket_agg_keyless_batched": ("bucket_agg",
@@ -910,6 +910,51 @@ def compact_batched_plain(cols: list, masks, lengths, n: int, new_cap: int,
 JOIN_KINDS = {"inner": 0, "left": 1, "left_semi": 2, "left_anti": 3,
               "mark": 4}
 _MAX_PAYLOADS = 16
+# by bsearch: threads a block (probe.cu LUT_PT, SEARCH_PT), rows a thread
+# (LUT_R, SEARCH_R) and blocks an SM (LUT_BLOCKS, SEARCH_BLOCKS)
+_PROBE_THREADS = {False: 512, True: 384}
+_PROBE_ROWS = {False: 8, True: 8}
+_PROBE_BLOCKS_PER_SM = {False: 2, True: 1}
+_PROBE_LEVELS = 14               # search levels in shared memory (MAX_LEVELS)
+_PROBE_MAX_KCAP = 1 << 30
+
+
+def probe_plan(n: int, kcap_or_span: int, bsearch: bool, n_payloads: int,
+               sms: int = 132) -> dict:
+    """What `probe` launches for `n` probe rows against `kcap_or_span`
+    sorted keys (`bsearch`) or LUT entries, with `n_payloads` gathered
+    payloads, on a card of `sms` SMs (the H100's 132), from the shapes
+    alone: the `threads` of a block (512 for the LUT, 384 for the
+    search), `rows_per_thread` (8), `tiles` of a block's rows, the `grid`
+    (two blocks an SM at most for the LUT, one for the search, walking
+    the tiles), the search levels `levels` run over the pivots staged in
+    shared memory (all of them up to 16,384 keys, else 14) and the
+    `smem` bytes those take; below them (W = kcap >> levels keys a unit)
+    `plain` levels a key a load, `groups` of three levels a 64-byte node
+    read from a table of `table_words` int64 words that a first kernel
+    fills, and the last three levels from one 64-byte window of keys
+    (with W < 8 every level is plain; probe.cu search_shape, for keys on
+    a 16-byte boundary); and the `launches` (the table's, then one per
+    16 payloads, at least one; none for 0 rows)."""
+    bsearch = bool(bsearch)
+    rows = _PROBE_ROWS[bsearch]
+    tiles = -(-n // (rows * _PROBE_THREADS[bsearch]))
+    plan = {"rows_per_thread": rows, "threads": _PROBE_THREADS[bsearch],
+            "tiles": tiles,
+            "grid": min(tiles, _PROBE_BLOCKS_PER_SM[bsearch] * sms),
+            "levels": 0, "smem": 0, "plain": 0, "groups": 0,
+            "table_words": 0}
+    if bsearch:
+        levels = min(max(kcap_or_span - 1, 0).bit_length(), _PROBE_LEVELS)
+        lw = max((kcap_or_span >> levels) - 1, 0).bit_length()
+        plain, groups = (lw, 0) if lw < 3 else ((lw - 3) % 3, (lw - 3) // 3)
+        plan.update(levels=levels, smem=8 << levels, plain=plain,
+                    groups=groups, table_words=sum(
+                        (kcap_or_span >> (lw - plain - 3 * g)) * 8
+                        for g in range(groups)))
+    chunks = max(1, -(-n_payloads // _MAX_PAYLOADS))
+    plan["launches"] = 0 if n == 0 else chunks + (plan["table_words"] > 0)
+    return plan
 
 
 def probe(key: torch.Tensor, kvalid: Optional[torch.Tensor],
@@ -942,8 +987,9 @@ def probe(key: torch.Tensor, kvalid: Optional[torch.Tensor],
     else:
         _check(keys_sorted, "keys_sorted", dev, None, (key.dtype,))
         kc = keys_sorted.shape[0]
-        if kc & (kc - 1):
-            raise ValueError("bsearch needs a pow2-padded build")
+        if kc & (kc - 1) or kc > _PROBE_MAX_KCAP or (n and kc < 1):
+            raise ValueError(f"bsearch needs a pow2-padded build of 1 to "
+                             f"{_PROBE_MAX_KCAP} keys, not {kc}")
     for i, (src, pv) in enumerate(payloads):
         _check(src, f"payload {i}", dev, pcap)
         if pv is not None:
@@ -954,9 +1000,13 @@ def probe(key: torch.Tensor, kvalid: Optional[torch.Tensor],
     gathered = [(torch.empty(n, dtype=src.dtype, device=dev),
                  torch.empty(n, dtype=torch.bool, device=dev))
                 for (src, _pv) in payloads]
+    plan = probe_plan(n, keys_sorted.shape[0] if lut is None else 0,
+                      lut is None, len(payloads))
+    table = torch.empty(plan["table_words"], dtype=torch.int64,
+                        device=dev) if plan["table_words"] else None
     chunks = [list(range(i, min(i + _MAX_PAYLOADS, len(payloads))))
               for i in range(0, len(payloads), _MAX_PAYLOADS)] or [[]]
-    for chunk in chunks:
+    for j, chunk in enumerate(chunks):
         _launch("probe", n, _ptr(key), int(key.dtype == torch.float64),
                 _ptr(kvalid), _ptr(sel), int(lut is None), _ptr(lut),
                 lut.shape[0] if lut is not None else 0, int(lut_base),
@@ -971,7 +1021,7 @@ def probe(key: torch.Tensor, kvalid: Optional[torch.Tensor],
                 _arr(ctypes.c_int64, [_ptr(gathered[i][1]) for i in chunk]),
                 _arr(ctypes.c_int32, [payloads[i][0].element_size()
                                       for i in chunk]),
-                _stream())
+                _stream(), _ptr(table), plan["table_words"], int(j == 0))
     return found, safe, out_sel, gathered
 
 
@@ -1993,8 +2043,10 @@ def expand_gather_plain(lo, mcounts, offsets, total, out_cap: int, pcap: int,
 
 _MAX_PARTS = 256
 _PART_COLS = 32                  # partition.cu MAX_COLS
-_PART_TILE = 4096                # rows per block (partition.cu TILE_ROWS)
-_PART_SCAN_CHUNK = 8192          # partition.cu SCAN_CHUNK
+_PART_TILE = 4096                # rows a tile (partition.cu PTILE; and
+                                 # segments.cu's TILE_ROWS)
+_PART_SCAN_CHUNK = 8192          # segments.cu SCAN_CHUNK
+_PART_WARPS = 8                  # partition.cu PWARPS
 
 
 def _check_parts(nparts: int) -> None:
@@ -2003,24 +2055,50 @@ def _check_parts(nparts: int) -> None:
                          f"{_MAX_PARTS})")
 
 
+def partition_plan(n: int, nparts: int, n_cols: int,
+                   out_rows: Optional[int] = None) -> dict:
+    """What `partition` launches for `n` rows into `nparts` partitions
+    with `n_cols` columns and `out_rows` output rows, from the shapes
+    alone (no sync): `launches` kernel launches (the census and one
+    scatter for up to 32 columns, one more scatter a further 32; none
+    for 0 rows), over `tiles` 4,096-row tiles and `zero_chunks` chunks of
+    the zero tail [n, out_rows) (written by the scatter itself), with
+    `smem` bytes of dynamic shared memory a scatter block and
+    `ctl_words` zeroed int64 control words (partition.cu ctl_words: the
+    look-back words, the census, the bases, the census's done counter
+    and a ticket a scatter)."""
+    out_rows = n if out_rows is None else out_rows
+    chunks = max(1, -(-n_cols // _PART_COLS))
+    if n == 0:
+        return {"launches": 0, "tiles": 0, "zero_chunks": 0,
+                "chunks": chunks, "smem": 0, "ctl_words": 0}
+    tiles = -(-n // _PART_TILE)
+    return {"launches": 1 + chunks, "tiles": tiles,
+            "zero_chunks": -(-(out_rows - n) // _PART_TILE),
+            "chunks": chunks,
+            "smem": _PART_TILE * (8 + 2 + 1) + _PART_WARPS * nparts * 4,
+            "ctl_words": tiles * nparts + 2 * nparts + 1 + chunks}
+
+
 def partition(hashes: torch.Tensor, length, nparts: int, cols: list,
-              out_rows: Optional[int] = None):
+              out_rows: Optional[int] = None, ids: bool = True):
     """Stable counting sort of rows by hash partition: row r < length
     goes to partition `hashes[r] % nparts` (the int64 bits taken as
     uint64; `nparts` a power of two), rows past the length to the extra
     bin `nparts`.
 
     Returns (ids, counts, outs): the int32 partition id of every row (in
-    row order), the int64 row count of each partition, and each column of
-    `cols` (any element width) moved to (partition, row) order — each
-    partition a contiguous range, rows in their order, rows past the
-    length last — in a buffer of `out_rows` (>= n, default n) rows whose
-    rows past n are zero."""
+    row order; None unless `ids`), the int64 row count of each partition,
+    and each column of `cols` (any element width) moved to (partition,
+    row) order — each partition a contiguous range, rows in their order,
+    rows past the length last — in a buffer of `out_rows` (>= n, default
+    n) rows whose rows past n are zero."""
     n = hashes.shape[0]
     dev = hashes.device
     out_rows = n if out_rows is None else out_rows
     if dev.type != "cuda":
-        return partition_plain(hashes, length, nparts, cols, out_rows)
+        return partition_plain(hashes, length, nparts, cols, out_rows,
+                               ids=ids)
     _check_parts(nparts)
     _check(hashes, "hashes", dev, n, (torch.int64,))
     if n >= 1 << 31 or out_rows < n:
@@ -2029,35 +2107,33 @@ def partition(hashes: torch.Tensor, length, nparts: int, cols: list,
         _check(c, f"column {i}", dev, n)
         if c.element_size() not in (1, 2, 4, 8):
             raise ValueError(f"column {i}: element size {c.element_size()}")
+    plan = partition_plan(n, nparts, len(cols), out_rows)
+    if n == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev) if ids
+                else None,
+                torch.zeros(nparts, dtype=torch.int64, device=dev),
+                [torch.zeros(out_rows, dtype=c.dtype, device=dev)
+                 for c in cols])
     length_t = _length_tensor(length, dev)
-    ntiles = (n + _PART_TILE - 1) // _PART_TILE
-    e = (nparts + 1) * ntiles
-    ids = torch.empty(n, dtype=torch.int32, device=dev)
-    hist = torch.empty(max(e, 1), dtype=torch.int32, device=dev)
-    offs = torch.empty(max(e, 1), dtype=torch.int32, device=dev)
-    chunk_sums = torch.empty(max((e + _PART_SCAN_CHUNK - 1)
-                                 // _PART_SCAN_CHUNK, 1),
-                             dtype=torch.int32, device=dev)
+    id_out = torch.empty(n, dtype=torch.int32, device=dev) if ids else None
     counts = torch.empty(nparts, dtype=torch.int64, device=dev)
+    ctl = torch.zeros(plan["ctl_words"], dtype=torch.int64, device=dev)
     outs = [torch.empty(out_rows, dtype=c.dtype, device=dev) for c in cols]
-    for o in outs:
-        o[n:].zero_()
-    chunks = [list(range(i, min(i + _PART_COLS, len(cols))))
-              for i in range(0, len(cols), _PART_COLS)] or [[]]
-    for j, chunk in enumerate(chunks):
+    for j in range(plan["chunks"]):
+        chunk = range(j * _PART_COLS, min((j + 1) * _PART_COLS, len(cols)))
         _launch("partition", n, _ptr(hashes), _ptr(length_t), nparts,
-                _ptr(ids), _ptr(hist), _ptr(offs), _ptr(chunk_sums),
-                _ptr(counts), len(chunk),
+                _ptr(id_out), _ptr(counts), _ptr(ctl), plan["ctl_words"],
+                plan["chunks"], j, out_rows, len(chunk),
                 _arr(ctypes.c_int64, [_ptr(cols[i]) for i in chunk]),
                 _arr(ctypes.c_int64, [_ptr(outs[i]) for i in chunk]),
                 _arr(ctypes.c_int32, [cols[i].element_size()
                                       for i in chunk]),
-                1 if j == 0 else 0, _stream())
-    return ids, counts, outs
+                _stream())
+    return id_out, counts, outs
 
 
 def partition_plain(hashes, length, nparts: int, cols: list,
-                    out_rows: Optional[int] = None):
+                    out_rows: Optional[int] = None, ids: bool = True):
     """Plain PyTorch version of `partition` (the ids by a mask of the low
     bits, a stable `torch.sort` of them, `bincount`, `index_select`)."""
     _check_parts(nparts)
@@ -2065,18 +2141,18 @@ def partition_plain(hashes, length, nparts: int, cols: list,
     dev = hashes.device
     out_rows = n if out_rows is None else out_rows
     iota = torch.arange(n, dtype=torch.int32, device=dev)
-    ids = torch.where(iota < _length_tensor(length, dev),
+    pid = torch.where(iota < _length_tensor(length, dev),
                       (hashes & (nparts - 1)).to(torch.int32),
                       torch.full_like(iota, nparts))
-    order = torch.sort(ids, stable=True).indices
-    counts = torch.bincount(ids.to(torch.int64),
+    order = torch.sort(pid, stable=True).indices
+    counts = torch.bincount(pid.to(torch.int64),
                             minlength=nparts + 1)[:nparts]
     outs = []
     for c in cols:
         o = torch.zeros(out_rows, dtype=c.dtype, device=dev)
         o[:n] = c.index_select(0, order)
         outs.append(o)
-    return ids, counts, outs
+    return pid if ids else None, counts, outs
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-// bin_scan — the counting-sort machinery shared by partition.cu and
-// segments.cu: rows binned by an id, counted per 4,096-row tile and per
+// bin_scan — the counting-sort machinery shared by segments.cu and
+// bucket_sort.cu: rows binned by an id, counted per 4,096-row tile and per
 // warp with __match_any_sync, the (bin, tile) counts scanned into each
 // tile's first output row per bin, and a stable second pass that moves
 // every column to its row. The sources that include it say what bounds

@@ -71,7 +71,7 @@ def _partition_sort(arrays, valids, length, names: tuple, key_names: tuple,
     anames, vnames = list(arrays), list(valids)
     cols = [arrays[n].contiguous() for n in anames] \
         + [valids[n].contiguous() for n in vnames]
-    _ids, counts, moved = K.partition(h, length, nparts, cols)
+    _ids, counts, moved = K.partition(h, length, nparts, cols, ids=False)
     out_arrays = dict(zip(anames, moved[:len(anames)]))
     out_valids = dict(zip(vnames, moved[len(anames):]))
     return out_arrays, out_valids, counts

@@ -1557,7 +1557,7 @@ class Executor:
             h, d.length, nparts,
             [d.arrays[n].contiguous() for n in names]
             + [d.valids[n].contiguous() for n in vnames],
-            out_rows=2 * cap)
+            out_rows=2 * cap, ids=False)
         lengths = counts.to(torch.int32)
         ends = np.cumsum(batched_to_host([counts])[0])
         out = []
