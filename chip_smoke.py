@@ -152,8 +152,11 @@ Phases, each printing its own line(s):
    bit (keyed and keyless), the streaming body at 0 to 4 sums with
    counts, unaligned masks and columns (the keyed body with one
    bucket), and B = 1, 3, 8, 32 at an odd row count with shared and
-   per-member ids and keyless; ``segment_agg_batched`` at the batch c40 sends over the
-   1M hits rows (timed); ``compact_batched`` at the point-lookup batch
+   per-member ids and keyless; ``segment_agg_batched`` at the batch c40
+   sends over the 1M hits rows (timed, with its kernels counted in a
+   CUDA graph capture: the fold, the fix and the member compaction,
+   and no other device work), with six aggregates (timed) and ten (two
+   chunks), two calls bit for bit; ``compact_batched`` at the point-lookup batch
    over orders' capacity (timed) and at 8 top-k masks over lineitem
    (timed), with no mask, a shared mask and more columns than one
    launch takes; B = 1, identical members, an empty member and B = 64.
@@ -179,13 +182,15 @@ Phases, each printing its own line(s):
 
 9. ``segments`` (K15a: the send segments of a mesh exchange) against its
    plain version at the largest probe-row routing of the shuffle join
-   (timed, the table's row) and at q18's partial aggregate (timed), both
+   and at q18's partial aggregate (both timed, both table rows), both
    recorded on the mesh path, and at 3 and 8 targets, a clamped segment
    (overflow), 0 live rows, int32, float (NaN, ±inf, out of range) and
    three nullable keys, given targets, the targets alone and 40 columns:
    counts, the overflow flag and every slot bit for bit; the library
    time is a floor (a stable sort of the targets and one index_select
-   per column).
+   per column). At the two recorded shapes the kernels of a call are
+   counted in a CUDA graph capture: the scatter, and no other device
+   work.
 
 10. the DQ path, after the serving path (``dq_phase``): TPC-H at
     ``--sf`` over 4 worker engines (``QueryEngine()``) filled by
@@ -2062,16 +2067,17 @@ def partition_phase(B, feed, li: dict, n: int, live: int,
                            out_rows=2 * n)
     gids = want[0]
     plan = B.partition_plan(n, 8, len(lcols), 2 * n)
-    # the kernels a call launches, counted in a trace of three calls
-    traced = traced_kernels(lambda: B.partition(hk, length, 8, lcols, 2 * n,
-                                                ids=False), calls=3)
-    ours = {k: c for k, c in traced.items()
+    # the kernels a call launches, counted in a graph capture of three
+    # calls
+    captured = captured_kernels(lambda: B.partition(
+        hk, length, 8, lcols, 2 * n, ids=False), calls=3)
+    ours = {k: c for k, c in captured.items()
             if "part_census" in k or "part_scatter" in k}
-    rest = {k: c for k, c in traced.items() if k not in ours}
+    rest = {k: c for k, c in captured.items() if k not in ours}
     n_kern, n_rest = sum(ours.values()) / 3, sum(rest.values()) / 3
     check(n_kern == plan["launches"],
-          f"partition routing: {n_kern} kernels a call traced, the plan "
-          f"says {plan['launches']}: {traced}")
+          f"partition routing: {n_kern} kernels a call captured, the plan "
+          f"says {plan['launches']}: {captured}")
     check(n_rest <= 1,
           f"partition routing: more than one launch a call besides its "
           f"kernels: {rest}")
@@ -2082,7 +2088,7 @@ def partition_phase(B, feed, li: dict, n: int, live: int,
         shape=f"n={n} live={live} nparts=8 cols={len(lcols)} "
               f"out_rows={2 * n} "
               f"(GraceJoin routing of lineitem by l_orderkey; no ids; "
-              f"traced: {n_kern:g} kernel launches a call, "
+              f"captured: {n_kern:g} kernel launches a call, "
               f"{n_rest:g} fill of the control words)",
         max_abs_err=0.0,
         ms=time_ms(lambda: B.partition(hk, length, 8, lcols, 2 * n,
@@ -2095,7 +2101,7 @@ def partition_phase(B, feed, li: dict, n: int, live: int,
     r = rows[-1]
     log(f"kernel partition grace routing: n={n} live={live} nparts=8 "
         f"cols={len(lcols)} (lineitem by l_orderkey) "
-        f"traced_3_calls={traced} kernel_ms={r['ms']:.4f} "
+        f"captured_3_calls={captured} kernel_ms={r['ms']:.4f} "
         f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
         f"bound_us={r['bound_ms'] * 1e3:.2f} (bytes: the hashes, each "
         "column read and written once, the zero tail of n rows, no ids)")
@@ -2210,8 +2216,22 @@ def segments_phase(B, calls: dict, device: str = "cuda") -> list:
         want = check_segments(B, length, ndev, seg, cols, sync,
                               f"{tag} ({query})", keys=keys)
         tgt = B.segment_targets(keys, ndev)
-        shape = (f"n={n} live={live} keys={len(keys)} ndev={ndev} seg={seg} "
-                 f"cols={len(cols)} ({label}, {query})")
+        plan = B.segments_plan(n, ndev, seg, len(cols))
+        # the kernels a call launches, counted in a graph capture of
+        # three calls: the scatter, and nothing else
+        captured = captured_kernels(lambda: B.segments(
+            length, ndev, seg, cols, keys=keys), calls=3)
+        ours = {k: c for k, c in captured.items() if "seg_scatter" in k}
+        rest = {k: c for k, c in captured.items() if k not in ours}
+        n_kern = sum(ours.values()) / 3
+        check(n_kern == plan["launches"] == 1,
+              f"segments {tag}: {n_kern} kernels a call captured, the plan "
+              f"says {plan['launches']}: {captured}")
+        check(not rest, f"segments {tag}: device work besides its kernels: "
+              f"{rest}")
+        shape = (f"n={n} live={live} keys={len(keys)} ndev={ndev} "
+                 f"seg={seg} cols={len(cols)} ({label}, {query}; captured: "
+                 f"{n_kern:g} kernel launches a call)")
         row = dict(
             name="segments", route="cuda",
             source="ydb_tpu_torch/ops/cuda/csrc/segments.cu",
@@ -2227,12 +2247,12 @@ def segments_phase(B, calls: dict, device: str = "cuda") -> list:
         check(not bool(want[2]), f"segments {tag}: overflow")
         if tag == "join":
             check(int(want[1].sum()) == live, "segments join: counts")
-            rows.append(row)
-        else:
-            log(f"kernel segments q18 partial: {shape} "
-                f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                f"library_ms={row['library_ms']:.4f} "
-                f"bound_us={row['bound_ms'] * 1e3:.2f} (bytes)")
+        rows.append(row)
+        log(f"kernel segments {tag}: {shape} kernel_ms={row['ms']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} "
+            f"bound_us={row['bound_ms'] * 1e3:.2f} (bytes) "
+            f"captured_3_calls={captured}")
 
     # -- checked, not timed
     m = (1 << 20) + 333
@@ -2916,6 +2936,17 @@ def batched_kernel_phase(B, n: int, hits: dict, orders_n: int,
               ("sum", rand((Bm, nh)), None, False)]
     serr = max(serr, check_segment_agg_batched(
         B, perm, words, hmasks, hfuncs, oc, sync, "c40 funcs"))
+    # two chunks of aggregates (the hidden first and 7, then 3)
+    serr = max(serr, check_segment_agg_batched(
+        B, perm, words, hmasks, hfuncs + hfuncs[:4], oc, sync,
+        "c40 ten funcs"))
+    # two calls bit for bit (float sums included), with the caller's union
+    a1 = B.segment_agg_batched(perm, words, hmasks, hfuncs, oc, union=union)
+    a2 = B.segment_agg_batched(perm, words, hmasks, hfuncs, oc, union=union)
+    sync()
+    check(same_bits(a1, a2), "segment_agg_batched c40 funcs: two calls "
+          "differ")
+    del a1, a2
     perms = [B.sort_perm([encode_key((~hmasks[b]).to(torch.int64))] + words,
                          nh, dev) for b in range(Bm)]
     member = torch.arange(Bm, device=dev)[:, None].expand(Bm, nh)
@@ -2926,12 +2957,29 @@ def batched_kernel_phase(B, n: int, hits: dict, orders_n: int,
     def lib_c40():
         return torch.unique(flat[:, hmasks.reshape(-1)], dim=1,
                             return_counts=True)
-    k = time_ms(lambda: B.segment_agg_batched(perm, words, hmasks, c40, oc))
+    # as the serving lane calls it: with the union it sorted by
+    k = time_ms(lambda: B.segment_agg_batched(perm, words, hmasks, c40, oc,
+                                              union=union))
     p = time_ms(lambda: B.segment_agg_batched_plain(perm, words, hmasks,
                                                     c40, oc))
     lib = time_ms(lib_c40)
     singles = time_ms(lambda: [B.segment_agg(perms[b], words, hmasks[b],
                                              c40, oc) for b in range(Bm)])
+    # the device work of one call, counted in a graph capture of three:
+    # the fold, the fix and the member compaction, and nothing else (no
+    # torch pass over (B, oc))
+    plan = B.segment_agg_batched_plan(nh, Bm, oc, len(c40))
+    captured = captured_kernels(lambda: B.segment_agg_batched(
+        perm, words, hmasks, c40, oc, union=union), calls=3)
+    ours = {k_: c for k_, c in captured.items()
+            if any(f in k_ for f in ("seg_fold", "seg_fix", "seg_members"))}
+    rest = {k_: c for k_, c in captured.items() if k_ not in ours}
+    n_kern = sum(ours.values()) / 3
+    check(n_kern == plan["launches"] <= 3,
+          f"segment_agg_batched c40: {n_kern} kernels a call captured, the "
+          f"plan says {plan['launches']}: {captured}")
+    check(not rest, f"segment_agg_batched c40: device work besides its "
+          f"kernels: {rest}")
     # segment_agg's bound extended by the member axis: the distinct
     # inputs, and per member oc slots of lead (4), present (8) and a
     # value and a count per aggregate (16 each)
@@ -2941,11 +2989,28 @@ def batched_kernel_phase(B, n: int, hits: dict, orders_n: int,
         name="segment_agg_batched", route="cuda",
         source="ydb_tpu_torch/ops/cuda/csrc/segment_agg.cu",
         replaces="ydb_tpu/ops/fused.py:299",
-        shape=f"n={nh} B={Bm} (c40: (URLHash, EventDate) groups, count(*))",
+        shape=f"n={nh} B={Bm} (c40: (URLHash, EventDate) groups, count(*); "
+              f"captured: {n_kern:g} kernel launches a call)",
         max_abs_err=serr, ms=k, plain_ms=p, library_ms=lib, bound_ms=bound,
         bound_by="bytes"))
     line("segment_agg_batched", f"c40 n={nh} B={Bm} live="
-         f"{[int(x) for x in hmasks.sum(1)]}", k, p, lib, singles, bound)
+         f"{[int(x) for x in hmasks.sum(1)]} captured_3_calls={captured}", k, p,
+         lib, singles, bound)
+    # c40 funcs: 6 aggregates, one a per-member sum; timed, not tabled
+    kf = time_ms(lambda: B.segment_agg_batched(perm, words, hmasks, hfuncs,
+                                               oc, union=union))
+    pf = time_ms(lambda: B.segment_agg_batched_plain(perm, words, hmasks,
+                                                     hfuncs, oc))
+    sf = time_ms(lambda: [B.segment_agg(perms[b], words, hmasks[b],
+                                        [(f, d if d is None or d.dim() == 1
+                                          else d[b], v, u)
+                                         for f, d, v, u in hfuncs], oc)
+                          for b in range(Bm)])
+    ins = [perm, hmasks] + words + [t for (_f, d, v, _u) in hfuncs
+                                    for t in (d, v) if t is not None]
+    line("segment_agg_batched", f"c40 funcs n={nh} B={Bm} aggs="
+         f"{len(hfuncs)}", kf, pf, None, sf,
+         bound_ms(distinct_bytes(ins) + Bm * oc * (4 + 8 + 16 * len(hfuncs))))
 
     # -- compact_batched at the point-lookup batch: orders' capacity, one
     #    live row per member; and at 8 top-k masks over lineitem
@@ -3140,29 +3205,79 @@ def _batched_call(eng, texts):
         pb, [(p, dict(p.params)) for p in plans], eng.snapshot())
 
 
-def traced_kernels(fn, calls: int = 3) -> dict:
-    """The device work of `calls` calls of `fn`, counted in a
-    torch.profiler trace: {kernel or memory op: launches}. The trace's
-    first step only warms the tracer up (an unwarmed trace can lose the
-    first launches it sees); the counts come from its second step."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-    got = {}
+_GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                     4: "child graph", 12: "batch mem op", 13: "conditional"}
 
-    def ready(prof):
-        got.update({e.key: e.count for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and not e.key.startswith("ProfilerStep")})
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=ready) as prof:
-        for _step in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return got
+
+def captured_kernels(fn, calls: int = 3) -> dict:
+    """The device work of `calls` calls of `fn`, read from a CUDA graph
+    capture of them: {kernel name (mangled) or node kind: nodes}. The
+    capture records every kernel, memset and copy the calls enqueue on
+    the stream and runs none of them; a host sync inside `fn` makes it
+    fail. One call on the capture stream first makes the wrappers'
+    per-stream state outside the capture. Nodes that do no device work
+    (events, empty nodes, the pool's allocations) are left out.
+    (torch.profiler traces of the same calls were seen to drop launches,
+    and once to show none.)"""
+    import ctypes
+
+    import torch
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp, u32 = ctypes.c_void_p, ctypes.c_uint
+
+    class KernelParams(ctypes.Structure):        # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", vp)] + [(f, u32) for f in (
+            "gx", "gy", "gz", "bx", "by", "bz", "smem")] + [
+            ("params", vp), ("extra", vp), ("kern", vp), ("ctx", vp)]
+
+    def ok(rc, what):
+        check(rc == 0, f"captured_kernels: {what} returned CUresult {rc}")
+
+    def node_name(node):
+        kind = ctypes.c_int()
+        ok(cu.cuGraphNodeGetType(node, ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        if kind.value != 0:
+            return _GRAPH_NODE_KINDS.get(kind.value)
+        kp, name = KernelParams(), ctypes.c_char_p()
+        ok(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(kp)),
+           "cuGraphKernelNodeGetParams_v2")
+        if kp.func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), vp(kp.func)),
+               "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), vp(kp.kern)),
+               "cuKernelGetName")
+        return name.value.decode()
+
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        fn()
+    s.synchronize()
+    g, counts = torch.cuda.CUDAGraph(), {}
+    with torch.cuda.graph(g, stream=s, capture_error_mode="thread_local"):
+        for _ in range(calls):
+            fn()
+        status, cid, graph = ctypes.c_int(), ctypes.c_uint64(), vp()
+        deps, ndeps = vp(), ctypes.c_size_t()
+        ok(cu.cuStreamGetCaptureInfo_v2(
+            vp(s.cuda_stream), ctypes.byref(status), ctypes.byref(cid),
+            ctypes.byref(graph), ctypes.byref(deps), ctypes.byref(ndeps)),
+           "cuStreamGetCaptureInfo_v2")
+        check(status.value == 1, "captured_kernels: the stream is not "
+              f"capturing (status {status.value})")
+        nn = ctypes.c_size_t()
+        ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(nn)),
+           "cuGraphGetNodes")
+        nodes = (vp * max(nn.value, 1))()
+        ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(nn)),
+           "cuGraphGetNodes")
+        for i in range(nn.value):
+            name = node_name(vp(nodes[i]))
+            if name is not None:
+                counts[name] = counts.get(name, 0) + 1
+    del g
+    return counts
 
 
 def _device_ms(fn) -> float:
@@ -3862,11 +3977,12 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
 
 
 PTXAS_CHECKED = ("segment_agg", "bucket_sort", "sort", "window_scan",
-                 "bucket_agg", "compact", "expand", "partition", "probe")
+                 "bucket_agg", "compact", "expand", "partition", "probe",
+                 "segments")
 # the kernels whose every function must keep its state in registers: a
 # stack frame or a spill fails the run
 PTXAS_NO_SPILL = ("segment_agg", "sort", "window_scan", "partition",
-                  "probe")
+                  "probe", "segments")
 # and in bucket_agg, compact and expand, the kernels of K2, K2/K3 xB,
 # K3, K6 xB and K8's counts (by name)
 PTXAS_NO_SPILL_FUNCTIONS = ("keyless_stream", "keyless_fold",
@@ -3942,10 +4058,11 @@ def main() -> int:
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {k}: {line.strip()}")
-    # K2, K3, K4, K5, K6, K9 and K13: each kernel function's registers,
-    # stack frame and spills; segment_agg's accumulators, the sort's
-    # tile, the window scan's rows, the keyless folds' loads and the
-    # member compaction's bitmaps must live in registers
+    # K2, K3, K4, K5 (and its member compaction), K6, K9, K13 and K15a:
+    # each kernel function's registers, stack frame and spills;
+    # segment_agg's accumulators, the sort's tile, the window scan's rows,
+    # the keyless folds' loads, the member compaction's bitmaps and the
+    # segments scatter's targets and ranks must live in registers
     spilled = []
     for k in PTXAS_CHECKED:
         for fn in ptxas_functions(built[k]["log"]):

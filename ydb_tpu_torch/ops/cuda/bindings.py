@@ -135,11 +135,12 @@ _SIGS = {
                             [_I64, _P, _I32, _PI64, _P, _I32, _P, _I64,
                              _I32, _PI64, _PI64, _PI64, _PI64, _PI32, _PI32,
                              _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _P, _I32, _P]),
+                             _P, _P, _P, _P, _I32, _I32, _P, _P, _P, _PI64,
+                             _PI64, _P]),
     "segments": ("segments", "segments_launch",
-                 [_I64, _I32, _PI64, _PI64, _PI32, _P, _P, _P, _I32, _I32,
-                  _P, _P, _P, _P, _P, _P, _I32, _PI64, _PI64, _PI32, _I32,
-                  _P]),
+                 [_I64, _I32, _PI64, _PI64, _PI32, _P, _P, _P, _I64, _I32,
+                  _I32, _P, _I64, _I64, _P, _P, _I32, _PI64, _PI64, _PI32,
+                  _I32, _P]),
     "compact_batched": ("compact", "compact_launch", _COMPACT_ARGS),
     "quantize_blocked": ("quant", "quantize_blocked_launch",
                          [_I64, _I32, _P, _P, _P, _P]),
@@ -1454,8 +1455,47 @@ def segment_agg_plain(perm, keys: list, active, aggs: list, oc: int):
     return ngroups, lead, present, out_vals, cnts
 
 
+_SM_GROUPS = 8                   # segment_agg.cu MGROUPS: fold blocks a tile
+_SM_TILE = 4096                  # segment_agg.cu MTILE: union runs a tile
+_SM_ZROWS = 16384                # segment_agg.cu MZROWS: slots a zero item
+_SM_BLOCKS = 4                   # segment_agg.cu MBLOCKS: blocks a SM
+_SA_CTL: dict = {}               # (device type, index, stream) -> [fold
+_SA_MU = threading.Lock()        # words, member words]
+
+
+def segment_agg_batched_plan(n: int, B: int, oc: int, n_aggs: int) -> dict:
+    """What `segment_agg_batched` launches for `n` rows, `B` members,
+    `oc` slots and `n_aggs` aggregates, from the shapes alone (no sync):
+    one C call a chunk of 8 aggregates (the hidden `first` that carries
+    lead is the first chunk's first), each three kernels — the fold over
+    `fold_tiles` tiles of 2,048 sorted rows in `fold_blocks` blocks (up
+    to 8 member groups a tile; one block a tile for B = 1), the fix, and
+    the member compaction over at most `member_tiles` (tile of 4,096
+    union runs, member) items and `zero_items` (member, 16,384 slots)
+    items —; the
+    control words kept per stream, zero between calls: `fold_words` (the
+    fold's look-back words and ticket) and `member_words` (the
+    compaction's ticket and look-back words). No launch for 0 rows."""
+    specs = n_aggs + 1
+    chunks = -(-specs // _SEG_MAX_AGGS)
+    if n == 0:
+        return {"calls": 0, "launches": 0, "chunks": chunks,
+                "fold_tiles": 0, "fold_blocks": 0, "member_tiles": 0,
+                "zero_items": 0,
+                "member_blocks": 0, "fold_words": 0, "member_words": 0}
+    T = -(-n // _SEG_TILE)
+    tm = -(-oc // _SM_TILE)
+    zero = B * -(-oc // _SM_ZROWS)
+    return {"calls": chunks, "launches": 3 * chunks, "chunks": chunks,
+            "fold_tiles": T, "fold_blocks": T * min(B, _SM_GROUPS),
+            "member_tiles": B * tm, "zero_items": zero,
+            "member_blocks": min(B * tm + zero, _SM_BLOCKS * _SMS),
+            "fold_words": T + 1, "member_words": 1 + B * tm}
+
+
 def segment_agg_batched(perm: torch.Tensor, keys: list, masks: torch.Tensor,
-                        aggs: list, oc: int):
+                        aggs: list, oc: int,
+                        union: Optional[torch.Tensor] = None):
     """`segment_agg` for B members that share one sort (the batched
     serving lane's group-by over shared keys).
 
@@ -1463,7 +1503,8 @@ def segment_agg_batched(perm: torch.Tensor, keys: list, masks: torch.Tensor,
     ordered by key (`sort_perm` over the union of the masks); keys: int64
     key words (n,), shared; masks: bool (B, n); aggs: as
     `bucket_agg_batched`'s (data and valid shared or per member); oc: the
-    output capacity, at least the number of groups of the union.
+    output capacity, at least the number of groups of the union; union:
+    `masks.any(0)` when the caller has it (formed here otherwise).
 
     Returns (ngroups, lead, present, vals, cnts) as `segment_agg`'s with
     a leading member axis: ngroups (B,) int32 — a group with no active
@@ -1471,11 +1512,13 @@ def segment_agg_batched(perm: torch.Tensor, keys: list, masks: torch.Tensor,
     alone drops it — and per member (B, oc) slots in key order: lead the
     group's first active row of the member (int32), present its active
     rows, the values and counts. Slots past a member's ngroups hold
-    zeros."""
+    zeros. On the card: three kernels a chunk of 8 aggregates
+    (`segment_agg_batched_plan`), every output slot written once."""
     B, n = masks.shape
     dev = masks.device
     if dev.type != "cuda":
-        return segment_agg_batched_plain(perm, keys, masks, aggs, oc)
+        return segment_agg_batched_plain(perm, keys, masks, aggs, oc,
+                                         union=union)
     _check(perm, "perm", dev, n, (torch.int32,))
     ms = _member_stride(masks, "masks", dev, B, n, (torch.bool,))
     if ms == 0:
@@ -1487,9 +1530,10 @@ def segment_agg_batched(perm: torch.Tensor, keys: list, masks: torch.Tensor,
     if len(keys) > _MAX_KEYS:
         return segment_agg_chained(perm, keys, masks, aggs, oc,
                                    segment_agg_batched)
-    # the member's first row per group rides as one more `first`
+    # the member's first row per group rides as a hidden `first`, the
+    # first chunk's first aggregate
     specs = []
-    for func, data, valid, u in list(aggs) + [("first", None, None, False)]:
+    for func, data, valid, u in [("first", None, None, False)] + list(aggs):
         if func not in AGG_FUNCS:
             raise ValueError(func)
         ds = vs = 0
@@ -1502,61 +1546,96 @@ def segment_agg_batched(perm: torch.Tensor, keys: list, masks: torch.Tensor,
             vs = _member_stride(valid, f"{func} valid", dev, B, n,
                                 (torch.bool,))
         specs.append((func, data, valid, u, ds, vs))
-    union = masks.any(0)
-    T = max((n + _SEG_TILE - 1) // _SEG_TILE, 1)
+    if union is None:
+        union = masks.any(0)
+    else:
+        _check(union, "union", dev, n, (torch.bool,))
     i64 = dict(dtype=torch.int64, device=dev)
+    ngroups = torch.empty(B, dtype=torch.int32, device=dev)
+    lead = torch.empty((B, oc), dtype=torch.int32, device=dev)
+    present = torch.empty((B, oc), **i64)
+    if n == 0:
+        return (ngroups.zero_(), lead.zero_(), present.zero_(),
+                [torch.zeros((B, oc), **i64) for _ in aggs],
+                [torch.zeros((B, oc), **i64) for _ in aggs])
+    plan = segment_agg_batched_plan(n, B, oc, len(aggs))
+    T = plan["fold_tiles"]
     # per tile: its group starts, then its head's length in rows
     tile_cnt = torch.empty(2 * T, dtype=torch.int32, device=dev)
     tile_off = torch.empty(T, **i64)
     ngroups_u = torch.empty((), dtype=torch.int32, device=dev)
-    present = torch.empty((B, oc), **i64)      # every slot written
-    cols = [present]
-    where = []                   # (spec index, "v" | "c") per later column
+    # the presence partials of the union's runs: the first chunk's fold
+    # writes them, every chunk's compaction ranks by them
+    part_pres = torch.empty((B, oc), **i64)
+    vals = [torch.empty((B, oc), **i64) for _ in aggs]
+    cnts = [torch.empty((B, oc), **i64) for _ in aggs]
     chunks = [specs[i:i + _SEG_MAX_AGGS]
               for i in range(0, len(specs), _SEG_MAX_AGGS)]
-    status = torch.zeros((len(chunks), T + 1), **i64)
+    key = (dev.type, dev.index, _stream())
+    with _SA_MU:
+        ent = _SA_CTL.get(key)
+        if ent is None or ent[0].numel() < plan["fold_words"] \
+                or ent[1].numel() < plan["member_words"]:
+            ent = _SA_CTL[key] = [
+                torch.zeros(plan["fold_words"], **i64),
+                torch.zeros(plan["member_words"], **i64)]
+        fold_ctl, member_ctl = ent
+        try:
+            _members_chunks(n, perm, keys, union, B, masks, ms, oc, chunks,
+                            T, fold_ctl, member_ctl, tile_cnt, tile_off,
+                            ngroups_u, part_pres, lead, present, ngroups,
+                            vals, cnts)
+        except BaseException:
+            # a launch that failed may have left control words dirty: the
+            # next call takes fresh ones
+            _SA_CTL.pop(key, None)
+            raise
+    for i, (func, d, *_r) in enumerate(specs[1:]):
+        if d is not None and d.dtype == torch.float64 \
+                and func in ("sum", "min", "max"):
+            vals[i] = vals[i].view(torch.float64)
+    return ngroups, lead, present, vals, cnts
+
+
+def _members_chunks(n, perm, keys, union, B, masks, ms, oc, chunks, T,
+                    fold_ctl, member_ctl, tile_cnt, tile_off, ngroups_u,
+                    part_pres, lead, present, ngroups, vals, cnts):
+    """segment_agg_batched's C calls, one a chunk of 8 aggregates."""
+    i64 = dict(dtype=torch.int64, device=perm.device)
     for j, chunk in enumerate(chunks):
         A = len(chunk)
-        out_val = torch.empty((B, A, oc), **i64)
-        out_cnt = torch.empty((B, A, oc), **i64)
+        # per-member partials at the union's runs, and the tiles' head
+        # and tail partials
+        part_val = torch.empty((B, A, oc), **i64)
+        part_cnt = torch.empty((B, A, oc), **i64)
         parts = [torch.empty(n_, **i64) for _ in ("head", "tail")
                  for n_ in (B * A * T, B * A * T, B * T)]
-        types = _agg_types(chunk)
+        # each spec's output index (-1: the hidden first)
+        outs = [j * _SEG_MAX_AGGS - 1 + a for a in range(A)]
         _launch("segment_agg_batched", n, _ptr(perm), len(keys),
-                _arr(ctypes.c_int64, [_ptr(k) for k in keys]), _ptr(union),
-                B, _ptr(masks), ms, A,
+                _arr(ctypes.c_int64, [_ptr(k) for k in keys]),
+                _ptr(union), B, _ptr(masks), ms, A,
                 _arr(ctypes.c_int64, [_ptr(c[1]) or 0 for c in chunk]),
                 _arr(ctypes.c_int64, [c[4] for c in chunk]),
                 _arr(ctypes.c_int64, [_ptr(c[2]) or 0 for c in chunk]),
                 _arr(ctypes.c_int64, [c[5] for c in chunk]),
                 _arr(ctypes.c_int32, [AGG_FUNCS[c[0]] for c in chunk]),
-                _arr(ctypes.c_int32, types), oc, _ptr(status[j]),
-                _ptr(tile_cnt), _ptr(tile_off), _ptr(ngroups_u),
-                _ptr(out_val), _ptr(out_cnt), _ptr(present),
-                *[_ptr(p) for p in parts], 1 if j == 0 else 0, _stream())
-        base = j * _SEG_MAX_AGGS
-        for a in range(A):
-            cols += [out_val[:, a], out_cnt[:, a]]
-            where += [(base + a, "v"), (base + a, "c")]
-    # each member keeps the runs where it has rows, in key order
-    outs, _live, ngroups, _ovf = compact_batched(cols, present > 0,
-                                                 ngroups_u, oc, oc, B,
-                                                 zero_tail=True)
-    present = outs[0]
-    vals = [None] * len(specs)
-    cnts = [None] * len(specs)
-    for (i, part), o in zip(where, outs[1:]):
-        (vals if part == "v" else cnts)[i] = o
-    for i, (func, d, *_r) in enumerate(specs):
-        if d is not None and d.dtype == torch.float64 \
-                and func in ("sum", "min", "max"):
-            vals[i] = vals[i].view(torch.float64)
-    lead = vals.pop().to(torch.int32)
-    cnts.pop()
-    return ngroups, lead, present, vals, cnts
+                _arr(ctypes.c_int32, _agg_types(chunk)), oc,
+                _ptr(fold_ctl), _ptr(member_ctl), _ptr(tile_cnt),
+                _ptr(tile_off), _ptr(ngroups_u), _ptr(part_val),
+                _ptr(part_cnt), _ptr(part_pres),
+                *[_ptr(p) for p in parts], 1 if j == 0 else 0,
+                0 if j == 0 else -1, _ptr(lead), _ptr(present),
+                _ptr(ngroups),
+                _arr(ctypes.c_int64, [_ptr(vals[i]) if i >= 0 else 0
+                                      for i in outs]),
+                _arr(ctypes.c_int64, [_ptr(cnts[i]) if i >= 0 else 0
+                                      for i in outs]),
+                _stream())
 
 
-def segment_agg_batched_plain(perm, keys: list, masks, aggs: list, oc: int):
+def segment_agg_batched_plain(perm, keys: list, masks, aggs: list, oc: int,
+                              union: Optional[torch.Tensor] = None):
     """Plain PyTorch version of `segment_agg_batched`: the runs of equal
     keys along `perm` (over the union of the masks), each member's runs
     that hold its rows ranked by cumulative sum, then
@@ -1564,7 +1643,7 @@ def segment_agg_batched_plain(perm, keys: list, masks, aggs: list, oc: int):
     B, n = masks.shape
     dev = masks.device
     p = perm.to(torch.int64)
-    union = masks.any(0)[p]
+    union = (masks.any(0) if union is None else union)[p]
     changed = torch.ones(n, dtype=torch.bool, device=dev)
     if n:
         changed[1:] = ~union[:-1]
@@ -2043,9 +2122,7 @@ def expand_gather_plain(lo, mcounts, offsets, total, out_cap: int, pcap: int,
 
 _MAX_PARTS = 256
 _PART_COLS = 32                  # partition.cu MAX_COLS
-_PART_TILE = 4096                # rows a tile (partition.cu PTILE; and
-                                 # segments.cu's TILE_ROWS)
-_PART_SCAN_CHUNK = 8192          # segments.cu SCAN_CHUNK
+_PART_TILE = 4096                # rows a tile (partition.cu PTILE)
 _PART_WARPS = 8                  # partition.cu PWARPS
 
 
@@ -2161,7 +2238,44 @@ def partition_plain(hashes, length, nparts: int, cols: list,
 
 _SEG_KEY_KINDS = {torch.int64: 0, torch.int32: 1, torch.float64: 2}
 _SEG_MAX_KEYS = 16               # segments.cu MAX_KEYS
-_SEG_MAX_TARGETS = 256           # segments.cu MAX_BINS - 1
+_SEG_MAX_TARGETS = 256           # segments.cu MAX_TARGETS
+_SG_COLS = 32                    # segments.cu MAX_COLS: planes a launch
+_SG_TILE = 4096                  # segments.cu STILE: rows a tile
+_SG_WARPS = 8                    # segments.cu SWARPS
+_SG_ZROWS = 4096                 # segments.cu ZROWS: slots a zero-tail item
+_SG_TARGET_ROWS = 2048           # segments.cu CT x CR: seg_targets' rows a
+                                 # block a round
+_SG_TARGET_BLOCKS = 8            # segments.cu TBLOCKS: seg_targets blocks
+_SG_SCATTER_BLOCKS = 2           # segments.cu SBLOCKS: scatter blocks a SM
+_SG_CTL_HEAD = 1                 # segments.cu CTL_HEAD: the ticket
+_SG_SBUF = 34848                 # segments.cu SBUF_BYTES
+_SG_EPOCHS = (1 << 30) - 1       # segments.cu: epochs 1 .. 2^30 - 1
+_SG_CTL: dict = {}               # (device type, index, stream) -> [int64
+_SG_MU = threading.Lock()        # control words, last epoch]
+
+
+def segments_plan(n: int, ndev: int, seg: int, n_cols: int) -> dict:
+    """What `segments` launches for `n` rows into `ndev` targets of `seg`
+    slots with `n_cols` columns, from the shapes alone (no sync): one
+    scatter a chunk of 32 planes (each column's data and valid are two;
+    one launch without columns, for the counts), each over the `tiles`
+    4,096-row tiles and the `zero_items` chunks of 4,096 slots of the
+    targets' zero tails, `scatter_blocks` blocks of `smem` bytes of
+    dynamic shared memory; `ctl_words` int64 control words kept per
+    stream (the ticket and a look-back word a (tile, target)). The
+    targets alone (`segment_targets`) are one launch of
+    `target_blocks` blocks."""
+    chunks = max(1, -(-2 * n_cols // _SG_COLS))
+    tiles = -(-n // _SG_TILE)
+    zero_items = ndev * max(1, -(-seg // _SG_ZROWS))
+    return {"launches": chunks, "chunks": chunks, "tiles": tiles,
+            "zero_items": zero_items,
+            "scatter_blocks": min(tiles + zero_items,
+                                  _SG_SCATTER_BLOCKS * _SMS),
+            "smem": _SG_SBUF + 3 * _SG_TILE + 4 * _SG_WARPS * ndev,
+            "ctl_words": _SG_CTL_HEAD + tiles * ndev,
+            "target_blocks": min(max(1, -(-n // _SG_TARGET_ROWS)),
+                                 _SG_TARGET_BLOCKS * _SMS)}
 
 
 def _seg_keys(keys: list) -> list:
@@ -2177,33 +2291,58 @@ def _seg_keys(keys: list) -> list:
     return out
 
 
-def _seg_launch(n: int, dev, keys: list, targets_in, targets_out, length_t,
-                ndev: int, seg: int, counts, ovf, cols: list) -> None:
-    """The launches of one segments call: the count pass with the first
-    chunk of columns, then one launch per further chunk."""
-    ntiles = (n + _PART_TILE - 1) // _PART_TILE
-    e = (ndev + 1) * ntiles
-    ids = torch.empty(max(n, 1), dtype=torch.int32, device=dev)
-    hist = torch.empty(max(e, 1), dtype=torch.int32, device=dev)
-    offs = torch.empty(max(e, 1), dtype=torch.int32, device=dev)
-    chunk_sums = torch.empty(max((e + _PART_SCAN_CHUNK - 1)
-                                 // _PART_SCAN_CHUNK, 1),
-                             dtype=torch.int32, device=dev)
-    chunks = [cols[i:i + _PART_COLS]
-              for i in range(0, len(cols), _PART_COLS)] or [[]]
+def _seg_launch(n: int, dev, keys: list, targets_in, targets_out, length,
+                ndev: int, seg: int, counts, ovf, planes: list) -> None:
+    """The launches of one segments call (`segments_plan`): one scatter a
+    chunk of planes, the first also writing the counts and the flag; or,
+    with `targets_out` and no counts, the targets alone. `planes`:
+    [(source | None, output)]. A host length goes by value (copying it to
+    the card would wait for the stream)."""
+    plan = segments_plan(n, ndev, seg, len(planes) // 2)
+    length_t, length_v = None, 0
+    if isinstance(length, torch.Tensor):
+        length_t = _length_tensor(length, dev)
+    else:
+        length_v = int(length)
+    chunks = [planes[i:i + _SG_COLS]
+              for i in range(0, len(planes), _SG_COLS)] or [[]]
+    key = (dev.type, dev.index, _stream())
+    with _SG_MU:
+        # kept per stream, zeroed once: each call tags its look-back words
+        # with a new epoch, and the kernel leaves the ticket zero
+        ent = _SG_CTL.get(key)
+        if ent is None or ent[0].numel() < plan["ctl_words"]:
+            ent = _SG_CTL[key] = [torch.zeros(plan["ctl_words"],
+                                              dtype=torch.int64, device=dev),
+                                  0]
+        ent[1] = ent[1] % _SG_EPOCHS + 1
+        ctl, epoch = ent
+        # a launch that failed may have left the ticket drawn: the next
+        # call takes fresh words
+        try:
+            _seg_chunks(n, keys, targets_in, targets_out, length_t,
+                        length_v, ndev, seg, ctl, plan["ctl_words"], epoch,
+                        counts, ovf, chunks)
+        except BaseException:
+            _SG_CTL.pop(key, None)
+            raise
+
+
+def _seg_chunks(n, keys, targets_in, targets_out, length_t, length_v,
+                ndev, seg, ctl, ctl_words, epoch, counts, ovf, chunks):
     for j, chunk in enumerate(chunks):
         _launch("segments", n, len(keys),
                 _arr(ctypes.c_int64, [_ptr(d) for d, _v in keys]),
                 _arr(ctypes.c_int64, [_ptr(v) or 0 for _d, v in keys]),
                 _arr(ctypes.c_int32, [_SEG_KEY_KINDS[d.dtype]
                                       for d, _v in keys]),
-                _ptr(targets_in), _ptr(targets_out), _ptr(length_t), ndev,
-                seg, _ptr(ids), _ptr(hist), _ptr(offs), _ptr(chunk_sums),
+                _ptr(targets_in), _ptr(targets_out), _ptr(length_t),
+                length_v, ndev, seg, _ptr(ctl), ctl_words, epoch,
                 _ptr(counts), _ptr(ovf), len(chunk),
                 _arr(ctypes.c_int64, [_ptr(src) or 0 for src, _o in chunk]),
                 _arr(ctypes.c_int64, [_ptr(o) for _s, o in chunk]),
                 _arr(ctypes.c_int32, [o.element_size() for _s, o in chunk]),
-                1 if j == 0 else 0, _stream())
+                j, _stream())
 
 
 def _seg_check(n: int, dev, keys: list, targets, ndev: int) -> None:
@@ -2235,8 +2374,7 @@ def segment_targets(keys: list, ndev: int) -> torch.Tensor:
     if len(keys) > _SEG_MAX_KEYS:
         return wide_targets(keys, ndev, hash64, _MAX_HASH_COLS)
     out = torch.empty(n, dtype=torch.int32, device=dev)
-    _seg_launch(n, dev, keys, None, out, _length_tensor(n, dev), ndev, 0,
-                None, None, [])
+    _seg_launch(n, dev, keys, None, out, n, ndev, 0, None, None, [])
     return out
 
 
@@ -2253,7 +2391,8 @@ def segments(length, ndev: int, seg: int, cols: list, *,
     (ndev, seg) — slot [t, j] holds the j-th row of target t for j <
     counts[t], and is zero (valid False) past it; a column without a
     valid gets True at its live slots —, int32 counts (ndev,) clamped to
-    `seg`, and a 0-d bool: some target had more than `seg` rows."""
+    `seg`, and a 0-d bool: some target had more than `seg` rows. On the
+    card: one launch up to 16 columns (`segments_plan`)."""
     ref = targets if targets is not None else keys[0][0]
     n = ref.shape[0]
     dev = ref.device
@@ -2264,7 +2403,7 @@ def segments(length, ndev: int, seg: int, cols: list, *,
     _seg_check(n, dev, keys, targets, ndev)
     if len(keys) > _SEG_MAX_KEYS:
         targets, keys = segment_targets(keys, ndev), []
-    flat, outs = [], []
+    planes, outs = [], []
     for i, (d, v) in enumerate(cols):
         _check(d, f"column {i}", dev, n)
         if d.element_size() not in (1, 2, 4, 8):
@@ -2273,12 +2412,12 @@ def segments(length, ndev: int, seg: int, cols: list, *,
             _check(v, f"column valid {i}", dev, n, (torch.bool,))
         od = torch.empty(ndev * seg, dtype=d.dtype, device=dev)
         ov = torch.empty(ndev * seg, dtype=torch.bool, device=dev)
-        flat += [(d, od), (v, ov)]
+        planes += [(d, od), (v, ov)]
         outs.append((od.view(ndev, seg), ov.view(ndev, seg)))
     counts = torch.empty(ndev, dtype=torch.int32, device=dev)
     ovf = torch.empty((), dtype=torch.bool, device=dev)
-    _seg_launch(n, dev, keys, targets, None, _length_tensor(length, dev),
-                ndev, seg, counts, ovf, flat)
+    _seg_launch(n, dev, keys, targets, None, length, ndev, seg, counts, ovf,
+                planes)
     return outs, counts, ovf
 
 

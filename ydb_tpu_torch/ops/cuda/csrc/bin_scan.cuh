@@ -1,9 +1,8 @@
-// bin_scan — the counting-sort machinery shared by segments.cu and
-// bucket_sort.cu: rows binned by an id, counted per 4,096-row tile and per
-// warp with __match_any_sync, the (bin, tile) counts scanned into each
-// tile's first output row per bin, and a stable second pass that moves
-// every column to its row. The sources that include it say what bounds
-// them and why.
+// bin_scan — the counting-sort machinery of bucket_sort.cu (its only
+// user): the tile and warp shape of its per-tile, per-warp bin counts,
+// their counters, and the exclusive scan of the (bin, tile) counts into
+// each tile's first output row per bin. bucket_sort.cu says what bounds
+// it and why.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -14,54 +13,14 @@
 #define WARP_ROWS (32 * ITEMS)
 #define TILE_ROWS (THREADS * ITEMS)
 #define MAX_BINS 257
-#define MAX_COLS 32
 #define SCAN_THREADS 1024
 #define SCAN_ITEMS 8
 #define SCAN_CHUNK (SCAN_THREADS * SCAN_ITEMS)
 #define FULL 0xffffffffu
 
-struct Cols {
-  int n_cols;
-  const void* src[MAX_COLS];
-  void* dst[MAX_COLS];
-  int size[MAX_COLS];          // bytes per element: 1, 2, 4 or 8
-};
-
-__device__ __forceinline__ void copy_elem(const void* src, void* dst,
-                                          int size, int64_t from,
-                                          int64_t to) {
-  switch (size) {
-    case 1: ((uint8_t*)dst)[to] = ((const uint8_t*)src)[from]; break;
-    case 2: ((uint16_t*)dst)[to] = ((const uint16_t*)src)[from]; break;
-    case 4: ((uint32_t*)dst)[to] = ((const uint32_t*)src)[from]; break;
-    default: ((uint64_t*)dst)[to] = ((const uint64_t*)src)[from]; break;
-  }
-}
-
 __device__ __forceinline__ void zero_counters(int* wcnt, int nbins) {
   for (int i = threadIdx.x; i < WARPS * nbins; i += THREADS)
     wcnt[(i / nbins) * MAX_BINS + i % nbins] = 0;
-}
-
-// Adds each warp's rows of this tile to its per-bin counters wcnt[warp].
-__device__ __forceinline__ void count_warp_rows(int64_t n,
-                                                const int32_t* ids,
-                                                int* wcnt) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t w0 = (int64_t)blockIdx.x * TILE_ROWS +
-                     (int64_t)warp * WARP_ROWS;
-  for (int j = 0; j < ITEMS; ++j) {
-    const int64_t r = w0 + j * 32 + lane;
-    const bool in = r < n;
-    const unsigned act = __ballot_sync(FULL, in);
-    if (in) {
-      const int id = ids[r];
-      const unsigned peers = __match_any_sync(act, id);
-      if (lane == __ffs(peers) - 1)
-        wcnt[warp * MAX_BINS + id] += __popc(peers);
-    }
-    __syncwarp();
-  }
 }
 
 // Exclusive scan of v across the block; *total gets the block's sum.

@@ -17,7 +17,7 @@
 // (member << 16 | bucket id; 0xFFFFFFFF for an inactive row, whose digit
 // is always the drop bin 256, after every other bin): one pass when
 // nbuckets <= 256, two for the bucket id's two bytes, one or two more for
-// the member. Each pass is partition.cu's machinery (bin_scan.cuh): (1) per
+// the member. Each pass is bin_scan.cuh's machinery: (1) per
 // 4,096-row tile, per-warp counts of the 257 bins with __match_any_sync,
 // written bin-major; (2) an exclusive scan over (bin, tile); (3) each tile
 // ranks its rows stably inside shared memory (bins in order, rows in

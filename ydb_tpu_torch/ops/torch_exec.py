@@ -431,9 +431,10 @@ def _sorted_groups(key_words: list, cmd: ir.GroupBy, env, schema: Schema,
             order)
     elif B:
         masks = _member_masks(active, B)
-        perm = order(key_words, masks.any(0), cap, device)
+        union = masks.any(0)
+        perm = order(key_words, union, cap, device)
         ngroups, lead, present, vals, cnts = K.segment_agg_batched(
-            perm, key_words, masks, specs, oc)
+            perm, key_words, masks, specs, oc, union=union)
     else:
         perm = order(key_words, active, cap, device)
         ngroups, lead, present, vals, cnts = K.segment_agg(
