@@ -213,8 +213,12 @@ Phases, each printing its own line(s):
     the exchange and the compaction (``DqRecorder``). Then
     ``quantize_blocked``, ``dequantize_blocked``, ``dq_bucket_plane``
     and ``dq_counts`` against their plain versions at the largest calls
-    of the path (timed) and on NaN, +-inf, all-zero blocks, ties,
-    float32, float64, 0 rows and planes with -1 rows, bit for bit.
+    of the path (timed; the quantizer and the plane each one kernel a
+    call in a graph capture; the stack again in float32) and on NaN,
+    +-inf, all-zero blocks, ties, float32, float64, 0 rows, planes with
+    -1 rows and bucket planes at caps 70,001 and 7 over ndev 3, 4 and
+    1,024, bit for bit; views whose storage offset breaks the vector
+    loads are refused.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -1714,6 +1718,7 @@ def k8_phase(B, device: str = "cuda") -> list:
     scounts, scols, scap = check_expand(B, skey, None, length, skeys, snb,
                                         False, [skey], spay, sync, "skew")
     st = int(scounts[3])
+    scnt = torch.diff(scounts[2], append=scounts[3].reshape(1))
     sk_ms = time_ms(lambda: B.expand_counts(skey, None, length, skeys, snb,
                                             False))
     sk_lib = time_ms(lambda: (torch.searchsorted(skeys, skey),
@@ -1725,7 +1730,11 @@ def k8_phase(B, device: str = "cuda") -> list:
         f"counts_bound_us={bound_ms(n * 24 + skeys.shape[0] * 8) * 1e3:.2f} "
         f"gather_ms={time_ms(lambda: B.expand_gather(*scounts, scap, skeys.shape[0], scols)):.4f} "
         f"gather_plain_ms={time_ms(lambda: B.expand_gather_plain(*scounts, scap, skeys.shape[0], scols)):.4f} "
-        f"gather_bound_us={bound_ms(n * 16 + st * 32) * 1e3:.2f} (bytes)")
+        f"gather_bound_us={bound_ms(n * 16 + st * 32) * 1e3:.2f} (bytes) "
+        # the output rows' probe row ids alone: a floor, not the gather
+        f"gather_library_ms="
+        f"{time_ms(lambda: torch.repeat_interleave(scnt, output_size=st)):.4f}"
+        " (repeat_interleave of the counts, a floor)")
     # -- LEFT with NULL probe keys and a shortened length; float keys;
     #    0 probes (LEFT and inner); checked, not timed
     kv = rand(n) > 0.05
@@ -1923,8 +1932,17 @@ def k13_phase(B, ss: dict, device: str = "cuda") -> list:
     p_ = B.sort_perm(words + order, k, dev)
     check_window_scan(B, p_, words, order, longest, sync, "one partition "
                       f"of {k} rows")
+
+    def lib_one():
+        # one partition: the unsegmented scans of the columns (storage
+        # order, NULLs not masked), as the store_sales row's library call
+        return ([torch.cumsum(d, 0) for (op, d, _v) in longest
+                 if op == "sum"]
+                + [torch.cummax(d, 0) for (op, d, _v) in longest
+                   if op == "max"])
     log(f"kernel window_scan one partition: n={k} aggs={len(longest)} "
         f"kernel_ms={time_ms(lambda: B.window_scan(p_, words, order, longest)):.4f} "
+        f"library_ms={time_ms(lib_one):.4f} (cumsum x2 + cummax) "
         f"bound_us={bound_ms(window_scan_bytes(p_, words, order, longest)) * 1e3:.2f} "
         "(bytes); checked against the plain version, two calls bit for "
         "bit")
@@ -3841,9 +3859,12 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
     the DQ path gave them (`DqRecorder.calls`, timed: the table's rows):
     `quantize_blocked` / `dequantize_blocked` at the largest quantized
     send stack, `dq_bucket_plane` at the largest key plane, `dq_counts`
-    at the largest [1, ndev, cap] and [2, ndev, cap] planes; then checked
-    on NaN, +-inf, all-zero blocks, exact ties, float32, float64, 0 rows
-    and planes with -1 rows."""
+    at the largest [1, ndev, cap] and [2, ndev, cap] planes, the
+    quantizer and the plane each held to one kernel a call (a graph
+    capture); the stack again in float32; then checked on NaN, +-inf,
+    all-zero blocks, exact ties, float32, float64, 0 rows, planes with -1
+    rows, bucket planes at caps 70,001 and 7 over ndev 3, 4 and 1,024,
+    and offset views (refused where they break the vector accesses)."""
     import torch
     dev = torch.device(device)
 
@@ -3859,7 +3880,10 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
     x = calls["quantize_blocked"][1][0]
     q, s = check_quant(B, x, sync, "largest stack")
     n = x.numel()
-    shape = f"{tuple(x.shape)} {str(x.dtype)[6:]} (the DQ path's largest)"
+    q_kern = one_kernel_a_call(lambda: B.quantize_blocked(x),
+                               "quantize_kernel", "quantize_blocked", dev)
+    shape = (f"{tuple(x.shape)} {str(x.dtype)[6:]} (the DQ path's largest; "
+             f"captured: {q_kern} kernel a call)")
     xb = x.reshape(-1, 128)
     rows.append(dict(
         name="quantize_blocked", route="cuda",
@@ -3871,10 +3895,22 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
         library_ms=time_ms(lambda: xb.abs().amax(dim=1)),
         bound_ms=bound_ms(n * x.element_size() + n + s.numel() * 4),
         bound_by="bytes"))
+    # the same stack in float32: checked bit for bit and timed
+    x32 = x.to(torch.float32)
+    q32, s32 = check_quant(B, x32, sync, "largest stack float32")
+    x32b = x32.reshape(-1, 128)
+    log(f"kernel quantize_blocked float32: {tuple(x32.shape)} "
+        f"kernel_ms={time_ms(lambda: B.quantize_blocked(x32)):.4f} "
+        f"plain_ms={time_ms(lambda: B.quantize_blocked_plain(x32)):.4f} "
+        f"library_ms={time_ms(lambda: x32b.abs().amax(dim=1)):.4f} "
+        f"bound_us={bound_ms(n * 4 + n + s32.numel() * 4) * 1e3:.2f} "
+        f"(bytes) bit_equal=True")
+    del x32, q32, s32, x32b
     rows.append(dict(
         name="dequantize_blocked", route="cuda",
         source="ydb_tpu_torch/ops/cuda/csrc/quant.cu",
-        replaces="ydb_tpu/parallel/collective.py:176", shape=shape,
+        replaces="ydb_tpu/parallel/collective.py:176",
+        shape=f"{tuple(x.shape)} {str(x.dtype)[6:]} (the DQ path's largest)",
         max_abs_err=0.0,
         ms=time_ms(lambda: B.dequantize_blocked(q, s, x.dtype)),
         plain_ms=time_ms(lambda: B.dequantize_blocked_plain(q, s,
@@ -3890,17 +3926,24 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
     sync()
     check(torch.equal(got, want), "dq_bucket_plane: largest plane")
     keys, valid, lengths = a[0], a[1], a[2]
+    p_kern = one_kernel_a_call(lambda: B.dq_bucket_plane(*a, **k),
+                               "bucket_plane_kernel", "dq_bucket_plane",
+                               dev)
+    pplan = B.bucket_plane_plan(*keys.shape)
     rows.append(dict(
         name="dq_bucket_plane", route="cuda",
         source="ydb_tpu_torch/ops/cuda/csrc/dq_counts.cu",
         replaces="ydb_tpu/dq/ici.py:763", max_abs_err=0.0,
         shape=f"{tuple(keys.shape)} {str(keys.dtype)[6:]} keys, "
-              f"valid={valid is not None}, ndev={a[3]}",
+              f"valid={valid is not None}, ndev={a[3]}, lengths="
+              f"{lengths.tolist()} (grid {pplan['grid']}, "
+              f"{pplan['rows_per_thread']} rows a thread; captured: "
+              f"{p_kern} kernel a call)",
         ms=time_ms(lambda: B.dq_bucket_plane(*a, **k)),
         plain_ms=time_ms(lambda: B.dq_bucket_plane_plain(*a, **k)),
         library_ms=None,            # no PyTorch call computes splitmix64
-        bound_ms=bound_ms(distinct_bytes([keys, valid, lengths])
-                          + keys.numel() * 4),
+        bound_ms=bound_ms(plane_bytes(
+            keys, valid, lengths, a[4] if len(a) > 4 else k.get("lut"))),
         bound_by="bytes"))
     # the count exchange, solo and batched
     for nch in (1, 2):
@@ -3970,19 +4013,93 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
     check(torch.equal(B.dq_bucket_plane(codes, None, ln, 4, lut),
                       B.dq_bucket_plane_plain(codes, None, ln, 4, lut)),
           "dq_bucket_plane: string codes")
-    log("kernel dq edge cases: NaN, +-inf, all-zero and all-NaN blocks, "
-        "ties, float32/float64, 0 rows; planes with -1 rows; int and "
-        "string keys ok")
+    # ragged caps at ndev 3, 4 and 1,024 (the modulo by % and by a
+    # mask), lengths of 0, 1, a partial last tile and the cap; with a
+    # valid mask, without, and dictionary codes
+    cases = 0
+    for cap in (70_001, 7):
+        kk = torch.randint(-(1 << 62), 1 << 62, (4, cap), generator=g,
+                           device=dev)
+        kv = torch.rand((4, cap), generator=g, device=dev) > 0.2
+        ln = torch.tensor([0, 1, max(cap - 1029, 2), cap],
+                          dtype=torch.int32, device=dev)
+        codes = torch.randint(-3, 40, (4, cap), generator=g, device=dev,
+                              dtype=torch.int32)
+        for nd in (3, 4, 1024):
+            lut = torch.randint(0, nd, (37,), generator=g, device=dev,
+                                dtype=torch.int32)
+            for kv_, lut_, kk_ in ((None, None, kk), (kv, None, kk),
+                                   (None, lut, codes)):
+                got = B.dq_bucket_plane(kk_, kv_, ln, nd, lut_)
+                want = B.dq_bucket_plane_plain(kk_, kv_, ln, nd, lut_)
+                sync()
+                check(torch.equal(got, want),
+                      f"dq_bucket_plane: cap {cap} ndev {nd} "
+                      f"valid={kv_ is not None} codes={lut_ is not None}")
+                cases += 1
+    # views whose storage offset breaks the vector accesses: refused
+    buf = torch.zeros(4 * 7 + 2, dtype=torch.int64, device=dev)
+    lens = torch.full((4,), 7, dtype=torch.int32, device=dev)
+    xbuf = torch.zeros(256 + 4, dtype=torch.float32, device=dev)
+    for what, fn in (("keys", lambda: B.dq_bucket_plane(
+            buf[1:29].view(4, 7), None, lens, 4)),
+            ("x", lambda: B.quantize_blocked(xbuf[2:258]))):
+        if dev.type != "cuda":          # the plain versions take any view
+            break
+        try:
+            fn()
+        except ValueError as e:
+            check("storage offset" in str(e), f"offset view: {e}")
+        else:
+            check(False, f"an offset {what} view was not refused")
+    # an aligned offset view is taken, and equals its copy's answer
+    check(torch.equal(B.dq_bucket_plane(buf[2:30].view(4, 7), None, lens, 4),
+                      B.dq_bucket_plane_plain(buf[2:30].view(4, 7), None,
+                                              lens, 4)),
+          "dq_bucket_plane: an aligned offset view")
+    check_quant(B, xbuf[4:260], sync, "aligned offset view")
+    log(f"kernel dq edge cases: NaN, +-inf, all-zero and all-NaN blocks, "
+        f"ties, float32/float64, 0 rows; planes with -1 rows; int and "
+        f"string keys; {cases} bucket planes at caps 70,001 and 7, ndev 3, "
+        f"4 and 1,024 bit for bit; offset views refused (keys, x) or "
+        f"taken exactly ok")
     return rows
+
+
+def plane_bytes(keys, valid, lengths, lut=None) -> int:
+    """The bytes the bucket plane must move: each live row's key (and
+    valid byte) read once, nothing past a producer's length, the lengths
+    and the LUT once, and the int32 plane written whole."""
+    nprod, cap = keys.shape
+    live = int(lengths.clamp(0, cap).sum())
+    row = keys.element_size() + (0 if valid is None else 1)
+    return (live * row + lengths.numel() * 4 + nprod * cap * 4
+            + (0 if lut is None else lut.numel() * 4))
+
+
+def one_kernel_a_call(fn, kernel: str, what: str, dev) -> int:
+    """The kernels a call of `fn` launches, from a graph capture of three
+    calls: one `kernel` a call and no other device work, or the run
+    fails. Returns the kernels a call (0 off the card)."""
+    if dev.type != "cuda":
+        return 0
+    captured = captured_kernels(fn, calls=3)
+    ours = {k: c for k, c in captured.items() if kernel in k}
+    rest = {k: c for k, c in captured.items() if k not in ours}
+    n_kern = sum(ours.values()) / 3
+    check(n_kern == 1, f"{what}: {n_kern} kernels a call captured: "
+          f"{captured}")
+    check(not rest, f"{what}: device work besides its kernel: {rest}")
+    return 1
 
 
 PTXAS_CHECKED = ("segment_agg", "bucket_sort", "sort", "window_scan",
                  "bucket_agg", "compact", "expand", "partition", "probe",
-                 "segments")
+                 "segments", "quant", "dq_counts")
 # the kernels whose every function must keep its state in registers: a
 # stack frame or a spill fails the run
 PTXAS_NO_SPILL = ("segment_agg", "sort", "window_scan", "partition",
-                  "probe", "segments")
+                  "probe", "segments", "quant", "dq_counts")
 # and in bucket_agg, compact and expand, the kernels of K2, K2/K3 xB,
 # K3, K6 xB and K8's counts (by name)
 PTXAS_NO_SPILL_FUNCTIONS = ("keyless_stream", "keyless_fold",
@@ -4058,11 +4175,12 @@ def main() -> int:
         for line in v["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {k}: {line.strip()}")
-    # K2, K3, K4, K5 (and its member compaction), K6, K9, K13 and K15a:
-    # each kernel function's registers, stack frame and spills;
+    # K2, K3, K4, K5 (and its member compaction), K6, K9, K13, K15a, K15d
+    # and K16: each kernel function's registers, stack frame and spills;
     # segment_agg's accumulators, the sort's tile, the window scan's rows,
-    # the keyless folds' loads, the member compaction's bitmaps and the
-    # segments scatter's targets and ranks must live in registers
+    # the keyless folds' loads, the member compaction's bitmaps, the
+    # segments scatter's targets and ranks, the quantizer's next block and
+    # the bucket plane's key pairs must live in registers
     spilled = []
     for k in PTXAS_CHECKED:
         for fn in ptxas_functions(built[k]["log"]):

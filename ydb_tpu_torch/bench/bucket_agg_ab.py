@@ -1,68 +1,48 @@
 """A/B of the bucket_agg kernel on one GPU, in one process.
 
-    python3 -m ydb_tpu_torch.bench.bucket_agg_ab --other OTHER.cu [--rows N]
+    python3 -m ydb_tpu_torch.bench.bucket_agg_ab --other OTHER.cu
+        [--other ...] [--rows N]
 
-Builds the tree's ``ops/cuda/csrc/bucket_agg.cu`` and another source of
-the same C interface (a parent commit's, say) and runs both through the
-tree's wrapper on the same seeded inputs: Q1's partial shape (12 buckets,
-10 aggregates; rows spread evenly over six, and TPC-H's own skew over
-four), the small-domain lane's limit (512 buckets, 16
-aggregates), middle and skewed domains, and keyless sums. Each side must
-match the plain version (ints exact, float sums to rtol 1e-9) and the
-tree's kernel must repeat itself bit for bit. Times are CUDA-event
-medians (``chip_smoke.time_ms``), taken in four rounds that alternate
-which side runs first. Prints the card, one line per case, and the
-times as JSON on the last line.
+Builds the tree's ``ops/cuda/csrc/bucket_agg.cu`` and, with each
+``--other``, another source of the same C interface (a parent commit's,
+say) and runs every side through the tree's wrapper on the same seeded
+inputs: Q1's partial shape (12 buckets, 10 aggregates; rows spread
+evenly over six, and TPC-H's own skew over four), the small-domain
+lane's limit (512 buckets, 16 aggregates), middle and skewed domains,
+and keyless sums (run by the sides whose source has the keyless entry).
+Each side must match the plain version (ints exact, float sums to rtol
+1e-9) and the tree's kernel must repeat itself bit for bit. Times are
+CUDA-event medians (``chip_smoke.time_ms``), taken in four rounds that
+alternate which side runs first (``bench/ab.py``). Prints the card, one
+line per case, and the times as JSON on the last line.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+from ydb_tpu_torch.bench import ab
+
+LIBS = {"bucket_agg": "bucket_agg_members_launch"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--other", required=True,
-                    help="another bucket_agg.cu with the same C interface")
+    ap.add_argument("--other", action="append", required=True,
+                    help="another bucket_agg.cu with the same C interface, "
+                    "one more side (other1, other2, ... in order)")
     ap.add_argument("--rows", type=int, default=6 * (1 << 20))
     args = ap.parse_args()
-    sys.path.insert(0, ROOT)
+    cs = ab.start("bucket_agg_ab")
+    if cs is None:
+        return 2
     import torch
 
-    import chip_smoke as cs
     from ydb_tpu_torch.ops.cuda import bindings as B
-    from ydb_tpu_torch.ops.cuda import build
 
-    if not torch.cuda.is_available():
-        print("bucket_agg_ab: no CUDA device")
-        return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    tree = build.build_all(("bucket_agg",))["bucket_agg"]["path"]
-    other = os.path.join(str(build.BUILD_DIR), "libbucket_agg-other.so")
-    subprocess.run([build.nvcc_path(), build.ARCH, "-std=c++17", "-O3",
-                    "-shared", "-Xcompiler", "-fPIC", "-o", other,
-                    args.other], check=True)
-
-    def load(path):
-        lib = ctypes.CDLL(path)
-        for name in ("bucket_agg", "bucket_agg_keyless"):
-            _lib, sym, argtypes = B._SIGS[name]
-            if hasattr(lib, sym):
-                getattr(lib, sym).argtypes = argtypes
-                getattr(lib, sym).restype = ctypes.c_int
-        return lib
-    libs = {"tree": load(tree), "other": load(other)}
-
+    sides = ab.build_sides(cs, LIBS, args.other)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(7)
@@ -121,32 +101,27 @@ def main() -> int:
     for name, (kid, nb, aggs) in cases.items():
         # a source from before the keyless entry (K2's one launch) runs
         # the keyed cases only
-        sides = [side for side, lib in libs.items() if kid is not None
-                 or hasattr(lib, "bucket_agg_keyless_launch")]
-        for side in sides:
-            lib = libs[side]
-            B._LIBS["bucket_agg"] = lib
+        these = {side: libs for side, libs in sides.items()
+                 if kid is not None or hasattr(ab.load(libs["bucket_agg"]),
+                                               "bucket_agg_keyless_launch")}
+        for side, libs in these.items():
+            ab.use(libs)
             cs.check_bucket_agg(B, kid, nb, active, aggs, sync,
                                 f"{name} {side}")
-        B._LIBS["bucket_agg"] = libs["tree"]
+        ab.use(sides["tree"])
         first = B.bucket_agg(kid, nb, active, aggs)
         again = B.bucket_agg(kid, nb, active, aggs)
         sync()
         cs.check(all(torch.equal(x, y) for x, y in zip(first[0], again[0])),
                  f"{name}: tree kernel not repeatable")
-        times = {side: [] for side in sides}
-        for rnd in range(4):
-            for side in (sides[::-1] if rnd % 2 == 0 else sides):
-                B._LIBS["bucket_agg"] = libs[side]
-                times[side].append(cs.time_ms(
-                    lambda: B.bucket_agg(kid, nb, active, aggs),
-                    iters=7, warmup=2))
+        times = ab.alternate(cs, these, lambda: B.bucket_agg(
+            kid, nb, active, aggs), iters=7)
         bound = cs.bound_ms(cs.agg_bytes(kid, nb, active, aggs))
         out[name] = dict(times, bound_ms=bound)
-        print(f"{name}: tree_ms={times['tree']} "
-              f"other_ms={times.get('other', 'no keyless entry')} "
-              f"bound_ms={bound}", flush=True)
-    B._LIBS.pop("bucket_agg", None)
+        print(f"{name}: " + " ".join(
+            f"{side}_ms={times.get(side, 'no keyless entry')}"
+            for side in sides) + f" bound_ms={bound}", flush=True)
+    ab.release(LIBS)
     print(json.dumps(out))
     return 0
 

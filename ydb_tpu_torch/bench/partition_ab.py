@@ -13,23 +13,22 @@ routing of lineitem (6,291,456 rows, 6,000,409 live, 8 partitions, four
 8-byte columns and a bool, into 2n rows); the hashes are random 64-bit
 words. Each side must equal the plain version bit for bit, twice. Times
 are CUDA-event medians (``chip_smoke.time_ms``) taken in four rounds
-that alternate which side runs first, beside the stable ``sort`` +
-``index_select`` floor and the byte bound; then the tree's call once
-more under torch.profiler (device ms by kernel). Prints the card, a
-line per case and the times as JSON on the last line.
+that alternate which side runs first (``bench/ab.py``), beside the
+stable ``sort`` + ``index_select`` floor and the byte bound; then the
+tree's call once more under torch.profiler (device ms by kernel).
+Prints the card, a line per case and the times as JSON on the last
+line.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+from ydb_tpu_torch.bench import ab
+
+LIBS = {"partition": "partition_launch"}
 
 
 def main() -> int:
@@ -38,42 +37,14 @@ def main() -> int:
                     help="another partition.cu with the same C interface, "
                     "one more side (other1, other2, ... in order)")
     args = ap.parse_args()
-    sys.path.insert(0, ROOT)
+    cs = ab.start("partition_ab")
+    if cs is None:
+        return 2
     import torch
 
-    import chip_smoke as cs
     from ydb_tpu_torch.ops.cuda import bindings as B
-    from ydb_tpu_torch.ops.cuda import build
 
-    if not torch.cuda.is_available():
-        print("partition_ab: no CUDA device")
-        return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    libs = {"tree": build.build_all(("partition",))["partition"]["path"]}
-    procs = {}
-    for i, src in enumerate(args.other, 1):   # one nvcc a side, all at once
-        name = f"other{i}"
-        print(f"side {name}: {src}", flush=True)
-        path = os.path.join(str(build.BUILD_DIR), f"libpartition-{name}.so")
-        procs[name] = (path, subprocess.Popen(
-            [build.nvcc_path(), build.ARCH, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-o", path, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, (path, proc) in procs.items():
-        log, _ = proc.communicate()
-        cs.check(proc.returncode == 0, f"{name}: nvcc failed\n{log}")
-        libs[name] = path
-
-    def load(path):
-        lib = ctypes.CDLL(path)
-        _lib, sym, argtypes = B._SIGS["partition"]
-        getattr(lib, sym).argtypes = argtypes
-        getattr(lib, sym).restype = ctypes.c_int
-        return lib
-    libs = {side: load(p) for side, p in libs.items()}
-
+    sides = ab.build_sides(cs, LIBS, args.other)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(14)
@@ -89,26 +60,6 @@ def main() -> int:
         length = torch.tensor(live, dtype=torch.int32, device=dev)
         return words(n), length, nparts, cols, out_rows
 
-    def trace(fn) -> dict:
-        """The tree's call once more under torch.profiler: device ms by
-        kernel (and the memset of the control words)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            sync()
-        out = {}
-        for e in prof.key_averages():
-            us = float(getattr(e, "self_device_time_total", None)
-                       or getattr(e, "self_cuda_time_total", 0) or 0)
-            if us > 0 and e.device_type == DeviceType.CUDA:
-                out[e.key[:40]] = us / 1e3
-        return out
-
-    sync = torch.cuda.synchronize
     n = 6_291_456
     cases = {"spill feed (q21)": case(1 << 20, 262_430, 16, 3, 1 << 20),
              "routing (lineitem)": case(n, 6_000_409, 8, 4, 2 * n)}
@@ -116,24 +67,15 @@ def main() -> int:
     for name, (h, length, nparts, cols, out_rows) in cases.items():
         want = B.partition_plain(h, length, nparts, cols, out_rows,
                                  ids=False)
-        for side, lib in libs.items():
-            B._LIBS["partition"] = lib
-            for _ in range(2):
-                got = B.partition(h, length, nparts, cols, out_rows,
-                                  ids=False)
-                sync()
-                cs.check(torch.equal(got[1], want[1]) and all(
-                    torch.equal(x.view(torch.uint8), y.view(torch.uint8))
-                    for x, y in zip(got[2], want[2])),
-                    f"{name} {side}: not the plain version")
-        times = {side: [] for side in libs}
-        for rnd in range(4):
-            for side in (list(libs)[::-1] if rnd % 2 == 0 else list(libs)):
-                B._LIBS["partition"] = libs[side]
-                times[side].append(cs.time_ms(
-                    lambda: B.partition(h, length, nparts, cols, out_rows,
-                                        ids=False), iters=9, warmup=2))
-        B._LIBS.pop("partition", None)
+
+        def run():
+            return B.partition(h, length, nparts, cols, out_rows, ids=False)
+        ab.check_sides(cs, sides, run, lambda got: torch.equal(
+            got[1], want[1]) and all(
+            torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+            for x, y in zip(got[2], want[2])), name)
+        times = ab.alternate(cs, sides, run)
+        ab.release(LIBS)
         pid = B.partition_plain(h, length, nparts, [], out_rows)[0]
 
         def lib_call():
@@ -142,8 +84,7 @@ def main() -> int:
         row = dict(times, library_ms=cs.time_ms(lib_call),
                    bound_ms=cs.bound_ms(cs.partition_bytes(
                        h.shape[0], cols, nparts, out_rows)),
-                   device_items=trace(lambda: B.partition(
-                       h, length, nparts, cols, out_rows, ids=False)))
+                   device_items=ab.device_ms(run))
         out[name] = row
         print(f"partition {name}: " + " ".join(
             f"{k}={v}" for k, v in row.items()), flush=True)

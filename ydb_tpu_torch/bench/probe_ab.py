@@ -20,24 +20,22 @@ sentinel). Each
 side must equal the plain version on every output and the tree's
 kernel must repeat itself bit for bit. Times are CUDA-event medians
 (``chip_smoke.time_ms``) taken in four rounds that alternate which side
-runs first, beside the plain version, ``torch.searchsorted`` on the
-same keys and the byte bound. Then q9's and q18's warm runs are traced
-with torch.profiler (the tree's kernel): the device time of their probe
-kernels. Prints the card, one line per case and the times as JSON on
-the last line.
+runs first (``bench/ab.py``), beside the plain version,
+``torch.searchsorted`` on the same keys and the byte bound. Then q9's
+and q18's warm runs are traced with torch.profiler (the tree's kernel):
+the device time of their probe kernels. Prints the card, one line per
+case and the times as JSON on the last line.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+from ydb_tpu_torch.bench import ab
+
+LIBS = {"probe": "probe_launch"}
 
 
 def main() -> int:
@@ -49,57 +47,19 @@ def main() -> int:
                     help="log2 kcap of more sorted-keys searches to time")
     ap.add_argument("--sf", type=float, default=1.0)
     args = ap.parse_args()
-    sys.path.insert(0, ROOT)
+    cs = ab.start("probe_ab")
+    if cs is None:
+        return 2
     import torch
 
-    import chip_smoke as cs
     from ydb_tpu_torch.bench.tpch_gen import load_tpch
     from ydb_tpu_torch.bench.tpch_oracle import QUERIES
     from ydb_tpu_torch.ops.cuda import bindings as B
-    from ydb_tpu_torch.ops.cuda import build
     from ydb_tpu_torch.ops.device import bucket_capacity
     from ydb_tpu_torch.progstore.buckets import bucket_sources
     from ydb_tpu_torch.query import QueryEngine
 
-    if not torch.cuda.is_available():
-        print("probe_ab: no CUDA device")
-        return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
-    built = build.build_all(("probe",), verbose=True)
-    for k, v in built.items():
-        for fn in cs.ptxas_functions(v["log"]):
-            print(f"ptxas {k} {fn['name']}: registers={fn['registers']} "
-                  f"stack_frame={fn['stack']} "
-                  f"spill_stores={fn['spill_stores']} "
-                  f"spill_loads={fn['spill_loads']}", flush=True)
-    libs = {"tree": built["probe"]["path"]}
-    procs = {}
-    for i, src in enumerate(args.other, 1):   # one nvcc a side, all at once
-        name = f"other{i}"
-        print(f"side {name}: {src}", flush=True)
-        path = os.path.join(str(build.BUILD_DIR), f"libprobe-{name}.so")
-        procs[name] = (path, subprocess.Popen(
-            [build.nvcc_path(), build.ARCH, "-std=c++17", "-O3", "-shared",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", path, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, (path, proc) in procs.items():
-        log, _ = proc.communicate()
-        cs.check(proc.returncode == 0, f"{name}: nvcc failed\n{log}")
-        for fn in cs.ptxas_functions(log):
-            print(f"ptxas {name} {fn['name']}: registers={fn['registers']} "
-                  f"stack_frame={fn['stack']} "
-                  f"spill_stores={fn['spill_stores']}", flush=True)
-        libs[name] = path
-
-    def load(path):
-        lib = ctypes.CDLL(path)
-        _lib, sym, argtypes = B._SIGS["probe"]
-        getattr(lib, sym).argtypes = argtypes
-        getattr(lib, sym).restype = ctypes.c_int
-        return lib
-    libs = {side: load(p) for side, p in libs.items()}
+    sides = ab.build_sides(cs, LIBS, args.other)
 
     eng = QueryEngine()
     load_tpch(eng.catalog, sf=args.sf)
@@ -109,7 +69,7 @@ def main() -> int:
         bucket_capacity(max(p.num_rows, 1)) for p in portions)
 
     # q9's and q18's probes, recorded through the wrapper
-    B._LIBS["probe"] = libs["tree"]
+    ab.use(sides["tree"])
     recorded = {q: cs.record_probes(B, eng, QUERIES[q]) for q in ("q9", "q18")}
     torch.cuda.synchronize()
     search = [c for c in recorded["q9"] if c[3]["lut"] is None]
@@ -169,28 +129,21 @@ def main() -> int:
     out = {}
     for name, (key, kvalid, sel, kw) in cases.items():
         want = B.probe_plain(key, kvalid, sel, **kw)
-        for side, lib in libs.items():
-            B._LIBS["probe"] = lib
-            got = B.probe(key, kvalid, sel, **kw)
-            sync()
-            cs.check(all(torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
-                     and all(torch.equal(a, c) and torch.equal(b, d)
-                             for (a, b), (c, d) in zip(got[3], want[3])),
-                     f"{name} {side}: not the plain version")
-        B._LIBS["probe"] = libs["tree"]
-        a, b = B.probe(key, kvalid, sel, **kw), B.probe(key, kvalid, sel,
-                                                        **kw)
+
+        def run():
+            return B.probe(key, kvalid, sel, **kw)
+        ab.check_sides(cs, sides, run, lambda got: all(
+            torch.equal(x, y) for x, y in zip(got[:3], want[:3]))
+            and all(torch.equal(a, c) and torch.equal(b, d)
+                    for (a, b), (c, d) in zip(got[3], want[3])), name,
+            repeat=1)
+        ab.use(sides["tree"])
+        a, b = run(), run()
         sync()
         cs.check(all(torch.equal(x, y) for x, y in zip(a[:3], b[:3])),
                  f"{name}: tree kernel not repeatable")
-        times = {side: [] for side in libs}
-        for rnd in range(4):
-            for side in (list(libs)[::-1] if rnd % 2 == 0 else list(libs)):
-                B._LIBS["probe"] = libs[side]
-                times[side].append(cs.time_ms(
-                    lambda: B.probe(key, kvalid, sel, **kw), iters=9,
-                    warmup=2))
-        B._LIBS["probe"] = libs["tree"]
+        times = ab.alternate(cs, sides, run)
+        ab.use(sides["tree"])
         ks = kw["keys_sorted"] if kw["lut"] is None else kw["lut"]
         ref = kw["keys_sorted"]
         row = dict(times, n=key.shape[0], kcap=ks.shape[0],

@@ -2479,6 +2479,13 @@ QUANT_NAN_CODE = -128            # outside the symmetric range ±127
 _QUANT_DTYPES = {torch.float64: 0, torch.float32: 1}
 
 
+def _misaligned(t: torch.Tensor, nbytes: int) -> bool:
+    """Whether a tensor's data lies off an `nbytes` boundary of its
+    storage (a view with a storage offset): a kernel's vector accesses
+    cannot take it. (The launchers check the pointers themselves too.)"""
+    return (t.storage_offset() * t.element_size()) % nbytes != 0
+
+
 def quantize_blocked(x: torch.Tensor):
     """Per-block symmetric int8 codes of a float tensor whose last axis
     is a multiple of QUANT_BLOCK: `(codes int8 of x's shape, scales
@@ -2495,6 +2502,9 @@ def quantize_blocked(x: torch.Tensor):
                          f"of {QUANT_BLOCK}")
     if not x.is_contiguous():
         raise ValueError("x: not contiguous")
+    if _misaligned(x, 16):
+        raise ValueError(f"x: storage offset {x.storage_offset()} is off "
+                         "the 16-byte lines the kernel loads (pass a copy)")
     n = x.numel()
     codes = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     scales = torch.empty(x.shape[:-1] + (x.shape[-1] // QUANT_BLOCK,),
@@ -2564,6 +2574,18 @@ def dequantize_blocked_plain(codes: torch.Tensor, scales: torch.Tensor,
 # --------------------------------------------------------------------------
 
 _DQ_MAX_TARGETS = 1024           # dq_counts.cu MAX_TARGETS
+_PLANE_THREADS = 256             # dq_counts.cu PLANE_THREADS
+_PLANE_ROWS = 8                  # dq_counts.cu PLANE_ROWS: 4 row pairs
+
+
+def bucket_plane_plan(nprod: int, cap: int) -> dict:
+    """The bucket plane's launch: a grid of (row tiles, producers),
+    PLANE_ROWS rows a thread; producer p's pairs start at its first even
+    flat row (`heads` rows before it go alone)."""
+    tile = _PLANE_THREADS * _PLANE_ROWS
+    return {"grid": (-(-cap // tile), nprod), "threads": _PLANE_THREADS,
+            "rows_per_thread": _PLANE_ROWS, "tile": tile,
+            "heads": [(p * cap) & 1 for p in range(nprod)], "launches": 1}
 
 
 def dq_bucket_plane(keys: torch.Tensor, valid: Optional[torch.Tensor],
@@ -2598,6 +2620,16 @@ def dq_bucket_plane(keys: torch.Tensor, valid: Optional[torch.Tensor],
     _check(lengths, "lengths", dev, nprod, (torch.int32,))
     if not 1 <= ndev <= _DQ_MAX_TARGETS:
         raise ValueError(f"{ndev} targets (1 to {_DQ_MAX_TARGETS})")
+    if not 1 <= nprod <= 65535:
+        raise ValueError(f"{nprod} producers (1 to 65535)")
+    # a pair of keys is one 16-byte (int64) or 8-byte (codes) load, a
+    # pair of valid bytes one 2-byte load
+    for t, what, a in ((keys, "keys", 16 if lut is None else 8),
+                       (valid, "valid", 2)):
+        if t is not None and _misaligned(t, a):
+            raise ValueError(f"{what}: storage offset {t.storage_offset()}"
+                             f" is off the {a}-byte pairs the kernel "
+                             "loads (pass a copy)")
     plane = torch.empty((nprod, cap), dtype=torch.int32, device=dev)
     _launch("dq_bucket_plane", cap, nprod, 0 if lut is None else 1,
             _ptr(keys), _ptr(valid), _ptr(lengths), _ptr(lut),
