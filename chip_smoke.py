@@ -76,7 +76,10 @@ Phases, each printing its own line(s):
    called twice and held bit for bit equal; K1 (the generated expression-stage kernels,
    ``ydb_tpu_torch/ops/k1.py``, built by NVRTC at first use) on every
    stage q1, q6 and q19 hand over on the fused path, q19's batched
-   stages at B = 8 with per-member params, and the op sweep of
+   stages at B = 8 and the orders point lookups' at the lane's B with
+   per-member params (K1 ×B: each its launches from a CUDA graph
+   capture), a swept stage at B = 3 over a per-member incoming mask and
+   a (B, L) LUT, and the op sweep of
    ``ydb_tpu_torch/bench/k1_sweep.py`` (every op of ``ops/kernels.py``
    over each storage dtype it takes, NULLs, NaN, +-inf, -0.0, zero
    divisors, codes of -1, a null_neg LUT, hash inputs >= 2^63) at 2^20
@@ -3161,7 +3164,7 @@ SERVING_TEMPLATES = (("q1", "tpch", 8), ("q6", "tpch", 8),
                      ("c42", "clickbench", 8))
 SERVING_KERNELS = ("bucket_agg_batched", "bucket_agg_keyless_batched",
                    "segment_agg_batched", "compact_batched", "probe", "sort",
-                   "k1")
+                   "k1", "k1_batched")
 
 
 def _storm(eng, texts):
@@ -3860,10 +3863,12 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
     `quantize_blocked` / `dequantize_blocked` at the largest quantized
     send stack, `dq_bucket_plane` at the largest key plane, `dq_counts`
     at the largest [1, ndev, cap] and [2, ndev, cap] planes, the
-    quantizer and the plane each held to one kernel a call (a graph
-    capture); the stack again in float32; then checked on NaN, +-inf,
-    all-zero blocks, exact ties, float32, float64, 0 rows, planes with -1
-    rows, bucket planes at caps 70,001 and 7 over ndev 3, 4 and 1,024,
+    quantizer, the plane and the counts each held to one kernel a call
+    (a graph capture); the stack again in float32; then checked on NaN,
+    +-inf, all-zero blocks, exact ties, float32, float64, 0 rows, planes
+    with -1 rows, count planes at ndev 1, 3, 4, 8, 9, 32, 33 and 1,024
+    (every counting mode; ragged caps, 1 to 3 channels, a view off 16
+    bytes), bucket planes at caps 70,001 and 7 over ndev 3, 4 and 1,024,
     and offset views (refused where they break the vector accesses)."""
     import torch
     dev = torch.device(device)
@@ -3953,6 +3958,9 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
         sync()
         check(torch.equal(got, want), f"dq_counts nch={nch}")
         nch_, nprod, cap = planes.shape
+        c_kern = one_kernel_a_call(lambda: B.dq_counts(planes, ndev),
+                                   "counts_kernel", "dq_counts", dev)
+        cplan = B.dq_counts_plan(nch_, nprod, cap, ndev)
         # one flat id per (channel, producer, bucket + 1), -1 included
         ids = (planes.to(torch.int64) + 1 + (ndev + 1) * torch.arange(
             nch_ * nprod, device=planes.device).reshape(nch_, nprod, 1)
@@ -3961,7 +3969,9 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
             name="dq_counts", route="cuda",
             source="ydb_tpu_torch/ops/cuda/csrc/dq_counts.cu",
             replaces="ydb_tpu/dq/ici.py:457", max_abs_err=0.0,
-            shape=f"[{nch_}, {nprod}, {cap}] planes, ndev={ndev}",
+            shape=f"[{nch_}, {nprod}, {cap}] planes, ndev={ndev} (grid "
+                  f"{cplan['grid']}, {cplan['steps_per_block']} steps a "
+                  f"block; captured: {c_kern} kernel a call)",
             ms=time_ms(lambda: B.dq_counts(planes, ndev)),
             plain_ms=time_ms(lambda: B.dq_counts_plain(planes, ndev)),
             library_ms=time_ms(lambda: torch.bincount(
@@ -3999,6 +4009,26 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
     check(torch.equal(B.dq_counts(planes[:, :, :0].contiguous(), 4),
                       B.dq_counts_plain(planes[:, :, :0], 4)),
           "dq_counts: 0 rows")
+    # both counting modes (registers, the shared histogram) at their edges,
+    # ragged caps, values >= ndev, rows of only -1, three channels and a
+    # view off a 16-byte boundary; two calls each (the tickets reset)
+    n_counts = 0
+    for nd in (1, 3, 4, 8, 9, 32, 33, 1024):
+        for nch, cap in ((1, 70_001), (3, 4_099), (2, 7)):
+            pl = torch.randint(-1, nd + 3, (nch, 4, cap), generator=g,
+                               device=dev, dtype=torch.int32)
+            pl[:, 1] = -1
+            want = B.dq_counts_plain(pl, nd)
+            for _ in range(2):
+                check(torch.equal(B.dq_counts(pl, nd), want),
+                      f"dq_counts: ndev {nd} nch {nch} cap {cap}")
+            n_counts += 1
+        buf = torch.randint(-1, nd, (2 * 4 * 4_099 + 1,), generator=g,
+                            device=dev, dtype=torch.int32)
+        view = buf[1:].view(2, 4, 4_099)
+        check(torch.equal(B.dq_counts(view, nd), B.dq_counts_plain(view, nd)),
+              f"dq_counts: ndev {nd}, a view off 16 bytes")
+        n_counts += 1
     kk = torch.randint(-(1 << 62), 1 << 62, (4, 70_001), generator=g,
                        device=dev)
     kv = torch.rand((4, 70_001), generator=g, device=dev) > 0.2
@@ -4059,7 +4089,8 @@ def dq_kernel_phase(B, calls: dict, device: str = "cuda") -> list:
           "dq_bucket_plane: an aligned offset view")
     check_quant(B, xbuf[4:260], sync, "aligned offset view")
     log(f"kernel dq edge cases: NaN, +-inf, all-zero and all-NaN blocks, "
-        f"ties, float32/float64, 0 rows; planes with -1 rows; int and "
+        f"ties, float32/float64, 0 rows; planes with -1 rows; {n_counts} "
+        f"count planes at ndev 1, 3, 4, 8, 9, 32, 33 and 1,024; int and "
         f"string keys; {cases} bucket planes at caps 70,001 and 7, ndev 3, "
         f"4 and 1,024 bit for bit; offset views refused (keys, x) or "
         f"taken exactly ok")
@@ -4288,7 +4319,7 @@ def main() -> int:
         eng, serving.point_variants(order_keys, 1, SERVING_SEED)[0], 64)
     rows += batched_kernel_phase(bindings, n, hits, orders_n, point_b)
     del hits
-    rows += k1_phase(bindings, eng, QUERIES)
+    rows += k1_phase(bindings, eng, QUERIES, order_keys, point_b)
     # F1 through the main path: the 16-column queries on the card, each
     # held against the oracle and against the plain path (the CPU)
     t0 = time.perf_counter()
@@ -4721,14 +4752,19 @@ def _k1_bytes(stage, env, params, sel, outs, s_out) -> int:
     return distinct_bytes(ins) + written
 
 
+def _k1_launches(B) -> int:
+    """K1's launches so far: single stages and those over members."""
+    return B.LAUNCHES["k1"] + B.LAUNCHES["k1_batched"]
+
+
 def check_k1_stage(B, stage, env, params, sel, cap, tag, device) -> dict:
     """One stage through its kernel and its plain version on the card:
     checked, timed, its launches counted and its byte bound."""
     import torch
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    before = B.LAUNCHES["k1"]
+    before = _k1_launches(B)
     got, gs = _k1_run(stage, env, params, sel, cap, device, plain=False)
-    launches = B.LAUNCHES["k1"] - before
+    launches = _k1_launches(B) - before
     want, ws = _k1_run(stage, env, params, sel, cap, device, plain=True)
     sync()
     flat_g = [t for pair in got for t in pair] + [gs]
@@ -4755,16 +4791,122 @@ def _k1_line(tag, stage, cap, r) -> None:
         f"max_abs_err={r['max_abs_err']:.3g}")
 
 
-def k1_phase(B, eng, queries: dict, device: str = "cuda") -> list:
+def k1_captured(stage, env, params, sel, cap, device) -> int:
+    """K1 kernels a call of one stage, read from a CUDA graph capture of
+    three calls; nothing but K1 (and K12's hash keys) may be captured.
+    0 off the card."""
+    from ydb_tpu_torch.ops import k1
+    if device != "cuda":
+        return 0
+    got = captured_kernels(lambda: k1.run_stage(stage, dict(env), params,
+                                                sel, cap, device))
+    rest = {k: c for k, c in got.items()
+            if k != K1_ENTRY and "hash64" not in k}
+    check(not rest, f"k1: device work besides its kernels: {rest}")
+    check(got.get(K1_ENTRY, 0) % 3 == 0, f"k1: captured {got}")
+    return got.get(K1_ENTRY, 0) // 3
+
+
+def k1_batched_group(B, eng, texts, tag, device) -> dict:
+    """A batch's K1 stages (one direct `execute_fused_batched`, warm),
+    each against its plain version, timed, its bound and its launches a
+    call from a graph capture; returns their sums."""
+    _batched_call(eng, texts)
+    with StageCapture() as cap_:
+        check(_batched_call(eng, texts) is not None, f"{tag}: declined")
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "launches": 0,
+           "stages": len(cap_.stages), "max_abs_err": 0.0}
+    for i, (stage, env, params, sel, n) in enumerate(cap_.stages):
+        r = check_k1_stage(B, stage, env, params, sel, n,
+                           f"{tag} stage {i}", device)
+        captured = k1_captured(stage, env, params, sel, n, device)
+        check(device != "cuda" or captured == r["launches"],
+              f"k1 {tag} stage {i}: {captured} kernels captured, "
+              f"{r['launches']} launched")
+        _k1_line(f"{tag} stage {i}", stage, n, r)
+        log(f"kernel k1 {tag} stage {i} captured: {captured} "
+            "kernel a call")
+        check(r["bit_equal"], f"k1 {tag} stage {i}: not bit-equal")
+        for k in ("ms", "plain_ms", "bound_ms", "launches"):
+            tot[k] += r[k]
+        tot["max_abs_err"] = max(tot["max_abs_err"], r["max_abs_err"])
+    log(f"kernel k1 {tag}: stages={tot['stages']} "
+        f"launches_a_batch={tot['launches']} kernel_ms={tot['ms']:.4f} "
+        f"plain_ms={tot['plain_ms']:.4f} stage_bound_ms="
+        f"{tot['bound_ms']:.4f} kernel/bound="
+        f"{tot['ms'] / max(tot['bound_ms'], 1e-12):.2f}")
+    return tot
+
+
+def k1_member_sweep(B, Bn: int = 3, device: str = "cuda") -> None:
+    """One swept stage over Bn members: a per-member incoming mask, a
+    (Bn, L) `PerMember` LUT with `null_neg`, per-member scalars, shared
+    columns with and without validity; bit for bit against the plain
+    version, at 2^20 rows and at 0."""
+    import numpy as np
+    import torch
+
+    from ydb_tpu_torch.bench import k1_sweep
+    from ydb_tpu_torch.core.dtypes import DType, Kind
+    from ydb_tpu_torch.ops import ir
+    from ydb_tpu_torch.ops.torch_exec import PerMember
+    n = K1_SWEEP_ROWS
+    rng = np.random.default_rng(K1_SWEEP_SEED + Bn)
+    cols = k1_sweep.columns(n, K1_SWEEP_SEED)
+
+    def on(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    env = {k: (on(d), None if v is None else on(v))
+           for k, (d, v) in cols.items()
+           if k in ("x_int64", "y_float64", "codesn", "cond")}
+    i64, f64 = DType(Kind.INT64), DType(Kind.FLOAT64)
+    lut = ir.Param("lut", DType(Kind.INT32), is_array=True)
+    stage = (
+        ir.Assign("a", ir.call("add", ir.Col("x_int64"), ir.Param("k", i64))),
+        ir.Assign("b", ir.call("mul", ir.Col("y_float64"),
+                               ir.Param("s", f64))),
+        ir.Filter(ir.call("lt", ir.Col("a"), ir.Param("lim", i64))),
+        ir.Assign("c", ir.call("take_lut", ir.Col("codesn"), lut,
+                               null_neg=True)),
+        ir.Assign("d", ir.call("if", ir.Col("cond"), ir.Col("a"),
+                               ir.Col("b"))),
+        ir.Filter(ir.call("not", ir.call("is_null", ir.Col("c")))))
+    params = {"k": PerMember(on(rng.integers(-50, 50, Bn))),
+              "s": PerMember(on(rng.normal(size=Bn))),
+              "lim": PerMember(on(rng.integers(0, 200_000, Bn))),
+              "lut": PerMember(on(rng.integers(-3, 50, (Bn, k1_sweep.LUT_LEN)
+                                               ).astype(np.int32)))}
+    masks = on(rng.random((Bn, n)) < 0.7)
+    r = check_k1_stage(B, stage, env, params, masks, n,
+                       f"sweep members B={Bn}", device)
+    check(r["bit_equal"] and (device != "cuda" or r["launches"] == 1),
+          f"k1 member sweep: {r}")
+    _k1_line(f"sweep members B={Bn} (per-member mask, (B, L) LUT)", stage,
+             n, r)
+    zero = {k: (d[:0], None if v is None else v[:0])
+            for k, (d, v) in env.items()}
+    got, gs = _k1_run(stage, zero, params, masks[:, :0], 0, device, False)
+    want, ws = _k1_run(stage, zero, params, masks[:, :0], 0, device, True)
+    _k1_compare([t for p in got for t in p] + [gs],
+                [t for p in want for t in p] + [ws],
+                f"k1 sweep members B={Bn} at 0 rows")
+
+
+def k1_phase(B, eng, queries: dict, order_keys, point_b: int,
+             device: str = "cuda") -> list:
     """K1 against its plain version on the card: the stages q1, q6 and
-    q19 hand over on the fused path (late materialization on), q19's
-    batched stages at B = 8 with per-member params, and the op sweep of
+    q19 hand over on the fused path (late materialization on); K1 ×B:
+    q19's batched stages at B = 8 and the orders point lookups' at
+    `point_b` with per-member params (each with its launches a call from
+    a graph capture), and a swept stage at B = 3 over a per-member mask
+    and a (B, L) LUT; and the op sweep of
     `bench/k1_sweep.py` (every op over each storage dtype it takes, with
     NULLs, NaN, +-inf, -0.0, zero divisors, negative floor operands,
     codes of -1, a `null_neg` LUT, hash inputs >= 2^63) at 2^20 rows and
-    at 0 rows. Returns the kernel-table row: q19's stages, their time
+    at 0 rows. Returns the kernel-table rows: q19's stages, their time
     and their byte bound summed (`k1_bound_bytes`, the query-level
-    formula, is logged beside it)."""
+    formula, is logged beside it), and the same of q19's batch (K1 ×B;
+    its launches are the member launches on the paths)."""
     import numpy as np
     import torch
 
@@ -4795,16 +4937,15 @@ def k1_phase(B, eng, queries: dict, device: str = "cuda") -> list:
             f"outputs once, at its rows) k1_bound_ms="
             f"{bound_ms(k1_bound_bytes(eng, queries[q])):.4f} (bytes: "
             "k1_bound_bytes)")
-    # q19's batched stages: 8 qgen variants, per-member params
-    texts = serving.variants("q19", 8, SERVING_SEED)
-    _batched_call(eng, texts)
-    with StageCapture() as cap_:
-        check(_batched_call(eng, texts) is not None, "q19 batch declined")
-    for i, (stage, env, params, sel, n) in enumerate(cap_.stages):
-        r = check_k1_stage(B, stage, env, params, sel, n,
-                           f"q19 batched B=8 stage {i}", device)
-        _k1_line(f"q19 batched B=8 stage {i}", stage, n, r)
-        err = max(err, r["max_abs_err"])
+    # K1 xB: q19's batched stages (8 qgen variants) and the point
+    # lookups', per-member params; a swept stage at B = 3
+    q19b = k1_batched_group(B, eng, serving.variants("q19", 8, SERVING_SEED),
+                            "q19 batched B=8", device)
+    k1_batched_group(B, eng, serving.point_variants(order_keys, point_b,
+                                                    SERVING_SEED),
+                     f"point batched B={point_b}", device)
+    k1_member_sweep(B, 3, device)
+    err = max(err, q19b["max_abs_err"])
     # the op sweep
     cols = k1_sweep.columns(K1_SWEEP_ROWS, K1_SWEEP_SEED)
     prm = k1_sweep.params(K1_SWEEP_SEED)
@@ -4855,7 +4996,16 @@ def k1_phase(B, eng, queries: dict, device: str = "cuda") -> list:
                       f"{q19['launches']} launches a warm query",
              "ms": q19["ms"], "plain_ms": q19["plain_ms"],
              "library_ms": None, "bound_ms": q19["bound_ms"],
-             "bound_by": "bytes", "max_abs_err": err}]
+             "bound_by": "bytes", "max_abs_err": err},
+            {"name": "k1_batched", "route": "cuda",
+             "source": "ydb_tpu_torch/ops/k1.py",
+             "replaces": "ydb_tpu/ops/fused.py:322",
+             "shape": f"q19 batched at SF1, B=8: {q19b['stages']} stages, "
+                      f"{q19b['launches']} launches a batch (a graph "
+                      "capture each)",
+             "ms": q19b["ms"], "plain_ms": q19b["plain_ms"],
+             "library_ms": None, "bound_ms": q19b["bound_ms"],
+             "bound_by": "bytes", "max_abs_err": q19b["max_abs_err"]}]
 
 
 def k1_bound_bytes(eng, sql: str) -> int:

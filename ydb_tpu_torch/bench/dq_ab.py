@@ -1,5 +1,5 @@
-"""A/B of the DQ plane's kernels (K16's bucket plane, K15d's quantizer)
-on one GPU, in one process.
+"""A/B of the DQ plane's kernels (K16's bucket plane and counts, K15d's
+quantizer) on one GPU, in one process.
 
     python3 -m ydb_tpu_torch.bench.dq_ab [--other PATH ...] [--sass] [--dq]
 
@@ -13,12 +13,21 @@ records on the DQ path: q5's lineitem edge, a [4, 1,572,864] int64 key
 plane at ndev 4 (also at ndev 3, with a valid mask, and as dictionary
 codes through a LUT), and its send stack, [4, 1,572,864] float64 (also
 float32), random and with each target's segment zero past its ~24% of
-live rows, as the path sends it. Each side must equal the plain version
-bit for bit, twice.
+live rows, as the path sends it; and the count exchange over that
+edge's plane, [1, 4, 1,572,864] at ndev 4, and over the two-output
+stage's [2, 4, 393,216] planes (and over [1, 4, 4], one vector a row:
+what a launch costs beside its bytes). A side whose ``dq_counts.cu`` has no
+``dq_counts_ticket_launch`` (a parent's, before its counts took one
+launch) runs its counts through its own interface: a zeroed output,
+then ``dq_counts_launch``. Each side must equal the plain version bit
+for bit, twice.
 Times are CUDA-event medians (``chip_smoke.time_ms``) in four rounds
-that alternate which side runs first (``bench/ab.py``), beside the byte
+that alternate which side runs first (``bench/ab.py``); the counts also
+with the L2 cache flushed before each call (``cold_ms``: a 128 MB
+``zero_`` first, as a plane the card wrote long before), beside the byte
 bound and a floor (the plane: ``fill_(-1)`` of the plane, the store
-alone; the quantizer: the blocks' max-abs alone).
+alone; the quantizer: the blocks' max-abs alone; the counts have none:
+torch's reductions of the planes take longer than the kernel).
 
 ``--sass`` prints, per side and kernel function of the two kernels, its
 SASS instructions and calls (``cuobjdump -sass``: a 64-bit division or
@@ -36,6 +45,7 @@ Prints the card, a line per case and the times as JSON on the last line.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -50,6 +60,28 @@ LIBS = {"dq_counts": "dq_bucket_plane_launch",
 CAP = 1_572_864
 LENGTHS = [1_501_852, 1_497_905, 1_504_718, 1_495_934]
 SEG_LIVE = [374_491, 375_102, 373_880, 374_960]
+CAP2 = 393_216                   # the two-output stage's planes
+
+
+def side_counts(B, planes, ndev: int):
+    """`dq_counts` through the side in use: the tree's wrapper, or, for a
+    ``dq_counts.cu`` without the one-launch entry, its own interface (a
+    zeroed output, then ``dq_counts_launch``)."""
+    import torch
+    lib = B._LIBS["dq_counts"]
+    if hasattr(lib, "dq_counts_ticket_launch"):
+        return B.dq_counts(planes, ndev)
+    fn = lib.dq_counts_launch
+    fn.argtypes = [ctypes.c_int64] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    nch, nprod, cap = planes.shape
+    counts = torch.zeros((nch, nprod, ndev), dtype=torch.int32,
+                         device=planes.device)
+    rc = fn(cap, nch, nprod, ndev, planes.data_ptr(), counts.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dq_counts_launch: cudaError {rc}")
+    return counts
 
 
 def sass(path: str, cuobjdump: str) -> list:
@@ -123,6 +155,14 @@ def main() -> int:
         xz[t, live_t:] = 0
     xz32 = xz.to(torch.float32)
     n = 4 * CAP
+    # q5's edge plane, -1 past each producer's length, and the two-output
+    # stage's planes (random targets, -1 past ~95% of the rows)
+    planes1 = B.dq_bucket_plane_plain(keys, None, lengths, 4)[None]
+    planes2 = torch.randint(0, 4, (2, 4, CAP2), generator=g, device=dev,
+                            dtype=torch.int32)
+    lens2 = torch.randint(CAP2 * 9 // 10, CAP2, (2, 4, 1), generator=g,
+                          device=dev)
+    planes2[torch.arange(CAP2, device=dev) >= lens2] = -1
     plane_out = torch.empty((4, CAP), dtype=torch.int32, device=dev)
     cases = {
         "plane ndev=4": (lambda: B.dq_bucket_plane(keys, None, lengths, 4),
@@ -162,6 +202,13 @@ def main() -> int:
             lambda: B.quantize_blocked_plain(xz32), n * 5 + n // 128 * 4,
             lambda: xz32.reshape(-1, 128).abs().amax(dim=1)),
     }
+    tiny = planes1[:, :, :4].contiguous()
+    for tag, pl in (("q5 edge", planes1), ("two-output stage", planes2),
+                    ("one vector a row", tiny)):
+        cases[f"counts {tag}"] = (
+            lambda pl=pl: side_counts(B, pl, 4),
+            lambda pl=pl: B.dq_counts_plain(pl, 4),
+            pl.numel() * 4 + pl.shape[0] * pl.shape[1] * 4 * 4, None)
 
     out = {}
     for name, (run, plain, nbytes, floor) in cases.items():
@@ -169,7 +216,13 @@ def main() -> int:
         ab.check_sides(cs, sides, run, lambda got: cs.same_bits(got, want),
                        name)
         row = dict(ab.alternate(cs, sides, run, iters=15, warmup=3),
-                   floor_ms=cs.time_ms(floor), bound_ms=cs.bound_ms(nbytes))
+                   floor_ms=None if floor is None else cs.time_ms(floor),
+                   bound_ms=cs.bound_ms(nbytes))
+        if name.startswith("counts"):
+            row["cold_ms"] = {}
+            for side, libs in sides.items():
+                ab.use(libs)
+                row["cold_ms"][side] = cold_ms(cs, run)
         out[name] = row
         print(f"dq_ab {name}: " + " ".join(f"{k}={v}" for k, v in
                                            row.items()), flush=True)
@@ -179,6 +232,28 @@ def main() -> int:
     ab.release(LIBS)
     print(json.dumps(out))
     return 0
+
+
+def cold_ms(cs, fn, iters: int = 9) -> float:
+    """`fn`'s median device time with the L2 cache flushed before each
+    call (a 128 MB `zero_`, then the spin kernel and the events)."""
+    import statistics
+
+    import torch
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cs.SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 # the DQ composition's kernels by name (torch.profiler's device events)

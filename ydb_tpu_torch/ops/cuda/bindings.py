@@ -149,13 +149,14 @@ _SIGS = {
     "dq_bucket_plane": ("dq_counts", "dq_bucket_plane_launch",
                         [_I64, _I32, _I32, _P, _P, _P, _P, _I32, _I32, _P,
                          _P]),
-    "dq_counts": ("dq_counts", "dq_counts_launch",
-                  [_I64, _I32, _I32, _I32, _P, _P, _P]),
+    "dq_counts": ("dq_counts", "dq_counts_ticket_launch",
+                  [_I64, _I32, _I32, _I32, _I32, _P, _P, _P, _P, _P]),
 }
 
 # "k1": the generated expression-stage kernels (ops/k1.py, launched by
-# ops/cuda/nvrtc.py)
-LAUNCHES = {name: 0 for name in (*_SIGS, "k1")}
+# ops/cuda/nvrtc.py); "k1_batched": those that loop over a batch's
+# members
+LAUNCHES = {name: 0 for name in (*_SIGS, "k1", "k1_batched")}
 # the DQ runner launches from one thread per worker engine at once: a
 # count is read, added to and stored under this lock
 _COUNT_MU = threading.Lock()
@@ -352,16 +353,29 @@ _TICKETS: dict = {}              # (device type, index, stream) -> int32
 _TICKET_MU = threading.Lock()
 
 
-def _ticket(dev) -> torch.Tensor:
-    """A zeroed int32 word per stream: a kernel's ticket counter, which
-    the last block of each launch resets to zero for the next launch."""
+def _ticket(dev, words: int = 1) -> torch.Tensor:
+    """At least `words` zeroed int32 words per stream: kernels' ticket
+    counters, which the last block of each launch resets to zero for the
+    next launch (`_ticket_launch` drops them when a launch fails)."""
     key = (dev.type, dev.index, _stream())
     with _TICKET_MU:
         t = _TICKETS.get(key)
-        if t is None:
-            t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+        if t is None or t.numel() < words:
+            t = _TICKETS[key] = torch.zeros(words, dtype=torch.int32,
                                             device=dev)
     return t
+
+
+def _ticket_launch(name: str, dev, *args) -> None:
+    """`_launch` of a kernel that draws `_ticket` words: a launch that
+    failed may have left words drawn, so the stream's words are dropped
+    and made anew by the next call."""
+    try:
+        _launch(name, *args)
+    except BaseException:
+        with _TICKET_MU:
+            _TICKETS.pop((dev.type, dev.index, _stream()), None)
+        raise
 
 
 def _bucket_agg_keyless(n: int, active: torch.Tensor, aggs: list, dev):
@@ -384,16 +398,17 @@ def _bucket_agg_keyless(n: int, active: torch.Tensor, aggs: list, dev):
         out_val = torch.empty((A, 1), **i64)
         out_cnt = torch.empty((A, 1), **i64)
         out_pres = torch.empty(1, **i64)
-        _launch("bucket_agg_keyless", n, _ptr(active), A,
-                _arr(ctypes.c_int64, [_ptr(d) or 0 for (_f, d, _v, _u)
-                                      in chunk]),
-                _arr(ctypes.c_int64, [_ptr(v) or 0 for (_f, _d, v, _u)
-                                      in chunk]),
-                _arr(ctypes.c_int32, [AGG_FUNCS[f] for (f, *_r) in chunk]),
-                _arr(ctypes.c_int32, _agg_types(chunk)), n, plan["J"], G,
-                _ptr(part_val), _ptr(part_cnt), _ptr(part_pres),
-                _ptr(_ticket(dev)), _ptr(out_val), _ptr(out_cnt),
-                _ptr(out_pres), _stream())
+        _ticket_launch(
+            "bucket_agg_keyless", dev, n, _ptr(active), A,
+            _arr(ctypes.c_int64, [_ptr(d) or 0 for (_f, d, _v, _u)
+                                  in chunk]),
+            _arr(ctypes.c_int64, [_ptr(v) or 0 for (_f, _d, v, _u)
+                                  in chunk]),
+            _arr(ctypes.c_int32, [AGG_FUNCS[f] for (f, *_r) in chunk]),
+            _arr(ctypes.c_int32, _agg_types(chunk)), n, plan["J"], G,
+            _ptr(part_val), _ptr(part_cnt), _ptr(part_pres),
+            _ptr(_ticket(dev)), _ptr(out_val), _ptr(out_cnt),
+            _ptr(out_pres), _stream())
         for a, (func, d, _v, _u) in enumerate(chunk):
             v = out_val.select(0, a)
             if d is not None and d.dtype == torch.float64 \
@@ -677,13 +692,14 @@ def _keyless_members(n: int, B: int, masks, ms: int, specs: list, dev):
     out_val = torch.empty((B, A, 1), **i64)
     out_cnt = torch.empty((B, A, 1), **i64)
     out_pres = torch.empty((B, 1), **i64)
-    _launch("bucket_agg_keyless_batched", n, B, _ptr(masks), ms, A,
-            _arr(ctypes.c_int64, [_ptr(c[1]) or 0 for c in specs]),
-            _arr(ctypes.c_int32, [AGG_FUNCS[c[0]] for c in specs]),
-            _arr(ctypes.c_int32, _agg_types(specs)), G, plan["rows"],
-            _ptr(part_val), _ptr(part_cnt), _ptr(part_pres),
-            _ptr(_ticket(dev)), _ptr(out_val), _ptr(out_cnt), _ptr(out_pres),
-            _stream())
+    _ticket_launch(
+        "bucket_agg_keyless_batched", dev, n, B, _ptr(masks), ms, A,
+        _arr(ctypes.c_int64, [_ptr(c[1]) or 0 for c in specs]),
+        _arr(ctypes.c_int32, [AGG_FUNCS[c[0]] for c in specs]),
+        _arr(ctypes.c_int32, _agg_types(specs)), G, plan["rows"],
+        _ptr(part_val), _ptr(part_cnt), _ptr(part_pres),
+        _ptr(_ticket(dev)), _ptr(out_val), _ptr(out_cnt), _ptr(out_pres),
+        _stream())
     vals, cnts = _outputs(specs, list(range(A)), out_val, out_cnt)
     return vals, cnts, out_pres
 
@@ -2576,6 +2592,10 @@ def dequantize_blocked_plain(codes: torch.Tensor, scales: torch.Tensor,
 _DQ_MAX_TARGETS = 1024           # dq_counts.cu MAX_TARGETS
 _PLANE_THREADS = 256             # dq_counts.cu PLANE_THREADS
 _PLANE_ROWS = 8                  # dq_counts.cu PLANE_ROWS: 4 row pairs
+_COUNT_THREADS = 256             # dq_counts.cu COUNT_THREADS
+_COUNT_LOADS = 4                 # dq_counts.cu COUNT_LOADS: int4 a thread
+_COUNT_SM_BLOCKS = 8             # dq_counts.cu COUNT_SM_BLOCKS
+_REG_TARGETS = 4                 # dq_counts.cu REG_TARGETS
 
 
 def bucket_plane_plan(nprod: int, cap: int) -> dict:
@@ -2653,11 +2673,31 @@ def dq_bucket_plane_plain(keys, valid, lengths, ndev: int, lut=None):
     return torch.where(active, b, torch.full_like(b, -1)).to(torch.int32)
 
 
+def dq_counts_plan(nch: int, nprod: int, cap: int, ndev: int) -> dict:
+    """The count exchange's one launch, from the shapes alone: a grid of
+    (`blocks`, nprod, nch); a (channel, producer) row's `steps` of
+    COUNT_THREADS x COUNT_LOADS 16-byte vectors go round its blocks,
+    `steps_per_block` at most each, with at most COUNT_SM_BLOCKS blocks
+    a SM over the launch; `mode`: "registers" (REG_TARGETS counters a
+    thread, ndev <= 4) or "shared" (a histogram); `part_words` int32
+    partials (ndev a block) and `tickets` words (one a row) kept zero
+    per stream."""
+    steps = max(1, -(-cap // (4 * _COUNT_THREADS * _COUNT_LOADS)))
+    most = max(1, _COUNT_SM_BLOCKS * _SMS // max(1, nch * nprod))
+    per = -(-steps // most)
+    blocks = -(-steps // per)
+    mode = "registers" if ndev <= _REG_TARGETS else "shared"
+    return {"grid": (blocks, nprod, nch), "blocks": blocks, "steps": steps,
+            "steps_per_block": per, "mode": mode,
+            "part_words": nch * nprod * ndev * blocks,
+            "tickets": nch * nprod, "launches": 1}
+
+
 def dq_counts(planes: torch.Tensor, ndev: int) -> torch.Tensor:
     """Per (channel, producer, target) live-row counts of [nch, nprod,
     cap] int32 bucket planes: counts[c, p, d] = number of rows r with
     planes[c, p, r] == d, for d < ndev (-1 counts nowhere). Returns int32
-    [nch, nprod, ndev]."""
+    [nch, nprod, ndev], from one launch (`dq_counts_plan`)."""
     dev = planes.device
     if dev.type != "cuda":
         return dq_counts_plain(planes, ndev)
@@ -2668,10 +2708,17 @@ def dq_counts(planes: torch.Tensor, ndev: int) -> torch.Tensor:
     nch, nprod, cap = planes.shape
     if not 1 <= ndev <= _DQ_MAX_TARGETS:
         raise ValueError(f"{ndev} targets (1 to {_DQ_MAX_TARGETS})")
-    counts = torch.zeros((nch, nprod, ndev), dtype=torch.int32, device=dev)
+    if not (nch <= 65535 and nprod <= 65535):
+        raise ValueError(f"{nch} channels, {nprod} producers (to 65535)")
+    counts = torch.empty((nch, nprod, ndev), dtype=torch.int32, device=dev)
     if nch and nprod:
-        _launch("dq_counts", cap, nch, nprod, ndev, _ptr(planes),
-                _ptr(counts), _stream())
+        plan = dq_counts_plan(nch, nprod, cap, ndev)
+        part = torch.empty(plan["part_words"], dtype=torch.int32,
+                           device=dev)
+        _ticket_launch("dq_counts", dev, cap, nch, nprod, ndev,
+                       plan["blocks"], _ptr(planes), _ptr(part),
+                       _ptr(_ticket(dev, plan["tickets"])), _ptr(counts),
+                       _stream())
     return counts
 
 

@@ -48,17 +48,44 @@
 // - dictionary codes (kind 1) read the LUT through the read-only cache:
 //   staging it in shared memory would cost every block the whole LUT,
 //   more bytes than its gathers at the union dictionaries' sizes.
-// The count pass is one histogram per (tile of 4,096 rows, producer,
-// channel): ndev counters in shared memory, a shared atomic per row,
-// then one global atomic per bin into the zeroed output. ndev is at most
-// 1,024 (the counters fit in 4 KB).
+//
+// Design of the count pass: one launch, no zeroed output, and no shared
+// atomic a row (a warp's 32 atomics on ndev 4 addresses serialize):
+// - the grid is (blocks, producer, channel); the blocks of a (channel,
+//   producer) row take its steps of COUNT_STEP 16-byte vectors in turn
+//   (a step: COUNT_LOADS int4 loads a thread, all issued before any is
+//   counted), as many blocks as give each the same number of steps, at
+//   most COUNT_SM_BLOCKS a SM over the launch (the wrapper's cap from
+//   the card's SMs; each thread of the register mode in at most 32
+//   registers: every block resident at once, 64 bytes in flight a
+//   thread);
+// - the row's values before its first 16-byte boundary and after its
+//   last whole vector (ragged caps, a producer at any flat row) are
+//   counted by warp 0 of block 0 as lanes of one more round;
+// - counting, by ndev: up to REG_TARGETS (4, the DQ paths' workers),
+//   each thread keeps its counters in registers (c[d] += v == d,
+//   unrolled; a value >= ndev lands in a counter that is never
+//   written), then a warp sum a counter (__reduce_add_sync); past 4, a
+//   histogram in shared memory with one atomic a distinct value a warp
+//   (__match_any_sync);
+// - each block writes its ndev counts as a partial row, then draws a
+//   ticket of its (channel, producer); the last block to draw folds the
+//   row's partials (warp w targets w, w + 8, ...; lanes over the
+//   blocks, then a warp sum), writes the counts and resets the ticket
+//   for the next launch (one word per (channel, producer), zeroed once
+//   a stream by the wrapper). Integer sums: any order gives the same.
+// ndev is at most MAX_TARGETS (the shared histogram's 4 KB).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hash64.cuh"
 
-#define COUNT_TILE 4096
 #define COUNT_THREADS 256
+#define COUNT_WARPS (COUNT_THREADS / 32)
+#define COUNT_LOADS 4                              // int4 loads a thread
+#define COUNT_STEP (COUNT_THREADS * COUNT_LOADS)   // int4 vectors a step
+#define COUNT_SM_BLOCKS 8                          // blocks a SM at once
+#define REG_TARGETS 4                              // counters in registers
 #define MAX_TARGETS 1024
 #define PLANE_THREADS 256
 #define PLANE_PAIRS 4                              // row pairs a thread
@@ -162,24 +189,116 @@ __global__ void __launch_bounds__(PLANE_THREADS)
   }
 }
 
-__global__ void counts_kernel(int64_t cap, int nprod, int ndev,
-                              const int32_t* plane, int32_t* counts) {
-  __shared__ int bins[MAX_TARGETS];
-  const int p = blockIdx.y;
-  const int c = blockIdx.z;
-  for (int d = threadIdx.x; d < ndev; d += blockDim.x) bins[d] = 0;
+#define FULL_MASK 0xffffffffu
+
+// REG: REG_TARGETS counters a thread (ndev <= REG_TARGETS); else the
+// shared histogram. Every lane of a warp calls count() together (the
+// histogram's is a warp collective); a lane with no value passes -1.
+template <bool REG>
+struct Counter {
+  uint32_t c[REG ? REG_TARGETS : 1];
+
+  __device__ __forceinline__ Counter() {
+#pragma unroll
+    for (int d = 0; d < (REG ? REG_TARGETS : 1); ++d) c[d] = 0;
+  }
+
+  __device__ __forceinline__ void count(int32_t v, int ndev, int* bins) {
+    if (REG) {
+#pragma unroll
+      for (int d = 0; d < REG_TARGETS; ++d) c[d] += v == d;
+    } else {
+      const uint32_t peers = __match_any_sync(FULL_MASK, v);
+      if (v >= 0 && v < ndev && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
+        atomicAdd(&bins[v], __popc(peers));
+    }
+  }
+
+  __device__ __forceinline__ void count4(const int4 x, int ndev, int* bins) {
+    count(x.x, ndev, bins);
+    count(x.y, ndev, bins);
+    count(x.z, ndev, bins);
+    count(x.w, ndev, bins);
+  }
+};
+
+template <bool REG>
+__global__ void __launch_bounds__(COUNT_THREADS, REG ? COUNT_SM_BLOCKS : 4)
+    counts_kernel(int64_t cap, int nprod, int ndev, const int32_t* planes,
+                  int32_t* part, unsigned* tickets, int32_t* counts) {
+  __shared__ int bins[REG ? COUNT_WARPS * REG_TARGETS : MAX_TARGETS];
+  __shared__ bool s_last;
+  const int G = gridDim.x, g = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t cp = (int64_t)blockIdx.z * nprod + blockIdx.y;
+  const int32_t* row = planes + cp * cap;
+  // the row as a head before its first 16-byte boundary, nv whole
+  // vectors, and a tail of at most 3 values
+  int64_t head = (int64_t)(((16u - ((uintptr_t)row & 15u)) & 15u) >> 2);
+  head = head < cap ? head : cap;
+  const int64_t nv = (cap - head) >> 2;
+  const int64_t tail = head + 4 * nv;
+  const int4* body = (const int4*)(row + head);
+  if (!REG) {
+    for (int d = threadIdx.x; d < ndev; d += COUNT_THREADS) bins[d] = 0;
+    __syncthreads();
+  }
+  Counter<REG> k;
+  if (g == 0 && warp == 0) {          // the head and the tail: one round
+    const int64_t r = lane < head ? lane : tail + (lane - head);
+    k.count(lane < head || r < cap ? row[r] : -1, ndev, bins);
+  }
+  for (int64_t s0 = (int64_t)g * COUNT_STEP; s0 < nv;
+       s0 += (int64_t)G * COUNT_STEP) {
+    int4 x[COUNT_LOADS];
+#pragma unroll
+    for (int j = 0; j < COUNT_LOADS; ++j) {
+      const int64_t q = s0 + j * COUNT_THREADS + threadIdx.x;
+      x[j] = q < nv ? __ldcs(body + q) : make_int4(-1, -1, -1, -1);
+    }
+#pragma unroll
+    for (int j = 0; j < COUNT_LOADS; ++j) k.count4(x[j], ndev, bins);
+  }
+  // the block's counts: its partial row
+  int32_t* prow = part + cp * ndev * G + g;     // target d at prow[d * G]
+  if (REG) {
+#pragma unroll
+    for (int d = 0; d < REG_TARGETS; ++d) {
+      const uint32_t t = __reduce_add_sync(FULL_MASK, k.c[d]);
+      if (lane == 0) bins[warp * REG_TARGETS + d] = (int)t;
+    }
+    __syncthreads();
+    if (threadIdx.x < ndev) {
+      int t = 0;
+#pragma unroll
+      for (int w = 0; w < COUNT_WARPS; ++w)
+        t += bins[w * REG_TARGETS + threadIdx.x];
+      prow[(int64_t)threadIdx.x * G] = t;
+    }
+  } else {
+    __syncthreads();
+    for (int d = threadIdx.x; d < ndev; d += COUNT_THREADS)
+      prow[(int64_t)d * G] = bins[d];
+  }
+  // the ticket of (channel, producer): the last block folds the row
+  __threadfence();
   __syncthreads();
-  const int32_t* row = plane + ((int64_t)c * nprod + p) * cap;
-  const int64_t base = (int64_t)blockIdx.x * COUNT_TILE;
-  const int64_t end = base + COUNT_TILE < cap ? base + COUNT_TILE : cap;
-  for (int64_t r = base + threadIdx.x; r < end; r += blockDim.x) {
-    const int32_t d = row[r];
-    if (d >= 0 && d < ndev) atomicAdd(&bins[d], 1);
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(tickets + cp, 1u);
+    s_last = t == (unsigned)G - 1;
+    if (s_last) tickets[cp] = 0;        // every block has drawn: reset
   }
   __syncthreads();
-  int32_t* out = counts + ((int64_t)c * nprod + p) * ndev;
-  for (int d = threadIdx.x; d < ndev; d += blockDim.x)
-    if (bins[d]) atomicAdd(&out[d], bins[d]);
+  if (!s_last) return;
+  __threadfence();
+  for (int d = warp; d < ndev; d += COUNT_WARPS) {
+    const int32_t* pd = part + (cp * ndev + d) * G;
+    uint32_t t = 0;
+#pragma unroll 4
+    for (int b = lane; b < G; b += 32) t += (uint32_t)__ldcg(pd + b);
+    t = __reduce_add_sync(FULL_MASK, t);
+    if (lane == 0) counts[cp * ndev + d] = (int32_t)t;
+  }
 }
 
 extern "C" int dq_bucket_plane_launch(int64_t cap, int nprod, int kind,
@@ -215,18 +334,26 @@ extern "C" int dq_bucket_plane_launch(int64_t cap, int nprod, int kind,
   return (int)cudaGetLastError();
 }
 
-// counts must hold nch * nprod * ndev zeros
-extern "C" int dq_counts_launch(int64_t cap, int nch, int nprod, int ndev,
-                                const int32_t* plane, int32_t* counts,
-                                void* stream) {
+// counts[nch, nprod, ndev] in one launch of `blocks` blocks a (channel,
+// producer) row (the wrapper keeps the launch within COUNT_SM_BLOCKS a
+// SM); part: nch * nprod * ndev * blocks ints of scratch;
+// tickets: nch * nprod words, zero, left zero
+extern "C" int dq_counts_ticket_launch(int64_t cap, int nch, int nprod,
+                                       int ndev, int blocks,
+                                       const int32_t* planes, int32_t* part,
+                                       unsigned* tickets, int32_t* counts,
+                                       void* stream) {
   if (ndev < 1 || ndev > MAX_TARGETS || nch < 1 || nprod < 1 ||
-      nprod > 65535 || nch > 65535)
+      nprod > 65535 || nch > 65535 || cap < 0 || blocks < 1 ||
+      part == nullptr || tickets == nullptr || counts == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (cap == 0) return (int)cudaSuccess;
-  const int64_t tiles = (cap + COUNT_TILE - 1) / COUNT_TILE;
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)tiles, (unsigned)nprod, (unsigned)nch);
-  counts_kernel<<<grid, COUNT_THREADS, 0, (cudaStream_t)stream>>>(
-      cap, nprod, ndev, plane, counts);
+  const dim3 grid((unsigned)blocks, (unsigned)nprod, (unsigned)nch);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (ndev <= REG_TARGETS)
+    counts_kernel<true><<<grid, COUNT_THREADS, 0, s>>>(
+        cap, nprod, ndev, planes, part, tickets, counts);
+  else
+    counts_kernel<false><<<grid, COUNT_THREADS, 0, s>>>(
+        cap, nprod, ndev, planes, part, tickets, counts);
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,9 @@ build, ``build.py``).
   (a driver call through ctypes does not do that as the runtime does).
 - **Launch:** ``cuLaunchKernel`` on ``torch.cuda.current_stream()``,
   without synchronising; a non-zero result raises. Each launch adds one
-  to ``bindings.LAUNCHES["k1"]``.
+  to ``bindings.LAUNCHES["k1"]``, or, for a stage that loops over more
+  than one member (K1 ×B, the batched serving lane), to
+  ``bindings.LAUNCHES["k1_batched"]``.
 
 Counters (``utils.metrics.GLOBAL``): ``k1/builds`` (NVRTC compilations),
 ``k1/build_ms`` (their milliseconds) and ``k1/cache_hits`` (sources
@@ -116,7 +118,11 @@ _CUDA_SIGS = {
     "cuModuleLoadData": [_PP, ctypes.c_char_p],
     "cuModuleGetFunction": [_PP, _P, ctypes.c_char_p],
     "cuLaunchKernel": [_P, _U, _U, _U, _U, _U, _U, _U, _P, _PP, _PP],
+    "cuFuncSetAttribute": [_P, _I, _I],
 }
+_SMEM_DEFAULT = 48 << 10           # dynamic shared memory without opting in
+_SMEM_MAX = 232448                 # the H100's most a block can opt in to
+_ATTR_MAX_DYNAMIC_SMEM = 8         # CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_...
 
 
 def _declare(lib, sigs: dict) -> None:
@@ -213,53 +219,75 @@ class Kernel:
         self.module = module
         self.function = function
         self.index = index
+        self.smem = _SMEM_DEFAULT        # dynamic shared bytes allowed
 
     def launch(self, grid: tuple, block: tuple, args: list,
-               stream: int) -> None:
+               stream: int, shared: int = 0) -> None:
         _context(self.index)
+        if shared > self.smem:
+            if shared > _SMEM_MAX:
+                raise ValueError(f"K1: {shared} bytes of shared memory, "
+                                 f"at most {_SMEM_MAX}")
+            with _MU:
+                if shared > self.smem:
+                    _check_cu(_LIBS["cuda"].cuFuncSetAttribute(
+                        self.function, _ATTR_MAX_DYNAMIC_SMEM, shared),
+                        "cuFuncSetAttribute")
+                    self.smem = shared
         params = (ctypes.c_void_p * max(len(args), 1))(
             *[ctypes.addressof(a) for a in args])
         _check_cu(_LIBS["cuda"].cuLaunchKernel(
             self.function, grid[0], grid[1], grid[2], block[0], block[1],
-            block[2], 0, stream, params, None), "cuLaunchKernel")
+            block[2], shared, stream, params, None), "cuLaunchKernel")
+
+
+def digest(source: str, entry: str) -> str:
+    """The cubin cache's key of a source: its text, the options, the
+    entry."""
+    return hashlib.sha256(
+        (source + "\0" + " ".join(OPTIONS) + "\0" + entry).encode()
+    ).hexdigest()[:32]
+
+
+def cubin(source: str, entry: str) -> bytes:
+    """The cubin `kernel` built or loaded for `source`."""
+    return _CUBINS[digest(source, entry)]
 
 
 def kernel(source: str, entry: str, index: int) -> Kernel:
     """The `entry` function of `source` on device `index`: compiled by
     NVRTC on first use (or loaded from the cubin cache) and memoized by
     the source's digest."""
-    digest = hashlib.sha256(
-        (source + "\0" + " ".join(OPTIONS) + "\0" + entry).encode()
-    ).hexdigest()[:32]
-    k = _KERNELS.get((digest, index))
+    digest_ = digest(source, entry)
+    k = _KERNELS.get((digest_, index))
     if k is not None:
         return k
     with _MU:
-        k = _KERNELS.get((digest, index))
+        k = _KERNELS.get((digest_, index))
         if k is not None:
             return k
-        path = CACHE_DIR / f"{digest}.cubin"
-        cubin = _CUBINS.get(digest)
-        if cubin is None and path.exists():
-            cubin = path.read_bytes()
-        if cubin is None:
+        path = CACHE_DIR / f"{digest_}.cubin"
+        code = _CUBINS.get(digest_)
+        if code is None and path.exists():
+            code = path.read_bytes()
+        if code is None:
             t0 = time.perf_counter()
-            cubin = compile_cubin(source, f"{entry}_{digest[:8]}.cu")
+            code = compile_cubin(source, f"{entry}_{digest_[:8]}.cu")
             GLOBAL.inc("k1/builds")
             GLOBAL.inc("k1/build_ms", (time.perf_counter() - t0) * 1e3)
-            _write_atomic(path, cubin)
+            _write_atomic(path, code)
         else:
             GLOBAL.inc("k1/cache_hits")
-        _CUBINS[digest] = cubin
+        _CUBINS[digest_] = code
         cu = _cuda()
         _context(index)
         module, fn = ctypes.c_void_p(), ctypes.c_void_p()
-        _check_cu(cu.cuModuleLoadData(ctypes.byref(module), cubin),
+        _check_cu(cu.cuModuleLoadData(ctypes.byref(module), code),
                   "cuModuleLoadData")
         _check_cu(cu.cuModuleGetFunction(ctypes.byref(fn), module,
                                          entry.encode()),
                   "cuModuleGetFunction")
-        k = _KERNELS[(digest, index)] = Kernel(module, fn, index)
+        k = _KERNELS[(digest_, index)] = Kernel(module, fn, index)
         return k
 
 
@@ -274,10 +302,12 @@ def _write_atomic(path: Path, data: bytes) -> None:
 
 
 class _Launcher:
-    """K1's launcher on the card: one program's kernel over `n` rows
-    (and `grid_y` member rows) on torch's current stream."""
+    """K1's launcher on the card: one program's kernel over `n` rows, a
+    thread a row on a 1-D grid, each thread looping over the `members`
+    itself (with the members' own values in `smem_per_member` bytes of
+    shared memory each), on torch's current stream."""
 
-    def launch(self, prog, args: list, n: int, grid_y: int,
+    def launch(self, prog, args: list, n: int, members: int,
                device) -> None:
         from ydb_tpu_torch.ops import k1
         from ydb_tpu_torch.ops.cuda import bindings
@@ -287,9 +317,11 @@ class _Launcher:
         if kern is None:
             kern = prog.kernels[index] = kernel(prog.source, k1.ENTRY, index)
         stream = torch.cuda.current_stream(index).cuda_stream
-        kern.launch(((n + k1.THREADS - 1) // k1.THREADS, grid_y, 1),
-                    (k1.THREADS, 1, 1), args + [ctypes.c_int64(n)], stream)
-        bindings.count_launch("k1")
+        kern.launch(((n + k1.THREADS - 1) // k1.THREADS, 1, 1),
+                    (k1.THREADS, 1, 1),
+                    args + [ctypes.c_int64(n), ctypes.c_int64(members)],
+                    stream, prog.smem_per_member * members)
+        bindings.count_launch("k1_batched" if members > 1 else "k1")
 
 
 LAUNCHER = _Launcher()

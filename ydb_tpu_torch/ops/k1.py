@@ -17,8 +17,21 @@ stage plus its input signature — each input's dtype, validity presence
 and member-ness, each param's kind and dtype, the mask's presence —
 into CUDA C++ for ONE kernel: one thread per row reads each input once,
 evaluates the whole stage in registers and writes each output once.
-Rows of a per-member output run as grid row ``m`` (the batched serving
-lane); shared inputs are read at member stride 0.
+
+**K1 ×B** (the batched serving lane) also replaces the member axis that
+``ydb_tpu/ops/fused.py:299 build_fused_batched_fn`` gives ``_eval`` (its
+``jax.vmap``, ``:322``). A stage over B members is one launch on a 1-D
+grid: the generator knows which values read the member index ``m`` (a
+per-member column, a ``PerMember`` (B,) scalar read once a member, a
+(B, L) LUT read at ``m * L``, a per-member incoming mask, or a value
+computed from one) and emits every other line once, before
+``for (m = 0; m < members; ++m)``, which holds only the per-member
+lines and stores. So each shared column is loaded, and each expression
+of shared values evaluated, once a row for all B members, and a shared
+output is stored once; ``members`` is a kernel argument (1 for a stage
+with no per-member output). A value of the member alone (its (B,)
+params and their conversions) is computed once a block for every
+member (``k1_members``, into shared memory) and read back in the loop.
 
 Each output matches the plain version exactly in storage dtype, in
 whether its validity is ``None`` and in shape ((cap,) or (B, cap)): the
@@ -33,11 +46,23 @@ A composite hash key, ``hash_combine(hash64(c0), ...)``, keeps its K12
 route (``torch_exec._eval_hashed_key``, one ``hash64`` launch) and
 enters the stage as an input column.
 
+A Filter keeps the rows whose predicate is TRUE, and through ``and`` /
+``or`` that is two-valued (an AND is TRUE iff every operand is, an OR
+iff one is): a filter's connectives carry no validity (``_Gen.truth``),
+the same mask as the plain version's data & valid.
+
 Bound on the H100: bytes. A stage does a few operations per row on
 8-byte values, far below the card's integer and float rates; its floor
-is the columns it reads once and the outputs it writes once. Design:
-one launch per stage instead of one per operator and intermediate, no
-intermediate in device memory, coalesced loads and stores.
+is the columns it reads once and the outputs it writes once (at B
+members: the shared inputs once, the per-member ones and the outputs B
+times). Design: one launch per stage instead of one per operator and
+intermediate, no intermediate in device memory, coalesced loads and
+stores; over members, the shared loads and work once a row (a grid row
+a member read every shared column B times: q19's member stage took
+0.59 ms where its bytes need 0.056). Past the loads, a member's work is
+instructions: the Kleene pairs of q19's filter cost 67 instructions a
+member, the two-valued filter a third of that (0.21 → 0.10 ms at B =
+8).
 
 Routing (``run_stage``): CUDA tensors launch the generated kernel (built
 by NVRTC on first use, ``ops/cuda/nvrtc.py``) or raise; CPU tensors run
@@ -47,6 +72,7 @@ the plain version. Nothing falls back to torch on the card.
 from __future__ import annotations
 
 import ctypes
+import re
 import threading
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -171,14 +197,17 @@ class Program:
     and its outputs. `sel` is None when the stage has no Filter, else
     whether the new mask carries the member axis. `aliases` are the
     Assigns of a bare column, bound to the column's tensors after the
-    launch (the plain version aliases them too). `kernels` holds the
-    loaded function per device (the launcher's memo)."""
+    launch (the plain version aliases them too). `member_loop`: an
+    output carries the member axis, so the launch passes the batch's
+    member count (else 1). `kernels` holds the loaded function per
+    device (the launcher's memo)."""
     source: str
     args: list            # [(kind, key, ctypes type)]
     outs: list            # [Out | None] per Assign (None: an alias)
     aliases: dict         # command index -> column name
     sel: Optional[bool]
-    member_grid: bool
+    member_loop: bool
+    smem_per_member: int = 0    # shared bytes a member (k1_members' values)
     kernels: dict = field(default_factory=dict)
 
 
@@ -198,15 +227,21 @@ def _lit(value, dt: torch.dtype) -> str:
     return f"(({_C[dt]})0x{bits:x}ull)"
 
 
+_NAMES = re.compile(r"\b(?:i|m|v\d+)\b")  # the row, the member, a value
+
+
 class _Gen:
     def __init__(self, inputs: dict, psigs: dict, float_default):
         self.inputs = inputs          # name -> ColSig
         self.psigs = psigs            # name -> ParamSig
         self.fdef = float_default     # torch's default float dtype
+        # (C statement, value, dtype, reads the member, reads the row)
         self.lines: list = []
         self.args: list = []          # (kind, key, ctypes type, C decl)
         self.loaded: dict = {}        # input name -> V
         self.params: dict = {}        # (name, dtype) -> V
+        self.per: set = set()         # the values that read the member
+        self.rows: set = set()        # the values that read the row
         self.n = 0
 
     # -- plumbing ----------------------------------------------------------
@@ -214,22 +249,38 @@ class _Gen:
     def arg(self, kind, key, ctype, decl) -> None:
         self.args.append((kind, key, ctype, decl))
 
+    def member(self, expr: str) -> bool:
+        """Whether `expr` reads the member index `m`, or a value that
+        does: it then goes inside the member loop, else before it."""
+        return any(w == "m" or w in self.per for w in _NAMES.findall(expr))
+
+    def row(self, expr: str) -> bool:
+        """Whether `expr` reads the row index `i`, or a value that does:
+        a value of the member alone is computed once a block instead."""
+        return any(w == "i" or w in self.rows for w in _NAMES.findall(expr))
+
     def var(self, dt: torch.dtype, expr: str) -> str:
         self.n += 1
         name = f"v{self.n}"
-        self.lines.append(f"  const {_C[dt]} {name} = {expr};")
+        pm, rw = self.member(expr), self.row(expr)
+        if pm:
+            self.per.add(name)
+        if rw:
+            self.rows.add(name)
+        self.lines.append((f"const {_C[dt]} {name} = {expr};", name, dt, pm,
+                           rw))
         return name
 
     def bvar(self, expr: str) -> str:
         return self.var(torch.bool, expr)
 
-    @staticmethod
-    def cvt(v: V, to: torch.dtype) -> str:
+    def cvt(self, v: V, to: torch.dtype) -> str:
         if v.dt == to:
             return v.d
-        if to == torch.bool:
-            return f"({v.d} != 0)"
-        return f"(({_C[to]}){v.d})"
+        e = f"({v.d} != 0)" if to == torch.bool else f"(({_C[to]}){v.d})"
+        if self.member(v.d) and not self.row(v.d):
+            return self.var(to, e)      # a member's param: once a member
+        return e
 
     def index(self, key: str, pm: bool) -> str:
         if not pm:
@@ -315,6 +366,23 @@ class _Gen:
                                   "is expected, or a LUT that is not one")
             return emit(self, args, e.extra_dict())
         raise TypeError(f"bad expr {e!r}")
+
+    def truth(self, e, scope: dict) -> tuple:
+        """(C bool, member axis) of "`e` is TRUE", what a Filter keeps.
+        Through `and` / `or` this is two-valued: a Kleene AND is TRUE iff
+        every operand is, an OR iff one is; so a filter's connectives
+        carry no validity (the plain version's data & valid, bit for
+        bit). The member axis is the plain mask's: any operand's data
+        or validity's."""
+        if isinstance(e, ir.Call) and e.op in ("and", "or"):
+            (a, ap), (b, bp) = (self.truth(x, scope) for x in e.args)
+            sym = "&&" if e.op == "and" else "||"
+            return self.bvar(f"{a} {sym} {b}"), ap or bp
+        v = self.expr(e, scope)
+        _need(v.dt == torch.bool, "a filter over a non-bool predicate")
+        if v.w is None:
+            return v.d, v.dpm
+        return self.bvar(f"{v.d} && {v.w}"), v.dpm or v.wpm
 
     def prop(self, args, dt: torch.dtype, expr: str) -> V:
         """The propagate null rule: valid iff every argument is (the
@@ -649,60 +717,107 @@ def generate(cmds: tuple, inputs: dict, psigs: dict,
                             v.w is not None and v.wpm))
             stores.append((k, v))
         elif isinstance(cmd, ir.Filter):
-            v = g.expr(cmd.pred, scope)
-            _need(v.dt == torch.bool, "a filter over a non-bool predicate")
-            mask = v.d if v.w is None else g.bvar(f"{v.d} && {v.w}")
-            mpm = v.dpm or (v.w is not None and v.wpm)
+            mask, mpm = g.truth(cmd.pred, scope)
             s_var = mask if s_var is None else g.bvar(f"{s_var} && {mask}")
             s_pm = s_pm or mpm
         else:
             raise TypeError(f"not a stage command: {cmd!r}")
-    body = list(g.lines)
+    # the member-invariant lines once, then the member loop with the
+    # lines that read the member and the row, and the per-member stores;
+    # the values of the member alone (its params, their conversions) are
+    # computed by k1_members, once a member for the whole block, which
+    # the loop reads back from shared memory; k1_members emits, in
+    # order, every line that does not read the row (those of the member
+    # alone and the constants and shared params they read)
+    shared = [t for t, _v, _d, pm, _r in g.lines if not pm]
+    per = [t for t, _v, _d, pm, rw in g.lines if pm and rw]
+    alone = [(v, dt) for _t, v, dt, pm, rw in g.lines if pm and not rw]
+    no_row = [t for t, _v, _d, _pm, rw in g.lines if not rw]
+
+    def store(ptr: str, val: str, pm: bool) -> None:
+        if pm:
+            per.append(f"{ptr}[m * n + i] = {val};")
+        elif g.member(val):
+            raise RuntimeError(f"K1: the shared output {ptr} reads the "
+                               "member index")
+        else:
+            shared.append(f"{ptr}[i] = {val};")
+
     for k, v in stores:
         o = outs[k]
         g.arg("out", (k, 0), ctypes.c_void_p, f"{_C[o.dtype]}* __restrict__ o{k}")
-        body.append(_store(f"o{k}", v.d, o.pm))
+        store(f"o{k}", v.d, o.pm)
         if o.valid:
             g.arg("out", (k, 1), ctypes.c_void_p, f"k1_b* __restrict__ o{k}v")
-            body.append(_store(f"o{k}v", v.w, o.valid_pm))
+            store(f"o{k}v", v.w, o.valid_pm)
     has_filter = any(isinstance(c, ir.Filter) for c in cmds)
     if has_filter:
         g.arg("selout", None, ctypes.c_void_p, "k1_b* __restrict__ s_out")
-        body.append(_store("s_out", s_var, s_pm))
-    member_grid = any(o is not None and (o.pm or o.valid_pm)
+        store("s_out", s_var, s_pm)
+    member_loop = any(o is not None and (o.pm or o.valid_pm)
                       for o in outs) or (has_filter and s_pm)
-    decls = ", ".join([a[3] for a in g.args] + ["const k1_i64 n"])
-    names = ", ".join([a[3].split()[-1] for a in g.args] + ["n"])
+    decls = ", ".join([a[3] for a in g.args]
+                      + ["const k1_i64 n", "const k1_i64 members"])
+    names = ", ".join([a[3].split()[-1] for a in g.args] + ["n", "members"])
+    # the member's values the loop reads: an array of `members` 8-byte
+    # slots each in shared memory (on the host, in a heap block)
+    used = set(_NAMES.findall("\n".join(per)))
+    kept = [(v, dt) for v, dt in alone if v in used]
+    sm = [f"s{j}" for j in range(len(kept))]
+    sm_decls = "".join(f", {_C[dt]}* __restrict__ {a}"
+                       for a, (_v, dt) in zip(sm, kept))
+    sm_names = "".join(f", {a}" for a in sm)
+    sm_ptrs = [f"  {_C[dt]}* {a} = ({_C[dt]}*)(k1_sm + {j} * members);"
+               for j, (a, (_v, dt)) in enumerate(zip(sm, kept))]
+    body = [f"  {t}" for t in shared]
+    if per:
+        body += ["  for (k1_i64 m = 0; m < members; ++m) {",
+                 *[f"    const {_C[dt]} {v} = {a}[m];"
+                   for a, (v, dt) in zip(sm, kept)],
+                 *[f"    {t}" for t in per], "  }"]
+    prologue, members_fn = [], []
+    if kept:
+        members_fn = [
+            f"K1_DEV void k1_members(const k1_i64 m, {decls}{sm_decls}) {{",
+            *[f"  {t}" for t in no_row],
+            *[f"  {a}[m] = {v};" for a, (v, _d) in zip(sm, kept)],
+            "}"]
+        prologue = [
+            "  extern __shared__ k1_u64 k1_sm[];", *sm_ptrs,
+            "  for (k1_i64 m = threadIdx.x; m < members; m += blockDim.x)",
+            f"    k1_members(m, {names}{sm_names});",
+            "  __syncthreads();"]
     src = "\n".join([
         _prelude(),
         "// ---- generated stage ----",
-        f"K1_DEV void k1_row(const k1_i64 i, const k1_i64 m, {decls}) {{",
+        *members_fn,
+        f"K1_DEV void k1_row(const k1_i64 i, {decls}{sm_decls}) {{",
         *body,
         "}",
         "#ifdef K1_DEVICE",
         f'extern "C" __global__ void {ENTRY}({decls}) {{',
+        *prologue,
         "  const k1_i64 i = (k1_i64)blockIdx.x * blockDim.x + threadIdx.x;",
         "  if (i >= n) return;",
-        f"  k1_row(i, (k1_i64)blockIdx.y, {names});",
+        f"  k1_row(i, {names}{sm_names});",
         "}",
         "#else",
         "#ifndef K1_HOST_ENTRY",
         "#define K1_HOST_ENTRY k1_host",
         "#endif",
-        f'extern "C" void K1_HOST_ENTRY({decls}, const k1_i64 members) {{',
-        "  for (k1_i64 m = 0; m < members; ++m)",
-        f"    for (k1_i64 i = 0; i < n; ++i) k1_row(i, m, {names});",
+        f'extern "C" void K1_HOST_ENTRY({decls}) {{',
+        *([f"  k1_u64* k1_sm = new k1_u64[{len(kept)} * members + 1];",
+           *sm_ptrs,
+           "  for (k1_i64 m = 0; m < members; ++m)",
+           f"    k1_members(m, {names}{sm_names});"] if kept else []),
+        f"  for (k1_i64 i = 0; i < n; ++i) k1_row(i, {names}{sm_names});",
+        *(["  delete[] k1_sm;"] if kept else []),
         "}",
         "#endif",
         ""])
     return Program(src, [(a[0], a[1], a[2]) for a in g.args], outs, aliases,
-                   s_pm if has_filter else None, member_grid)
-
-
-def _store(ptr: str, val: str, pm: bool) -> str:
-    if pm:
-        return f"  {ptr}[m * n + i] = {val};"
-    return f"  if (m == 0) {ptr}[i] = {val};"
+                   s_pm if has_filter else None, member_loop,
+                   8 * len(kept))
 
 
 # --------------------------------------------------------------------------
@@ -1000,7 +1115,7 @@ def run_segment(key, cmds, env, params, sel, cap: int, device, launcher):
     # a stage of bare-column Assigns alone has nothing to compute
     work = any(o is not None for o in outs) or sel_out is not None
     if work and cap > 0:
-        launcher.launch(prog, vals, cap, B if prog.member_grid else 1, dev)
+        launcher.launch(prog, vals, cap, B if prog.member_loop else 1, dev)
     a = 0
     for j, cmd in enumerate(cmds):
         if isinstance(cmd, ir.Assign):
@@ -1013,7 +1128,7 @@ def run_segment(key, cmds, env, params, sel, cap: int, device, launcher):
 class _DryRun:
     """A launcher that launches nothing (signatures and generation only)."""
 
-    def launch(self, prog, args, n, grid_y, device) -> None:
+    def launch(self, prog, args, n, members, device) -> None:
         pass
 
 
