@@ -223,6 +223,29 @@ Phases, each printing its own line(s):
     1,024, bit for bit; views whose storage offset breaks the vector
     loads are refused.
 
+11. the explain path, after the DQ path (``explain_phase``): a statement
+    with an expression no earlier phase ran, under EXPLAIN ANALYZE,
+    whose K1 NVRTC build shows as ``compile`` in ``-- phases:``; EXPLAIN
+    ANALYZE of all 22 TPC-H queries at ``--sf``, each beside a plain
+    run: ``path`` equals the plain run's ``executor.last_path``, ``rows
+    out`` its rows, the launches of every kernel equal the plain run's,
+    every span inside its parent, and ``0 < device_ms`` at most the host
+    window from the first dispatch to the end of the last wait on the
+    events, with the ``device-execute`` spans timed by CUDA events; the
+    fresh expression's device time under its compile (the build's own
+    events take the card's wait on it out); q1, q6 and q9 sampled and
+    unsampled (``trace_sample`` 1 and 0) in alternating rounds: the
+    answers bit-equal, the unsampled runs make no CUDA event and no
+    span, both make the same number of ``torch.cuda.synchronize`` calls,
+    the warm walls logged; the same two arms for storms of 8 concurrent
+    q6 clients and for q3 through the DQ runner; q1 and q9's ledger peak
+    beside ``torch.cuda.max_memory_allocated`` and the admission
+    estimate; a storm of 8 point lookups under EXPLAIN ANALYZE through
+    the batch lane, one showing ``batching: coalesced`` >= 2; the
+    router's EXPLAIN ANALYZE of q3 (quantized) over the DQ path's 4
+    workers, one task row per (stage, worker) and the workers' spans in
+    its tree.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 """
@@ -3587,7 +3610,7 @@ def _dq_channel_stats(cluster) -> str:
             f"pad_efficiency={[r['pad_efficiency'] for r in rows]}")
 
 
-def dq_phase(B, data, sf: float, oracle, recorder) -> dict:
+def dq_phase(B, data, sf: float, oracle, recorder, keep=None) -> dict:
     """The DQ path: TPC-H at `sf` over DQ_WORKERS worker engines
     (`QueryEngine()`, on the card) filled by the port's loader (lineitem
     and orders split by the reference router's INSERT rule, the other six
@@ -3597,7 +3620,8 @@ def dq_phase(B, data, sf: float, oracle, recorder) -> dict:
     ICI plane; q3, q10 and q12 again on the host plane (byte-equal); the
     quant pass; a hand-built Broadcast ICI graph and a stage with two ICI
     hash-shuffle outputs. The launch counters are set to 0 before the
-    path and read after it; returns them."""
+    path and read after it; returns them. `keep` (a dict) receives the
+    cluster under "cluster" for a later phase."""
     import numpy as np
 
     from ydb_tpu_torch.bench.cluster_load import load_tpch_cluster, worker_of
@@ -3626,6 +3650,8 @@ def dq_phase(B, data, sf: float, oracle, recorder) -> dict:
         f"(lineitem rows per worker {li}; {sorted(replicated)} "
         f"replicated), {time.perf_counter() - t0:.1f} s")
     check(cluster._ici_devices() == DQ_WORKERS, "dq: no ICI plane")
+    if keep is not None:
+        keep["cluster"] = cluster
 
     def env(plane="auto", quant="0"):
         os.environ["YDB_TPU_DQ_PLANE"] = plane
@@ -4408,11 +4434,18 @@ def main() -> int:
         launches[k] += v
     # the DQ path: TPC-H at --sf as stage graphs over DQ_WORKERS engines
     dq_rec = DqRecorder(bindings)
+    kept = {}
     try:
-        dq_launches = dq_phase(bindings, data, args.sf, tpch_oracle, dq_rec)
+        dq_launches = dq_phase(bindings, data, args.sf, tpch_oracle, dq_rec,
+                               keep=kept)
     finally:
         dq_rec.close()
     for k, v in dq_launches.items():
+        launches[k] += v
+    # the explain path: EXPLAIN ANALYZE through the same engines
+    ex_launches = explain_phase(bindings, eng, QUERIES, tpch_oracle,
+                                order_keys, kept.pop("cluster"))
+    for k, v in ex_launches.items():
         launches[k] += v
     log(f"launches (all paths): {json.dumps(launches)}")
     if args.profile:
@@ -4658,6 +4691,351 @@ def slice_phase(bindings, suites: dict) -> dict:
             total[k] += v
     log(f"launches: {json.dumps(total)}")
     return total
+
+
+# --------------------------------------------------------------------------
+# the explain path: EXPLAIN ANALYZE, statement stats, the card's clock
+# --------------------------------------------------------------------------
+
+# the kernels EXPLAIN ANALYZE's statements must launch in this path
+EXPLAIN_KERNELS = ("k1", "bucket_agg", "compact", "probe", "sort",
+                   "segment_agg", "hash64", "k1_batched", "compact_batched",
+                   "dq_bucket_plane", "dq_counts", "segments",
+                   "quantize_blocked", "dequantize_blocked")
+# a statement whose expression no earlier phase ran: its K1 stage is
+# built by NVRTC inside its dispatch
+EXPLAIN_FRESH_SQL = ("select sum(l_quantity * 7 - l_tax * 3 + l_discount) "
+                     "as s, count(*) as n from lineitem "
+                     "where l_quantity * 2 > l_linenumber + 40")
+EXPLAIN_WALL_QUERIES = ("q1", "q6", "q9")
+EXPLAIN_WALL_ROUNDS = 11
+EXPLAIN_MEMORY_QUERIES = ("q1", "q9")
+EXPLAIN_STORM = ("q6", 8, 7)       # query, concurrent clients, rounds
+EXPLAIN_DQ_ROUNDS = 5
+
+
+def explain_stats(lines: list) -> dict:
+    """rows out and path of an EXPLAIN ANALYZE frame's `-- stats:`
+    line, and its `-- phases:` line."""
+    import re
+    stats = next(ln for ln in lines if ln.startswith("-- stats:"))
+    m = re.search(r"rows out (\d+) \| path (.+)$", stats)
+    phases = [ln for ln in lines if ln.startswith("-- phases:")]
+    return {"rows": int(m.group(1)), "path": m.group(2),
+            "phases": phases[0] if phases else ""}
+
+
+def check_spans_nested(spans, tag: str) -> None:
+    """Every span of a trace lies inside its parent's interval."""
+    by_id = {sp.span_id: sp for sp in spans}
+    for sp in spans:
+        p = by_id.get(sp.parent_id)
+        if p is None:
+            continue
+        check(p.start_ms - 1e-3 <= sp.start_ms
+              and sp.start_ms + sp.dur_ms <= p.start_ms + p.dur_ms + 1e-3,
+              f"{tag}: span {sp.name} [{sp.start_ms:.3f}, +{sp.dur_ms:.3f}]"
+              f" outside its parent {p.name} [{p.start_ms:.3f}, "
+              f"+{p.dur_ms:.3f}]")
+
+
+@contextlib.contextmanager
+def _counting(module, name: str):
+    """Count the calls of `module.name` inside the block."""
+    real, box = getattr(module, name), [0]
+
+    def counted(*a, **k):
+        box[0] += 1
+        return real(*a, **k)
+    setattr(module, name, counted)
+    try:
+        yield box
+    finally:
+        setattr(module, name, real)
+
+
+def _launch_delta(B, before: dict) -> dict:
+    return {k: v - before[k] for k, v in B.LAUNCHES.items() if v > before[k]}
+
+
+def explain_phase(B, eng, queries: dict, oracle, order_keys,
+                  cluster) -> dict:
+    """EXPLAIN ANALYZE through the engines of the earlier paths (the
+    list is the module docstring's item 11). The launch counters are set
+    to 0 before the path and read after it; returns them."""
+    import re
+    import statistics as st
+
+    import torch
+
+    from ydb_tpu_torch.bench import serving
+    from ydb_tpu_torch.bench.tpch_oracle import assert_frames_match
+    from ydb_tpu_torch.query import QueryEngine
+    from ydb_tpu_torch.utils import memledger
+    from ydb_tpu_torch.utils.metrics import GLOBAL
+    os.environ["YDB_TPU_LATE_MAT"] = "1"
+    eng.trace_sample = 1.0
+    eng.slow_query_ms = float("inf")     # no forced sampling below
+    eng._slow_sqls.clear()
+    t_path = time.perf_counter()
+    B.reset_launches()
+
+    # an NVRTC build inside a statement: `compile` on its phases line
+    b0 = (GLOBAL.get("k1/builds"), GLOBAL.get("k1/build_ms"))
+    lines = list(eng.query("explain analyze " + EXPLAIN_FRESH_SQL)["plan"])
+    built = GLOBAL.get("k1/builds") - b0[0]
+    ph = eng.last_stats.phases
+    check(built > 0 and ph.get("compile_ms", 0) > 0
+          and "compile" in explain_stats(lines)["phases"],
+          f"explain fresh: no K1 build on the phases line ({built} builds, "
+          f"{ph})")
+    # the build is host work the card waits on: its own events take it
+    # out of the card's time, so device holds the launches alone (a
+    # scan of lineitem, a few ms against a ~100 ms build)
+    timed = [sp for sp in eng.last_trace if sp.name == "device-execute"]
+    wait = sum(sp.attrs.get("build_wait_ms", 0.0) for sp in timed)
+    check(wait > 0 and ph.get("device_ms", 0) < ph["compile_ms"],
+          f"explain fresh: the build counted in device ({ph}, card wait "
+          f"on builds {wait} ms)")
+    check_spans_nested(eng.last_trace, "explain fresh")
+    log(f"explain fresh expression: k1_builds={built} k1_build_ms="
+        f"{GLOBAL.get('k1/build_ms') - b0[1]:.1f} card_wait_on_builds_ms="
+        f"{wait:.3f} {explain_stats(lines)['phases']}")
+
+    # all 22 TPC-H queries: EXPLAIN ANALYZE beside a plain run
+    for i in range(1, 23):
+        q = f"q{i}"
+        before = dict(B.LAUNCHES)
+        t0 = time.perf_counter()
+        got = eng.query(queries[q])
+        wall = (time.perf_counter() - t0) * 1e3
+        plain_path = eng.executor.last_path
+        plain = _launch_delta(B, before)
+        assert_frames_match(got, oracle(q), ordered=True)
+        before = dict(B.LAUNCHES)
+        lines = list(eng.query("explain analyze " + queries[q])["plan"])
+        ea = _launch_delta(B, before)
+        s = eng.last_stats
+        got_stats = explain_stats(lines)
+        want_path = "fused single-dispatch" if plain_path == "fused" \
+            else "portioned"
+        check(eng.executor.last_path == plain_path
+              and got_stats["path"] == want_path,
+              f"explain {q}: path {got_stats['path']} / "
+              f"{eng.executor.last_path}, plain run {plain_path}")
+        check(got_stats["rows"] == len(got),
+              f"explain {q}: rows out {got_stats['rows']} != {len(got)}")
+        check(ea == plain, f"explain {q}: launches {ea} != plain {plain}")
+        timed = [sp for sp in eng.last_trace if sp.name == "device-execute"]
+        check(timed and all(sp.attrs.get("timer") == "cuda-events"
+                            for sp in timed),
+              f"explain {q}: device-execute not timed by CUDA events")
+        dev = s.phases.get("device_ms", 0.0)
+        check_spans_nested(eng.last_trace, f"explain {q}")
+        if plain_path == "fused":
+            # the events are recorded inside this host window: from the
+            # first dispatch's start to the end of the last wait on them
+            disp = [sp for sp in eng.last_trace
+                    if sp.name.startswith("device-dispatch")]
+            window = max(sp.start_ms + sp.dur_ms for sp in timed) \
+                - min(sp.start_ms for sp in disp)
+            check(0.0 < dev <= window,
+                  f"explain {q}: device_ms {dev} vs the host window "
+                  f"{window:.3f} ms around its events")
+        log(f"explain {q}: path={plain_path} rows={len(got)} "
+            f"plain_wall_ms={wall:.2f} execute_ms={s.execute_ms:.3f} "
+            f"phases={json.dumps(s.phases)} device_execute_spans="
+            f"{len(timed)} launches_equal_plain={json.dumps(ea)} ok")
+
+    # sampled against unsampled: bit-equal answers, the tracer's cost;
+    # a third arm samples with the critical path off (YDB_TPU_CRITPATH=0)
+    # to tell its share of that cost
+    arms = {"sampled": (1.0, "1"), "unsampled": (0.0, "1"),
+            "sampled_no_critpath": (1.0, "0")}
+    for q in EXPLAIN_WALL_QUERIES:
+        walls = {a: [] for a in arms}
+        events = dict.fromkeys(arms, 0)
+        syncs = dict.fromkeys(arms, 0)
+        want = None
+        order = list(arms)
+        for r in range(EXPLAIN_WALL_ROUNDS):
+            for arm in order[r % 3:] + order[:r % 3]:
+                eng.trace_sample, crit = arms[arm]
+                os.environ["YDB_TPU_CRITPATH"] = crit
+                with _counting(torch.cuda, "Event") as ev, \
+                        _counting(torch.cuda, "synchronize") as sy:
+                    t0 = time.perf_counter()
+                    df = eng.query(queries[q])
+                    walls[arm].append((time.perf_counter() - t0) * 1e3)
+                events[arm] += ev[0]
+                syncs[arm] += sy[0]
+                if arm == "unsampled":
+                    check(eng.last_trace == [] and not eng.last_stats.phases,
+                          f"trace {q}: an unsampled statement recorded spans")
+                if want is None:
+                    want = df
+                frames_bit_equal(df, want, f"trace {q} {arm}")
+        eng.trace_sample = 1.0
+        os.environ.pop("YDB_TPU_CRITPATH", None)
+        check(events["unsampled"] == 0 and events["sampled"] > 0,
+              f"trace {q}: CUDA events {events}")
+        check(len(set(syncs.values())) == 1,
+              f"trace {q}: synchronize calls {syncs}")
+        med = {a: st.median(w[1:]) for a, w in walls.items()}
+        log(f"trace {q}: " + " ".join(f"{a}_ms={m:.3f}"
+                                      for a, m in med.items())
+            + f" tracer_cost_ms={med['sampled'] - med['unsampled']:.3f} "
+            f"(medians of {EXPLAIN_WALL_ROUNDS - 1} warm runs, arms "
+            f"rotated) events_sampled={events['sampled']} "
+            f"events_unsampled=0 synchronize_calls={syncs['sampled']} "
+            f"each bit-equal ok")
+
+    # the tracer's cost under concurrent statements: storms of q6
+    # clients released together, sampled against unsampled in turn
+    q, clients, rounds = EXPLAIN_STORM
+    storms = {"sampled": [], "unsampled": []}
+    events = dict.fromkeys(storms, 0)
+    want = None
+    for r in range(rounds):
+        for arm in (("sampled", "unsampled") if r % 2 == 0
+                    else ("unsampled", "sampled")):
+            eng.trace_sample = arms[arm][0]
+            with _counting(torch.cuda, "Event") as ev:
+                ms, out = _storm(eng, [queries[q]] * clients)
+            storms[arm].append(ms)
+            events[arm] += ev[0]
+            for df, _path in out.values():
+                want = df if want is None else want
+                frames_bit_equal(df, want, f"trace storm {q} {arm}")
+    eng.trace_sample = 1.0
+    check(events["unsampled"] == 0 and events["sampled"] > 0,
+          f"trace storm {q}: CUDA events {events}")
+    med = {a: st.median(w[1:]) for a, w in storms.items()}
+    log(f"trace storm {q} x{clients}: sampled_ms={med['sampled']:.3f} "
+        f"unsampled_ms={med['unsampled']:.3f} tracer_cost_ms="
+        f"{med['sampled'] - med['unsampled']:.3f} (storm walls, medians "
+        f"of {rounds - 1} rounds after the first, arms alternating) "
+        f"events_sampled={events['sampled']} events_unsampled=0 "
+        f"each bit-equal ok")
+
+    # ... and in the DQ runner: q3 over the 4 workers
+    router = cluster.engine
+    router.slow_query_ms = float("inf")
+    router._slow_sqls.clear()
+    os.environ["YDB_TPU_DQ_PLANE"] = "auto"
+    walls = {"sampled": [], "unsampled": []}
+    events = dict.fromkeys(walls, 0)
+    want = None
+    try:
+        for r in range(EXPLAIN_DQ_ROUNDS):
+            for arm in (("sampled", "unsampled") if r % 2 == 0
+                        else ("unsampled", "sampled")):
+                router.trace_sample = arms[arm][0]
+                with _counting(torch.cuda, "Event") as ev:
+                    t0 = time.perf_counter()
+                    df = cluster.query(queries["q3"])
+                    walls[arm].append((time.perf_counter() - t0) * 1e3)
+                events[arm] += ev[0]
+                want = df if want is None else want
+                frames_bit_equal(df, want, f"trace dq q3 {arm}")
+    finally:
+        router.trace_sample = 1.0
+        os.environ.pop("YDB_TPU_DQ_PLANE", None)
+    check(events["unsampled"] == 0 and events["sampled"] > 0,
+          f"trace dq q3: CUDA events {events}")
+    med = {a: st.median(w[1:]) for a, w in walls.items()}
+    log(f"trace dq q3: sampled_ms={med['sampled']:.3f} unsampled_ms="
+        f"{med['unsampled']:.3f} tracer_cost_ms="
+        f"{med['sampled'] - med['unsampled']:.3f} (medians of "
+        f"{EXPLAIN_DQ_ROUNDS - 1} warm runs, arms alternating) "
+        f"events_sampled={events['sampled']} events_unsampled=0 "
+        f"each bit-equal ok")
+
+    # the ledger's peak beside the card's allocator
+    for q in EXPLAIN_MEMORY_QUERIES:
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng.query(queries[q])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        snap = memledger.device_memory_snapshot(eng.device)
+        m = eng.last_stats.memory
+        mb = float(1 << 20)
+        check(m.get("peak_bytes", 0) > 0, f"memory {q}: no ledger peak")
+        log(f"memory {q}: ledger_peak_mb={m['peak_bytes'] / mb:.2f} "
+            f"admission_est_mb={m['admission_est_bytes'] / mb:.2f} "
+            f"est_error_pct={m['est_error_pct']} "
+            f"max_memory_allocated_mb={peak / mb:.2f} "
+            f"resident_before_mb={resident / mb:.2f} "
+            f"above_resident_mb={(peak - resident) / mb:.2f} "
+            f"ledger_by_category={json.dumps(m['by_category'])} "
+            f"allocator={json.dumps(snap)}")
+
+    # EXPLAIN ANALYZE through the batch lane
+    os.environ["YDB_TPU_BATCH_WINDOW"] = "500"
+    os.environ["YDB_TPU_BATCH_MAX"] = "8"
+    try:
+        lane = QueryEngine(catalog=eng.catalog)
+    finally:
+        os.environ.pop("YDB_TPU_BATCH_WINDOW", None)
+        os.environ.pop("YDB_TPU_BATCH_MAX", None)
+    texts = serving.point_variants(order_keys, 8, SERVING_SEED + 1)
+    for sql in texts:
+        lane.query(sql)
+    _ms, out = _storm(lane, ["explain analyze " + sql for sql in texts])
+    sizes = []
+    for df, _path in out.values():
+        for ln in df["plan"]:
+            m = re.match(r"-- batching: coalesced (\d+) ", ln)
+            if m:
+                sizes.append(int(m.group(1)))
+    check(len(sizes) == len(texts) and max(sizes) >= 2,
+          f"explain batch: coalesced {sizes}")
+    log(f"explain batch storm: {len(texts)} EXPLAIN ANALYZE point lookups, "
+        f"coalesced={sizes} ok")
+
+    # the router's EXPLAIN ANALYZE over the DQ workers
+    os.environ["YDB_TPU_DQ_PLANE"] = "auto"
+    os.environ["YDB_TPU_DQ_QUANT"] = "1"
+    try:
+        before = dict(B.LAUNCHES)
+        t0 = time.perf_counter()
+        lines = list(cluster.query("explain analyze " + queries["q3"])
+                     ["plan"])
+        ms = (time.perf_counter() - t0) * 1e3
+        dq = _launch_delta(B, before)
+    finally:
+        os.environ.pop("YDB_TPU_DQ_PLANE", None)
+        os.environ.pop("YDB_TPU_DQ_QUANT", None)
+    stages = [ln.split()[1] for ln in lines if ln.startswith("  stage ")
+              and "on=workers" in ln]
+    rows = [m.group(1) for m in (re.match(r"^  (\w+@local:\w+): ", ln)
+                                 for ln in lines) if m]
+    check(sorted(rows) == sorted(f"{s}@{w.endpoint}" for s in stages
+                                 for w in cluster.workers),
+          f"dq explain: task rows {rows} for stages {stages}")
+    check("-- rows out: 10" in lines, "dq explain: rows out")
+    spans = cluster.engine.last_trace
+    tasks = [sp for sp in spans if sp.name == "dq-task"]
+    timed = [sp for sp in spans if sp.name == "device-execute"
+             and sp.attrs.get("timer") == "cuda-events"]
+    check(len(tasks) == len(stages) * len(cluster.workers) and timed,
+          f"dq explain: {len(tasks)} task spans, {len(timed)} timed")
+    missing = [k for k in ("dq_bucket_plane", "dq_counts", "segments",
+                           "quantize_blocked") if not dq.get(k)]
+    check(not missing, f"dq explain: not launched {missing}")
+    log(f"explain dq q3 (quantized): wall_ms={ms:.2f} stages={stages} "
+        f"task_rows={len(rows)} task_spans={len(tasks)} "
+        f"timed_device_spans={len(timed)} launches={json.dumps(dq)} ok")
+
+    launches = dict(B.LAUNCHES)
+    log(f"launches (explain): {json.dumps(launches)} "
+        f"path_s={time.perf_counter() - t_path:.1f}")
+    missing = [k for k in EXPLAIN_KERNELS if launches[k] <= 0]
+    check(not missing, f"kernels not launched on the explain path: "
+          f"{missing}")
+    return launches
 
 
 # --------------------------------------------------------------------------

@@ -12,9 +12,9 @@
     no INSERT): a storm equals the lane-off engine, one admission
     reservation per sealed group, groups split on data identity and on
     build params, identical texts dedup, the joined shape, zero-literal
-    LIMIT variants; and a failure inside a batched execution reaches
-    every member. The EXPLAIN ANALYZE case is left out: the port has no
-    EXPLAIN ANALYZE.
+    LIMIT variants; a failure inside a batched execution reaches every
+    member; and EXPLAIN ANALYZE renders the statement's batching block,
+    as the reference's does.
 (c) Each member-axis plain version against B calls of the single-query
     plain version, and `_eval` of every function of `ops/kernels.py`
     with a per-member param against B single evaluations.
@@ -284,6 +284,25 @@ def _equal_frames(got, want, texts):
         for c in want[i].columns:
             assert np.array_equal(got[i][c].to_numpy(),
                                   want[i][c].to_numpy()), (q, c)
+
+
+def test_batch_explain_analyze_block(monkeypatch, tables):
+    """EXPLAIN ANALYZE surfaces the per-statement batching block (the
+    reference's case: one statement under a 30 ms window, a batch of
+    one) with the reference's text."""
+    from ydb_tpu.query import QueryEngine as JaxEngine
+    sql = "explain analyze select a, b from t where k = 5"
+    eng = _lane_engine(monkeypatch, tables, 30)
+    text = "\n".join(eng.query(sql)["plan"])
+    assert "batching: coalesced" in text
+    ref = JaxEngine(block_rows=1 << 12)
+    _fill_reference(ref)
+    want = [ln for ln in ref.query(sql)["plan"]
+            if ln.startswith("-- batching:")]
+    assert [ln for ln in text.split("\n")
+            if ln.startswith("-- batching:")] == want
+    assert eng.last_stats.batching == {"coalesced": 1, "leader": True,
+                                       "batched": False}
 
 
 def test_storm_equals_lane_off(monkeypatch, tables):

@@ -306,8 +306,6 @@ def test_router_refuses_what_the_port_lacks():
     with pytest.raises(NotPorted):
         c.execute("insert into t (id, k, v) values (1, 2, 3.0)")
     with pytest.raises(NotPorted):
-        c.query("explain select count(*) from t")
-    with pytest.raises(NotPorted):
         ShardedCluster(["localhost:1"], merge_engine=eng)
     with pytest.raises(ClusterError, match="unknown distribution"):
         c.query("select count(*) as n from t, d where t.k = d.k")

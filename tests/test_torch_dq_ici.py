@@ -15,8 +15,9 @@ inputs: the bucket planes, the count matrices (solo and batched), the
 landed rows and the stats dict.
 
 Not ported here: the reference's `test_plane_visible_in_explain_and_
-sysview`, which reads EXPLAIN ANALYZE and `.sys/dq_stage_stats`; they
-wait for ROADMAP Queue 1 items 2 and 4.
+sysview`, which also reads `.sys/dq_stage_stats`; system views wait for
+ROADMAP Queue 1 item 4. The router's EXPLAIN lines are held in
+`tests/test_torch_explain.py`.
 """
 
 import numpy as np

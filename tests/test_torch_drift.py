@@ -26,13 +26,13 @@ query/planner query/bounds query/latemat query/paramlift query/stats
 query/udf query/build_cache bench/tpch_gen
 progstore/buckets utils/config query/window bench/tpcds_gen
 bench/clickbench_gen query/admission query/batch_lane
-dq/__init__ dq/graph dq/lower cluster/__init__ cluster/exchange""".split()
+dq/__init__ dq/graph dq/lower cluster/__init__ cluster/exchange
+utils/tracing utils/critpath""".split()
 
-_NO_HIST = ("the port keeps no histograms: nothing of it reads the "
-            "admission wait distribution; the waits and timeouts stay "
-            "counted")
-_NO_TIMER = ("the port keeps no timers: nothing of it reads the "
-             "pipeline's readout time")
+_HISTORY = ("the port's docstrings name the modules, not the reference's "
+            "change history or its ROADMAP items")
+_NVRTC = ("the port's compile inside a dispatch is K1's NVRTC build, not "
+          "an XLA compile")
 
 _NOT_PORTED_ROWS = """            from ydb_tpu_torch.errors import NotPorted
             raise NotPorted("row tables (storage/rowtable.py)")
@@ -73,30 +73,73 @@ EDITS = {
         "lazy import repointed: the lever lives in ops/torch_exec.py",
         "from ydb_tpu_torch.ops.xla_exec import late_mat_enabled",
         "from ydb_tpu_torch.ops.torch_exec import late_mat_enabled")],
+    "utils/tracing": [
+        ("on the card a `device-execute` span carries the card's time "
+         "between two CUDA events as `card_ms`; the span keeps its host "
+         "times, nested in its parent, and the phases sum the card's",
+         """    subtracting the full off-thread build would eat the real enqueue
+    time the span also covers.\"\"\"
+""",
+         """    subtracting the full off-thread build would eat the real enqueue
+    time the span also covers. A span timed on the card carries the
+    card's own milliseconds as its `card_ms` attr, summed in place of
+    its host time; they run beside the host's dispatch, so the card's
+    `device_ms` does not add to the host's phases.\"\"\"
+"""),
+        ("on the card a `device-execute` span carries the card's time "
+         "between two CUDA events as `card_ms`; the span keeps its host "
+         "times, nested in its parent, and the phases sum the card's",
+         "            out[key] = out.get(key, 0.0) + s.dur_ms\n",
+         "            out[key] = out.get(key, 0.0) + s.attrs.get(\"card_ms\", "
+         "s.dur_ms)\n"),
+    ],
+    "utils/critpath": [
+        (_HISTORY,
+         """PR 7 gave every query an assembled cross-worker span tree and PR 11 gave
+it a byte ledger; both stop at *attribution* (how much time/bytes each
+phase consumed, summed). This module answers the scheduling question
+instead: starting from the query's end, walk backwards through the span
+DAG (parent/child nesting plus channel send→recv edges, with clock-
+rebased cross-worker timestamps — `Tracer.ingest(offset_ms=...)`) and
+keep only the chain of segments that was actually *blocking* at each
+instant. A channel wait fully hidden under a longer device execution
+never appears; two parallel stages contribute only the longer one; a
+failed task attempt (state=failed) is excluded outright — its retry is
+the blocking chain.
+""",
+         """The tracer gives every query an assembled cross-worker span tree and the
+resource ledger gives it bytes; both stop at *attribution* (how much
+time/bytes each phase consumed, summed). This module answers the
+scheduling question instead: starting from the query's end, walk
+backwards through the span DAG (parent/child nesting plus channel
+send→recv edges, with clock-rebased cross-worker timestamps —
+`Tracer.ingest(offset_ms=...)`) and keep only the chain of segments that
+was actually *blocking* at each instant. A channel wait fully hidden
+under a longer device execution never appears; two parallel stages
+contribute only the longer one; a failed task attempt (state=failed) is
+excluded outright — its retry is the blocking chain.
+"""),
+        (_NVRTC,
+         """  compile         fresh-shape XLA compile (split out of dispatch spans
+                  by their `compile_ms` attr)""",
+         """  compile         K1's NVRTC builds inside a dispatch (split out of
+                  dispatch spans by their `compile_ms` attr)"""),
+        (_HISTORY,
+         """ring and the `crit/*` counters — the machine-generated worklist ROADMAP
+items 1–2 rank their work by. `YDB_TPU_CRITPATH=0` disables extraction""",
+         """ring and the `crit/*` counters — a machine-generated worklist of the
+non-device time. `YDB_TPU_CRITPATH=0` disables extraction"""),
+        (_NVRTC,
+         "# dispatch spans absorb a fresh shape's XLA compile; the `compile_ms`",
+         "# dispatch spans absorb K1's NVRTC builds; the `compile_ms`"),
+        (_HISTORY,
+         "    MemLedger summary (PR 11) — its transfer/padding bytes ride along so",
+         "    MemLedger summary — its transfer/padding bytes ride along so"),
+        (_HISTORY,
+         '    """The PR 11 byte companions of the critical-path milliseconds:',
+         '    """The ledger\'s byte companions of the critical-path milliseconds:'),
+    ],
     "query/admission": [
-        (_NO_HIST, "        from ydb_tpu_torch.utils.metrics import GLOBAL, "
-         "GLOBAL_HIST\n",
-         "        from ydb_tpu_torch.utils.metrics import GLOBAL\n"),
-        (_NO_HIST,
-         """                    GLOBAL.inc("admission/timeouts")
-                    # the LONGEST waits are the timed-out ones — omitting
-                    # them would bias p99/max low exactly when admission
-                    # is saturated
-                    GLOBAL_HIST.observe(
-                        "admission/wait_ms",
-                        (time.monotonic() - t_enter) * 1000.0)
-""",
-         """                    GLOBAL.inc("admission/timeouts")
-"""),
-        (_NO_HIST,
-         """                GLOBAL.inc("admission/waits")
-            # queue-time distribution: non-waiters record ~0, so the
-            # quantiles honestly show what fraction of queries queued
-            GLOBAL_HIST.observe("admission/wait_ms",
-                                (time.monotonic() - t_enter) * 1000.0)
-""",
-         """                GLOBAL.inc("admission/waits")
-"""),
         ("lazy import repointed: the lever lives in ops/torch_exec.py",
          "    from ydb_tpu_torch.ops.xla_exec import late_mat_enabled\n",
          "    from ydb_tpu_torch.ops.torch_exec import late_mat_enabled\n"),
@@ -242,14 +285,68 @@ COPIED_FUNCTIONS = {
                 "materialize_channel", "empty_typed_frame"),
     # the worker's result payload (LocalWorker.execute)
     "server/service": ("_frame_rows", "_result_payload"),
+    # histograms, the counter registry and its marks, the per-statement
+    # stats record (the port's Counters stays its own)
+    "utils/metrics": ("Histogram", "HistogramRegistry", "GLOBAL_HIST",
+                      "COUNTER_REGISTRY", "HIST_FAMILIES", "ALWAYS_VISIBLE",
+                      "QueryStats", "Timer"),
+    # the resource ledger, but its tensor byte count and the device
+    # allocator's snapshot
+    "utils/memledger": ("enabled", "MemLedger", "current", "open_statement",
+                        "close_statement", "note_admission", "record_alloc",
+                        "record_free", "record_pad", "record_transfer",
+                        "record_device_handoff", "transfer_ring",
+                        "record_padded_buffers"),
+    # the per-statement group-by window
+    "ops/torch_exec": ("groupby_trace_mark", "groupby_trace_fold",
+                       "groupby_trace_delta"),
+    # the worker clock offset of the DQ runner's span ingest
+    "dq/runner": ("observe_clock",),
 }
 
+# port module -> the reference module its copied functions come from,
+# where the paths differ
+REFERENCE_MODULE = {"ops/torch_exec": "ops/xla_exec"}
+
 # Executor methods the port's executor copies unchanged
-EXECUTOR_METHODS = ("_lift_limit_setup",)
+EXECUTOR_METHODS = ("_lift_limit_setup", "_span")
+
+# (module, class) -> methods the port's class copies unchanged
+CLASS_METHODS = {
+    ("cluster/router", "ShardedCluster"): ("_explain",),
+    ("dq/runner", "DqTaskRunner"): ("tracer", "_span", "_trace_ctx"),
+}
 
 # (module, name) -> [(reason, reference text after the prefix rewrite,
 # port text)]
 COPIED_FUNCTION_EDITS = {
+    ("utils/memledger", "record_transfer"): [(
+        "the port has no static host-sync pass and no reference ROADMAP",
+        """    an excused client/upload boundary (it carries the
+    `# lint: transfer-ok(reason)` pragma the static host-sync pass
+    honors); everything else is plan-interior debt — the population
+    ROADMAP item 1 drives to zero.\"\"\"""",
+        """    an excused client/upload boundary; everything else is
+    plan-interior debt.\"\"\"""")],
+    ("utils/memledger", "record_device_handoff"): [(
+        "the port has no reference ROADMAP gate",
+        """    mistakenly calls `record_transfer` would re-open ROADMAP item 1's
+    zero-to_pandas gate from the accounting side.\"\"\"""",
+        """    mistakenly calls `record_transfer` would count a host transfer
+    that never happened.\"\"\"""")],
+    ("ops/torch_exec", "groupby_trace_fold"): [(
+        "the port has no compile-ahead lane; the fold is for any statement "
+        "whose group-by ran on another thread",
+        """    \"\"\"Fold a trace delta captured on ANOTHER thread into this thread's
+    window. The compile-ahead lane builds (traces) fused programs on a
+    background worker, so the build-time gauges land in that thread's
+    accumulator; the statement that consumes the warmed entry folds the
+    parked delta here so its EXPLAIN ANALYZE / QueryStats window reports
+    the build it triggered — without this, a warmed statement looks like
+    it traced nothing.\"\"\"""",
+        """    \"\"\"Fold a delta captured on ANOTHER thread into this thread's
+    window, so a statement whose group-by ran on a worker thread
+    reports it.\"\"\"""")],
     ("dq/ici", "_decode"): [(
         "the port reads the landed columns back with one batched copy, "
         "not jax.device_get",
@@ -289,10 +386,12 @@ ENGINE_METHODS = ("_needs_materialize", "_execute_materialized",
                   "_select_without_from", "_run_select", "_execute_set_op",
                   "_eval_setop_df", "_host_lane_guard", "_execute_windowed",
                   "_final_sort_spec", "_windows_on_device",
-                  "_dispatch_and_drain", "_dispatch_drain_admitted")
+                  "_dispatch_and_drain", "_dispatch_drain_admitted",
+                  "last_stats", "last_rows_affected", "last_trace",
+                  "_sample_decision", "_record_memory", "_record_profile",
+                  "_finish_stats", "_note_slow", "_explain_stmt", "explain")
 
 _NO_SYSVIEW = "no system views or materialized views in the port"
-_NO_TRACER = "the port has no tracer: the span goes, its body stays"
 
 ENGINE_EDITS = {
     "_dispatch_and_drain": [(
@@ -300,48 +399,48 @@ ENGINE_EDITS = {
         "on the port's card",
         """        one's dispatch is already in flight (overlapped dispatches
         pipeline ~35 ms → ~10 ms on the measured hardware, PERF.md).""",
-        """        one's dispatch is already in flight."""), (
-        _NO_TRACER,
-        """        try:
-            import time as _time
-            t_adm = _time.perf_counter()
-            with self.admission.admit(est):
-                wait_ms = (_time.perf_counter() - t_adm) * 1000.0
-                if wait_ms >= 1.0:
-                    # the statement QUEUED behind the byte budget:
-                    # record the wait as its own (already-elapsed) span
-                    # so critical-path extraction can class it
-                    # admission_wait instead of burying it in a gap
-                    sp = self.tracer.attach_span(
-                        "admission-wait", admitted_mb=est >> 20)
-                    if sp is not None:
-                        sp.start_ms = round(sp.start_ms - wait_ms, 3)
-                        sp.dur_ms = round(wait_ms, 3)
-                return self._dispatch_drain_admitted(plan, snap, est)
-""",
-        """        try:
-            with self.admission.admit(est):
-                return self._dispatch_drain_admitted(plan, snap, est)
-""")],
-    "_dispatch_drain_admitted": [
-        (_NO_TIMER,
-         "        from ydb_tpu_torch.utils.metrics import GLOBAL, Timer\n",
-         "        from ydb_tpu_torch.utils.metrics import GLOBAL\n"),
-        (_NO_TIMER, "            t_read = Timer()\n", ""),
-        (_NO_TIMER,
-         """            GLOBAL.inc("pipeline/readout_ms", t_read.ms())\n""", ""),
-        (_NO_TRACER,
-         """            with self.tracer.span("execute", admitted_mb=est >> 20):
-                fut = self.executor.execute_async(plan, snap)
-""",
-         """            fut = self.executor.execute_async(plan, snap)
-"""),
-        (_NO_TRACER,
-         """            with self.tracer.span("readout"):
-                block = fut.result()
-""",
-         """            block = fut.result()
-"""),
+        """        one's dispatch is already in flight.""")],
+    "_finish_stats": [
+        ("the group-by window lives in ops/torch_exec.py",
+         "        from ydb_tpu_torch.ops.xla_exec import groupby_trace_delta\n",
+         "        from ydb_tpu_torch.ops.torch_exec import groupby_trace_delta\n"),
+        (_NO_SYSVIEW,
+         '        stats.view_serving = getattr(self._view_tls, "notes", None) '
+         'or []\n', ""),
+        ("no program roofline yet (utils/progstats.py rests on XLA's cost "
+         "analysis; ROADMAP Queue 1 item 4): no `-- programs:` block",
+         """        # program roofline rollup (utils/progstats.py): which compiled
+        # programs this statement executed, their measured device ms
+        # joined to the compiler's cost model — the `-- programs:` block
+        from ydb_tpu_torch.utils import progstats
+        ps = progstats.current()
+        if ps is not None:
+            stats.programs = ps.summary()
+""", ""),
+    ],
+    "_explain_stmt": [
+        ("the port has no sessions (transactions are not ported)",
+         "def _explain_stmt(self, stmt: ast.Explain, session) -> "
+         "HostBlock:",
+         "def _explain_stmt(self, stmt: ast.Explain) -> HostBlock:"),
+        (_NO_SYSVIEW + ": no view lines",
+         """        if isinstance(stmt.query, ast.Select):
+            # serving-mode probe (no fold): which way would this read go
+            snap = self.snapshot()
+            for name in sorted(self._referenced_tables(stmt.query)):
+                view = self.views.get(name)
+                if view is not None:
+                    mode = view.peek_mode(snap)
+                    serving = (f"state @ plan_step {view.watermark}"
+                               if mode == "state"
+                               else f"base-query fallback ({mode})")
+                    lines.append(
+                        f"-- view {name}: watermark plan_step="
+                        f"{view.watermark}, serving={serving}")
+""", ""),
+        ("the port has no sessions, quoter or audit trail to skip",
+         "block = self.execute(stmt.sql, session=session, _internal=True)",
+         "block = self.execute(stmt.sql)"),
     ],
     "_needs_materialize": [(
         _NO_SYSVIEW + "; a `.sys` name still routes to materialization, "
@@ -398,76 +497,6 @@ ENGINE_EDITS = {
 """,
         """        # temps take the engine's block size, not the 1M-row default
 """)],
-    "_execute_set_op": [(
-        _NO_TRACER,
-        """            # combine/dedup is host pandas work: spanned so it ranks as
-            # host_lane on the critical path (arms' device spans nest
-            # inside and classify themselves)
-            with self.tracer.span("setop-host-lane"):
-                df = self._eval_setop_df(rewritten, snap)
-                try:
-                    df = W.apply_order_limit(df, stmt.order_by,
-                                             stmt.limit, stmt.offset)
-                except ValueError as e:
-                    raise QueryError(str(e)) from e
-""",
-        """            df = self._eval_setop_df(rewritten, snap)
-            try:
-                df = W.apply_order_limit(df, stmt.order_by,
-                                         stmt.limit, stmt.offset)
-            except ValueError as e:
-                raise QueryError(str(e)) from e
-""")],
-    "_host_lane_guard": [(
-        "the port keeps no host-lane row counter (no metrics surface)",
-        """        \"\"\"Host pandas lanes (windows, set-op combine) degrade loudly: a
-        counter records the rows crossing to host (`count=False` for
-        re-checks of already-counted rows, e.g. set-op combine levels),
-        and frames above the configured limit refuse instead of silently
-        becoming single-core pandas jobs.\"\"\"
-        from ydb_tpu_torch.utils.metrics import GLOBAL
-        if count:
-            GLOBAL.inc(f"engine/host_lane/{lane}_rows", rows)
-""",
-        """        \"\"\"Host pandas lanes (windows, set-op combine) degrade loudly:
-        frames above the configured limit refuse instead of silently
-        becoming single-core pandas jobs (`count` is the reference's
-        row-counter switch; the port keeps no such counter).\"\"\"
-""")],
-    "_execute_windowed": [
-        (_NO_TRACER,
-         """                with self.tracer.span("window-device",
-                                      rows=inner_block.length):
-                    done = self._windows_on_device(inner_block, outer,
-                                                   final_sort=fs,
-                                                   limit=sel.limit,
-                                                   offset=sel.offset
-                                                   or 0)
-""",
-         """                done = self._windows_on_device(inner_block, outer,
-                                               final_sort=fs,
-                                               limit=sel.limit,
-                                               offset=sel.offset or 0)
-"""),
-        (_NO_TRACER,
-         """            with self.tracer.span("window-device",
-                                  rows=inner_block.length):
-                df = self._windows_on_device(inner_block, outer)
-""",
-         """            df = self._windows_on_device(inner_block, outer)
-"""),
-        (_NO_TRACER,
-         """                # its own span so the single-core pandas lane ranks as
-                # host_lane on the critical path (the q13 class), not
-                # as unattributed statement self-time
-                with self.tracer.span("window-host-lane",
-                                      rows=inner_block.length):
-                    df = W.compute_windows(inner_block.to_pandas(),
-                                           outer)
-""",
-         """                df = W.compute_windows(inner_block.to_pandas(), outer)
-"""),
-    ],
     "_windows_on_device": [
         ("the port's lane is eager torch on the engine's device",
          """        \"\"\"Device window lane (`ops/window_dev.py`): every spec computed
@@ -482,30 +511,23 @@ ENGINE_EDITS = {
         (the window_scan kernel) — with a single device→host transfer for
         all outputs (sliced to offset+limit rows when the final sort
         pushes down). Returns the assembled frame, or None when a spec
-        requires the pandas lane.\"\"\"
+        requires the pandas lane (which then counts its host rows).\"\"\"
 """),
         ("no silent fallback: a device-lane exception propagates (only "
-         "the lane's declines, None, keep the pandas lane); no metrics",
-         """        from ydb_tpu_torch.utils.metrics import GLOBAL
-        try:
+         "the lane's declines, None, keep the pandas lane); the lane runs "
+         "on the engine's device",
+         """        try:
             dev = compute_windows_device(inner_block, outer,
                                          final_sort=final_sort,
                                          limit=limit, offset=offset)
         except Exception:                # noqa: BLE001 — lane, not law
             GLOBAL.inc("engine/window_device_errors")
             return None
-        if dev is None:
-            return None
-        GLOBAL.inc("engine/window_device_rows", inner_block.length)
-        if final_sort is not None:
-            GLOBAL.inc("engine/window_device_pushdown")
 """,
          """        dev = compute_windows_device(inner_block, outer,
                                      final_sort=final_sort,
                                      limit=limit, offset=offset,
                                      device=self.device)
-        if dev is None:
-            return None
 """),
     ],
 }
@@ -572,17 +594,33 @@ def test_copy_of_repo_file_matches(module):
 
 
 def _functions(path: Path) -> dict:
+    """Module-level functions, classes and single-name assignments."""
     src = path.read_text()
-    return {f.name: ast.get_source_segment(src, f)
-            for f in ast.parse(src).body
-            if isinstance(f, (ast.FunctionDef, ast.ClassDef))}
+    out = {}
+    for f in ast.parse(src).body:
+        if isinstance(f, (ast.FunctionDef, ast.ClassDef)):
+            out[f.name] = ast.get_source_segment(src, f)
+        elif isinstance(f, ast.Assign) and len(f.targets) == 1 \
+                and isinstance(f.targets[0], ast.Name):
+            out[f.targets[0].id] = ast.get_source_segment(src, f)
+    return out
+
+
+@pytest.mark.parametrize("module,cls,name", [
+    (m, c, n) for (m, c), ns in sorted(CLASS_METHODS.items()) for n in ns])
+def test_class_method_matches_reference(module, cls, name):
+    ref = _class_methods(ROOT / "ydb_tpu" / f"{module}.py", cls, (name,))
+    port = _class_methods(ROOT / "ydb_tpu_torch" / f"{module}.py", cls,
+                          (name,))
+    assert port[name] == _rewrite_imports(ref[name])
 
 
 @pytest.mark.parametrize("module,name", [(m, f) for m, fs in
                                          sorted(COPIED_FUNCTIONS.items())
                                          for f in fs])
 def test_copied_function_matches_reference(module, name):
-    ref = _functions(ROOT / "ydb_tpu" / f"{module}.py")
+    ref = _functions(ROOT / "ydb_tpu"
+                     / f"{REFERENCE_MODULE.get(module, module)}.py")
     port = _functions(ROOT / "ydb_tpu_torch" / f"{module}.py")
     want = _apply(_rewrite_imports(ref[name]),
                   COPIED_FUNCTION_EDITS.get((module, name), ()),

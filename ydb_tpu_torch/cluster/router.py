@@ -15,11 +15,14 @@ full copy, so joins against them stay worker-local.
 
 The port's workers are in-process objects with the worker surface
 (`dq.runner.LocalWorker`). When every worker is in-process and has a
-device, worker-to-worker edges ride the ICI plane (`dq/ici.py`).
+device, worker-to-worker edges ride the ICI plane (`dq/ici.py`). Every
+SELECT's graph runs under one trace on the merge engine's tracer, the
+workers' task spans ingested into it (`engine.last_trace`), and
+`EXPLAIN [ANALYZE] <select>` returns the stage graph (with ANALYZE, the
+per-task stats and the span tree of a run of that graph).
 Not ported here: gRPC endpoints, INSERT/UPSERT routing and two-phase
-commit (`cluster/dtx.py`, ROADMAP Queue 1 items 3 and 8), Hive
-placement and failover (item 8) and the distributed EXPLAIN (item 2)
-raise `NotPorted`.
+commit (`cluster/dtx.py`, ROADMAP Queue 1 items 3 and 8) and Hive
+placement and failover (item 8) raise `NotPorted`.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from typing import Optional
 import pandas as pd
 
 from ydb_tpu_torch.errors import NotPorted
-from ydb_tpu_torch.sql import ast, parse
+from ydb_tpu_torch.sql import ast, parse, render
 
 
 class ClusterError(Exception):
@@ -124,11 +127,18 @@ class ShardedCluster:
     def query(self, sql: str) -> pd.DataFrame:
         """Distribute one SELECT: lower to a StageGraph, execute it with
         the task runner (one task per (stage, worker), channels between
-        stages), merge router-side."""
+        stages), merge router-side. The whole graph runs under ONE trace
+        on the merge engine's tracer — the workers' task spans assemble
+        into a single span tree (`engine.last_trace`).
+
+        `EXPLAIN ANALYZE <select>` returns the distributed profile: the
+        stage graph, per-(stage, worker) task stats and the assembled
+        span tree, as a one-column frame."""
         stmt = parse(sql)
         if isinstance(stmt, ast.Explain):
-            raise NotPorted("the distributed EXPLAIN (ROADMAP Queue 1 "
-                            "item 2)")
+            if not isinstance(stmt.query, ast.Select):
+                raise ClusterError("EXPLAIN distributes SELECT only")
+            return self._explain(stmt)
         if not isinstance(stmt, ast.Select):
             raise ClusterError("the router distributes SELECT; use "
                                "execute() for DDL/DML")
@@ -137,17 +147,102 @@ class ShardedCluster:
             else []
         if refs and all(t.startswith(".sys/") for t in refs):
             raise NotPorted("system views")
-        return self._run_traced(stmt)
+        df, _runner = self._run_traced(stmt, sql)
+        return df
 
-    def _run_traced(self, stmt: ast.Select) -> pd.DataFrame:
-        """Lower and run one graph (the port has no tracer: the run
-        records no spans, only `last_stage_stats`)."""
+    def _run_traced(self, stmt: ast.Select, sql: str,
+                    force_trace: bool = False, graph=None):
+        """Lower (unless `graph` is given) and run one graph under a
+        trace of its own; returns (frame, runner). `last_stage_stats`
+        keeps the run's stage-stats rows."""
+        import time as _time
+
         from ydb_tpu_torch.dq.runner import DqError, DqTaskRunner
-        graph = self._lower(stmt)
+        from ydb_tpu_torch.utils.metrics import GLOBAL_HIST
+        if graph is None:
+            graph = self._lower(stmt)
         runner = DqTaskRunner(self.workers, self.engine)
+        eng = self.engine
+        sampled = force_trace or eng._sample_decision(sql)
+        eng.tracer.begin_trace(sampled=sampled)
+        t0 = _time.perf_counter()
+        rows_out = None
         try:
-            return runner.run(graph)
+            with eng.tracer.span("dq-query", sql=sql[:60],
+                                 workers=len(self.workers),
+                                 stages=len(graph.stages)):
+                df = runner.run(graph)
+            rows_out = len(df)
+            return df, runner
         except DqError as e:
             raise ClusterError(str(e)) from e
         finally:
             self.last_stage_stats = list(runner.stage_stats)
+            total_ms = (_time.perf_counter() - t0) * 1000.0
+            if rows_out is not None:
+                # successes only, as the local path records latency
+                GLOBAL_HIST.observe("query/latency_ms", total_ms)
+                eng._note_slow(sql, total_ms, "dq-select")
+            spans = eng.tracer.end_trace()
+            if spans:
+                eng.last_trace = spans
+                # the DQ wall and rows pass explicitly: last_stats only
+                # covers the router-merge statement
+                eng._record_profile(
+                    sql, spans, stage_stats=runner.stage_stats,
+                    total_ms=round(total_ms, 3),
+                    rows_out=rows_out or 0,
+                    kind="dq-select" if rows_out is not None
+                    else "dq-error",
+                    memory=runner.mem_summary)
+
+    def _explain(self, stmt: ast.Explain) -> pd.DataFrame:
+        """Distributed EXPLAIN [ANALYZE]: the stage graph, and with
+        ANALYZE the per-stage/per-channel profile of an actual run."""
+        graph = self._lower(stmt.query)
+        lines = [f"DQ stage graph: {len(graph.stages)} stages, "
+                 f"{len(graph.channels)} channels, "
+                 f"{len(self.workers)} workers"]
+        for stage in graph.stages:
+            lines.append(f"  stage {stage.id} on={stage.on} "
+                         f"in={list(stage.inputs)} "
+                         f"out={list(stage.outputs)}")
+        # per-channel data plane: which edges go device-resident (ICI
+        # collective) vs host gRPC frames — the operator-facing half of
+        # the pluggable-plane lowering
+        for ch in graph.channels.values():
+            lines.append(
+                f"  channel {ch.id} kind={ch.kind} plane={ch.plane}"
+                + (f" key={ch.key}" if ch.key else "")
+                + (f" quant_cols={ch.quant_cols}" if ch.quant_cols
+                   else ""))
+        if not stmt.analyze:
+            return pd.DataFrame({"plan": lines})
+        # run the SAME lowered graph the listing above describes —
+        # re-lowering could diverge from the plan this output claims
+        # to profile (and pays the lowering twice)
+        df, runner = self._run_traced(stmt.query,
+                                      render.select(stmt.query),
+                                      force_trace=True, graph=graph)
+        lines.append(f"-- rows out: {len(df)}")
+        lines.append("-- stage stats (per task):")
+        for r in runner.stage_stats:
+            lines.append(
+                f"  {r['stage']}@{r['worker']}: rows {r['rows']} | "
+                f"bytes {r['bytes']} | frames {r['frames']} | "
+                f"plane {r.get('plane', 'host')} | "
+                f"ici-bytes {r.get('ici_bytes', 0)} | "
+                f"exec {r['exec_ms']:.1f}ms | flush {r['flush_ms']:.1f}ms"
+                f" | input-wait {r['input_wait_ms']:.1f}ms | "
+                f"backpressure {r['backpressure_wait_ms']:.1f}ms | "
+                f"attempts {r['attempts']}")
+        tr = self.engine.tracer.render(self.engine.last_trace)
+        if tr:
+            lines += ["-- trace:"] + tr.split("\n")
+        # the distributed critical path (extracted in _record_profile
+        # from the SAME assembled tree rendered above): per-class % of
+        # the graph wall + the dominant span — the worklist line
+        from ydb_tpu_torch.utils import critpath
+        prof = self.engine.profiles[-1] if self.engine.profiles else {}
+        lines += critpath.render_lines(prof.get("critical_path") or {})
+        return pd.DataFrame({"plan": lines})

@@ -18,9 +18,14 @@ included, reaches the caller.
 
 `LocalWorker` adapts an in-process `QueryEngine` to the worker surface
 the runner drives, so a 1-worker graph is the degenerate case of the
-distributed code path. The port has no tracer, no statement ledger and
-no gRPC transport: the runner records no spans, clock offsets or
-resource ledgers.
+distributed code path.
+
+Profiling: the whole graph runs under the merge engine's tracer and one
+resource ledger. Each stage is a `dq-stage` span, each ICI exchange an
+`ici-exchange` span, each task attempt a `dq-task` span under which the
+worker's own spans (its engine's statement and device spans) are
+ingested, rebased onto the router's clock by the offset that each
+call's clock stamps give. The port has no gRPC transport.
 """
 
 from __future__ import annotations
@@ -68,6 +73,32 @@ def _ici_declined(e) -> bool:
                           TimeoutError))
 
 
+# clock alignment per worker handle: each task call brackets the
+# worker's receive/respond stamps on its own tracer clock
+# (`resp["profile"]["clock"]`), and the midpoint difference is the
+# router-minus-worker offset with ±RTT/2 uncertainty, EWMA-smoothed per
+# worker handle
+
+_CLOCK_ALPHA = 0.3
+
+
+def observe_clock(worker, t_send: float, t_recv: float,
+                  w_recv: float, w_send: float):
+    """One offset sample at an RPC boundary, folded into the worker's
+    EWMA. All times in ms on their respective tracer clocks. Returns
+    (offset_ms, err_ms): router_time ≈ worker_time + offset_ms."""
+    sample = ((t_send + t_recv) / 2.0) - ((w_recv + w_send) / 2.0)
+    err = max(0.0, ((t_recv - t_send) - (w_send - w_recv)) / 2.0)
+    prev = getattr(worker, "_clock_ewma", None)
+    if prev is None:
+        off = (sample, err)
+    else:
+        off = (_CLOCK_ALPHA * sample + (1 - _CLOCK_ALPHA) * prev[0],
+               _CLOCK_ALPHA * err + (1 - _CLOCK_ALPHA) * prev[1])
+    worker._clock_ewma = off
+    return off
+
+
 class DqTaskRunner:
     def __init__(self, workers: list, engine, counters=None,
                  stage_retries: int = 1):
@@ -86,6 +117,9 @@ class DqTaskRunner:
         # attempts and stages skip them (reroute single-task stages,
         # raise DqWorkerLost for per-shard ones)
         self.transport_failed: set = set()
+        # the graph run's closed ledger summary (None when the ledger is
+        # off or an enclosing statement owns it)
+        self.mem_summary = None
         for w in self.workers:
             if hasattr(w, "bind_peers"):
                 try:
@@ -98,12 +132,41 @@ class DqTaskRunner:
                     else:
                         raise
 
+    # -- tracing helpers ----------------------------------------------------
+
+    @property
+    def tracer(self):
+        return getattr(self.engine, "tracer", None)
+
+    def _span(self, name: str, **attrs):
+        from contextlib import nullcontext
+        t = self.tracer
+        return t.span(name, **attrs) if t is not None else nullcontext()
+
+    @staticmethod
+    def _trace_ctx(base_ctx, parent_span) -> dict:
+        """Propagation context for a task RPC: the router trace's id,
+        the task span to parent under, and the sampling bit. `base_ctx`
+        MUST be captured on the trace-owning thread (`tracer.current()`
+        is thread-local) — task RPCs fire from pool threads."""
+        if base_ctx is None:
+            return None
+        if parent_span is not None:
+            return dict(base_ctx, parent_span_id=parent_span.span_id)
+        return dict(base_ctx)
+
     # -- public -------------------------------------------------------------
 
     def run(self, graph: StageGraph) -> pd.DataFrame:
         graph.validate()
         self._dtypes: dict = {}              # channel id -> {col: dtype}
         self._collected: dict = {}           # channel id -> {widx: frame}
+        # resource ledger for the whole graph run: a router-driven DQ
+        # query never passes through engine.execute() at this level, so
+        # the runner owns the statement ledger — the nested router-merge
+        # statement then contributes to it instead of opening its own
+        from ydb_tpu_torch.utils import memledger
+        led = memledger.open_statement()
         try:
             for stage in graph.stages:
                 if stage.on == "router":
@@ -111,6 +174,12 @@ class DqTaskRunner:
                 self._run_worker_stage(graph, stage)
             raise DqError("stage graph ended without a router stage")
         finally:
+            if led is not None:
+                memledger.close_statement(led)
+                self.mem_summary = led.summary()
+                rm = getattr(self.engine, "_record_memory", None)
+                if rm is not None:
+                    rm(f"dq-graph:{graph.tag}", "dq", led)
             self._cleanup(graph)
 
     # -- worker stages ------------------------------------------------------
@@ -131,6 +200,7 @@ class DqTaskRunner:
         return list(enumerate(self.workers))
 
     def _run_worker_stage(self, graph, stage) -> None:
+        from ydb_tpu_torch.utils.metrics import GLOBAL_HIST
         self.counters.inc("dq/stages")
         if self._stage_ici_channels(graph, stage) \
                 and not all(hasattr(w, "ici_land") for w in self.workers):
@@ -139,24 +209,32 @@ class DqTaskRunner:
             # always correct
             self._flip_to_host(graph, stage,
                                "workers are not in-process")
-        self._materialize_inputs(graph, stage)
-        results, tasks = self._run_stage_attempts(
-            graph, stage, self._output_specs(graph, stage))
-        ici_chs = self._stage_ici_channels(graph, stage)
-        if ici_chs:
-            try:
-                self._run_ici_exchanges(graph, stage, ici_chs, results)
-            except Exception as e:           # noqa: BLE001 — classified
-                if not _ici_declined(e):
-                    raise
-                # a declined exchange or a worker lost mid-exchange: the
-                # edge re-runs on the host plane — same stage programs,
-                # fresh host frames, the receivers' (src, seq) dedup
-                # guards the overlap
-                self._flip_to_host(graph, stage, f"{type(e).__name__}: {e}")
-                self._drop_outputs(graph, stage)
-                results, tasks = self._run_stage_attempts(
-                    graph, stage, self._output_specs(graph, stage))
+        t_stage = time.perf_counter()
+        with self._span("dq-stage", stage=stage.id,
+                        tasks=len(self._task_workers(stage))):
+            self._materialize_inputs(graph, stage)
+            results, tasks = self._run_stage_attempts(
+                graph, stage, self._output_specs(graph, stage))
+            ici_chs = self._stage_ici_channels(graph, stage)
+            if ici_chs:
+                try:
+                    self._run_ici_exchanges(graph, stage, ici_chs,
+                                            results)
+                except Exception as e:       # noqa: BLE001 — classified
+                    if not _ici_declined(e):
+                        raise
+                    # a declined exchange or a worker lost mid-exchange:
+                    # the edge re-runs on the host plane — same stage
+                    # programs, fresh host frames, the receivers' (src,
+                    # seq) dedup guards the overlap
+                    self._flip_to_host(graph, stage,
+                                       f"{type(e).__name__}: {e}")
+                    self._drop_outputs(graph, stage)
+                    results, tasks = self._run_stage_attempts(
+                        graph, stage, self._output_specs(graph, stage))
+        # success-only, matching the router stage and query/latency_ms
+        GLOBAL_HIST.observe("dq/stage_ms",
+                            (time.perf_counter() - t_stage) * 1000.0)
 
         for (i, resp, _e) in results:
             for cid in stage.outputs:
@@ -251,22 +329,25 @@ class DqTaskRunner:
         if planned and len(ici_chs) > 1:
             # a multi-edge stage computes ALL its sizing counts in one
             # launch and one readout (`dq/count_exchange_batched`)
-            batched = ici.exchange_blocks_batched(
-                ici_chs, blocks,
-                key_kinds=[kkinds[ch.id] for ch in ici_chs],
-                counters=self.counters, devices=devices)
+            with self._span("ici-exchange-batched", stage=stage.id,
+                            channels=len(ici_chs)):
+                batched = ici.exchange_blocks_batched(
+                    ici_chs, blocks,
+                    key_kinds=[kkinds[ch.id] for ch in ici_chs],
+                    counters=self.counters, devices=devices)
         for ci, ch in enumerate(ici_chs):
             kkind = kkinds[ch.id]
-            if batched is not None:
-                out_parts, stats = batched[ci]
-            elif planned:
-                out_parts, stats = ici.exchange_blocks(
-                    ch, blocks, key_kind=kkind, counters=self.counters,
-                    devices=devices)
-            else:
-                out_parts, stats = ici.exchange(
-                    ch, dfs, key_kind=kkind, dtypes_hint=hint,
-                    counters=self.counters, devices=devices)
+            with self._span("ici-exchange", channel=ch.id, kind=ch.kind):
+                if batched is not None:
+                    out_parts, stats = batched[ci]
+                elif planned:
+                    out_parts, stats = ici.exchange_blocks(
+                        ch, blocks, key_kind=kkind,
+                        counters=self.counters, devices=devices)
+                else:
+                    out_parts, stats = ici.exchange(
+                        ch, dfs, key_kind=kkind, dtypes_hint=hint,
+                        counters=self.counters, devices=devices)
             share = max(1, stats["ici_bytes"] // len(self.workers))
             for i, w in enumerate(self.workers):
                 w.ici_land(ch.id, out_parts[i], share,
@@ -297,8 +378,16 @@ class DqTaskRunner:
         tasks of an attempt on a thread pool. Returns (results, tasks).
         The worker set is re-resolved per attempt: a transport-dead
         worker is skipped (a single-task stage reroutes onto a live one,
-        counted `dq/retry_rerouted`)."""
+        counted `dq/retry_rerouted`). Every ATTEMPT of every task gets its
+        own `dq-task` span in the router's tree (`attach_span`: the span
+        lives on the trace-owning thread, pool threads stamp its
+        duration and outcome), and a finished task's worker-recorded
+        spans are ingested under it."""
         from concurrent.futures import ThreadPoolExecutor
+        tracer = self.tracer
+        # propagation context captured HERE, on the trace-owning thread
+        # (the pool threads below have no thread-local trace open)
+        base_ctx = tracer.current() if tracer is not None else None
         tasks: dict = {}
         prev_eps = None
         for attempt in range(self.stage_retries + 1):
@@ -317,6 +406,14 @@ class DqTaskRunner:
                     tasks[i] = {"task": f"{graph.tag}.{stage.id}.w{i}",
                                 "stage": stage.id, "worker": w.endpoint,
                                 "state": "pending", "attempts": 0}
+            task_spans = {}
+            if tracer is not None:
+                for (i, w) in tws:
+                    task_spans[i] = tracer.attach_span(
+                        "dq-task", task=tasks[i]["task"],
+                        worker=w.endpoint, attempt=attempt + 1)
+
+            clock_offsets: dict = {}     # widx -> (offset_ms, err_ms)
 
             def one(iw):
                 i, w = iw
@@ -324,6 +421,9 @@ class DqTaskRunner:
                 t["state"] = "running"
                 t["attempts"] = t.get("attempts", 0) + 1
                 self.counters.inc("dq/tasks")
+                sp = task_spans.get(i)
+                t_send = tracer._now() if tracer is not None else None
+                t0 = time.perf_counter()
                 try:
                     # src is attempt-INDEPENDENT on purpose: the stage
                     # program is deterministic, so a first attempt still
@@ -332,16 +432,47 @@ class DqTaskRunner:
                     # dedup drops them instead of double-landing rows
                     resp = w.dq_run_task(
                         task_id=t["task"], stage=stage.id, sql=stage.sql,
-                        outputs=specs, src=t["task"])
+                        outputs=specs, src=t["task"],
+                        trace=self._trace_ctx(base_ctx, sp))
                     t["state"] = "finished"
+                    clk = (resp.get("profile") or {}).get("clock")
+                    if tracer is not None and clk is not None:
+                        off, cerr = observe_clock(
+                            w, t_send, tracer._now(),
+                            float(clk["recv_ms"]), float(clk["send_ms"]))
+                        clock_offsets[i] = (off, cerr)
+                        if sp is not None:
+                            sp.attrs["clock_offset_ms"] = round(off, 3)
+                            sp.attrs["clock_err_ms"] = round(cerr, 3)
+                    if sp is not None:
+                        sp.dur_ms = (time.perf_counter() - t0) * 1000.0
+                        sp.attrs["state"] = "finished"
                     return (i, resp, None)
                 except Exception as e:       # noqa: BLE001 — per-task
                     t["state"] = "failed"
                     t["error"] = f"{type(e).__name__}: {e}"
+                    if sp is not None:
+                        sp.dur_ms = (time.perf_counter() - t0) * 1000.0
+                        sp.attrs["state"] = "failed"
+                        sp.attrs["error"] = f"{type(e).__name__}"
                     return (i, None, e)
 
             with ThreadPoolExecutor(max_workers=len(tws)) as pool:
                 results = list(pool.map(one, tws))
+            if tracer is not None:
+                # worker-recorded spans join the tree under their
+                # attempt's task span, rebased onto the router's clock
+                for (i, resp, _e) in results:
+                    spans = ((resp or {}).get("profile") or {}) \
+                        .get("spans")
+                    if spans:
+                        sp = task_spans.get(i)
+                        off = clock_offsets.get(i)
+                        tracer.ingest(
+                            spans, parent_id=sp.span_id
+                            if sp is not None else None,
+                            offset_ms=off[0] if off is not None
+                            else None)
             failed = [(i, e) for (i, _r, e) in results if e is not None]
             if not failed:
                 return results, tasks
@@ -425,8 +556,10 @@ class DqTaskRunner:
         runner only reaches this stage afterwards), so drain each input
         channel into its typed transient table on every task worker.
         Each open's {rows, bytes, wait_ms} reply accrues into the
-        consuming task's stage-stats row."""
+        consuming task's stage-stats row and an `input-wait` span."""
         from concurrent.futures import ThreadPoolExecutor
+
+        from ydb_tpu_torch.utils.metrics import GLOBAL_HIST
         for cid in stage.inputs:
             ch = graph.channels[cid]
             dtypes = self._dtypes.get(cid, {})
@@ -452,11 +585,23 @@ class DqTaskRunner:
                     raise DqError(msg) from e
             with ThreadPoolExecutor(max_workers=len(tws)) as pool:
                 opens = list(pool.map(open_one, tws))
-            for (i, _endpoint, resp) in opens:
+            for (i, endpoint, resp) in opens:
                 wait = float(resp.get("wait_ms", 0.0) or 0.0)
                 key = (stage.id, i)
                 self._input_waits[key] = self._input_waits.get(key, 0.0) \
                     + wait
+                if wait:
+                    GLOBAL_HIST.observe("dq/channel_wait_ms", wait)
+                sp = self.tracer.attach_span(
+                    "input-wait", channel=ch.id, worker=endpoint,
+                    rows=int(resp.get("rows", 0)),
+                    bytes=int(resp.get("bytes", 0))) \
+                    if self.tracer is not None else None
+                if sp is not None:
+                    # the wait already HAPPENED — rewind start so the
+                    # span occupies its true interval
+                    sp.start_ms = round(sp.start_ms - wait, 3)
+                    sp.dur_ms = wait
 
     def _drop_outputs(self, graph, stage) -> None:
         chans = list(stage.outputs)
@@ -475,14 +620,19 @@ class DqTaskRunner:
     # -- router (merge) stage ----------------------------------------------
 
     def _run_router_stage(self, graph, stage) -> pd.DataFrame:
+        from ydb_tpu_torch.utils.metrics import GLOBAL_HIST
         t_stage = time.perf_counter()
         ok = False
         try:
-            out = self._router_stage_body(graph, stage)
+            with self._span("dq-stage", stage=stage.id, on="router"):
+                out = self._router_stage_body(graph, stage)
             ok = True
             return out
         finally:
             ms = (time.perf_counter() - t_stage) * 1000.0
+            if ok:
+                # success-only, like the worker stages above
+                GLOBAL_HIST.observe("dq/stage_ms", ms)
             self.stage_stats.append(self._stage_row(
                 graph, stage, "router",
                 "finished" if ok else "failed", 1,
@@ -660,7 +810,7 @@ class LocalWorker:
                                               None))
 
     def dq_run_task(self, task_id: str, stage: str, sql: str,
-                    outputs: list, src: str) -> dict:
+                    outputs: list, src: str, trace=None) -> dict:
         from ydb_tpu_torch.dq import task as dq_task
         with self._tasks_mu:
             rec = self.tasks.setdefault(task_id, {"stage": stage,
@@ -671,7 +821,7 @@ class LocalWorker:
             resp = dq_task.run_task(
                 self.engine, sql, outputs, src,
                 send=lambda _o, p, frame: self._peers[p]._land(frame),
-                counters=self.task_counters)
+                counters=self.task_counters, trace=trace)
             with self._tasks_mu:
                 rec["state"] = "finished"
             return resp

@@ -8,9 +8,14 @@ the runner for a router-bound channel, or handed to the runner by
 reference for a device-resident (ICI) edge. `LocalWorker`
 (`dq/runner.py`) drives it in-process.
 
-The port has no tracer: a task records no spans. Per-channel producer
-stats (frames, rows, bytes, backpressure wait) ship back with every
-response.
+Profiling: a task that arrives with a trace context ({trace_id,
+parent_span_id, sampled}) adopts it on the worker engine's tracer,
+records its task-exec / output-flush spans (with the engine's own
+statement and device sub-spans nested inside), and ships the finished
+span list back in the response (`resp["profile"]["spans"]`) for the
+runner to `ingest()` into the router's tree. Per-channel producer stats
+(frames, rows, bytes, backpressure wait) and the worker's clock stamps
+ship back with every response.
 """
 
 from __future__ import annotations
@@ -21,15 +26,42 @@ from ydb_tpu_torch.utils.metrics import GLOBAL
 
 
 def run_task(engine, sql: str, outputs: list, src: str, send,
-             counters=None) -> dict:
+             counters=None, trace=None) -> dict:
     """Execute one task. `outputs`: [{"channel", "kind", "key",
     "n_peers"[, "plane"]}] specs; `send(out, peer_idx, frame_bytes)` is
-    the transport for worker-bound channels. Returns {"ok", "rows_in",
-    "dtypes", "bytes_shipped", "frames_shipped", "profile"[,
-    "collected_df", "ici_block", "ici_key_kinds"]}."""
+    the transport for worker-bound channels; `trace`: the propagated
+    context (or None). Returns {"ok", "rows_in", "dtypes",
+    "bytes_shipped", "frames_shipped", "profile"[, "collected_df",
+    "ici_block", "ici_key_kinds"]}."""
     counters = counters or GLOBAL
-    return _run_task_body(engine, engine.executor, sql, outputs, src, send,
-                          counters)
+    tracer = getattr(engine, "tracer", None)
+    # clock-alignment stamps (this worker's tracer clock at receive and
+    # at response build): the runner pairs them with its own send and
+    # receive times to rebase the worker's spans onto its timebase
+    w_recv = tracer._now() if tracer is not None else None
+    adopt = trace is not None and tracer is not None
+    sampled = bool(adopt and trace.get("sampled"))
+    if adopt:
+        # adopt the router's decision either way: an UNSAMPLED context
+        # still opens an (unsampled) trace so the stage statement runs
+        # nested and is not sampled again as a user statement
+        tracer.begin_trace(sampled=sampled,
+                           trace_id=trace.get("trace_id"),
+                           parent_id=trace.get("parent_span_id"))
+    spans = []
+    try:
+        resp = _run_task_body(engine, engine.executor, sql, outputs, src,
+                              send, counters, tracer, sampled)
+    finally:
+        if adopt:
+            # end_trace force-closes anything a raising path left open
+            spans = tracer.end_trace()
+    if sampled:
+        resp["profile"]["spans"] = [s.to_dict() for s in spans]
+    if w_recv is not None:
+        resp["profile"]["clock"] = {"recv_ms": round(w_recv, 3),
+                                    "send_ms": round(tracer._now(), 3)}
+    return resp
 
 
 def _key_kind(block, key: str):
@@ -44,18 +76,25 @@ def _key_kind(block, key: str):
     return "string" if dt.is_string else "float" if dt.is_float else "int"
 
 
-def _run_task_body(engine, executor, sql, outputs, src, send, counters):
+def _run_task_body(engine, executor, sql, outputs, src, send, counters,
+                   tracer=None, sampled=False):
+    from contextlib import nullcontext
+
     from ydb_tpu_torch.cluster.exchange import ChannelWriter, hash_partition
+
+    def span(name, **attrs):
+        return tracer.span(name, **attrs) if sampled else nullcontext()
 
     channel_stats: list = []
     t0 = time.perf_counter()
-    executor.dq_stage_depth += 1
-    executor.dq_device_capture = True
-    try:
-        block = engine.execute(sql)
-    finally:
-        executor.dq_stage_depth -= 1
-        executor.dq_device_capture = False
+    with span("task-exec", src=src):
+        executor.dq_stage_depth += 1
+        executor.dq_device_capture = True
+        try:
+            block = engine.execute(sql)
+        finally:
+            executor.dq_stage_depth -= 1
+            executor.dq_device_capture = False
     exec_ms = (time.perf_counter() - t0) * 1000.0
     # the device-resident stage spine: the block stays wherever the
     # engine produced it (a `DeviceStageBlock` for fused plans, still on
@@ -82,52 +121,54 @@ def _run_task_body(engine, executor, sql, outputs, src, send, counters):
 
     total_bytes = total_frames = 0
     t0 = time.perf_counter()
-    for out in outputs:
-        kind = out["kind"]
-        if kind in ("union_all", "merge"):
-            resp["collected_df"] = df_for(debt=False)
-            channel_stats.append({
-                "channel": out["channel"], "frames": 0,
-                "rows": int(block.length), "bytes": 0,
-                "backpressure_wait_ms": 0.0})
-            continue
-        if out.get("plane") == "ici":
-            # device-resident edge: NO frames leave this task — the
-            # runner collects every producer's stage output and runs the
-            # redistribution as one exchange (`dq/ici.py`). The BLOCK
-            # ships by reference, with the schema's hash-kind verdict for
-            # the routing key (the signal the host plane feeds
-            # `hash_partition`).
-            resp["ici_block"] = block
-            kkinds = resp.setdefault("ici_key_kinds", {})
-            kk = _key_kind(block, out.get("key", ""))
-            if kk is not None:
-                kkinds[out["channel"]] = kk
-            channel_stats.append({
-                "channel": out["channel"], "frames": 0,
-                "rows": int(block.length), "bytes": 0, "plane": "ici",
-                "backpressure_wait_ms": 0.0})
-            continue
-        n_peers = int(out["n_peers"])
-        if kind == "hash_shuffle":
-            parts = hash_partition(df_for(debt=True), out["key"], n_peers,
-                                   kind=_key_kind(block, out["key"]))
-        elif kind == "broadcast":
-            parts = [df_for(debt=True)] * n_peers
-        else:
-            raise ValueError(f"bad output channel kind {kind!r}")
-        writer = ChannelWriter(
-            out["channel"], src,
-            lambda p, frame, _o=out: send(_o, p, frame),
-            n_peers, counters=counters)
-        try:
-            for p in range(n_peers):
-                writer.ship(p, parts[p])
-        finally:
-            writer.close()
-        total_bytes += writer.bytes_sent
-        total_frames += writer.frames_sent
-        channel_stats.append(writer.stats())
+    with span("output-flush", channels=len(outputs),
+              channel_ids=",".join(str(o["channel"]) for o in outputs)):
+        for out in outputs:
+            kind = out["kind"]
+            if kind in ("union_all", "merge"):
+                resp["collected_df"] = df_for(debt=False)
+                channel_stats.append({
+                    "channel": out["channel"], "frames": 0,
+                    "rows": int(block.length), "bytes": 0,
+                    "backpressure_wait_ms": 0.0})
+                continue
+            if out.get("plane") == "ici":
+                # device-resident edge: NO frames leave this task — the
+                # runner collects every producer's stage output and runs the
+                # redistribution as one exchange (`dq/ici.py`). The BLOCK
+                # ships by reference, with the schema's hash-kind verdict for
+                # the routing key (the signal the host plane feeds
+                # `hash_partition`).
+                resp["ici_block"] = block
+                kkinds = resp.setdefault("ici_key_kinds", {})
+                kk = _key_kind(block, out.get("key", ""))
+                if kk is not None:
+                    kkinds[out["channel"]] = kk
+                channel_stats.append({
+                    "channel": out["channel"], "frames": 0,
+                    "rows": int(block.length), "bytes": 0, "plane": "ici",
+                    "backpressure_wait_ms": 0.0})
+                continue
+            n_peers = int(out["n_peers"])
+            if kind == "hash_shuffle":
+                parts = hash_partition(df_for(debt=True), out["key"], n_peers,
+                                       kind=_key_kind(block, out["key"]))
+            elif kind == "broadcast":
+                parts = [df_for(debt=True)] * n_peers
+            else:
+                raise ValueError(f"bad output channel kind {kind!r}")
+            writer = ChannelWriter(
+                out["channel"], src,
+                lambda p, frame, _o=out: send(_o, p, frame),
+                n_peers, counters=counters)
+            try:
+                for p in range(n_peers):
+                    writer.ship(p, parts[p])
+            finally:
+                writer.close()
+            total_bytes += writer.bytes_sent
+            total_frames += writer.frames_sent
+            channel_stats.append(writer.stats())
     flush_ms = (time.perf_counter() - t0) * 1000.0
     resp["bytes_shipped"] = total_bytes
     resp["frames_shipped"] = total_frames

@@ -24,8 +24,12 @@ build, ``build.py``).
 
 Counters (``utils.metrics.GLOBAL``): ``k1/builds`` (NVRTC compilations),
 ``k1/build_ms`` (their milliseconds) and ``k1/cache_hits`` (sources
-whose cubin was already built, in this process or on disk). Nothing here
-runs at import time.
+whose cubin was already built, in this process or on disk). A build
+also adds its milliseconds to the calling thread's ``thread_build_ms``,
+which the executor stamps on the statement's dispatch span, and, while
+the executor watches (``watch_builds``), leaves a pair of CUDA events
+around itself so that the card's wait on it leaves the statement's
+device time. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -266,6 +270,8 @@ def kernel(source: str, entry: str, index: int) -> Kernel:
         k = _KERNELS.get((digest_, index))
         if k is not None:
             return k
+        marks = getattr(_TLS, "marks", None)
+        before = _card_mark(index) if marks is not None else None
         path = CACHE_DIR / f"{digest_}.cubin"
         code = _CUBINS.get(digest_)
         if code is None and path.exists():
@@ -273,8 +279,10 @@ def kernel(source: str, entry: str, index: int) -> Kernel:
         if code is None:
             t0 = time.perf_counter()
             code = compile_cubin(source, f"{entry}_{digest_[:8]}.cu")
+            ms = (time.perf_counter() - t0) * 1e3
             GLOBAL.inc("k1/builds")
-            GLOBAL.inc("k1/build_ms", (time.perf_counter() - t0) * 1e3)
+            GLOBAL.inc("k1/build_ms", ms)
+            _TLS.build_ms = thread_build_ms() + ms
             _write_atomic(path, code)
         else:
             GLOBAL.inc("k1/cache_hits")
@@ -288,10 +296,37 @@ def kernel(source: str, entry: str, index: int) -> Kernel:
                                          entry.encode()),
                   "cuModuleGetFunction")
         k = _KERNELS[(digest_, index)] = Kernel(module, fn, index)
+        if before is not None:
+            marks.append((before, _card_mark(index)))
         return k
 
 
 _CUBINS: dict = {}                 # digest -> cubin
+
+
+def thread_build_ms() -> float:
+    """Milliseconds of NVRTC builds made on the calling thread so far:
+    the executor reads it before and after a statement's launches and
+    stamps the difference on the statement's dispatch span
+    (`compile_ms`, the `-- phases:` line's `compile`)."""
+    return getattr(_TLS, "build_ms", 0.0)
+
+
+def watch_builds(marks):
+    """Have the calling thread's builds and module loads each append to
+    the list `marks` a pair of timing CUDA events, recorded on the
+    device's current stream just before and just after: the card's wait
+    on the host's work, which the executor takes out of a statement's
+    device time. None stops it; returns the list watched before."""
+    outer = getattr(_TLS, "marks", None)
+    _TLS.marks = marks
+    return outer
+
+
+def _card_mark(index: int):
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(index))
+    return ev
 
 
 def _write_atomic(path: Path, data: bytes) -> None:

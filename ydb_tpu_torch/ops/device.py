@@ -54,6 +54,11 @@ def to_device(block: HostBlock, device, capacity: Optional[int] = None
         if cd.dictionary is not None:
             dicts[c.name] = cd.dictionary
     length = torch.tensor(block.length, dtype=torch.int32, device=device)
+    # resource ledger: the upload's padded bytes (capacity bucket) vs the
+    # block's live rows — shape arithmetic only, never a sync
+    from ydb_tpu_torch.utils import memledger
+    memledger.record_padded_buffers("device_block", "upload",
+                                    block.length, cap, arrays, valids)
     return DeviceBlock(block.schema, arrays, valids, length, cap, dicts)
 
 
@@ -113,6 +118,9 @@ def to_host(dblock: DeviceBlock) -> HostBlock:
                            + [dblock.valids[nm][:n] for nm in vnames])
     host_a = dict(zip(names, host[:len(names)]))
     host_v = dict(zip(vnames, host[len(names):]))
+    from ydb_tpu_torch.utils import memledger
+    memledger.record_transfer("ops/device.py::to_host",
+                              memledger.deep_nbytes(host), boundary=True)
     cols = {}
     for c in dblock.schema:
         cols[c.name] = host_column(host_a[c.name], host_v.get(c.name),

@@ -419,8 +419,10 @@ def fetch_fused_result(data_stacks, valid_stack, length, layout_box: dict,
     """Device→host readout of one fused query: ONE copy for the whole
     result, length included. Large row-level outputs sync the length
     first and slice on the device so padding doesn't cross."""
+    from ydb_tpu_torch.utils import memledger
     keys = list(data_stacks)
     cap_out = data_stacks[keys[0]].shape[1] if keys else 0
+    padded_bytes = memledger.deep_nbytes((data_stacks, valid_stack))
     if cap_out > (1 << 16):
         n = int(length)
         m = max(n, 1)
@@ -433,6 +435,14 @@ def fetch_fused_result(data_stacks, valid_stack, length, layout_box: dict,
                                   else [])
                                + [length.reshape(1)])
         n = int(host.pop()[0])
+    # capacity-sized outputs (group-by buckets, LIMIT buckets): the live
+    # result rows vs the power-of-two output capacity the body wrote
+    if cap_out:
+        memledger.record_pad(
+            "result_capacity", n, cap_out,
+            int(padded_bytes * min(n, cap_out) / cap_out), padded_bytes)
+    memledger.record_transfer("ops/fused.py::fetch_fused_result",
+                              memledger.deep_nbytes(host), boundary=True)
     host_stacks = dict(zip(keys, host[:len(keys)]))
     host_valids = host[len(keys)] if valid_stack is not None else None
     return _unpack_fused_host(host_stacks, host_valids, n, layout_box,
@@ -486,6 +496,9 @@ def fetch_fused_batch(data_stacks, valid_stack, lengths, layout_box: dict,
     else:
         host = batched_to_host(tensors + [lengths])
         ns = host.pop()
+    from ydb_tpu_torch.utils import memledger
+    memledger.record_transfer("ops/fused.py::fetch_fused_batch",
+                              memledger.deep_nbytes(host), boundary=True)
     host_stacks = dict(zip(keys, host[:len(keys)]))
     host_valids = host[len(keys)] if valid_stack is not None else None
     out = []

@@ -46,6 +46,7 @@ input is never copied per member where the kernel takes it once.
 from __future__ import annotations
 
 import os
+import threading
 from typing import Optional
 
 import numpy as np
@@ -84,8 +85,91 @@ def groupby_tuning() -> tuple:  # lint: tuning-provider
     return (bounds_enabled(), late_mat_enabled())
 
 
+class _TraceStats(threading.local):
+    """Per-thread accumulator of the group-by and bounds gauges — the
+    engine reads it per statement into QueryStats (EXPLAIN ANALYZE's
+    `-- groupby trace:` and `-- bounds:` lines); the same increments
+    also land on the process counters under groupby/* and bounds/*.
+    The reference counts at trace time, so only a freshly compiled
+    shape shows them; the eager body here runs every time, so every
+    statement that runs a sorted group-by reports it (ROADMAP Queue 3)."""
+
+    def __init__(self):
+        self.stats: dict = {}
+
+
+_TRACE = _TraceStats()
+
+
+def groupby_trace_mark() -> dict:
+    """Opaque marker for a delta window (`groupby_trace_delta`). The
+    engine brackets each statement with mark/delta instead of
+    reset/snapshot: the thread-local is never cleared mid-statement, so
+    a NESTED statement on the same thread (the DQ router's merge stage
+    re-enters `engine.query`) cannot wipe the outer statement's window —
+    its traces simply fold into the outer delta."""
+    return dict(_TRACE.stats)
+
+
+def groupby_trace_fold(delta: dict) -> None:
+    """Fold a delta captured on ANOTHER thread into this thread's
+    window, so a statement whose group-by ran on a worker thread
+    reports it."""
+    st = _TRACE.stats
+    for k, v in delta.items():
+        if k.endswith("_max"):
+            if v > st.get(k, -1):
+                st[k] = v
+        else:
+            st[k] = st.get(k, 0) + v
+
+
+def groupby_trace_delta(mark: dict) -> dict:
+    """Trace activity since `mark`: counters subtract; `*_max` high
+    watermarks report their current value only if raised inside the
+    window (a statement that traced nothing yields {})."""
+    out = {}
+    for k, v in _TRACE.stats.items():
+        if k.endswith("_max"):
+            if v > mark.get(k, -1):
+                out[k] = v
+        else:
+            d = v - mark.get(k, 0)
+            if d:
+                out[k] = d
+    return out
+
+
+def _t_inc(name: str, by: int = 1) -> None:
+    _TRACE.stats[name] = _TRACE.stats.get(name, 0) + by
+    GLOBAL.inc(f"groupby/{name}", by)
+
+
+def _t_max(name: str, value: int) -> None:
+    if value > _TRACE.stats.get(name, -1):
+        _TRACE.stats[name] = value
+    GLOBAL.set_max(f"groupby/{name}", value)
+
+
 def _b_inc(name: str, by: int = 1) -> None:
+    """Bounds-lattice gauge: bounds/* on the counters and the trace
+    window under a `bounds_` prefix (the engine splits the delta into
+    stats.groupby and stats.bounds)."""
+    key = "bounds_" + name
+    _TRACE.stats[key] = _TRACE.stats.get(key, 0) + by
     GLOBAL.inc(f"bounds/{name}", by)
+
+
+# gathers above this many rows count as `groupby/gather_ops` (the
+# reference's default tile budget, YDB_TPU_GROUPBY_TILE_ROWS); every
+# gather counts in `gather_ops_total`
+_GATHER_TILE_ROWS = 1 << 22
+
+
+def _count_gathers(rows: int, ops: int) -> None:
+    _t_inc("gather_ops_total", ops)
+    if rows > _GATHER_TILE_ROWS:
+        _t_inc("gather_ops", ops)
 
 
 # --------------------------------------------------------------------------
@@ -556,6 +640,14 @@ def _trace_group_by_sorted(cmd: ir.GroupBy, env, schema: Schema, sel, length,
                                             cap, oc, device, B)
     live = torch.arange(oc, device=device) < (ngroups[:, None] if B
                                               else ngroups)
+    # one sort at scan capacity, no tiling; the leader gathers of the
+    # key and carried-key columns (data and validity) at `oc`
+    _t_inc("traces")
+    _t_inc("tiles", 1)
+    _t_max("sort_rows_max", cap)
+    refs = list(cmd.keys) + list(cmd.carry_keys)
+    _count_gathers(oc, len(refs) + sum(
+        1 for k in refs if schema.dtype(k).nullable and env[k][1] is not None))
     _b_inc("proven_rows", oc)
     _b_inc("capacity_rows", cap)
     if cmd.out_bound:

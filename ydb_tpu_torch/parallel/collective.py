@@ -147,13 +147,15 @@ def gather_all(per_dev: list, seg, names, devices: list,
 
 def segment_pad_account(kind: str, ndev: int, seg: int, live_rows: int,
                         bytes_per_row: float) -> dict:
-    """The live-vs-padded account of one fixed-capacity segment exchange:
-    `ndev²` segments of `seg` rows each on the wire, `live_rows` of them
-    real. (The reference also records it in its resource ledger,
-    `utils/memledger.py`, which the port does not carry yet.)"""
+    """Ledger and return the live-vs-padded account of one
+    fixed-capacity segment exchange: `ndev²` segments of `seg` rows each
+    on the wire, `live_rows` of them real (`utils/memledger.py`)."""
+    from ydb_tpu_torch.utils import memledger
     padded_rows = ndev * ndev * seg
     live_bytes = int(live_rows * bytes_per_row)
     padded_bytes = int(padded_rows * bytes_per_row)
+    memledger.record_pad(kind, live_rows, padded_rows, live_bytes,
+                         padded_bytes)
     return {"live_rows": live_rows, "padded_rows": padded_rows,
             "live_bytes": live_bytes, "padded_bytes": padded_bytes,
             "efficiency": round(live_bytes / padded_bytes, 3)

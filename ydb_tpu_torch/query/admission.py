@@ -31,7 +31,7 @@ class MemoryAdmission:
 
     @contextmanager
     def admit(self, est_bytes: int):
-        from ydb_tpu_torch.utils.metrics import GLOBAL
+        from ydb_tpu_torch.utils.metrics import GLOBAL, GLOBAL_HIST
         est = max(0, min(int(est_bytes), self.budget))
         with self._cv:
             t_enter = time.monotonic()
@@ -42,6 +42,12 @@ class MemoryAdmission:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0 or not self._cv.wait(remaining):
                     GLOBAL.inc("admission/timeouts")
+                    # the LONGEST waits are the timed-out ones — omitting
+                    # them would bias p99/max low exactly when admission
+                    # is saturated
+                    GLOBAL_HIST.observe(
+                        "admission/wait_ms",
+                        (time.monotonic() - t_enter) * 1000.0)
                     raise AdmissionTimeout(
                         f"memory admission timed out: need {est} bytes, "
                         f"{self.budget - self.in_flight} free of "
@@ -49,6 +55,10 @@ class MemoryAdmission:
                         f"is oversubscribed)")
             if waited:
                 GLOBAL.inc("admission/waits")
+            # queue-time distribution: non-waiters record ~0, so the
+            # quantiles honestly show what fraction of queries queued
+            GLOBAL_HIST.observe("admission/wait_ms",
+                                (time.monotonic() - t_enter) * 1000.0)
             self.in_flight += est
             self.active += 1
             GLOBAL.set("admission/in_flight_bytes", self.in_flight)

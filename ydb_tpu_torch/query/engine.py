@@ -29,9 +29,18 @@ to readout, as the reference's does. With ``YDB_TPU_BATCH_WINDOW`` (ms)
 above 0, same-shape SELECTs arriving inside the window coalesce into one
 batched execution (`query/batch_lane.py`, at most ``YDB_TPU_BATCH_MAX``
 members). `query` is safe to call from many threads; `counters()`
-returns the ``batch/*``, ``admission/*`` and ``pipeline/*`` counters.
-DML, transactions and sessions, system views, materialized views,
-topics and tracing raise ``NotPorted``.
+returns the process counters and the statement histograms.
+
+Every statement runs under a trace (`utils/tracing.py`; sampled at
+admission, ``YDB_TPU_TRACE_SAMPLE``) and a resource ledger
+(`utils/memledger.py`, ``YDB_TPU_MEMLEDGER``); `last_stats` (a
+`utils.metrics.QueryStats`: parse, plan and execute ms, rows, path, the
+phases — on the card the device phase is CUDA-event time — the memory
+line and the critical path) and `last_trace` are per thread.
+``EXPLAIN [ANALYZE] <select>`` and `explain(sql)` give the reference's
+plan text; ANALYZE adds the stats lines and the span tree.
+DML, transactions and sessions, system views, materialized views and
+topics raise ``NotPorted``.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from ydb_tpu_torch.device import resolve_device
 from ydb_tpu_torch.errors import NotPorted
 from ydb_tpu_torch.query.binder import BindError, sql_type_to_dtype
 from ydb_tpu_torch.query.executor import Executor
+from ydb_tpu_torch.query.plan import explain
 from ydb_tpu_torch.query.planner import PlanError, Planner
 from ydb_tpu_torch.scheme.catalog import Catalog
 from ydb_tpu_torch.sql import ast, parse
@@ -121,6 +131,64 @@ class QueryEngine:
             self._batch_lane = BatchLane(
                 self, self.batch_window_ms / 1000.0,
                 max_batch=int(os.environ.get("YDB_TPU_BATCH_MAX", "64")))
+        # per-statement stats ring (the reference's `.sys/query_metrics`
+        # source)
+        from collections import deque
+        self.query_history = deque(maxlen=256)
+        # tracing (utils/tracing.py): span tree per statement, rendered
+        # by EXPLAIN ANALYZE; the executor's device spans nest under it
+        from ydb_tpu_torch.utils.tracing import Tracer
+        self.tracer = Tracer()
+        self.executor.tracer = self.tracer
+        # admission-time trace sampling: YDB_TPU_TRACE_SAMPLE in [0, 1]
+        # — 1 (default) traces every statement, 0 records zero spans and
+        # zero CUDA events (results byte-identical), fractions sample
+        # deterministically 1-in-1/rate. Statements whose text blew the
+        # slow-query threshold before are sampled regardless of rate.
+        self.trace_sample = min(1.0, max(0.0, float(
+            os.environ.get("YDB_TPU_TRACE_SAMPLE", "1") or 0)))
+        self.slow_query_ms = float(
+            os.environ.get("YDB_TPU_SLOW_QUERY_MS", "1000"))
+        self._slow_sqls: dict = {}       # guarded-by: _trace_mu
+        self._trace_mu = threading.Lock()
+        self._trace_acc = 0.0            # guarded-by: _trace_mu
+        # assembled query profiles, last-N ring: one record per SAMPLED
+        # outermost statement — sql, wall, phase breakdown, span tree
+        self.profiles = deque(maxlen=int(
+            os.environ.get("YDB_TPU_PROFILE_RING", "64")))
+        # per-statement resource-ledger and critical-path rollups,
+        # last-N rings (utils/memledger.py, utils/critpath.py)
+        self.memory_stats = deque(maxlen=256)
+        self.critpath_stats = deque(maxlen=256)
+        # per-statement result metadata is thread-local: concurrent
+        # callers each see their own stats and trace
+        self._tls = threading.local()
+
+    # -- per-thread statement metadata -------------------------------------
+
+    @property
+    def last_stats(self):
+        return getattr(self._tls, "last_stats", None)
+
+    @last_stats.setter
+    def last_stats(self, v):
+        self._tls.last_stats = v
+
+    @property
+    def last_rows_affected(self) -> int:
+        return getattr(self._tls, "last_rows_affected", 0)
+
+    @last_rows_affected.setter
+    def last_rows_affected(self, v: int):
+        self._tls.last_rows_affected = v
+
+    @property
+    def last_trace(self):
+        return getattr(self._tls, "last_trace", [])
+
+    @last_trace.setter
+    def last_trace(self, v):
+        self._tls.last_trace = v
 
     def snapshot(self) -> Snapshot:
         """Reads see every committed version: the port has no concurrent
@@ -128,10 +196,60 @@ class QueryEngine:
         return MAX_SNAPSHOT
 
     def execute(self, sql: str) -> HostBlock:
-        stmt = parse(sql)
+        """Run one statement under its trace and resource ledger (the
+        reference's `execute` without the quoter, the audit trail and
+        sessions). The sampling decision is taken for the thread's
+        OUTERMOST statement; a nested one (EXPLAIN ANALYZE's inner run,
+        the DQ router merge) joins the open trace and ledger."""
+        outermost = self.tracer._state().depth == 0
+        self.tracer.begin_trace(
+            sampled=self._sample_decision(sql) if outermost else True)
+        kind_box: list = []
+        from ydb_tpu_torch.utils import memledger
+        led = memledger.open_statement()
         try:
+            with self.tracer.span("statement", sql=sql[:60]):
+                return self._execute_traced(sql, kind_box)
+        finally:
+            if led is not None:
+                memledger.close_statement(led)
+                self._record_memory(sql, kind_box[0] if kind_box else "",
+                                    led)
+            self.last_trace = self.tracer.end_trace()
+            if outermost and self.last_trace \
+                    and not self.executor.dq_stage_depth:
+                self._record_profile(sql, self.last_trace,
+                                     memory=led.summary()
+                                     if led is not None else None)
+
+    def _execute_traced(self, sql: str, kind_box=None) -> HostBlock:
+        """Parse, then the statement's kind: EXPLAIN [ANALYZE], a read,
+        or CREATE TABLE. Fills `last_stats` (the reference's
+        `_execute_traced` over the port's statement kinds)."""
+        from ydb_tpu_torch.ops.torch_exec import groupby_trace_mark
+        from ydb_tpu_torch.utils.metrics import GLOBAL, QueryStats, Timer
+        t = Timer()
+        stats = QueryStats(sql=sql)
+        # group-by window and span window of THIS statement (marks, so a
+        # nested statement folds into the outer one's window)
+        stats._gb_mark = groupby_trace_mark()
+        stats._span_mark = len(self.tracer.spans)
+        with self.tracer.span("parse"):
+            stmt = parse(sql)
+        stats.parse_ms = t.lap()
+        stats.kind = type(stmt).__name__.lower()
+        if kind_box is not None:
+            kind_box.append(stats.kind)
+        self.last_rows_affected = 0
+        GLOBAL.inc("engine/statements")
+        self.last_stats = stats
+        try:
+            if isinstance(stmt, ast.Explain):
+                return self._explain_stmt(stmt)
             if isinstance(stmt, (ast.Select, ast.SetOp)):
-                return self._execute_read(stmt, sql)
+                stats.tables = sorted(self._referenced_tables(stmt))
+                return self._execute_read(stmt, sql, self.snapshot(),
+                                          stats, t)
             if isinstance(stmt, ast.CreateTable):
                 return self._create_table(stmt)
         except (BindError, PlanError) as e:
@@ -142,27 +260,32 @@ class QueryEngine:
         """Execute and return a pandas DataFrame."""
         return self.execute(sql).to_pandas()
 
-    def _execute_read(self, stmt, sql: str) -> HostBlock:
+    def _execute_read(self, stmt, sql: str, snap, stats, t) -> HostBlock:
         """SELECT / set-op execution, dispatched as the reference's
         `_execute_read` does."""
         from ydb_tpu_torch.ops.torch_exec import late_mat_enabled
         from ydb_tpu_torch.query import window as W
         from ydb_tpu_torch.query.bounds import bounds_enabled
-        snap = self.snapshot()
+        from ydb_tpu_torch.utils.metrics import GLOBAL
         if isinstance(stmt, ast.SetOp):
             block = self._execute_set_op(stmt, snap)
             self.executor.last_path = "set-op"
+            self._finish_stats(stats, t, block)
             return block
         if W.has_window(stmt):
-            return self._execute_windowed(stmt, snap)
+            block = self._execute_windowed(stmt, snap)
+            self._finish_stats(stats, t, block)
+            return block
         if stmt.relation is None:
             block = self._select_without_from(stmt, snap)
             self.executor.last_path = "literal"
+            self._finish_stats(stats, t, block)
             return block
         if self._needs_materialize(stmt):
-            return self._execute_materialized(stmt, snap)
-        names = self._referenced_tables(stmt)
-        fp = (self._table_fingerprint(names), bounds_enabled(),
+            block = self._execute_materialized(stmt, snap)
+            self._finish_stats(stats, t, block)
+            return block
+        fp = (self._table_fingerprint(stats.tables), bounds_enabled(),
               late_mat_enabled())
         use_cache = self.config.flag("enable_plan_cache")
         with self._plan_mu:
@@ -170,32 +293,279 @@ class QueryEngine:
             if cached is not None and cached[0] == fp:
                 plan = cached[1]
                 self.plan_cache_hits += 1
+                stats.plan_cache_hit = True
             else:
-                plan = self.planner.plan_select(stmt)
+                with self.tracer.span("plan"):
+                    plan = self.planner.plan_select(stmt)
                 if use_cache:
                     self._plan_cache[sql] = (fp, plan)
-        return self._select(plan, snap)
+        GLOBAL.inc("engine/plan_cache_hits" if stats.plan_cache_hit
+                   else "engine/plan_cache_misses")
+        stats.plan_ms = t.lap()
+        block = self._select(plan, snap, stats)
+        self._finish_stats(stats, t, block)
+        return block
 
-    def _select(self, plan, snap) -> HostBlock:
+    def _select(self, plan, snap, stats=None) -> HostBlock:
         """The reference's `_execute_read` tail: the plan's device-byte
-        estimate, then the batch lane (its leader holds one window slot
-        and one reservation for the whole batch) or the per-query
-        pipeline."""
+        estimate (noted on the statement's ledger for its calibration),
+        then the batch lane (its leader holds one window slot and one
+        reservation for the whole batch) or the per-query pipeline."""
         from ydb_tpu_torch.query.admission import (
             AdmissionTimeout, estimate_plan_bytes,
         )
+        from ydb_tpu_torch.utils import memledger
         # floor: even column-less scans (count(*)) reserve a nominal
         # slot so admission can actually bound concurrency
         est = max(estimate_plan_bytes(self.catalog, plan, snap), 1 << 20)
+        memledger.note_admission(est)
         try:
             block = None
             if self._batch_lane is not None:
-                block = self._batch_lane.try_run(plan, snap, est)
+                block = self._batch_lane.try_run(plan, snap, est, stats)
             if block is None:
                 block = self._dispatch_and_drain(plan, snap, est)
         except AdmissionTimeout as e:
             raise QueryError(str(e)) from e
         return block
+
+    def _sample_decision(self, sql: str) -> bool:
+        """Admission-time trace sampling: rate-based, with forced-on for
+        EXPLAIN (the user asked for the profile) and for statements whose
+        text previously exceeded the slow-query threshold. Nested
+        (internal) statements inherit the enclosing decision — this is
+        only consulted for the thread's OUTERMOST begin_trace."""
+        if self.trace_sample >= 1.0:
+            return True
+        if sql.lstrip()[:7].lower() == "explain":
+            return True
+        if sql in self._slow_sqls:
+            from ydb_tpu_torch.utils.metrics import GLOBAL
+            GLOBAL.inc("trace/forced_slow")
+            return True
+        if self.trace_sample <= 0.0:
+            return False
+        with self._trace_mu:
+            self._trace_acc += self.trace_sample
+            if self._trace_acc >= 1.0:
+                self._trace_acc -= 1.0
+                return True
+        return False
+
+    def _record_memory(self, sql: str, kind: str, led) -> None:
+        """Append one closed ledger to the `.sys/query_memory` ring.
+        Statements that never touched the device (DDL, constant
+        SELECTs) are skipped — a ring of zero rows would bury the
+        queries this view exists to rank."""
+        s = led.summary()
+        if not (s["peak_bytes"] or s["transfers"] or s["padded_bytes"]):
+            return
+        self.memory_stats.append({
+            "sql": sql, "kind": kind,
+            "peak_bytes": s["peak_bytes"],
+            "alloc_bytes": s["alloc_bytes"],
+            "live_bytes": s["live_bytes"],
+            "padded_bytes": s["padded_bytes"],
+            "waste_bytes": s["waste_bytes"],
+            "pad_efficiency": s["pad_efficiency"],
+            "transfers": s["transfers"],
+            "transfer_bytes": s["transfer_bytes"],
+            "to_pandas_in_plan": s["to_pandas_in_plan"],
+            "admission_est_bytes": s["admission_est_bytes"],
+            "est_error_pct": s["est_error_pct"],
+        })
+
+    def _record_profile(self, sql: str, spans: list,
+                        stage_stats: list = None, total_ms: float = None,
+                        rows_out: int = None, kind: str = None,
+                        memory: dict = None) -> None:
+        """Append one assembled profile to the last-N ring
+        (`.sys/query_profiles`): the span tree plus its device-timeline
+        rollup. `stage_stats`: the DQ runner's per-(stage, worker) rows
+        for distributed queries. total_ms/rows_out/kind overrides: the
+        router passes the DQ wall explicitly — for a distributed query
+        `last_stats` holds only the router-MERGE statement's numbers
+        (or a previous statement's, when the final stage had no merge
+        SQL), not the graph's."""
+        from ydb_tpu_torch.utils.tracing import phase_breakdown
+        st = self.last_stats
+        # last_stats is only trustworthy when it belongs to THIS
+        # statement and finished: a statement that raised before (or
+        # inside) stats assembly leaves the PREVIOUS statement's record
+        # in the thread-local — attributing its wall/kind/rows to this
+        # profile row would fabricate exactly the numbers this view
+        # exists to make reliable
+        mine = st is not None and getattr(st, "sql", None) == sql
+        finished = mine and getattr(st, "total_ms", 0.0) > 0.0
+        rec = {
+            "trace_id": spans[0].trace_id,
+            "sql": sql,
+            "kind": kind if kind is not None
+            else (st.kind if mine else "error"),
+            "total_ms": total_ms if total_ms is not None
+            else (st.total_ms if finished
+                  else round(spans[0].dur_ms, 3)),
+            "rows_out": rows_out if rows_out is not None
+            else (int(st.rows_out) if mine else 0),
+            "phases": phase_breakdown(spans),
+            "n_spans": len(spans),
+            "spans": [s.to_dict() for s in spans],
+            "stages": list(stage_stats or []),
+        }
+        # critical-path extraction (utils/critpath.py): which chain of
+        # segments actually bounded this query's wall — classified,
+        # counted (`crit/*`), ringed (`.sys/query_critical_path`), and
+        # stored on the profile for the `/trace/<id>` timeline export.
+        # Lever-gated: YDB_TPU_CRITPATH=0 freezes all of it.
+        from ydb_tpu_torch.utils import critpath
+        if critpath.enabled():
+            try:
+                cp = critpath.extract(spans, memory=memory)
+                rec["critical_path"] = cp
+                critpath.record_counters(cp)
+                self.critpath_stats.append({
+                    "trace_id": rec["trace_id"], "sql": sql,
+                    "kind": rec["kind"], "wall_ms": cp["wall_ms"],
+                    "coverage": cp["coverage"],
+                    "connected": cp["connected"],
+                    "non_device_ms": cp["non_device_ms"],
+                    "dominant_span": cp["dominant_span"],
+                    "dominant_class": cp["dominant_class"],
+                    "dominant_ms": cp["dominant_ms"],
+                    **{f"{cls}_ms": cp["classes"].get(cls, 0.0)
+                       for cls in critpath.CLASSES},
+                })
+            except Exception:                # noqa: BLE001 — analysis
+                pass                         # must never fail a query
+        self.profiles.append(rec)
+
+    def _finish_stats(self, stats, t, block) -> None:
+        from ydb_tpu_torch.ops.torch_exec import groupby_trace_delta
+        from ydb_tpu_torch.utils.metrics import GLOBAL, GLOBAL_HIST
+        from ydb_tpu_torch.utils.tracing import phase_breakdown
+        stats.execute_ms = t.lap()
+        stats.total_ms = stats.parse_ms + stats.plan_ms + stats.execute_ms
+        stats.rows_out = block.length
+        stats.fused = self.executor.last_path == "fused"
+        stats.distributed = self.executor.last_path == "distributed"
+        delta = groupby_trace_delta(getattr(stats, "_gb_mark", {}))
+        # the bounds-lattice gauges ride the same trace window under a
+        # `bounds_` prefix — split them into their own stats surface
+        stats.bounds = {k[len("bounds_"):]: v for k, v in delta.items()
+                        if k.startswith("bounds_")}
+        stats.groupby = {k: v for k, v in delta.items()
+                         if not k.startswith("bounds_")}
+        if self.tracer.sampled:
+            stats.phases = phase_breakdown(
+                self.tracer.spans[getattr(stats, "_span_mark", 0):])
+        # resource-ledger rollup as of NOW (the ledger closes in
+        # execute() after this statement returns; EXPLAIN ANALYZE and
+        # bench read stats.memory, so the live summary attaches here)
+        from ydb_tpu_torch.utils import memledger
+        led = memledger.current()
+        if led is not None:
+            stats.memory = led.summary()
+        # per-statement critical path over the same span window (the
+        # EXPLAIN ANALYZE `-- critical path:` source, joined with the
+        # live ledger's bytes); the full-tree extraction with counters
+        # and the sysview ring happens once in _record_profile
+        from ydb_tpu_torch.utils import critpath
+        if self.tracer.sampled and critpath.enabled():
+            window = self.tracer.spans[getattr(stats, "_span_mark", 0):]
+            # root the window under a CLOSED copy of the still-open
+            # statement span: un-spanned statement-interior time (binder
+            # work, dictionary predicate evaluation, CTE/derived-table
+            # materialization — the q13 host lane) then classifies as
+            # the statement's host_lane self-time instead of vanishing
+            # into a virtual-root scheduler gap
+            stk = self.tracer._stack
+            if stk:
+                import dataclasses as _dc
+                window = [_dc.replace(
+                    stk[-1],
+                    dur_ms=self.tracer._now() - stk[-1].start_ms)] \
+                    + window
+            if window:
+                try:
+                    stats.critical_path = critpath.summarize(
+                        critpath.extract(window, memory=stats.memory))
+                except Exception:            # noqa: BLE001 — analysis
+                    pass                     # must never fail a query
+        # latency histograms count USER statements once: a nested
+        # internal statement (EXPLAIN ANALYZE's re-entrant execute, the
+        # DQ router-merge SELECT — its trace depth is >1) must not add a
+        # second, cheaper sample that drags p50 down and doubles count.
+        # Worker-side DQ stage programs are excluded via dq_stage_depth,
+        # NOT trace depth — an unsampled task opens no trace, and the
+        # histogram contents must not depend on the sampling rate
+        if self.tracer._state().depth <= 1 \
+                and not self.executor.dq_stage_depth:
+            GLOBAL_HIST.observe("query/latency_ms", stats.total_ms)
+            GLOBAL_HIST.observe("query/parse_ms", stats.parse_ms)
+            GLOBAL_HIST.observe("query/plan_ms", stats.plan_ms)
+            GLOBAL_HIST.observe("query/execute_ms", stats.execute_ms)
+            # slow-query bookkeeping is USER-statement-scoped too: DQ
+            # stage/merge SQL embeds per-query uuid temp names that can
+            # never match a future run — remembering them would churn
+            # the bounded forced-trace set and inflate slow_query/*
+            self._note_slow(stats.sql, stats.total_ms, stats.kind)
+        GLOBAL.inc("engine/rows_out", block.length)
+        GLOBAL.inc("engine/queries")
+        self.query_history.append(stats)
+
+    def _note_slow(self, sql: str, total_ms: float, kind: str) -> None:
+        """Slow-query log counter family + the forced-sampling set: a
+        statement over the threshold is counted, and its TEXT is
+        remembered so its next run is traced even at sample rate 0."""
+        if total_ms < self.slow_query_ms or not sql:
+            return
+        from ydb_tpu_torch.utils.metrics import GLOBAL
+        GLOBAL.inc("slow_query/count")
+        GLOBAL.inc(f"slow_query/{kind or 'other'}")
+        GLOBAL.set_max("slow_query/worst_ms", total_ms)
+        with self._trace_mu:
+            if len(self._slow_sqls) >= 256 and sql not in self._slow_sqls:
+                # bounded: drop the least-slow remembered offender
+                victim = min(self._slow_sqls, key=self._slow_sqls.get)
+                del self._slow_sqls[victim]
+            self._slow_sqls[sql] = max(self._slow_sqls.get(sql, 0.0),
+                                       total_ms)
+
+    def _explain_stmt(self, stmt: ast.Explain) -> HostBlock:
+        """EXPLAIN [ANALYZE] — plan text (+ live execution stats), the
+        `kqp_query_plan.cpp` plan-with-stats analog."""
+        from ydb_tpu_torch.core.dictionary import Dictionary
+        from ydb_tpu_torch.core import dtypes as dt
+        if self._needs_materialize(stmt.query):
+            # CTE/derived-table stages materialize at run time; their
+            # sub-plans depend on intermediate results
+            lines = ["(materialized CTE/derived-table stages; run EXPLAIN "
+                     "ANALYZE for live stats)"]
+        elif stmt.query.relation is None:
+            lines = ["(constant SELECT — literal executer, no scan)"]
+        else:
+            try:
+                lines = explain(
+                    self.planner.plan_select(stmt.query)).split("\n")
+            except (BindError, PlanError, KeyError) as e:
+                raise QueryError(str(e)) from e
+        if stmt.analyze:
+            block = self.execute(stmt.sql)
+            lines += self.last_stats.render().split("\n")
+            tr = self.tracer.render()
+            if tr:
+                lines += ["-- trace:"] + tr.split("\n")
+        d = Dictionary()
+        codes = d.encode(lines)
+        schema = Schema([Column("plan", dt.DType(dt.Kind.STRING, False))])
+        return HostBlock.from_arrays(schema, {"plan": codes},
+                                     dictionaries={"plan": d})
+
+    def explain(self, sql: str) -> str:
+        stmt = parse(sql)
+        if not isinstance(stmt, ast.Select):
+            raise QueryError("EXPLAIN supports SELECT only")
+        return explain(self.planner.plan_select(stmt))
 
     def _dispatch_and_drain(self, plan, snap, est: int) -> HostBlock:
         """The concurrent query pipeline: a *dispatch phase* (plan →
@@ -225,7 +595,20 @@ class QueryEngine:
                 "queries dispatched-or-queued for longer than the "
                 "admission deadline")
         try:
+            import time as _time
+            t_adm = _time.perf_counter()
             with self.admission.admit(est):
+                wait_ms = (_time.perf_counter() - t_adm) * 1000.0
+                if wait_ms >= 1.0:
+                    # the statement QUEUED behind the byte budget:
+                    # record the wait as its own (already-elapsed) span
+                    # so critical-path extraction can class it
+                    # admission_wait instead of burying it in a gap
+                    sp = self.tracer.attach_span(
+                        "admission-wait", admitted_mb=est >> 20)
+                    if sp is not None:
+                        sp.start_ms = round(sp.start_ms - wait_ms, 3)
+                        sp.dur_ms = round(wait_ms, 3)
                 return self._dispatch_drain_admitted(plan, snap, est)
         finally:
             self._pipe_sem.release()
@@ -233,10 +616,11 @@ class QueryEngine:
     def _dispatch_drain_admitted(self, plan, snap, est: int) -> HostBlock:
         """Body of the pipeline once the window slot + byte reservation
         are held: dispatch, account the in-flight overlap, drain."""
-        from ydb_tpu_torch.utils.metrics import GLOBAL
+        from ydb_tpu_torch.utils.metrics import GLOBAL, Timer
         entered = False
         try:
-            fut = self.executor.execute_async(plan, snap)
+            with self.tracer.span("execute", admitted_mb=est >> 20):
+                fut = self.executor.execute_async(plan, snap)
             with self._pipe_mu:
                 self._pipe_inflight += 1
                 entered = True
@@ -248,7 +632,10 @@ class QueryEngine:
                     GLOBAL.inc("pipeline/overlap_hits")
                 GLOBAL.set("pipeline/in_flight", self._pipe_inflight)
             GLOBAL.inc("pipeline/dispatched")
-            block = fut.result()
+            t_read = Timer()
+            with self.tracer.span("readout"):
+                block = fut.result()
+            GLOBAL.inc("pipeline/readout_ms", t_read.ms())
             return block
         finally:
             if entered:
@@ -258,18 +645,28 @@ class QueryEngine:
 
     def counters(self) -> dict:
         """Live counter snapshot (a slim form of the reference's
-        /counters payload): the process counters, the
-        plan cache size, the pipeline window and the batch window; the
-        lane's and admission's counters are present (0) before their
-        first use."""
-        from ydb_tpu_torch.utils.metrics import GLOBAL
+        /counters payload): the process counters and histograms
+        (`hist/<family>/{count,p50,p95,p99,max}`, the fixed families
+        zero before their first observation), the plan cache size, the
+        pipeline window, the batch window and the trace sampling; the
+        registry's always-visible counters, the lane's and admission's
+        are present (0) before their first use."""
+        from ydb_tpu_torch.utils.metrics import (
+            ALWAYS_VISIBLE, GLOBAL, GLOBAL_HIST, HIST_FAMILIES,
+        )
         c = GLOBAL.snapshot()
+        c.update(GLOBAL_HIST.snapshot())
+        for fam in HIST_FAMILIES:
+            for q in ("count", "p50", "p95", "p99", "max"):
+                c.setdefault(f"hist/{fam}/{q}", 0)
         with self._plan_mu:
             c["engine/plan_cache_size"] = len(self._plan_cache)
         c["pipeline/window"] = self.pipeline_window
         c["batch/window_ms"] = self.batch_window_ms
-        for k in _ALWAYS_VISIBLE:
+        for k in _ALWAYS_VISIBLE + ALWAYS_VISIBLE:
             c.setdefault(k, 0)
+        c.setdefault("trace/sample_rate", self.trace_sample)
+        c.setdefault("trace/profiles_held", len(self.profiles))
         return c
 
     def _table_fingerprint(self, names) -> tuple:
@@ -435,12 +832,16 @@ class QueryEngine:
         temps: list = []
         try:
             rewritten = self._rewrite_sel(stmt, {}, temps, snap)
-            df = self._eval_setop_df(rewritten, snap)
-            try:
-                df = W.apply_order_limit(df, stmt.order_by,
-                                         stmt.limit, stmt.offset)
-            except ValueError as e:
-                raise QueryError(str(e)) from e
+            # combine/dedup is host pandas work: spanned so it ranks as
+            # host_lane on the critical path (arms' device spans nest
+            # inside and classify themselves)
+            with self.tracer.span("setop-host-lane"):
+                df = self._eval_setop_df(rewritten, snap)
+                try:
+                    df = W.apply_order_limit(df, stmt.order_by,
+                                             stmt.limit, stmt.offset)
+                except ValueError as e:
+                    raise QueryError(str(e)) from e
             return HostBlock.from_pandas(df)
         finally:
             for tn in temps:
@@ -501,10 +902,14 @@ class QueryEngine:
 
     def _host_lane_guard(self, rows: int, lane: str,
                          count: bool = True) -> None:
-        """Host pandas lanes (windows, set-op combine) degrade loudly:
-        frames above the configured limit refuse instead of silently
-        becoming single-core pandas jobs (`count` is the reference's
-        row-counter switch; the port keeps no such counter)."""
+        """Host pandas lanes (windows, set-op combine) degrade loudly: a
+        counter records the rows crossing to host (`count=False` for
+        re-checks of already-counted rows, e.g. set-op combine levels),
+        and frames above the configured limit refuse instead of silently
+        becoming single-core pandas jobs."""
+        from ydb_tpu_torch.utils.metrics import GLOBAL
+        if count:
+            GLOBAL.inc(f"engine/host_lane/{lane}_rows", rows)
         if rows > self.config.host_lane_max_rows:
             raise QueryError(
                 f"{lane} host-fallback lane refused a {rows}-row frame "
@@ -533,21 +938,32 @@ class QueryEngine:
             # dominant window cost — PERF.md r5)
             fs = self._final_sort_spec(sel, outer)
             if fs is not None:
-                done = self._windows_on_device(inner_block, outer,
-                                               final_sort=fs,
-                                               limit=sel.limit,
-                                               offset=sel.offset or 0)
+                with self.tracer.span("window-device",
+                                      rows=inner_block.length):
+                    done = self._windows_on_device(inner_block, outer,
+                                                   final_sort=fs,
+                                                   limit=sel.limit,
+                                                   offset=sel.offset
+                                                   or 0)
                 if done is not None:
                     lo = sel.offset or 0
                     return HostBlock.from_pandas(
                         done.iloc[lo:lo + sel.limit]
                         .reset_index(drop=True))
         if device_ok:
-            df = self._windows_on_device(inner_block, outer)
+            with self.tracer.span("window-device",
+                                  rows=inner_block.length):
+                df = self._windows_on_device(inner_block, outer)
         if df is None:
             self._host_lane_guard(inner_block.length, "window")
             try:
-                df = W.compute_windows(inner_block.to_pandas(), outer)
+                # its own span so the single-core pandas lane ranks as
+                # host_lane on the critical path (the q13 class), not
+                # as unattributed statement self-time
+                with self.tracer.span("window-host-lane",
+                                      rows=inner_block.length):
+                    df = W.compute_windows(inner_block.to_pandas(),
+                                           outer)
             except ValueError as e:
                 raise QueryError(str(e)) from e
         if post is not None:
@@ -610,16 +1026,20 @@ class QueryEngine:
         (the window_scan kernel) — with a single device→host transfer for
         all outputs (sliced to offset+limit rows when the final sort
         pushes down). Returns the assembled frame, or None when a spec
-        requires the pandas lane."""
+        requires the pandas lane (which then counts its host rows)."""
         import pandas as pd
 
         from ydb_tpu_torch.ops.window_dev import compute_windows_device
+        from ydb_tpu_torch.utils.metrics import GLOBAL
         dev = compute_windows_device(inner_block, outer,
                                      final_sort=final_sort,
                                      limit=limit, offset=offset,
                                      device=self.device)
         if dev is None:
             return None
+        GLOBAL.inc("engine/window_device_rows", inner_block.length)
+        if final_sort is not None:
+            GLOBAL.inc("engine/window_device_pushdown")
 
         def series(vals, valid, dic):
             if dic is not None:

@@ -51,6 +51,7 @@ from ydb_tpu_torch.core.block import ColumnData, HostBlock
 from ydb_tpu_torch.core.schema import Column, Schema
 from ydb_tpu_torch.ops import ir
 from ydb_tpu_torch.ops import join as J
+from ydb_tpu_torch.ops.cuda import nvrtc
 from ydb_tpu_torch.ops.device import (
     DeviceBlock, DeviceResultFuture, DeviceStageBlock, batched_to_host,
     bucket_capacity, to_device, to_host,
@@ -59,6 +60,7 @@ from ydb_tpu_torch.ops.torch_ns import storage_array, to_tensor, torch_dtype
 from ydb_tpu_torch.progstore import buckets as shape_buckets
 from ydb_tpu_torch.query.plan import JoinStep, Pipeline, QueryPlan
 from ydb_tpu_torch.storage.mvcc import MAX_SNAPSHOT, Snapshot
+from ydb_tpu_torch.utils import memledger
 from ydb_tpu_torch.utils.metrics import GLOBAL
 
 class Executor:
@@ -108,6 +110,8 @@ class Executor:
         # shards (the shuffle join) instead of being placed on every shard
         self.dist_broadcast_budget_bytes = int(
             os.environ.get("YDB_TPU_DIST_BROADCAST_BUDGET", 256 << 20))
+        # engine-provided tracer (utils/tracing.Tracer) — None = no spans
+        self.tracer = None
 
     # DQ task-graph runtime (`dq/`): >0 while THIS THREAD runs a
     # statement as a stage program of a distributed task. Thread-local: a
@@ -141,6 +145,58 @@ class Executor:
     @last_path.setter
     def last_path(self, v: str):
         self._tls.last_path = v
+
+    def _span(self, name: str, **attrs):
+        if self.tracer is not None:
+            return self.tracer.span(name, **attrs)
+        from ydb_tpu_torch.utils.tracing import _NullSpanCtx
+        return _NullSpanCtx()   # yields a throwaway span (attrs writable)
+
+    def _dispatch(self, span: str, fn, args: tuple, **attrs):
+        """Run the eager body `fn(*args)` — every launch of one
+        execution — inside its dispatch span; returns (outputs, clock).
+        For a sampled statement on a CUDA device the clock is two CUDA
+        events recorded on the device's current stream, just before the
+        body's first launch and just after its last; otherwise it is
+        None and no event is made. K1's NVRTC builds made inside the
+        body land on the span as `compile_ms`; with a clock, each also
+        leaves a pair of events around it in the clock's third member
+        (`nvrtc.watch_builds`), so the card's wait on the host's build
+        is taken out of its time."""
+        clock = None
+        with self._span(span, **attrs) as dsp:
+            built_ms = nvrtc.thread_build_ms()
+            if self.device.type == "cuda" and self.tracer is not None \
+                    and self.tracer.sampled:
+                stream = torch.cuda.current_stream(self.device)
+                clock = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True), [])
+                clock[0].record(stream)
+                outer = nvrtc.watch_builds(clock[2])
+                try:
+                    out = fn(*args)
+                finally:
+                    nvrtc.watch_builds(outer)
+                clock[1].record(stream)
+            else:
+                out = fn(*args)
+            ms = nvrtc.thread_build_ms() - built_ms
+            if ms > 0.0:
+                dsp.attrs["compile_ms"] = round(ms, 3)
+        return out, clock
+
+    def _device_execute(self, clock) -> None:
+        """The `device-execute` span of a readout. With a clock it waits
+        on the end event, the wait the readout's copy would make anyway,
+        and then carries the card's time between the two events as an
+        attr (`_stamp_card_time`), the phases' `device`; without one
+        (the CPU, or an executor without a tracer) the span's host time
+        stands, as in the reference."""
+        with self._span("device-execute") as sp:
+            if clock is not None:
+                clock[1].synchronize()
+        if clock is not None:
+            _stamp_card_time(sp, clock)
 
     # -- entry -------------------------------------------------------------
 
@@ -190,8 +246,10 @@ class Executor:
                 return DeviceResultFuture.completed(
                     self._project_output(merged, plan.output))
 
-        fused = self._try_execute_fused(plan, params, snapshot, defer=True) \
-            if self.enable_fused else None
+        with self._span("fused-attempt"):
+            fused = self._try_execute_fused(plan, params, snapshot,
+                                            defer=True) \
+                if self.enable_fused else None
         if isinstance(fused, tuple):           # tiled lane: (kind, block)
             kind, block = fused
             self.last_path = kind
@@ -230,7 +288,8 @@ class Executor:
         join_steps = [step for kind, step in pipe.steps if kind == "join"]
         if len(join_steps) > self.fuse_max_joins:
             return None                  # program-complexity cap
-        builds = self._prepare_builds(pipe, params, snapshot)
+        with self._span("join-builds", n=len(join_steps)):
+            builds = self._prepare_builds(pipe, params, snapshot)
         for step, bt in zip(join_steps, builds):
             if isinstance(bt, J.PartitionedBuild) or (
                     not bt.unique and step.kind in ("inner", "left", "mark")):
@@ -251,14 +310,23 @@ class Executor:
             return self._execute_fused_tiled(
                 plan, params, pipe, sources, scan_cols, builds, join_metas,
                 dicts, partial_schema)
-        sb = self.device_cache.superblock(table, storage_names, rename,
-                                          snapshot, pipe.scan.prune or None,
-                                          sources, src_ids, pad_to=Kb)
+        with self._span("superblock-upload"):
+            sb = self.device_cache.superblock(table, storage_names, rename,
+                                              snapshot,
+                                              pipe.scan.prune or None,
+                                              sources, src_ids, pad_to=Kb)
         if sb is None:
             return builds or None          # empty scan → portioned path
         arrays, valids, lengths, K, CAP, sb_dicts = sb
         sb_valid_names = frozenset(valids.keys())
         dicts.update(sb_dicts)
+        # resource ledger: the scan's device working set is the stacked
+        # (K, CAP) superblock; live rows come from the host-side source
+        # blocks (no device sync)
+        memledger.record_padded_buffers(
+            "superblock", "superblock",
+            int(sum(b.length for b in sources)) if sources else 0,
+            K * CAP, arrays, valids)
 
         sort_params, sort_spec, rank_assigns = self._sort_setup_fused(
             plan, schema, dicts)
@@ -301,8 +369,13 @@ class Executor:
                           if isinstance(v, np.ndarray) else v)
                       for k, v in all_params.items()}
         build_inputs = [F.build_traced_inputs(bt) for bt in builds]
-        data_stacks, valid_stack, length, aux = fn(
-            arrays, valids, lengths, build_inputs, dev_params)
+        (data_stacks, valid_stack, length, aux), clock = self._dispatch(
+            "device-dispatch", fn,
+            (arrays, valids, lengths, build_inputs, dev_params), k=K, cap=CAP)
+        # result buffers live on the device until the future drains them
+        memledger.record_alloc(
+            "result_buffers",
+            memledger.deep_nbytes((data_stacks, valid_stack)))
 
         out_dicts = {n2: d for n2, d in dicts.items() if out_schema.has(n2)}
         out_dicts.update({n2: d for n2, d in plan.result_dicts.items()
@@ -316,6 +389,7 @@ class Executor:
         capture_device = bool(self.dq_device_capture) and not lo
 
         def fetch() -> HostBlock:
+            self._device_execute(clock)
             if aux:
                 # compact live/overflow: two scalars the loud-rerun
                 # decision needs on the host
@@ -325,6 +399,10 @@ class Executor:
                 GLOBAL.inc("latemat/compact_live_rows", live)
                 if live > self._compact_memo.get(base_key, 0):
                     self._compact_memo[base_key] = live
+                # live/padded account for the compacted shape: measured
+                # live rows against the ladder rung every later op ran at
+                memledger.record_pad("compact", live, compact_cap,
+                                     live * 8, compact_cap * 8)
                 if ovf:
                     # the bound was forged low — rows past compact_cap
                     # were dropped on the device. Discard this result and
@@ -344,9 +422,14 @@ class Executor:
                 dev = F.capture_fused_device(data_stacks, valid_stack, n,
                                              layout_box, out_schema,
                                              out_dicts)
-                return DeviceStageBlock(dev, n)
-            block = F.fetch_fused_result(data_stacks, valid_stack, length,
-                                         layout_box, out_schema, out_dicts)
+                blk = DeviceStageBlock(dev, n)
+                memledger.record_device_handoff(
+                    "query/executor.py::fused_capture", blk.live_nbytes())
+                return blk
+            with self._span("readout-transfer"):
+                block = F.fetch_fused_result(data_stacks, valid_stack,
+                                             length, layout_box,
+                                             out_schema, out_dicts)
             return _apply_offset(block, lo, limit)
 
         fut = DeviceResultFuture(fetch)
@@ -389,7 +472,8 @@ class Executor:
         if len(join_steps) > self.fuse_max_joins:
             return None
         params0 = dict(members[0][1])
-        builds = self._prepare_builds(pipe, params0, snapshot)
+        with self._span("join-builds", n=len(join_steps)):
+            builds = self._prepare_builds(pipe, params0, snapshot)
         for step, bt in zip(join_steps, builds):
             if isinstance(bt, J.PartitionedBuild) or (
                     not bt.unique and step.kind in ("inner", "left",
@@ -406,14 +490,18 @@ class Executor:
                                               pad_to=Kb) \
                 > self.fused_scan_budget_bytes:
             return None                  # empty / tiled-class scan
-        sb = self.device_cache.superblock(table, storage_names, rename,
-                                          snapshot, None, sources, src_ids,
-                                          pad_to=Kb)
+        with self._span("superblock-upload"):
+            sb = self.device_cache.superblock(table, storage_names, rename,
+                                              snapshot, None, sources,
+                                              src_ids, pad_to=Kb)
         if sb is None:
             return None
         arrays, valids, lengths, K, CAP, sb_dicts = sb
         sb_valid_names = frozenset(valids.keys())
         dicts.update(sb_dicts)
+        memledger.record_padded_buffers(
+            "superblock", "superblock",
+            int(sum(b.length for b in sources)), K * CAP, arrays, valids)
 
         sort_params, sort_spec, rank_assigns = self._sort_setup_fused(
             plan, schema, dicts)
@@ -468,15 +556,24 @@ class Executor:
         dev_params.update({k: PerMember(to_tensor(v, self.device))
                            for k, v in mapped.items()})
         build_inputs = [F.build_traced_inputs(bt) for bt in builds]
-        data_stacks, valid_stack, length, _aux = fn(
-            arrays, valids, lengths, build_inputs, dev_params)
+        (data_stacks, valid_stack, length, _aux), clock = self._dispatch(
+            "device-dispatch-batched", fn,
+            (arrays, valids, lengths, build_inputs, dev_params), k=K, cap=CAP,
+            b=rows)
+        # the member axis: `rows` member slots of every output for B live
+        # members (identical members share row 0)
+        memledger.record_padded_buffers(
+            "batch_lane", "result_buffers", rows, rows,
+            (data_stacks, valid_stack))
 
         out_dicts = {n2: d for n2, d in dicts.items() if out_schema.has(n2)}
         out_dicts.update({n2: d for n2, d in plan.result_dicts.items()
                           if out_schema.has(n2)})
-        blocks = F.fetch_fused_batch(data_stacks, valid_stack, length,
-                                     layout_box, out_schema, out_dicts,
-                                     member_rows)
+        self._device_execute(clock)
+        with self._span("readout-transfer", b=len(members)):
+            blocks = F.fetch_fused_batch(data_stacks, valid_stack, length,
+                                         layout_box, out_schema, out_dicts,
+                                         member_rows)
         out = []
         for (mp, _prms), blk in zip(members, blocks):
             blk = _apply_offset(blk, mp.offset or 0, mp.limit)
@@ -952,32 +1049,35 @@ class Executor:
 
         partials, unions = [], []
         prev = None
-        for t in range(n_tiles):
-            tile_sources = sources[t * K_tile:(t + 1) * K_tile]
-            sb, sbv, lengths = self._stack_tile(
-                tile_sources, pipe.scan.columns, K_tile, CAP,
-                sb_valid_names)
-            out_d, out_v, length = fn(sb, sbv, lengths, build_inputs,
-                                      dev_params)
-            out_d = {n: out_d[n] for n in partial_schema.names}
-            out_v = {n: v for n, v in out_v.items()
-                     if partial_schema.has(n)}
-            cap_t = (next(iter(out_d.values())).shape[0]
-                     if out_d else tile_cap)
-            dblock = DeviceBlock(partial_schema, out_d, out_v, length,
-                                 cap_t, out_dicts)
-            if spill:
-                store.feed(dblock)       # syncs → natural backpressure
-            elif union:
-                unions.append(self._finalize(plan_tile, [dblock], params))
-            else:
-                partials.append(dblock)
-                # two tiles in flight: wait for the one before this one
-                # before stacking the next
-                done = _tile_done(self.device)
-                if prev is not None:
-                    prev.synchronize()
-                prev = done
+        with self._span("tiled-scan", tiles=n_tiles, k_tile=K_tile,
+                        spill=bool(spill), union=bool(union)):
+            for t in range(n_tiles):
+                tile_sources = sources[t * K_tile:(t + 1) * K_tile]
+                sb, sbv, lengths = self._stack_tile(
+                    tile_sources, pipe.scan.columns, K_tile, CAP,
+                    sb_valid_names)
+                out_d, out_v, length = fn(sb, sbv, lengths, build_inputs,
+                                          dev_params)
+                out_d = {n: out_d[n] for n in partial_schema.names}
+                out_v = {n: v for n, v in out_v.items()
+                         if partial_schema.has(n)}
+                cap_t = (next(iter(out_d.values())).shape[0]
+                         if out_d else tile_cap)
+                dblock = DeviceBlock(partial_schema, out_d, out_v, length,
+                                     cap_t, out_dicts)
+                if spill:
+                    store.feed(dblock)       # syncs → natural backpressure
+                elif union:
+                    unions.append(self._finalize(plan_tile, [dblock],
+                                                 params))
+                else:
+                    partials.append(dblock)
+                    # two tiles in flight: wait for the one before this
+                    # one before stacking the next
+                    done = _tile_done(self.device)
+                    if prev is not None:
+                        prev.synchronize()
+                    prev = done
 
         if spill:
             GLOBAL.inc("executor/spilled_rows", store.spilled_rows)
@@ -1043,12 +1143,13 @@ class Executor:
         plan_p = dataclasses.replace(plan, sort=[], limit=None, offset=None,
                                      output=plan.output + extra)
         outs = []
-        for p in range(store.nparts):
-            hb = store.partition(p)
-            if hb.length == 0 and outs:
-                continue
-            outs.append(self._finalize(plan_p, [to_device(hb, self.device)],
-                                       params))
+        with self._span("spill-merge", parts=store.nparts):
+            for p in range(store.nparts):
+                hb = store.partition(p)
+                if hb.length == 0 and outs:
+                    continue
+                outs.append(self._finalize(
+                    plan_p, [to_device(hb, self.device)], params))
         union = HostBlock.concat(outs) if len(outs) > 1 else outs[0]
         return SP.host_sort_limit(
             union, plan.sort, plan.limit, plan.offset,
@@ -1266,44 +1367,48 @@ class Executor:
         if not pschema.names and step.payload:
             return None
 
-        # stage A: the pipeline prefix per shard (earlier joins broadcast)
-        prefix_builds = self._prepare_builds(pipe, params, snapshot,
-                                             until=j)
-        per_dev = self._shard_partials(pipe, snapshot, devs, prefix_builds,
-                                       params, until=j)
+        with self._span("shuffle-join", ndev=ndev,
+                        build_rows=built.length):
+            # stage A: the pipeline prefix per shard (earlier joins
+            # broadcast)
+            prefix_builds = self._prepare_builds(pipe, params, snapshot,
+                                                 until=j)
+            per_dev = self._shard_partials(pipe, snapshot, devs,
+                                           prefix_builds, params, until=j)
 
-        in_schema = per_dev[0][0].schema
-        payload_cols = [Column(name, pschema.dtype(name).with_nullable(True))
-                        for name in pschema.names]
-        if step.kind == "mark":
-            payload_cols.append(Column(step.mark_col or "__mark",
-                                       DType(Kind.BOOL, False)))
-        rest = [s for (k, s) in pipe.steps[j + 1:]]
-        key = (tuple((c.name, c.dtype.kind.value, c.dtype.nullable)
-                     for c in in_schema.columns),
-               step.probe_key, step.kind,
-               tuple((c.name, c.dtype.kind.value, c.dtype.nullable)
-                     for c in payload_cols),
-               ndev,
-               tuple(p.fingerprint() for p in rest),
-               pipe.partial.fingerprint() if pipe.partial else "",
-               groupby_tuning())
-        sj = self._shuffle_joins.get(key)
-        if sj is None:
-            sj = SJ.ShuffleJoin(self.mesh, in_schema, step.probe_key,
-                                step.kind, payload_cols,
-                                step.mark_col or "__mark", step.not_in,
-                                rest, pipe.partial)
-            self._shuffle_joins[key] = sj
-        dicts = {}
-        for blks in per_dev:
-            for b in blks:
-                dicts.update(b.dictionaries)
-        dicts.update(bdicts)
-        post_blocks = sj.run(per_dev, barrays, params, dicts)
-        GLOBAL.inc("executor/shuffle_joins")
-        return self._merge_distributed_partials(
-            plan, [[b] for b in post_blocks], params)
+            in_schema = per_dev[0][0].schema
+            payload_cols = [
+                Column(name, pschema.dtype(name).with_nullable(True))
+                for name in pschema.names]
+            if step.kind == "mark":
+                payload_cols.append(Column(step.mark_col or "__mark",
+                                           DType(Kind.BOOL, False)))
+            rest = [s for (k, s) in pipe.steps[j + 1:]]
+            key = (tuple((c.name, c.dtype.kind.value, c.dtype.nullable)
+                         for c in in_schema.columns),
+                   step.probe_key, step.kind,
+                   tuple((c.name, c.dtype.kind.value, c.dtype.nullable)
+                         for c in payload_cols),
+                   ndev,
+                   tuple(p.fingerprint() for p in rest),
+                   pipe.partial.fingerprint() if pipe.partial else "",
+                   groupby_tuning())
+            sj = self._shuffle_joins.get(key)
+            if sj is None:
+                sj = SJ.ShuffleJoin(self.mesh, in_schema, step.probe_key,
+                                    step.kind, payload_cols,
+                                    step.mark_col or "__mark",
+                                    step.not_in, rest, pipe.partial)
+                self._shuffle_joins[key] = sj
+            dicts = {}
+            for blks in per_dev:
+                for b in blks:
+                    dicts.update(b.dictionaries)
+            dicts.update(bdicts)
+            post_blocks = sj.run(per_dev, barrays, params, dicts)
+            GLOBAL.inc("executor/shuffle_joins")
+            return self._merge_distributed_partials(
+                plan, [[b] for b in post_blocks], params)
 
     def _merge_distributed_partials(self, plan: QueryPlan, per_dev: list,
                                     params: dict) -> HostBlock:
@@ -1795,6 +1900,20 @@ def _tile_done(device):
     ev = torch.cuda.Event()
     ev.record()
     return ev
+
+
+def _stamp_card_time(span, clock) -> None:
+    """Give a closed `device-execute` span the card's own time as its
+    `card_ms` attr: the milliseconds between the clock's two events less
+    the card's waits on K1 builds inside them (`build_wait_ms`). The
+    span keeps its host start and length, inside its parent; the phase
+    breakdown sums `card_ms` as `device_ms`."""
+    ms = clock[0].elapsed_time(clock[1])
+    wait = sum(a.elapsed_time(b) for a, b in clock[2])
+    if wait:
+        span.attrs["build_wait_ms"] = round(wait, 3)
+    span.attrs["card_ms"] = round(max(ms - wait, 0.0), 3)
+    span.attrs["timer"] = "cuda-events"
 
 
 def _param_values_equal(a, b) -> bool:

@@ -18,6 +18,7 @@ import torch
 
 from ydb_tpu_torch.ops.device import bucket_capacity
 from ydb_tpu_torch.ops.torch_ns import to_tensor
+from ydb_tpu_torch.utils import memledger
 
 import os as _os
 
@@ -162,6 +163,11 @@ class DeviceColumnCache:
         key = (portion.id, col, str(dev))
         hit = self._lookup(key)
         if hit is not None:
+            # the query's working set includes cache-resident columns —
+            # the ledger accounts residency per query, not per upload
+            memledger.record_padded_buffers(
+                "portion_column", "scan_columns", portion.num_rows,
+                hit[0].shape[0], hit[0], hit[1])
             return hit[0], hit[1]
         cd = portion.block.columns[col]
         cap = bucket_capacity(max(portion.num_rows, 1))
@@ -173,6 +179,9 @@ class DeviceColumnCache:
             valid = to_tensor(np.pad(cd.valid, (0, pad)) if pad
                               else cd.valid, dev)
             nbytes += valid.nbytes
+        memledger.record_padded_buffers(
+            "portion_column", "scan_columns", portion.num_rows, cap,
+            data, valid)
         return self._insert(key, data, valid, nbytes)
 
     def device_block(self, portion, columns: list, rename=None,
