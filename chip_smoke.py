@@ -246,6 +246,34 @@ Phases, each printing its own line(s):
     workers, one task row per (stage, worker) and the workers' spans in
     its tree.
 
+12. the write path, last, over the main TPC-H engine once every other
+    phase has read it (``write_phase``): q1, q3 and q6 warm and their
+    plans made, then a snapshot ``old`` held as a read in flight; RF1
+    (TPC-H clause 2.5: SF x 1,500 new orders and their 1-7 lineitems
+    each, from the port's generator at another seed with keys past the
+    table's maximum, loaded into staging tables through ``interop``)
+    as ``INSERT INTO orders / lineitem SELECT * FROM ...``; RF2 (SF x
+    1,500 existing orders and their lineitems) as ``DELETE ... WHERE
+    l_orderkey IN (SELECT k FROM rf2_keys)`` and the same for orders;
+    an UPDATE of ~1,000 lineitem rows with computed SETs; after each, q1,
+    q3 and q6 (first read after the write, then warm) against the pandas
+    oracle over the changed rows, and the plans made before the writes
+    at ``old`` through ``executor.execute`` against the unchanged
+    oracle; a transaction inserting another RF1 that a second session
+    does not see, rolled back, and one aborted with "optimistic lock" by
+    a conflicting commit; a row table of 100,000 accounts filled by
+    INSERT ... SELECT, under 8 sessions on threads making 100 transfers
+    each (BEGIN, two UPDATEs, COMMIT; an abort retried after a
+    randomized exponential backoff), in rounds of 50 sampled, at trace
+    sampling 0, at 0, sampled, ``sum(bal)`` and ``count(*)`` kept on
+    the card; 8 point lookups through the batch lane with a commit
+    changing their 8 rows in the middle (each member equal to the
+    pandas oracle at its side of the commit, no group on both sides);
+    10 rounds of an UPDATE and q6, with the device cache's bytes and
+    ``torch.cuda.memory_allocated`` after each. The host costs come
+    from each statement's trace. Every line carries the card's name and
+    power limit.
+
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 """
@@ -4474,6 +4502,13 @@ def main() -> int:
     rows += segments_phase(bindings, mesh_rec.calls)
     # 10. the DQ kernels at the largest calls the DQ path gave them
     rows += dq_kernel_phase(bindings, dq_rec.calls)
+    # 12. the write path, over the main TPC-H engine once every other
+    # phase has read it (no later phase reads a changed table)
+    wr_launches = write_phase(bindings, eng, QUERIES, tpch_oracle, data,
+                              args.sf, smi)
+    for k, v in wr_launches.items():
+        launches[k] += v
+    log(f"launches (all paths and the write path): {json.dumps(launches)}")
     for r in rows:
         lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"kernel {r['name']}: {r['shape']} kernel_ms={r['ms']:.4f} "
@@ -5036,6 +5071,580 @@ def explain_phase(B, eng, queries: dict, oracle, order_keys,
     check(not missing, f"kernels not launched on the explain path: "
           f"{missing}")
     return launches
+
+
+# --------------------------------------------------------------------------
+# the write path: TPC-H's refresh functions, UPDATE, transactions, a row
+# table under concurrent transfers, a batch storm across a commit
+# --------------------------------------------------------------------------
+
+# the kernels the write path's statements must launch (the WHERE of each
+# UPDATE and DELETE and the SELECT of each INSERT run the read lanes)
+WRITE_KERNELS = ("k1", "compact", "probe", "bucket_agg",
+                 "bucket_agg_keyless", "sort")
+WRITE_QUERIES = ("q1", "q3", "q6")
+WRITE_SEED = 19920102              # RF1's rows: the generator at another seed
+RF_ORDERS_PER_SF = 1500            # TPC-H clause 2.5: SF x 1,500 orders
+WRITE_UPDATE_ORDERS = 250          # ~1,000 lineitem rows (4 a order)
+WRITE_ROUNDS = 10                  # the write/read memory series
+ACCT_ROWS = 100_000
+TRANSFER_SESSIONS, TRANSFERS = 8, 100
+WRITE_STORM = 8
+# the columns the three queries' oracles read
+WRITE_COLS = {
+    "lineitem": ("l_orderkey", "l_quantity", "l_extendedprice",
+                 "l_discount", "l_tax", "l_returnflag", "l_linestatus",
+                 "l_shipdate"),
+    "orders": ("o_orderkey", "o_custkey", "o_orderdate", "o_shippriority",
+               "o_totalprice"),
+    "customer": ("c_custkey", "c_mktsegment"),
+}
+
+
+def _staging_spec(cols: dict, name_schema) -> dict:
+    """`interop.load_tables`' description of one generated table (string
+    columns as codes into their values in first-seen order)."""
+    import numpy as np
+    import pandas as pd
+    schema, keys = name_schema
+    data, dicts = {}, {}
+    for c in schema:
+        a = cols[c.name]
+        if c.dtype.is_string:
+            codes, uniq = pd.factorize(np.asarray(a, dtype=object))
+            data[c.name] = codes.astype(c.dtype.np)
+            dicts[c.name] = list(uniq)
+        else:
+            data[c.name] = np.asarray(a, dtype=c.dtype.np)
+    return {"columns": [(c.name, c.dtype.kind.value, c.dtype.nullable)
+                        for c in schema],
+            "data": data, "valid": {}, "dictionaries": dicts,
+            "primary_key": list(keys), "shards": 1,
+            "portion_rows": 1 << 20}
+
+
+def _refresh_rows(sf: float, seed: int, key_base: int) -> dict:
+    """RF1's new sales: SF x 1,500 orders with their 1-7 lineitems each,
+    from the port's generator at `seed`, order keys past `key_base`
+    (customers, parts and suppliers within the loaded tables' ranges)."""
+    from ydb_tpu_torch.bench.tpch_gen import TpchData
+    rf = TpchData(sf / 1000.0, seed)
+    od = dict(rf.tables["orders"])
+    li = dict(rf.tables["lineitem"])
+    od["o_orderkey"] = od["o_orderkey"] + key_base
+    li["l_orderkey"] = li["l_orderkey"] + key_base
+    return {"orders": od, "lineitem": li}
+
+
+def _trace_sums(spans) -> dict:
+    """What the program's own trace of one statement says of its host
+    work: the superblock stacks (`superblock-upload`: host ms, bytes
+    uploaded, columns stacked on a miss) and, in its attrs, the fused
+    lanes' scan sources before it (host ms, portions read through a
+    filtered view of their delete marks); the delete marks' key merge
+    (`column-delete-hits`); and the statement's reads (the statement
+    span's children other than parse and the merge)."""
+    out = dict.fromkeys(("stack_ms", "stack_bytes", "stacked",
+                         "sources_ms", "marked", "key_merge_ms",
+                         "reads_ms"), 0)
+    if not spans:
+        return out
+    root = spans[0].span_id
+    for s in spans:
+        if s.name == "superblock-upload":
+            out["stack_ms"] += s.dur_ms
+            out["stack_bytes"] += s.attrs.get("upload_bytes", 0)
+            out["stacked"] += s.attrs.get("stacked", 0)
+            out["sources_ms"] += s.attrs.get("sources_ms", 0.0)
+            out["marked"] += s.attrs.get("marked", 0)
+        elif s.name == "column-delete-hits":
+            out["key_merge_ms"] += s.dur_ms
+        if s.parent_id == root and s.name not in ("parse",
+                                                  "column-delete-hits"):
+            out["reads_ms"] += s.dur_ms
+    return out
+
+
+def write_phase(B, eng, queries: dict, base_oracle, data, sf: float,
+                card: str) -> dict:
+    """The write path over the main TPC-H engine, after every other phase
+    has read it (the list is the module docstring's item 12). The launch
+    counters are set to 0 before the path and read after it; returns
+    them."""
+    import types
+
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    from ydb_tpu_torch import interop
+    from ydb_tpu_torch.bench.tpch_gen import TPCH_SCHEMAS
+    from ydb_tpu_torch.bench.tpch_oracle import assert_frames_match, oracle
+    from ydb_tpu_torch.query.engine import QueryError
+    from ydb_tpu_torch.sql import parse
+    from ydb_tpu_torch.utils.metrics import GLOBAL
+    late_mat = os.environ.get("YDB_TPU_LATE_MAT")
+    os.environ["YDB_TPU_LATE_MAT"] = "1"
+    eng.trace_sample = 1.0
+    eng.slow_query_ms = float("inf")
+    eng._slow_sqls.clear()
+    cuda = eng.device.type == "cuda"
+    dc = eng.executor.device_cache
+    t_path = time.perf_counter()
+    B.reset_launches()
+    held = None                   # the old snapshot's registered read
+
+    # the frames the oracles read, kept as the writes change the tables
+    state = {t: pd.DataFrame({c: data.tables[t][c] for c in cols})
+             for t, cols in WRITE_COLS.items()}
+
+    def oracle_at(st) -> dict:
+        ns = types.SimpleNamespace(
+            tables={t: {c: df[c].to_numpy() for c in df.columns}
+                    for t, df in st.items()})
+        return {q: oracle(q, ns) for q in WRITE_QUERIES}
+
+    def statement(sql: str, tag: str, session=None):
+        """One write statement: its wall, phases, rows affected and K1
+        builds, logged beside the card."""
+        b0 = GLOBAL.get("k1/builds")
+        t0 = time.perf_counter()
+        (session or eng).execute(sql)
+        wall = (time.perf_counter() - t0) * 1e3
+        prof, st = eng.profiles[-1], eng.last_stats
+        tr = _trace_sums(eng.last_trace)
+        log(f"write {tag}: wall_ms={wall:.2f} rows_affected="
+            f"{eng.last_rows_affected} kind={st.kind} parse_ms="
+            f"{st.parse_ms:.3f} k1_builds={GLOBAL.get('k1/builds') - b0} "
+            f"key_merge_ms={tr['key_merge_ms']:.2f} "
+            f"reads_ms={tr['reads_ms']:.2f} "
+            f"superblock_stack_ms={tr['stack_ms']:.2f} superblock_bytes="
+            f"{tr['stack_bytes']} "
+            f"phases={json.dumps(prof['phases'])} critical_path_ms="
+            f"{prof.get('critical_path', {}).get('wall_ms')} "
+            f"card=\"{card}\"")
+        return eng.last_rows_affected
+
+    def read_checks(tag: str, want: dict, old_plans, old, old_want):
+        """q1, q3 and q6 at the new snapshot (first read after the write,
+        then warm) against `want`, and their plans made before the
+        writes at `old` against the unchanged oracle."""
+        parts = []
+        for q in WRITE_QUERIES:
+            t0 = time.perf_counter()
+            got = eng.query(queries[q])
+            first = (time.perf_counter() - t0) * 1e3
+            tr = _trace_sums(eng.last_trace)
+            t0 = time.perf_counter()
+            again = eng.query(queries[q])
+            warm = (time.perf_counter() - t0) * 1e3
+            assert_frames_match(got, want[q], ordered=True)
+            assert_frames_match(again, want[q], ordered=True)
+            at_old = eng.executor.execute(old_plans[q], old).to_pandas()
+            assert_frames_match(at_old, old_want[q], ordered=True)
+            parts.append(f"{q}_first_ms={first:.2f} {q}_warm_ms={warm:.2f} "
+                         f"{q}_stack_ms={tr['stack_ms']:.2f} "
+                         f"{q}_stack_bytes={tr['stack_bytes']} "
+                         f"{q}_stacked={tr['stacked']} "
+                         f"{q}_sources_ms={tr['sources_ms']:.2f} "
+                         f"{q}_marked={tr['marked']}")
+        log(f"write check {tag}: " + " ".join(parts)
+            + f" device_cache_bytes={dc.bytes} at_new=oracle at_old="
+            f"unchanged-oracle ok card=\"{card}\"")
+
+    try:
+        # 1. warm the three reads, take the snapshot the old plans read
+        old_want = {q: base_oracle(q) for q in WRITE_QUERIES}
+        for q in WRITE_QUERIES:
+            eng.query(queries[q])
+        old_plans = {q: eng.planner.plan_select(parse(queries[q]))
+                     for q in WRITE_QUERIES}
+        old = eng.snapshot()
+        # a snapshot held across writes is registered as a read in
+        # flight, so compaction never restamps or folds what it needs
+        eng._enter_read(old.plan_step)
+        held = old.plan_step
+        log(f"write path: TPC-H sf={sf}, old snapshot plan_step="
+            f"{old.plan_step}, RF1/RF2 of {int(sf * RF_ORDERS_PER_SF)} "
+            f"orders (TPC-H clause 2.5) card=\"{card}\"")
+
+        # 2. RF1: new sales, through staging tables
+        key_base = int(data.tables["orders"]["o_orderkey"].max())
+        rf1 = _refresh_rows(sf, WRITE_SEED, key_base)
+        t0 = time.perf_counter()
+        interop.load_tables(eng.catalog, {
+            f"rf1_{t}": _staging_spec(rf1[t], TPCH_SCHEMAS[t])
+            for t in ("orders", "lineitem")})
+        log(f"write rf1 staging: {len(rf1['orders']['o_orderkey'])} orders "
+            f"{len(rf1['lineitem']['l_orderkey'])} lineitems through "
+            f"interop in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        n = statement("insert into orders select * from rf1_orders",
+                      "rf1 orders")
+        check(n == len(rf1["orders"]["o_orderkey"]), f"rf1 orders: {n}")
+        n = statement("insert into lineitem select * from rf1_lineitem",
+                      "rf1 lineitem")
+        check(n == len(rf1["lineitem"]["l_orderkey"]), f"rf1 lineitem: {n}")
+        for t in ("orders", "lineitem"):
+            state[t] = pd.concat(
+                [state[t], pd.DataFrame({c: rf1[t][c]
+                                         for c in WRITE_COLS[t]})],
+                ignore_index=True)
+        want = oracle_at(state)
+        read_checks("rf1", want, old_plans, old, old_want)
+
+        # 3. RF2: old sales, deleted through a staging table of keys
+        rng = np.random.default_rng(WRITE_SEED)
+        keys = np.sort(rng.choice(data.tables["orders"]["o_orderkey"],
+                                  int(sf * RF_ORDERS_PER_SF), replace=False))
+        interop.load_tables(eng.catalog, {"rf2_keys": {
+            "columns": [("k", "int64", False)],
+            "data": {"k": keys.astype(np.int64)}, "valid": {},
+            "dictionaries": {}, "primary_key": ["k"], "shards": 1,
+            "portion_rows": 1 << 20}})
+        n_li = int(np.isin(state["lineitem"].l_orderkey, keys).sum())
+        n = statement("delete from lineitem where l_orderkey in "
+                      "(select k from rf2_keys)", "rf2 lineitem")
+        check(n == n_li, f"rf2 lineitem: {n} != {n_li}")
+        n = statement("delete from orders where o_orderkey in "
+                      "(select k from rf2_keys)", "rf2 orders")
+        check(n == len(keys), f"rf2 orders: {n}")
+        for t, c in (("orders", "o_orderkey"), ("lineitem", "l_orderkey")):
+            state[t] = state[t][~np.isin(state[t][c], keys)] \
+                .reset_index(drop=True)
+        want = oracle_at(state)
+        read_checks("rf2", want, old_plans, old, old_want)
+
+        # 4. an UPDATE of ~1,000 lineitem rows with computed SETs
+        li = state["lineitem"]
+        hit = li.l_orderkey <= WRITE_UPDATE_ORDERS
+        n = statement("update lineitem set l_extendedprice = "
+                      "l_extendedprice * 1.01, l_discount = l_discount + "
+                      f"0.01 where l_orderkey <= {WRITE_UPDATE_ORDERS}",
+                      "update")
+        check(n == int(hit.sum()), f"update: {n} != {int(hit.sum())}")
+        li.loc[hit, "l_extendedprice"] = li.loc[hit, "l_extendedprice"] * 1.01
+        li.loc[hit, "l_discount"] = li.loc[hit, "l_discount"] + 0.01
+        want = oracle_at(state)
+        read_checks("update", want, old_plans, old, old_want)
+
+        # 5. a transaction another session does not see, rolled back; a
+        # second one aborted by a conflicting commit
+        rf1b = _refresh_rows(sf, WRITE_SEED + 1, 2 * key_base)
+        interop.load_tables(eng.catalog, {
+            f"rf1b_{t}": _staging_spec(rf1b[t], TPCH_SCHEMAS[t])
+            for t in ("orders", "lineitem")})
+        s1, s2 = eng.session(), eng.session()
+        count = "select count(*) as n from orders"
+        before = int(eng.query(count).n[0])
+        statement("begin", "tx begin", s1)
+        statement("insert into orders select * from rf1b_orders",
+                  "tx rf1 orders", s1)
+        statement("insert into lineitem select * from rf1b_lineitem",
+                  "tx rf1 lineitem", s1)
+        inside = int(s1.query(count).n[0])
+        other = int(s2.query(count).n[0])
+        check(inside == before + len(rf1b["orders"]["o_orderkey"])
+              and other == before == int(eng.query(count).n[0]),
+              f"tx: inside {inside}, another session {other}, before "
+              f"{before}")
+        statement("rollback", "tx rollback", s1)
+        read_checks("rollback", want, old_plans, old, old_want)
+        kept = int(state["orders"].o_orderkey.min())
+        s1.execute("begin")
+        s1.query(f"select count(*) as n from orders where o_orderkey <= "
+                 f"{kept}")
+        statement(f"update orders set o_comment = 'rf conflict' where "
+                  f"o_orderkey = {kept}", "conflicting commit")
+        s1.execute(f"update orders set o_comment = 'mine' where "
+                   f"o_orderkey = {kept}")
+        try:
+            s1.execute("commit")
+            check(False, "tx: a conflicting commit did not abort")
+        except QueryError as e:
+            check("optimistic lock" in str(e), f"tx abort: {e}")
+            log(f"write tx abort: {e} ok card=\"{card}\"")
+        check(s1.tx is None, "tx: the aborted transaction stayed open")
+        read_checks("aborted tx", want, old_plans, old, old_want)
+
+        # 6. a row table under eight sessions of transfers
+        arng = np.random.default_rng(WRITE_SEED)
+        bal = arng.integers(0, 10_000, ACCT_ROWS).astype(np.int64)
+        interop.load_tables(eng.catalog, {"acct_src": {
+            "columns": [("id", "int64", False), ("bal", "int64", False)],
+            "data": {"id": np.arange(ACCT_ROWS, dtype=np.int64),
+                     "bal": bal}, "valid": {}, "dictionaries": {},
+            "primary_key": ["id"], "shards": 1, "portion_rows": 1 << 20}})
+        statement("create table acct (id Int64 not null, bal Int64 not "
+                  "null, primary key (id)) with (store = row)", "acct ddl")
+        n = statement("insert into acct select id, bal from acct_src",
+                      "acct fill")
+        check(n == ACCT_ROWS, f"acct fill: {n}")
+        total = "select sum(bal) as s, count(*) as n from acct"
+
+        def conserved(tag):
+            df = eng.query(total)
+            check(int(df.s[0]) == int(bal.sum())
+                  and int(df.n[0]) == ACCT_ROWS,
+                  f"{tag}: sum {df.s[0]} count {df.n[0]}")
+
+        conserved("acct")
+        # sampled and unsampled in alternating rounds (A B B A), half the
+        # transfers each, so both arms share the card's and host's drift
+        arms = {"sampled": 1.0, "unsampled": 0.0}
+        tot = {a: {"commits": 0, "aborts": 0, "wall_s": 0.0,
+                   "stmt_ms": []} for a in arms}
+        for r, arm in enumerate(("sampled", "unsampled", "unsampled",
+                                 "sampled")):
+            eng.trace_sample = arms[arm]
+            b0 = GLOBAL.get("k1/builds")
+            res = _transfers(eng, f"{arm} {r}", TRANSFERS // 2)
+            builds = GLOBAL.get("k1/builds") - b0
+            eng.trace_sample = 1.0
+            conserved(f"transfers {arm} {r}")
+            for k in ("commits", "aborts", "wall_s", "stmt_ms"):
+                tot[arm][k] += res[k]
+            log(f"write transfers round {r} {arm} (YDB_TPU_TRACE_SAMPLE="
+                f"{arms[arm]:g}): sessions={TRANSFER_SESSIONS} transfers="
+                f"{res['commits']} aborts={res['aborts']} abort_share="
+                f"{res['aborts'] / (res['commits'] + res['aborts']):.4f} "
+                f"wall_s={res['wall_s']:.3f} commits_per_s="
+                f"{res['commits'] / res['wall_s']:.1f} statement_p50_ms="
+                f"{statistics.median(res['stmt_ms']):.3f} k1_builds="
+                f"{builds} sum(bal) and count(*) kept on the card ok "
+                f"card=\"{card}\"")
+        for arm, t in tot.items():
+            log(f"write transfers {arm} (rounds A B B A, YDB_TPU_TRACE_"
+                f"SAMPLE={arms[arm]:g}): transfers={t['commits']} aborts="
+                f"{t['aborts']} abort_share="
+                f"{t['aborts'] / (t['commits'] + t['aborts']):.4f} "
+                f"wall_s={t['wall_s']:.3f} commits_per_s="
+                f"{t['commits'] / t['wall_s']:.1f} statement_p50_ms="
+                f"{statistics.median(t['stmt_ms']):.3f} card=\"{card}\"")
+
+        # 7. a storm of point SELECTs with a commit in its middle, each
+        # member held to the orders frame at its side of the commit
+        keys = storm_across_commit(eng, state["orders"], card)
+        od = state["orders"]
+        od.loc[od.o_orderkey.isin(keys), "o_totalprice"] += 1000.0
+
+        # 8. the write/read memory series, then the last checks
+        series = []
+        b0 = GLOBAL.get("k1/builds")
+        li_keys = state["lineitem"].l_orderkey.to_numpy()
+        for r in range(WRITE_ROUNDS):
+            k = int(li_keys[(r + 1) * (len(li_keys) // (WRITE_ROUNDS + 2))])
+            eng.execute(f"update lineitem set l_comment = 'round {r}' "
+                        f"where l_orderkey = {k}")
+            t0 = time.perf_counter()
+            got = eng.query(queries["q6"])
+            first = (time.perf_counter() - t0) * 1e3
+            tr = _trace_sums(eng.last_trace)
+            assert_frames_match(got, want["q6"], ordered=True)
+            if cuda:
+                torch.cuda.synchronize()
+            series.append({"round": r, "first_read_ms": round(first, 3),
+                           "stack_ms": round(tr["stack_ms"], 3),
+                           "sources_ms": round(tr["sources_ms"], 3),
+                           "marked": tr["marked"],
+                           "stack_bytes": tr["stack_bytes"],
+                           "device_cache_bytes": dc.bytes,
+                           "memory_allocated": torch.cuda.memory_allocated()
+                           if cuda else 0})
+        log(f"write memory series (update, then q6): {json.dumps(series)} "
+            f"k1_builds={GLOBAL.get('k1/builds') - b0} card=\"{card}\"")
+        read_checks("final", want, old_plans, old, old_want)
+    finally:
+        if held is not None:
+            eng._exit_read(held)
+        eng.trace_sample = 1.0
+        if late_mat is None:
+            os.environ.pop("YDB_TPU_LATE_MAT", None)
+        else:
+            os.environ["YDB_TPU_LATE_MAT"] = late_mat
+    launches = dict(B.LAUNCHES)
+    log(f"launches (write): {json.dumps(launches)} "
+        f"path_s={time.perf_counter() - t_path:.1f}")
+    missing = [k for k in WRITE_KERNELS if launches[k] <= 0]
+    check(not cuda or not missing,
+          f"kernels not launched on the write path: {missing}")
+    return launches
+
+
+def _transfers(eng, tag: str, n: int) -> dict:
+    """TRANSFER_SESSIONS sessions on threads, each making `n` transfers
+    between two random accounts (BEGIN, two UPDATEs, COMMIT), retrying
+    an aborted one after a randomized exponential backoff."""
+    import threading
+
+    import numpy as np
+
+    from ydb_tpu_torch.query.engine import QueryError
+    mu = threading.Lock()
+    res = {"commits": 0, "aborts": 0, "stmt_ms": []}
+    errs = []
+
+    def worker(w: int):
+        rng = np.random.default_rng([WRITE_SEED, w, *tag.encode()])
+        s = eng.session()
+        done = tries = 0
+        ms = []
+        try:
+            while done < n:
+                a, b = (int(x) for x in rng.choice(ACCT_ROWS, 2,
+                                                   replace=False))
+                amt = int(rng.integers(1, 100))
+                try:
+                    for sql in ("begin",
+                                f"update acct set bal = bal - {amt} where "
+                                f"id = {a}",
+                                f"update acct set bal = bal + {amt} where "
+                                f"id = {b}", "commit"):
+                        t0 = time.perf_counter()
+                        s.execute(sql)
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                except QueryError as e:
+                    check("optimistic lock" in str(e)
+                          or "conflict" in str(e), f"transfer: {e}")
+                    if s.tx is not None:
+                        s.execute("rollback")
+                    with mu:
+                        res["aborts"] += 1
+                    tries += 1
+                    time.sleep(rng.uniform(0, min(0.005 * 2 ** tries,
+                                                  0.5)))
+                    continue
+                tries = 0
+                done += 1
+                with mu:
+                    res["commits"] += 1
+        except Exception as e:             # noqa: BLE001 — reported below
+            errs.append(repr(e))
+        with mu:
+            res["stmt_ms"] += ms
+
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(TRANSFER_SESSIONS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    res["wall_s"] = time.perf_counter() - t0
+    check(not errs, f"transfers {tag}: {errs[:3]}")
+    check(res["commits"] == TRANSFER_SESSIONS * n,
+          f"transfers {tag}: {res['commits']} commits")
+    return res
+
+
+def storm_across_commit(eng, orders, card: str) -> list:
+    """WRITE_STORM same-shape point lookups of orders through the batch
+    lane (``YDB_TPU_BATCH_WINDOW``), half released before a commit that
+    adds 1000 to their rows' o_totalprice and half after: the commit
+    changes WRITE_STORM rows, each member equals the pandas oracle over
+    `orders` (the table's frame before the commit) at its own side of
+    the commit, no group holds members of both sides, and the lane
+    coalesced. Returns the keys the commit changed."""
+    import threading
+
+    from ydb_tpu_torch.bench import serving
+    from ydb_tpu_torch.bench.tpch_oracle import assert_frames_match
+    from ydb_tpu_torch.query.batch_lane import BatchLane
+    from ydb_tpu_torch.utils.metrics import GLOBAL
+    texts = serving.point_variants(orders.o_orderkey.to_numpy(),
+                                   WRITE_STORM, WRITE_SEED)
+    keys = [int(t.rsplit("=", 1)[1].strip().rstrip(";")) for t in texts]
+    cols = ["o_orderkey", "o_totalprice", "o_orderdate"]
+
+    def oracle_row(k: int, add: float):
+        df = orders.loc[orders.o_orderkey == k, cols].reset_index(drop=True)
+        df["o_totalprice"] = df["o_totalprice"] + add
+        return df
+
+    pre = {i: oracle_row(k, 0.0) for i, k in enumerate(keys)}
+    post = {i: oracle_row(k, 1000.0) for i, k in enumerate(keys)}
+    check(all(len(pre[i]) == 1 for i in pre),
+          f"write storm: a key not in orders {keys}")
+    half = WRITE_STORM // 2
+    lane0, window0 = eng._batch_lane, eng.batch_window_ms
+    eng._batch_lane = BatchLane(eng, 0.5, max_batch=WRITE_STORM)
+    eng.batch_window_ms = 500.0
+    lane = eng._batch_lane
+    seen, snaps, out, errs = [], {}, {}, []
+    mu = threading.Lock()
+    real_key, real_register = lane._group_key, eng._register_read
+
+    def group_key(plan, snap, est, *a, **k):
+        key = real_key(plan, snap, est, *a, **k)
+        with mu:
+            seen.append((snap.plan_step, key))
+        return key
+
+    def register():
+        snap = real_register()
+        snaps[threading.get_ident()] = snap.plan_step
+        return snap
+
+    lane._group_key, eng._register_read = group_key, register
+    try:
+        for i, sql in enumerate(texts):
+            # each text warm and planned, and the state before the commit
+            assert_frames_match(eng.query(sql), pre[i], ordered=True)
+        seen.clear()
+        first = threading.Barrier(half + 1)
+        second = threading.Barrier(WRITE_STORM - half + 1)
+
+        def one(i, gate):
+            try:
+                gate.wait()
+                df = eng.query(texts[i])
+                out[i] = (snaps[threading.get_ident()], df)
+            except Exception as e:         # noqa: BLE001 — reported below
+                errs.append((i, repr(e)))
+
+        b0 = GLOBAL.get("batch/batches")
+        threads = [threading.Thread(target=one, args=(
+            i, first if i < half else second)) for i in range(WRITE_STORM)]
+        for t in threads:
+            t.start()
+        first.wait()
+        time.sleep(0.05)                   # the first half sit in the window
+        eng.execute("update orders set o_totalprice = o_totalprice + 1000 "
+                    "where o_orderkey in ("
+                    + ", ".join(map(str, keys)) + ")")
+        affected = eng.last_rows_affected
+        step = eng.snapshot().plan_step
+        second.wait()
+        for t in threads:
+            t.join()
+        batches = GLOBAL.get("batch/batches") - b0
+    finally:
+        del lane._group_key, eng._register_read
+        eng._batch_lane, eng.batch_window_ms = lane0, window0
+    check(not errs, f"write storm: {errs[:3]}")
+    check(affected == WRITE_STORM,
+          f"write storm: the commit changed {affected} rows")
+    sides = []
+    for i in range(WRITE_STORM):
+        snap_step, df = out[i]
+        after = snap_step >= step
+        sides.append(after)
+        assert_frames_match(df, (post if after else pre)[i], ordered=True)
+    for i, sql in enumerate(texts):
+        assert_frames_match(eng.query(sql), post[i], ordered=True)
+    groups: dict = {}
+    for snap_step, key in seen:
+        if key is not None:
+            groups.setdefault(key, set()).add(snap_step >= step)
+    check(set(sides) == {False, True}, f"write storm: sides {sides}")
+    check(all(len(s) == 1 for s in groups.values()),
+          f"write storm: a group across the commit {groups}")
+    check(batches >= 1, "write storm: the lane did not coalesce")
+    log(f"write storm: {WRITE_STORM} point lookups, commit at plan_step "
+        f"{step} changing {affected} rows, members before/after="
+        f"{sides.count(False)}/{sides.count(True)} groups={len(groups)} "
+        f"batches={batches}, each member equal to the oracle at its side "
+        f"of the commit ok card=\"{card}\"")
+    return keys
 
 
 # --------------------------------------------------------------------------

@@ -27,16 +27,20 @@ query/udf query/build_cache bench/tpch_gen
 progstore/buckets utils/config query/window bench/tpcds_gen
 bench/clickbench_gen query/admission query/batch_lane
 dq/__init__ dq/graph dq/lower cluster/__init__ cluster/exchange
-utils/tracing utils/critpath""".split()
+utils/tracing utils/critpath tx/__init__ tx/coordinator tx/session
+storage/rowtable""".split()
 
 _HISTORY = ("the port's docstrings name the modules, not the reference's "
             "change history or its ROADMAP items")
 _NVRTC = ("the port's compile inside a dispatch is K1's NVRTC build, not "
           "an XLA compile")
 
-_NOT_PORTED_ROWS = """            from ydb_tpu_torch.errors import NotPorted
-            raise NotPorted("row tables (storage/rowtable.py)")
-"""
+_LIVE_ROWS = (
+    "a row table keeps its visible row count as its commits change it: "
+    "the planner, the bounds and admission read `num_rows` several times "
+    "a statement, and the reference's walk of every version chain made a "
+    "point UPDATE of a 100,000-row table cost ~150 ms on the host (the "
+    "same count, ROADMAP Queue 3)")
 
 # module -> [(reason, reference text after the prefix rewrite, port text)]
 EDITS = {
@@ -63,12 +67,98 @@ EDITS = {
         return hash64([h, x], pre=[False, False])
     return h"""),
     ],
-    "scheme/catalog": [(
-        "NotPorted stub: row tables are outside the slice",
-        """            from ydb_tpu_torch.storage.rowtable import RowTable
-            t = RowTable(name, schema, key_columns, shards, portion_rows,
-                         partition_by)
-""", _NOT_PORTED_ROWS)],
+    "storage/portion": [(
+        "the filtered view of a portion with delete marks is cached by its "
+        "mark set AND its block: ALTER TABLE replaces the block in place, "
+        "and the reference's view then lacks an added column or serves a "
+        "dropped one's bytes under a re-added name (ROADMAP Queue 3)",
+        """        cached = getattr(self, "_vb_cache", None)
+        if cached is not None and cached[0] == sig:
+            return cached[1]
+        keep = np.setdiff1d(np.arange(self.num_rows, dtype=np.int64), dead)
+        blk = self.block.take(keep)
+        self._vb_cache = (sig, blk)      # one filtered view per mark set
+""",
+        """        cached = getattr(self, "_vb_cache", None)
+        # ALTER TABLE replaces `block` in place: a view of the block it
+        # replaced would lack an added column, or hold a dropped one's
+        # bytes under a re-added name
+        if cached is not None and cached[0] == sig \\
+                and cached[1] is self.block:
+            return cached[2]
+        keep = np.setdiff1d(np.arange(self.num_rows, dtype=np.int64), dead)
+        blk = self.block.take(keep)
+        # one filtered view per mark set and block
+        self._vb_cache = (sig, self.block, blk)
+""")],
+    "storage/rowtable": [
+        (_LIVE_ROWS,
+         """        self._replay_log = None
+
+""",
+         """        self._replay_log = None
+        # rows visible at MAX_SNAPSHOT, kept by every committed change
+        self._live_rows = 0
+
+"""),
+        (_LIVE_ROWS,
+         """        events: list = []   # CDC: committed effects with old/new images
+""",
+         """        events: list = []   # CDC: committed effects with old/new images
+        live_delta = 0      # the batch's change to the visible row count
+"""),
+        (_LIVE_ROWS,
+         """                appends.append((pk, None))
+                overlay[pk] = None
+""",
+         """                appends.append((pk, None))
+                overlay[pk] = None
+                live_delta -= 1
+"""),
+        (_LIVE_ROWS,
+         """            appends.append((pk, values))
+            overlay[pk] = values
+""",
+         """            appends.append((pk, values))
+            overlay[pk] = values
+            live_delta += live is None
+"""),
+        (_LIVE_ROWS,
+         """        self.data_version += 1
+        self._snap_cache.clear()
+        if durable and tx is None and self.store is not None:""",
+         """        if tx is None and version is not None:
+            self._live_rows += live_delta
+        self.data_version += 1
+        self._snap_cache.clear()
+        if durable and tx is None and self.store is not None:"""),
+        (_LIVE_ROWS,
+         """        for pk in self._tx_touched.pop(tx, ()):
+            chain = self.rows.get(pk)
+            if not chain:
+                continue
+            for i, (ver, vals, etx) in enumerate(chain):
+                if etx == tx and ver is None:
+                    chain[i] = (version, vals, None)
+        self.data_version += 1""",
+         """        for pk in self._tx_touched.pop(tx, ()):
+            chain = self.rows.get(pk)
+            if not chain:
+                continue
+            was = self._visible(chain, MAX_SNAPSHOT) is not None
+            for i, (ver, vals, etx) in enumerate(chain):
+                if etx == tx and ver is None:
+                    chain[i] = (version, vals, None)
+            self._live_rows += \\
+                (self._visible(chain, MAX_SNAPSHOT) is not None) - was
+        self.data_version += 1"""),
+        (_LIVE_ROWS,
+         """    def num_rows(self) -> int:
+        return sum(1 for chain in self.rows.values()
+                   if self._visible(chain, MAX_SNAPSHOT) is not None)""",
+         """    def num_rows(self) -> int:
+        return self._live_rows"""),
+    ],
     "query/latemat": [(
         "lazy import repointed: the lever lives in ops/torch_exec.py",
         "from ydb_tpu_torch.ops.xla_exec import late_mat_enabled",
@@ -302,6 +392,8 @@ COPIED_FUNCTIONS = {
                        "groupby_trace_delta"),
     # the worker clock offset of the DQ runner's span ingest
     "dq/runner": ("observe_clock",),
+    # the engine's pandas-cell conversion and its empty result
+    "query/engine": ("_native", "_unit_block"),
 }
 
 # port module -> the reference module its copied functions come from,
@@ -389,11 +481,149 @@ ENGINE_METHODS = ("_needs_materialize", "_execute_materialized",
                   "_dispatch_and_drain", "_dispatch_drain_admitted",
                   "last_stats", "last_rows_affected", "last_trace",
                   "_sample_decision", "_record_memory", "_record_profile",
-                  "_finish_stats", "_note_slow", "_explain_stmt", "explain")
+                  "_finish_stats", "_note_slow", "_explain_stmt", "explain",
+                  # MVCC snapshots, the read registry and sessions
+                  "_enter_read", "_register_read", "_exit_read",
+                  "_maintenance_watermark", "_plan_step", "_next_version",
+                  "_commit_step", "snapshot", "session",
+                  # statement entry, transaction control, DDL and DML
+                  "execute", "_execute_traced", "_create_table", "run_ttl",
+                  "_table", "_alter_table", "_insert", "_maybe_split",
+                  "_apply_row_ops", "_update", "_delete",
+                  "_column_delete_hits", "_insert_select")
 
 _NO_SYSVIEW = "no system views or materialized views in the port"
+_NO_VIEWS = ("no materialized views or changefeeds in the port (ROADMAP "
+             "Queue 1 item 6)")
+_NO_QUOTER = ("no quoter, audit trail or program roofline in the port "
+              "(ROADMAP Queue 1 items 4 and 8)")
+_ONE_EXTRACTION = (
+    "the tracer's cost a statement: when a statement's span window is "
+    "its whole trace, its critical path is extracted once, by the "
+    "profile ring over the closed trace and ledger, and "
+    "`last_stats.critical_path` is that extraction's summary (so it "
+    "also covers the statement span's tail after `_finish_stats`)")
 
 ENGINE_EDITS = {
+    "execute": [
+        (_NO_QUOTER,
+         """        \"\"\"`_internal`: a re-entrant call from inside another statement
+        (EXPLAIN ANALYZE, forced rollback) — already admitted and audited
+        by its enclosing statement, so the quoter and audit skip it.\"\"\"
+        if not _internal and not self.quoter.acquire("queries"):
+            from ydb_tpu_torch.utils.metrics import GLOBAL
+            GLOBAL.inc("engine/throttled")
+            raise QueryError("query rate limit exceeded (quoter: the "
+                             "'queries' resource bucket is empty)")
+""",
+         """        \"\"\"`_internal`: a re-entrant call from inside another statement
+        (EXPLAIN ANALYZE, a TTL sweep). The engine has no quoter and no
+        audit trail, which are what such a call skips.\"\"\"
+"""),
+        (_NO_QUOTER, "        kind_box: list = []\n        ok = False\n",
+         "        kind_box: list = []\n"),
+        (_NO_QUOTER,
+         """        from ydb_tpu_torch.utils import memledger, progstats
+        led = memledger.open_statement()
+        # program-execution accumulator (utils/progstats.py): same
+        # outermost-statement discipline — feeds QueryStats.programs and
+        # the EXPLAIN ANALYZE `-- programs:` block
+        pst = progstats.open_statement()
+        try:
+            with ctx, self.tracer.span("statement", sql=sql[:60]):
+                block = self._execute_traced(sql, session, kind_box)
+            ok = True
+            return block
+        finally:
+            if pst is not None:
+                progstats.close_statement(pst)
+            if led is not None:
+""",
+         """        from ydb_tpu_torch.utils import memledger
+        led = memledger.open_statement()
+        try:
+            with ctx, self.tracer.span("statement", sql=sql[:60]):
+                return self._execute_traced(sql, session, kind_box)
+        finally:
+            if led is not None:
+"""),
+        (_NO_QUOTER,
+         """                                     if led is not None else None)
+            if not _internal:
+                self._audit(sql, ok, kind_box[0] if kind_box else "")""",
+         """                                     if led is not None else None)"""),
+    ],
+    "_execute_traced": [
+        ("the group-by window lives in ops/torch_exec.py",
+         "        from ydb_tpu_torch.ops.xla_exec import groupby_trace_mark\n",
+         "        from ydb_tpu_torch.ops.torch_exec import groupby_trace_mark\n"),
+        (_NO_VIEWS + ": COMMIT has no view to fold",
+         """                    if isinstance(stmt, ast.Commit):
+                        # a tx commit lands its CDC events at stamp time —
+                        # give lagging views a chance to fold off-read
+                        for vt in list(self.views._by_source):
+                            self.views.on_commit(vt)
+""", ""),
+        (_NO_VIEWS,
+         """                    from ydb_tpu_torch.views import UnsupportedView
+                    try:
+                        self.views.create(stmt.name, stmt.query, stmt.sql)
+                    except UnsupportedView as e:
+                        raise QueryError(
+                            f"unsupported materialized view: {e}") from e
+                    return _unit_block()
+""",
+         """                    raise NotPorted("materialized views (ROADMAP Queue 1 "
+                                    "item 6)")
+"""),
+        (_NO_VIEWS,
+         """                    self.views.drop(stmt.name, stmt.if_exists)
+                    return _unit_block()
+""",
+         """                    raise NotPorted("materialized views (ROADMAP Queue 1 "
+                                    "item 6)")
+"""),
+        (_NO_VIEWS + ": DROP TABLE has no view or changefeed to check",
+         """                    deps = self.views.on_table(stmt.name)
+                    if deps:
+                        raise QueryError(
+                            f"table {stmt.name!r} feeds materialized "
+                            "view(s): "
+                            + ", ".join(sorted(v.name for v in deps)))
+                    self.catalog.drop_table(stmt.name)
+                    if self._changefeeds.pop(stmt.name, None) is not None:
+                        self._cdc_since.pop(stmt.name, None)
+                        self._save_topics()   # else the topic stays pinned
+""",
+         """                    self.catalog.drop_table(stmt.name)
+"""),
+    ],
+    "_create_table": [(
+        _NO_VIEWS + ": no view can hold the name",
+        """        if self.views.has(stmt.name):
+            raise QueryError(
+                f"{stmt.name!r} already names a materialized view")
+""", "")],
+    "_apply_row_ops": [(
+        _NO_VIEWS + ": a commit has no view to fold",
+        """            with self._commit_step() as version:
+                table.apply(ops, version)
+            # threshold-fold for this table's views: keeps read-time
+            # drains to one small tail (non-blocking, no-op without views)
+            self.views.on_commit(table.name)""",
+        """            with self._commit_step() as version:
+                table.apply(ops, version)""")],
+    "_record_profile": [(
+        _ONE_EXTRACTION,
+        """                rec["critical_path"] = cp
+""",
+        """                rec["critical_path"] = cp
+                if finished and getattr(st, "_critpath_deferred", None) \\
+                        == rec["trace_id"]:
+                    # the statement's own critical path: its window is
+                    # this whole trace, so it is extracted once, here
+                    st.critical_path = critpath.summarize(cp)
+""")],
     "_dispatch_and_drain": [(
         "the reference's dispatch times were measured on its TPU host, not "
         "on the port's card",
@@ -417,12 +647,22 @@ ENGINE_EDITS = {
         if ps is not None:
             stats.programs = ps.summary()
 """, ""),
+        (_ONE_EXTRACTION,
+         """            if window:
+                try:
+""",
+         """            if getattr(stats, "_span_mark", 0) == 1 and len(stk) == 1 \\
+                    and stk[0] is self.tracer.spans[0] \\
+                    and not self.executor.dq_stage_depth:
+                # the window is the whole trace: _record_profile extracts
+                # it once, over the closed trace and ledger, and sets
+                # stats.critical_path from that extraction
+                stats._critpath_deferred = stk[0].trace_id
+            elif window:
+                try:
+"""),
     ],
     "_explain_stmt": [
-        ("the port has no sessions (transactions are not ported)",
-         "def _explain_stmt(self, stmt: ast.Explain, session) -> "
-         "HostBlock:",
-         "def _explain_stmt(self, stmt: ast.Explain) -> HostBlock:"),
         (_NO_SYSVIEW + ": no view lines",
          """        if isinstance(stmt.query, ast.Select):
             # serving-mode probe (no fold): which way would this read go
@@ -438,9 +678,6 @@ ENGINE_EDITS = {
                         f"-- view {name}: watermark plan_step="
                         f"{view.watermark}, serving={serving}")
 """, ""),
-        ("the port has no sessions, quoter or audit trail to skip",
-         "block = self.execute(stmt.sql, session=session, _internal=True)",
-         "block = self.execute(stmt.sql)"),
     ],
     "_needs_materialize": [(
         _NO_SYSVIEW + "; a `.sys` name still routes to materialization, "
@@ -488,6 +725,52 @@ ENGINE_EDITS = {
                     raise NotPorted("system views")
 """),
     ],
+    "_column_delete_hits": [(
+        "the merge of the matched keys with every visible portion's is "
+        "the host cost of column DML: the port traces it as a span, so "
+        "EXPLAIN ANALYZE and the statement's profile show it",
+        """        # inserts → portions first: marks attach to portions (staged
+        # inserts are transient; indexation makes them markable)
+        table.indexate(self._maintenance_watermark(),
+                       compact=self.config.flag("enable_auto_compaction"))
+        snap = snap or self.snapshot()
+        hits = []
+        for shard in table.shards:
+            for p in shard.portions:
+                if not snap.includes(p.version):
+                    continue
+                kdf = p.block.select(keys).to_pandas()
+                kdf["__pos"] = np.arange(len(kdf))
+                hit = kdf.merge(pks, on=keys, how="inner")["__pos"] \\
+                         .to_numpy()
+                dead = p.visible_dead(snap)
+                if dead is not None:
+                    hit = np.setdiff1d(hit, dead)
+                if len(hit):
+                    hits.append((shard, p, hit))
+""",
+        """        with self.tracer.span("column-delete-hits", keys=len(pks)):
+            # inserts → portions first: marks attach to portions (staged
+            # inserts are transient; indexation makes them markable)
+            table.indexate(self._maintenance_watermark(),
+                           compact=self.config.flag(
+                               "enable_auto_compaction"))
+            snap = snap or self.snapshot()
+            hits = []
+            for shard in table.shards:
+                for p in shard.portions:
+                    if not snap.includes(p.version):
+                        continue
+                    kdf = p.block.select(keys).to_pandas()
+                    kdf["__pos"] = np.arange(len(kdf))
+                    hit = kdf.merge(pks, on=keys, how="inner")["__pos"] \\
+                             .to_numpy()
+                    dead = p.visible_dead(snap)
+                    if dead is not None:
+                        hit = np.setdiff1d(hit, dead)
+                    if len(hit):
+                        hits.append((shard, p, hit))
+""")],
     "_register_temp": [(
         "nothing is jit-compiled in the port; the block size is the "
         "temp's scan capacity",

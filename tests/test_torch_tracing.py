@@ -325,6 +325,50 @@ def test_phases_and_profile_ring():
     assert prof["critical_path"]["coverage"] > 0.9
 
 
+@pytest.mark.parametrize("sql", [
+    SQL, "select sum(v) as s from t where id > 3",
+    "select count(*) as c from t where g = 2"])
+def test_one_critical_path_extraction_a_statement(monkeypatch, sql):
+    """A sampled SELECT extracts its critical path once, over its closed
+    trace and ledger: the profile ring, the critical-path ring and
+    `last_stats.critical_path` all come from that one extraction, and
+    equal a fresh extraction over the finished trace."""
+    from ydb_tpu_torch.utils import critpath
+    calls = []
+    real = critpath.extract
+
+    def counted(spans, memory=None):
+        calls.append((spans, memory))
+        return real(spans, memory=memory)
+
+    monkeypatch.setattr(critpath, "extract", counted)
+    e = mk_engine()
+    for _ in range(3):
+        calls.clear()
+        e.query(sql)
+        assert len(calls) == 1, calls
+        spans, memory = calls[0]
+        assert spans is e.last_trace
+        prof, row = e.profiles[-1], e.critpath_stats[-1]
+        cp = prof["critical_path"]
+        assert real(e.last_trace, memory=memory) == cp
+        assert e.last_stats.critical_path == critpath.summarize(cp)
+        assert row["trace_id"] == prof["trace_id"]
+        assert (row["wall_ms"], row["coverage"], row["dominant_span"]) \
+            == (cp["wall_ms"], cp["coverage"], cp["dominant_span"])
+        assert {k: row[f"{k}_ms"] for k in critpath.CLASSES} == \
+            {k: cp["classes"].get(k, 0.0) for k in critpath.CLASSES}
+    # a nested statement (EXPLAIN ANALYZE) extracts over its own window,
+    # and the outer statement once over its trace; a write extracts once
+    calls.clear()
+    e.query("explain analyze " + sql)
+    assert len(calls) == 2, calls
+    e.execute("create table w (id Int64 not null, primary key (id))")
+    calls.clear()
+    e.execute("insert into w (id) values (1)")
+    assert len(calls) == 1 and e.profiles[-1]["kind"] == "insert"
+
+
 def test_latency_histograms_and_counters():
     from ydb_tpu.utils.metrics import ALWAYS_VISIBLE, HIST_FAMILIES
     e = mk_engine()

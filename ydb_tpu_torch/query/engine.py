@@ -1,25 +1,44 @@
 """SQL engine front (slim port of ``ydb_tpu/query/engine.py``).
 
 `QueryEngine(device=None)` runs on ``cuda`` and raises when no GPU is
-present unless the caller passes ``device="cpu"``. The port carries the
-read path of one node: SELECT (parse → plan cache → planner → executor,
+present unless the caller passes ``device="cpu"``. The port carries one
+node in memory. Reads: SELECT (parse → plan cache → planner → executor,
 fused or portioned), WITH bodies and FROM subqueries materialized into
 transient tables before the outer statement plans, set operations
 (arms on the device, the combine in pandas), SELECT without FROM, and
 window functions (the inner query on the device, the window pass on the
-device lane `ops/window_dev.py` or the pandas lane `query/window.py`);
-and CREATE TABLE. Tables are filled through ``ydb_tpu_torch.interop`` or
-the generators under ``bench/``. `config` (`utils/config.Config`) is
-read for the window lane (``enable_device_windows``,
-``window_device_min_rows``), the host-lane limit
-(``host_lane_max_rows``) and the GraceJoin budget
-(``grace_budget_bytes``, unless ``YDB_TPU_GRACE_BUDGET`` is set).
-`executor.last_path` names the lane a SELECT took: fused, fused-batched,
-fused-tiled, fused-tiled-spill, fused-tiled-union, portioned,
-distributed, distributed-shuffle-join, distributed-map, set-op or
-literal. `mesh` (`ydb_tpu_torch.parallel.make_mesh`) runs SELECTs over
-its shards: scans spread over them and aggregation boundaries become
-exchanges between them (`query/executor.py`'s mesh lanes).
+device lane `ops/window_dev.py` or the pandas lane `query/window.py`).
+Writes: INSERT / UPSERT / REPLACE (VALUES or SELECT), UPDATE and DELETE
+on column tables (MVCC delete marks on immutable portions, re-inserts
+at the same commit) and row tables (`storage/rowtable.py`, ``with
+(store = row)``: per-key version chains); CREATE / DROP / ALTER TABLE
+(ADD / DROP COLUMN), CREATE / DROP INDEX on row tables, SERIAL columns
+and TTL (``with (ttl_column = ..., ttl_days = N)``, swept by
+`run_ttl(now)`). The WHERE of an UPDATE or DELETE, its computed SETs
+and the SELECT of an INSERT run through the read path's lanes.
+`last_rows_affected` counts a write's rows.
+
+Every commit takes a plan step from the coordinator
+(`tx/coordinator.py`); `snapshot()` is the published read watermark,
+and `executor.execute(plan, snapshot)` reads at any snapshot taken
+before. SELECTs run without the write lock: each registers its
+snapshot so auto-compaction never restamps what it still reads.
+`session()` opens an interactive session (`tx/session.py`): BEGIN,
+COMMIT and ROLLBACK with optimistic locks, a conflicting commit
+aborting with "optimistic lock". Tables are also filled through
+``ydb_tpu_torch.interop`` or the generators under ``bench/``. `config`
+(`utils/config.Config`) is read for the window lane
+(``enable_device_windows``, ``window_device_min_rows``), the host-lane
+limit (``host_lane_max_rows``), the GraceJoin budget
+(``grace_budget_bytes``, unless ``YDB_TPU_GRACE_BUDGET`` is set), auto-
+compaction (``enable_auto_compaction``) and the split threshold
+(``shard_split_rows``). `executor.last_path` names the lane a SELECT
+took: fused, fused-batched, fused-tiled, fused-tiled-spill,
+fused-tiled-union, portioned, distributed, distributed-shuffle-join,
+distributed-map, set-op or literal. `mesh`
+(`ydb_tpu_torch.parallel.make_mesh`) runs SELECTs over its shards:
+scans spread over them and aggregation boundaries become exchanges
+between them (`query/executor.py`'s mesh lanes).
 
 A plain SELECT reserves its estimated device bytes under memory
 admission (`query/admission.py`: ``YDB_TPU_ADMISSION_BUDGET``,
@@ -39,7 +58,7 @@ phases — on the card the device phase is CUDA-event time — the memory
 line and the critical path) and `last_trace` are per thread.
 ``EXPLAIN [ANALYZE] <select>`` and `explain(sql)` give the reference's
 plan text; ANALYZE adds the stats lines and the span tree.
-DML, transactions and sessions, system views, materialized views and
+Durable tables (``data_dir``), system views, materialized views and
 topics raise ``NotPorted``.
 """
 
@@ -48,6 +67,7 @@ from __future__ import annotations
 import itertools
 import os
 import threading
+from contextlib import contextmanager as _contextmanager
 from typing import Optional
 
 import numpy as np
@@ -62,7 +82,7 @@ from ydb_tpu_torch.query.plan import explain
 from ydb_tpu_torch.query.planner import PlanError, Planner
 from ydb_tpu_torch.scheme.catalog import Catalog
 from ydb_tpu_torch.sql import ast, parse
-from ydb_tpu_torch.storage.mvcc import MAX_SNAPSHOT, Snapshot, WriteVersion
+from ydb_tpu_torch.storage.mvcc import Snapshot, WriteVersion
 
 
 class QueryError(Exception):
@@ -82,9 +102,18 @@ _ALWAYS_VISIBLE = (
 
 class QueryEngine:
     def __init__(self, catalog: Optional[Catalog] = None, device=None,
-                 block_rows: Optional[int] = None, config=None, mesh=None):
+                 block_rows: Optional[int] = None, config=None, mesh=None,
+                 data_dir: Optional[str] = None):
         from ydb_tpu_torch.utils.config import Config
         self.config = config or Config.load()
+        if data_dir is not None or self.config.data_dir is not None:
+            raise NotPorted("durable tables (data_dir: storage/persist.py, "
+                            "ROADMAP Queue 1 item 3)")
+        # the write lock: DML, DDL and transaction control from every
+        # session serialize here; SELECTs run without it over MVCC
+        # snapshots. Re-entrant: a DML body runs its SELECT through
+        # execute() again
+        self.lock = threading.RLock()
         block_rows = block_rows if block_rows is not None \
             else self.config.block_rows
         self.device = resolve_device(device)
@@ -98,6 +127,12 @@ class QueryEngine:
         if "YDB_TPU_GRACE_BUDGET" not in os.environ:
             self.executor.grace_budget_bytes = \
                 self.config.grace_budget_bytes
+        from ydb_tpu_torch.tx import Coordinator, Session
+        self.coordinator = Coordinator(start_step=1)
+        # the engine's own statements run through a default session
+        # (autocommit unless BEGIN is issued on it); `session()` opens
+        # more concurrent sessions
+        self._default_session = Session(self)
         self._tmp_ids = itertools.count()    # thread-safe temp names
         # plan cache keyed by SQL text, validated against the
         # (uid, data_version) of every referenced table
@@ -163,6 +198,13 @@ class QueryEngine:
         # per-statement result metadata is thread-local: concurrent
         # callers each see their own stats and trace
         self._tls = threading.local()
+        # in-flight lock-free reads register their snapshot's plan step,
+        # so auto-compaction's watermark never restamps portions a
+        # running SELECT still needs (transactions pin theirs in the
+        # coordinator)
+        from collections import Counter
+        self._active_reads = Counter()   # guarded-by: _reads_mu
+        self._reads_mu = threading.Lock()
 
     # -- per-thread statement metadata -------------------------------------
 
@@ -190,49 +232,136 @@ class QueryEngine:
     def last_trace(self, v):
         self._tls.last_trace = v
 
-    def snapshot(self) -> Snapshot:
-        """Reads see every committed version: the port has no concurrent
-        writers (DML and transactions are not ported)."""
-        return MAX_SNAPSHOT
+    # -- in-flight read registry (compaction safety floor) -----------------
 
-    def execute(self, sql: str) -> HostBlock:
-        """Run one statement under its trace and resource ledger (the
-        reference's `execute` without the quoter, the audit trail and
-        sessions). The sampling decision is taken for the thread's
-        OUTERMOST statement; a nested one (EXPLAIN ANALYZE's inner run,
-        the DQ router merge) joins the open trace and ledger."""
+    def _enter_read(self, plan_step: int) -> None:
+        with self._reads_mu:
+            self._active_reads[plan_step] += 1
+
+    def _register_read(self):
+        """Atomically take an autocommit read snapshot AND register it in
+        the active-read floor. Taking the snapshot first and registering
+        after (the r4 shape) left a gap where a commit + auto-compaction
+        could restamp portions the snapshot still needed (ADVICE r4):
+        under `_reads_mu`, any maintenance watermark computed before this
+        registration was bounded by an older published step, so portions
+        this snapshot sees are never restamped past it."""
+        with self._reads_mu:
+            snap = self.coordinator.read_snapshot()
+            self._active_reads[snap.plan_step] += 1
+        return snap
+
+    def _exit_read(self, plan_step: int) -> None:
+        with self._reads_mu:
+            self._active_reads[plan_step] -= 1
+            if self._active_reads[plan_step] <= 0:
+                del self._active_reads[plan_step]
+
+    def _maintenance_watermark(self) -> int:
+        """Highest plan step background compaction may restamp up to:
+        bounded by pinned tx snapshots (coordinator) AND every in-flight
+        lock-free read."""
+        w = self.coordinator.safe_watermark()
+        with self._reads_mu:
+            if self._active_reads:
+                w = min(w, min(self._active_reads))
+        return w
+
+    # -- versions (coordinator time, ydb_tpu/tx/coordinator.py) ------------
+
+    @property
+    def _plan_step(self) -> int:
+        return self.coordinator.last_plan_step
+
+    def _next_version(self) -> WriteVersion:
+        """A plan step published immediately — for callers that commit to
+        storage directly (tests, loaders) with no reader able to observe
+        the mid-apply state they create. Statement paths use
+        `_commit_step` so the watermark trails the apply."""
+        version = self.coordinator.propose(0)
+        self.coordinator.publish(version.plan_step)
+        return version
+
+    @_contextmanager
+    def _commit_step(self, tx_id: int = 0):
+        """Propose→apply→publish envelope. The coordinator grants the plan
+        step on entry; the read watermark advances only when the body's
+        in-memory apply (stamps + delete marks) has finished, so lock-free
+        SELECTs snapshotting mid-commit never observe a torn multi-shard
+        apply. Publish runs in `finally` — a failed apply must not wedge
+        the watermark (storage-level intent journals own partial-failure
+        atomicity)."""
+        version = self.coordinator.propose(tx_id)
+        try:
+            yield version
+        finally:
+            self.coordinator.publish(version.plan_step)
+
+    def snapshot(self) -> Snapshot:
+        return self.coordinator.read_snapshot()
+
+    def session(self):
+        """Open an interactive session (BEGIN/COMMIT/ROLLBACK scope)."""
+        from ydb_tpu_torch.tx import Session
+        return Session(self)
+
+    def execute(self, sql: str, session=None,
+                _internal: bool = False) -> HostBlock:
+        """`_internal`: a re-entrant call from inside another statement
+        (EXPLAIN ANALYZE, a TTL sweep). The engine has no quoter and no
+        audit trail, which are what such a call skips."""
+        from contextlib import nullcontext
+        session = session or self._default_session
+        # per-session statement serialization (SESSION_BUSY analog —
+        # concurrency comes from many sessions, not one)
+        ctx = session._mu if session is not self._default_session \
+            else nullcontext()
         outermost = self.tracer._state().depth == 0
+        # the sampling decision (and its accumulator/forced-slow side
+        # effects) applies to OUTERMOST statements only — a nested
+        # begin_trace inherits the open trace's decision anyway
         self.tracer.begin_trace(
             sampled=self._sample_decision(sql) if outermost else True)
         kind_box: list = []
+        # resource ledger (utils/memledger.py): one per OUTERMOST
+        # statement on this thread — a nested execute (EXPLAIN ANALYZE,
+        # DQ router merge) contributes to the enclosing ledger
         from ydb_tpu_torch.utils import memledger
         led = memledger.open_statement()
         try:
-            with self.tracer.span("statement", sql=sql[:60]):
-                return self._execute_traced(sql, kind_box)
+            with ctx, self.tracer.span("statement", sql=sql[:60]):
+                return self._execute_traced(sql, session, kind_box)
         finally:
             if led is not None:
                 memledger.close_statement(led)
                 self._record_memory(sql, kind_box[0] if kind_box else "",
                                     led)
             self.last_trace = self.tracer.end_trace()
+            # profiles record USER statements: a DQ stage program run
+            # through a legacy (context-free) caller is still internal
             if outermost and self.last_trace \
                     and not self.executor.dq_stage_depth:
                 self._record_profile(sql, self.last_trace,
                                      memory=led.summary()
                                      if led is not None else None)
 
-    def _execute_traced(self, sql: str, kind_box=None) -> HostBlock:
-        """Parse, then the statement's kind: EXPLAIN [ANALYZE], a read,
-        or CREATE TABLE. Fills `last_stats` (the reference's
-        `_execute_traced` over the port's statement kinds)."""
-        from ydb_tpu_torch.ops.torch_exec import groupby_trace_mark
+    def _execute_traced(self, sql: str, session=None,
+                        kind_box: Optional[list] = None) -> HostBlock:
         from ydb_tpu_torch.utils.metrics import GLOBAL, QueryStats, Timer
+        session = session or self._default_session
         t = Timer()
         stats = QueryStats(sql=sql)
-        # group-by window and span window of THIS statement (marks, so a
-        # nested statement folds into the outer one's window)
+        # per-statement group-by trace window (thread-local): whatever
+        # sorted group-bys THIS statement freshly compiles lands in
+        # stats.groupby for EXPLAIN ANALYZE / query history. Mark/delta,
+        # not reset/snapshot — a nested same-thread statement (DQ router
+        # merge stage) must not wipe the outer statement's window
+        from ydb_tpu_torch.ops.torch_exec import groupby_trace_mark
         stats._gb_mark = groupby_trace_mark()
+        # span-window mark: THIS statement's phase breakdown must only
+        # cover spans recorded from here on — a nested statement (the DQ
+        # router merge) shares the trace with already-ingested worker
+        # spans whose device time is NOT this statement's
         stats._span_mark = len(self.tracer.spans)
         with self.tracer.span("parse"):
             stmt = parse(sql)
@@ -243,18 +372,118 @@ class QueryEngine:
         self.last_rows_affected = 0
         GLOBAL.inc("engine/statements")
         self.last_stats = stats
+        tx = session.tx
+        snap = tx.snapshot if tx is not None else self.snapshot()
         try:
+            from ydb_tpu_torch.tx import TxAborted, TxCommitTorn
+            if isinstance(stmt, (ast.Begin, ast.Commit, ast.Rollback)):
+                with self.lock:
+                    try:
+                        if isinstance(stmt, ast.Begin):
+                            session.begin()
+                        elif isinstance(stmt, ast.Commit):
+                            session.commit()
+                        else:
+                            session.rollback()
+                    except (TxAborted, TxCommitTorn) as e:
+                        # TxCommitTorn keeps its "internal: ... torn"
+                        # message — SQL clients see the distinct error
+                        # text; session-API clients get the distinct type
+                        raise QueryError(str(e)) from e
+                return _unit_block()
             if isinstance(stmt, ast.Explain):
-                return self._explain_stmt(stmt)
-            if isinstance(stmt, (ast.Select, ast.SetOp)):
-                stats.tables = sorted(self._referenced_tables(stmt))
-                return self._execute_read(stmt, sql, self.snapshot(),
-                                          stats, t)
-            if isinstance(stmt, ast.CreateTable):
-                return self._create_table(stmt)
+                return self._explain_stmt(stmt, session)
+            if isinstance(stmt, (ast.SetOp, ast.Select)):
+                # read locks FIRST — every select path (fused, windowed,
+                # set-op, materialized) must register conflicts
+                names = self._referenced_tables(stmt)
+                stats.tables = sorted(names)
+                if tx is not None:
+                    for name in names:
+                        if self.catalog.has(name):
+                            tx.lock(self.catalog.table(name))
+                # register the snapshot: auto-compaction must not restamp
+                # portions this lock-free read still scans. Autocommit
+                # reads re-take the snapshot ATOMICALLY with registration;
+                # tx snapshots are already coordinator-pinned, so their
+                # registration has no gap to race.
+                if tx is None:
+                    snap = self._register_read()
+                else:
+                    self._enter_read(snap.plan_step)
+                try:
+                    return self._execute_read(stmt, sql, snap, stats, t)
+                finally:
+                    self._exit_read(snap.plan_step)
+            # everything below mutates shared state — one writer at a time
+            # (readers above run lock-free over their MVCC snapshots)
+            with self.lock:   # noqa: SIM117
+                # re-take the autocommit snapshot UNDER the lock: two
+                # UPDATE v = v + 1 statements that both snapshotted before
+                # serializing here would otherwise read the same state and
+                # lose an update
+                snap = tx.snapshot if tx is not None else self.snapshot()
+                if isinstance(stmt, ast.CreateTable):
+                    if tx is not None:
+                        raise QueryError("DDL inside a transaction is not "
+                                         "supported")
+                    return self._create_table(stmt)
+                if isinstance(stmt, ast.CreateMaterializedView):
+                    if tx is not None:
+                        raise QueryError("DDL inside a transaction is not "
+                                         "supported")
+                    raise NotPorted("materialized views (ROADMAP Queue 1 "
+                                    "item 6)")
+                if isinstance(stmt, ast.DropMaterializedView):
+                    if tx is not None:
+                        raise QueryError("DDL inside a transaction is not "
+                                         "supported")
+                    raise NotPorted("materialized views (ROADMAP Queue 1 "
+                                    "item 6)")
+                if isinstance(stmt, ast.DropTable):
+                    if tx is not None:
+                        raise QueryError("DDL inside a transaction is not "
+                                         "supported")
+                    if stmt.if_exists and not self.catalog.has(stmt.name):
+                        return _unit_block()
+                    self.catalog.drop_table(stmt.name)
+                    return _unit_block()
+                if isinstance(stmt, ast.AlterTable):
+                    if tx is not None:
+                        raise QueryError("DDL inside a transaction is not "
+                                         "supported")
+                    return self._alter_table(stmt)
+                if isinstance(stmt, (ast.CreateIndex, ast.DropIndex)):
+                    if tx is not None:
+                        raise QueryError("DDL inside a transaction is not "
+                                         "supported")
+                    if not self.catalog.has(stmt.table):
+                        raise QueryError(f"unknown table {stmt.table!r}")
+                    t = self._table(stmt.table)
+                    if getattr(t, "store_kind", "column") != "row":
+                        raise QueryError(
+                            "secondary indexes are row-store only (column "
+                            "tables index via per-portion min/max stats)")
+                    try:
+                        if isinstance(stmt, ast.CreateIndex):
+                            t.create_index(stmt.name, stmt.column)
+                        else:
+                            t.drop_index(stmt.name)
+                    except ValueError as e:
+                        raise QueryError(str(e)) from e
+                    if self.catalog.store is not None:
+                        self.catalog.store.save_catalog(self.catalog)
+                    return _unit_block()
+                if isinstance(stmt, ast.Insert):
+                    return self._insert(stmt, snap, tx)
+                if isinstance(stmt, ast.Update):
+                    return self._update(stmt, snap, tx)
+                if isinstance(stmt, ast.Delete):
+                    return self._delete(stmt, snap, tx)
+                raise QueryError(
+                    f"unsupported statement {type(stmt).__name__}")
         except (BindError, PlanError) as e:
             raise QueryError(str(e)) from e
-        raise NotPorted(f"{type(stmt).__name__} statements")
 
     def query(self, sql: str):
         """Execute and return a pandas DataFrame."""
@@ -422,6 +651,11 @@ class QueryEngine:
             try:
                 cp = critpath.extract(spans, memory=memory)
                 rec["critical_path"] = cp
+                if finished and getattr(st, "_critpath_deferred", None) \
+                        == rec["trace_id"]:
+                    # the statement's own critical path: its window is
+                    # this whole trace, so it is extracted once, here
+                    st.critical_path = critpath.summarize(cp)
                 critpath.record_counters(cp)
                 self.critpath_stats.append({
                     "trace_id": rec["trace_id"], "sql": sql,
@@ -485,7 +719,14 @@ class QueryEngine:
                     stk[-1],
                     dur_ms=self.tracer._now() - stk[-1].start_ms)] \
                     + window
-            if window:
+            if getattr(stats, "_span_mark", 0) == 1 and len(stk) == 1 \
+                    and stk[0] is self.tracer.spans[0] \
+                    and not self.executor.dq_stage_depth:
+                # the window is the whole trace: _record_profile extracts
+                # it once, over the closed trace and ledger, and sets
+                # stats.critical_path from that extraction
+                stats._critpath_deferred = stk[0].trace_id
+            elif window:
                 try:
                     stats.critical_path = critpath.summarize(
                         critpath.extract(window, memory=stats.memory))
@@ -531,7 +772,7 @@ class QueryEngine:
             self._slow_sqls[sql] = max(self._slow_sqls.get(sql, 0.0),
                                        total_ms)
 
-    def _explain_stmt(self, stmt: ast.Explain) -> HostBlock:
+    def _explain_stmt(self, stmt: ast.Explain, session) -> HostBlock:
         """EXPLAIN [ANALYZE] — plan text (+ live execution stats), the
         `kqp_query_plan.cpp` plan-with-stats analog."""
         from ydb_tpu_torch.core.dictionary import Dictionary
@@ -550,7 +791,7 @@ class QueryEngine:
             except (BindError, PlanError, KeyError) as e:
                 raise QueryError(str(e)) from e
         if stmt.analyze:
-            block = self.execute(stmt.sql)
+            block = self.execute(stmt.sql, session=session, _internal=True)
             lines += self.last_stats.render().split("\n")
             tr = self.tracer.render()
             if tr:
@@ -648,9 +889,12 @@ class QueryEngine:
         /counters payload): the process counters and histograms
         (`hist/<family>/{count,p50,p95,p99,max}`, the fixed families
         zero before their first observation), the plan cache size, the
-        pipeline window, the batch window and the trace sampling; the
-        registry's always-visible counters, the lane's and admission's
-        are present (0) before their first use."""
+        device column cache's hits, misses and bytes, the coordinator's
+        last plan step, the pipeline window, the batch window and the
+        trace sampling; the registry's always-visible counters, the
+        lane's and admission's are present (0) before their first use.
+        The write path counts `engine/shard_splits` and
+        `engine/ttl_evicted` as the reference's does."""
         from ydb_tpu_torch.utils.metrics import (
             ALWAYS_VISIBLE, GLOBAL, GLOBAL_HIST, HIST_FAMILIES,
         )
@@ -661,6 +905,11 @@ class QueryEngine:
                 c.setdefault(f"hist/{fam}/{q}", 0)
         with self._plan_mu:
             c["engine/plan_cache_size"] = len(self._plan_cache)
+        dc = self.executor.device_cache
+        c["device_cache/hits"] = dc.hits
+        c["device_cache/misses"] = dc.misses
+        c["device_cache/bytes"] = dc.bytes
+        c["coordinator/plan_step"] = self.coordinator.last_plan_step
         c["pipeline/window"] = self.pipeline_window
         c["batch/window_ms"] = self.batch_window_ms
         for k in _ALWAYS_VISIBLE + ALWAYS_VISIBLE:
@@ -1250,23 +1499,514 @@ class QueryEngine:
         temps.append(tname)
         return tname
 
+    # -- DDL / DML ---------------------------------------------------------
+    #
+    # Copies of the reference's methods (tests/test_torch_drift.py lists
+    # their edits). Every WHERE, SET expression and INSERT ... SELECT
+    # runs through `_run_select`, the read path's lanes on the device.
+
     def _create_table(self, stmt: ast.CreateTable) -> HostBlock:
         if self.catalog.has(stmt.name):
             if stmt.if_not_exists:
                 return _unit_block()
             raise QueryError(f"table {stmt.name!r} already exists")
-        if stmt.ttl_column or stmt.ttl_days:
-            raise NotPorted("TTL tables")
         cols = [Column(name, sql_type_to_dtype(ty, not_null))
                 for (name, ty, not_null) in stmt.columns]
-        if any(ty.lower() in ("serial", "bigserial")
-               for (_n, ty, _nn) in stmt.columns):
-            raise NotPorted("SERIAL columns")
         pk = stmt.primary_key or [cols[0].name]
-        self.catalog.create_table(stmt.name, Schema(cols), pk,
-                                  shards=max(1, stmt.partition_count),
-                                  store_kind=stmt.store)
+        schema = Schema(cols)
+        if stmt.ttl_days and not stmt.ttl_column:
+            raise QueryError("ttl_days needs ttl_column")
+        if stmt.ttl_column:            # validate BEFORE creating anything
+            from ydb_tpu_torch.core.dtypes import Kind as _K
+            if not schema.has(stmt.ttl_column):
+                raise QueryError(f"unknown TTL column {stmt.ttl_column!r}")
+            if schema.dtype(stmt.ttl_column).kind not in (_K.DATE32,
+                                                          _K.INT64):
+                raise QueryError("TTL column must be Date or Int64 "
+                                 "(unix seconds)")
+            if stmt.ttl_days <= 0:
+                raise QueryError("ttl_days must be positive")
+        t = self.catalog.create_table(stmt.name, schema, pk,
+                                      shards=max(1, stmt.partition_count),
+                                      store_kind=stmt.store)
+        serial_cols = [n for (n, ty, _nn) in stmt.columns
+                       if ty.lower() in ("serial", "bigserial")]
+        if serial_cols:
+            t.serial_next = {c: 1 for c in serial_cols}
+        if stmt.ttl_column:
+            t.ttl = (stmt.ttl_column, stmt.ttl_days)
+        if (serial_cols or stmt.ttl_column) \
+                and self.catalog.store is not None:
+            self.catalog.store.save_catalog(self.catalog)
         return _unit_block()
+
+    def run_ttl(self, now: Optional[float] = None) -> dict:
+        """Evict expired rows from every TTL-configured table (the
+        background `ttl.cpp` change in the reference — here an explicit
+        maintenance entry point, like `indexate`). `now`: unix seconds
+        (defaults to wall clock; tests pass a fixed value). Returns
+        {table: rows evicted}."""
+        import datetime as _dt
+        import time as _time
+        from ydb_tpu_torch.core.dtypes import Kind as _K
+        now = _time.time() if now is None else now
+        out = {}
+        for name in list(self.catalog.tables):
+            t = self.catalog.table(name)
+            ttl = getattr(t, "ttl", None)
+            if not ttl or getattr(t, "transient", False):
+                continue
+            col, days = ttl
+            if t.schema.dtype(col).kind is _K.DATE32:
+                cutoff_days = int(now // 86400) - days
+                d = _dt.date(1970, 1, 1) + _dt.timedelta(days=cutoff_days)
+                pred = f"{col} < date '{d.isoformat()}'"
+            else:
+                pred = f"{col} < {int(now) - days * 86400}"
+            self.execute(f"delete from {name} where {pred}",
+                         _internal=True)
+            out[name] = self.last_rows_affected
+            from ydb_tpu_torch.utils.metrics import GLOBAL
+            GLOBAL.inc("engine/ttl_evicted", self.last_rows_affected)
+        return out
+
+    def _table(self, name: str):
+        """Catalog lookup with a user-facing error (not a raw KeyError)."""
+        try:
+            return self.catalog.table(name)
+        except KeyError as e:
+            raise QueryError(str(e.args[0])) from e
+
+    def _alter_table(self, stmt: ast.AlterTable) -> HostBlock:
+        """ADD/DROP COLUMN (the schemeshard alter-table suboperation
+        analog): schema evolves in place, old portions serve nulls for
+        added columns, the plan cache invalidates via data_version."""
+        if not self.catalog.has(stmt.name):
+            raise QueryError(f"unknown table {stmt.name!r}")
+        t = self._table(stmt.name)
+        if stmt.action == "add":
+            if t.schema.has(stmt.column):
+                raise QueryError(
+                    f"column {stmt.column!r} already exists")
+            if stmt.not_null and (
+                    t.num_rows > 0
+                    or getattr(t, "store_kind", "column") == "row"):
+                # existing rows have no value for it; row tables replay
+                # their full mutation log at boot, so even an empty one
+                # cannot prove future replays satisfy NOT NULL
+                raise QueryError(
+                    "ADD COLUMN NOT NULL needs an empty column table "
+                    "(no default-value backfill yet)")
+            if stmt.col_type.lower() in ("serial", "bigserial"):
+                raise QueryError("ADD COLUMN Serial is not supported "
+                                 "(sequences initialize at CREATE TABLE)")
+            col = Column(stmt.column,
+                         sql_type_to_dtype(stmt.col_type, stmt.not_null))
+            t.add_column(col)
+        else:
+            if not t.schema.has(stmt.column):
+                raise QueryError(f"unknown column {stmt.column!r}")
+            if stmt.column in t.key_columns \
+                    or stmt.column in (t.partition_by or []):
+                raise QueryError(
+                    f"cannot drop key/partition column {stmt.column!r}")
+            ttl = getattr(t, "ttl", None)
+            if ttl is not None and ttl[0] == stmt.column:
+                raise QueryError(
+                    f"column {stmt.column!r} is the TTL column")
+            serial = getattr(t, "serial_next", None)
+            if serial is not None:
+                serial.pop(stmt.column, None)
+            try:
+                t.drop_column(stmt.column)
+            except ValueError as e:     # e.g. column still indexed
+                raise QueryError(str(e)) from e
+        if self.catalog.store is not None:
+            self.catalog.store.save_catalog(self.catalog)
+            self.catalog.store.save_dictionaries(t)
+        return _unit_block()
+
+    def _insert(self, stmt: ast.Insert, snap=None, tx=None) -> HostBlock:
+        table = self._table(stmt.table)
+        if tx is not None:
+            # a blind VALUES insert/upsert only WRITES the target:
+            # pk-granular write locks (row stores) or commuting appends
+            # (column stores) — duplicate-pk races are caught by the
+            # point-conflict check at commit. INSERT ... SELECT may READ
+            # the target (self-reference) and its source reads aren't
+            # separately locked, so it keeps the table-granular lock.
+            tx.lock(table, read=stmt.query is not None)
+        if stmt.query is not None:
+            return self._insert_select(stmt, table, snap, tx)
+        names = stmt.columns or table.schema.names
+        data: dict[str, list] = {n: [] for n in names}
+        from ydb_tpu_torch.query.binder import _try_fold
+        for row in stmt.rows:
+            if len(row) != len(names):
+                raise QueryError("VALUES arity mismatch")
+            for n, lit in zip(names, row):
+                if isinstance(lit, ast.Literal) and lit.value is None:
+                    data[n].append(None)
+                    continue
+                folded = _try_fold(lit)   # literals, -x, DATE '...', CAST
+                if folded is None:
+                    raise QueryError("VALUES must be constant expressions")
+                data[n].append(folded.value)
+
+        # SERIAL columns omitted from the column list draw from the
+        # table's sequence (the sequenceshard analog); counters persist
+        # via the catalog and heal from data maxima at recovery
+        serial = getattr(table, "serial_next", None)
+        if serial:
+            n_rows = len(stmt.rows)
+            changed = False
+            for c, nxt in list(serial.items()):
+                if c not in data:
+                    data[c] = list(range(nxt, nxt + n_rows))
+                    names = list(names) + [c]
+                    serial[c] = nxt + n_rows
+                    changed = True
+                else:
+                    # explicit values advance the counter past their max
+                    # (same-session duplicates, not just post-restart heal)
+                    mx = max((int(v) for v in data[c] if v is not None),
+                             default=0)
+                    if mx >= serial[c]:
+                        serial[c] = mx + 1
+                        changed = True
+            if changed and self.catalog.store is not None:
+                self.catalog.store.save_catalog(self.catalog)
+
+        if getattr(table, "store_kind", "column") == "row":
+            ops = []
+            for i in range(len(stmt.rows)):
+                ops.append((stmt.mode, {n: data[n][i] for n in names}))
+            try:
+                self._apply_row_ops(table, ops, tx)
+                self.last_rows_affected = len(ops)
+            except ValueError as e:
+                raise QueryError(str(e)) from e
+            return _unit_block()
+
+        arrays, valids = {}, {}
+        n_rows = len(stmt.rows)
+        for c in table.schema:
+            if c.name in data:
+                vals = data[c.name]
+                mask = np.array([v is not None for v in vals])
+                if c.dtype.is_string:
+                    codes = table.dictionaries[c.name].encode(
+                        [None if v is None else str(v) for v in vals])
+                    arrays[c.name] = codes
+                else:
+                    arrays[c.name] = np.array(
+                        [0 if v is None else v for v in vals], dtype=c.dtype.np)
+                if not mask.all():
+                    if not c.dtype.nullable:
+                        raise QueryError(f"NULL in NOT NULL column {c.name}")
+                    valids[c.name] = mask
+            else:
+                if not c.dtype.nullable:
+                    raise QueryError(f"missing NOT NULL column {c.name}")
+                arrays[c.name] = np.zeros(n_rows, dtype=c.dtype.np)
+                valids[c.name] = np.zeros(n_rows, dtype=bool)
+        block = HostBlock.from_arrays(table.schema, arrays, valids,
+                                      dict(table.dictionaries))
+        if tx is not None:
+            writes = table.write(block, tx=tx.tx_id)
+            tx.col_writes.append((table, writes))
+            tx.note_self_bump(table)   # staged write bumps data_version
+            self.last_rows_affected = block.length
+            return _unit_block()
+        writes = table.write(block)
+        with self._commit_step() as version:
+            table.commit(writes, version)
+        self.last_rows_affected = block.length
+        table.indexate(self._maintenance_watermark(),
+                       compact=self.config.flag("enable_auto_compaction"))
+        self._maybe_split(table)
+        return _unit_block()
+
+    def _maybe_split(self, table) -> None:
+        """Auto-split trigger at commit points (the table-stats split of
+        `schemeshard__table_stats.cpp`, collapsed to a row threshold)."""
+        if not getattr(table, "maybe_split", None):
+            return
+        if table.maybe_split(self.config.shard_split_rows):
+            from ydb_tpu_torch.utils.metrics import GLOBAL
+            GLOBAL.inc("engine/shard_splits")
+            if self.catalog.store is not None:
+                self.catalog.store.save_catalog(self.catalog)
+
+    def _apply_row_ops(self, table, ops, tx) -> None:
+        """Row-table mutation: immediate at a fresh version (autocommit)
+        or staged under the open transaction."""
+        if not ops:
+            return
+        if tx is not None:
+            table.apply(ops, None, durable=False, tx=tx.tx_id)
+            tx.row_writes.append((table, ops))
+            # pk-granular write lock: a tx that only WRITES this table
+            # validates point conflicts on these keys, not the whole
+            # table's data_version
+            tx.note_self_bump(table, write_pks=table.pks_of_ops(ops))
+        else:
+            with self._commit_step() as version:
+                table.apply(ops, version)
+
+
+    # -- UPDATE / DELETE ---------------------------------------------------
+    #
+    # Row tables (DataShard analog): evaluate the WHERE through the normal
+    # query path, then apply point mutations on the version chains — MVCC
+    # snapshots keep seeing the old rows.
+    #
+    # Column tables: evaluated the same way, then applied as MVCC delete
+    # marks on immutable portions (storage/portion.py DeleteMark) — time
+    # travel preserved, transactional staging supported; UPDATE commits
+    # its marks and re-inserts through one intent-journal record.
+
+    def _update(self, stmt: ast.Update, snap=None, tx=None) -> HostBlock:
+        table = self._table(stmt.table)
+        if tx is not None:
+            tx.lock(table)
+        set_cols = [c for (c, _e) in stmt.assignments]
+        for c in set_cols:
+            if c in table.key_columns:
+                raise QueryError("UPDATE of primary key columns is not "
+                                 "supported (DELETE + INSERT)")
+        # constant assignments (incl. string literals, which the binder
+        # cannot type outside comparisons) apply directly; computed
+        # expressions evaluate through the query path
+        from ydb_tpu_torch.query.binder import _try_fold
+        const_vals: dict = {}
+        computed: list = []
+        for (c, e) in stmt.assignments:
+            if isinstance(e, ast.Literal) and e.value is None:
+                const_vals[c] = None
+                continue
+            folded = _try_fold(e)
+            if folded is not None:
+                const_vals[c] = folded.value
+            else:
+                computed.append((c, e))
+
+        if getattr(table, "store_kind", "column") == "row":
+            items = [ast.SelectItem(ast.Name((k,)), k)
+                     for k in table.key_columns]
+            items += [ast.SelectItem(e, f"__set_{c}")
+                      for (c, e) in computed]
+            df = self._run_select(ast.Select(
+                items=items, relation=ast.TableRef(stmt.table),
+                where=stmt.where), snap).to_pandas()
+            ops = []
+            for row in df.to_dict("records"):
+                vals = {k: _native(row[k]) for k in table.key_columns}
+                vals.update(const_vals)
+                vals.update({c: _native(row[f"__set_{c}"])
+                             for (c, _e) in computed})
+                ops.append(("upsert", vals))
+            self._apply_row_ops(table, ops, tx)
+            self.last_rows_affected = len(ops)
+            return _unit_block()
+        # column table: select full updated rows at the snapshot, mark the
+        # originals deleted (MVCC delete marks — historical snapshots keep
+        # the old rows), re-insert the new versions at the same commit
+        items = [ast.SelectItem(ast.Name((c,)), c)
+                 for c in table.schema.names]
+        items += [ast.SelectItem(e, f"__set_{c}") for (c, e) in computed]
+        df = self._run_select(ast.Select(
+            items=items, relation=ast.TableRef(stmt.table),
+            where=stmt.where), snap).to_pandas()
+        for (c, _e) in computed:
+            df[c] = df.pop(f"__set_{c}")
+        for c, v in const_vals.items():
+            df[c] = v
+        hits = self._column_delete_hits(table, stmt.where, snap)
+        n_hits = sum(len(rows) for (_s, _p, rows) in hits)
+        if tx is not None:
+            if n_hits != len(df):
+                # portion hits only cover indexed rows: a mismatch means
+                # the predicate matched rows STAGED by this same open tx
+                # (indexation cannot convert them) — marking would miss
+                # them and the re-insert would duplicate
+                raise QueryError(
+                    "UPDATE of rows inserted in the same transaction is "
+                    "not supported yet (commit the insert first)")
+            if not len(df):
+                self.last_rows_affected = 0
+                return _unit_block()
+            handles = table.stage_deletes(hits, tx.tx_id)
+            if handles:
+                tx.note_self_bump(table)      # stage_deletes bump
+                tx.col_deletes.append((table, handles))
+            block = HostBlock.from_pandas(
+                df[list(table.schema.names)], schema=table.schema,
+                dictionaries=table.dictionaries)
+            writes = table.write(block, tx=tx.tx_id)
+            tx.col_writes.append((table, writes))
+            tx.note_self_bump(table)  # staged write bump
+        else:
+            if not len(df):
+                self.last_rows_affected = 0
+                return _unit_block()
+            block = HostBlock.from_pandas(
+                df[list(table.schema.names)], schema=table.schema,
+                dictionaries=table.dictionaries)
+            writes = table.write(block)
+            # marks + new rows in ONE commit (one intent record): a crash
+            # must never leave a pure delete or a duplicating insert
+            with self._commit_step() as version:
+                table.commit(writes, version, deletes=hits)
+            table.indexate(self._maintenance_watermark(),
+                           compact=self.config.flag(
+                               "enable_auto_compaction"))
+        self.last_rows_affected = len(df)
+        return _unit_block()
+
+    def _delete(self, stmt: ast.Delete, snap=None, tx=None) -> HostBlock:
+        table = self._table(stmt.table)
+        if tx is not None:
+            tx.lock(table)
+        if getattr(table, "store_kind", "column") == "row":
+            items = [ast.SelectItem(ast.Name((k,)), k)
+                     for k in table.key_columns]
+            df = self._run_select(ast.Select(
+                items=items, relation=ast.TableRef(stmt.table),
+                where=stmt.where), snap).to_pandas()
+            ops = [("delete", {k: _native(row[k])
+                               for k in table.key_columns})
+                   for row in df.to_dict("records")]
+            self._apply_row_ops(table, ops, tx)
+            self.last_rows_affected = len(ops)
+            return _unit_block()
+        hits = self._column_delete_hits(table, stmt.where, snap)
+        n = sum(len(rows) for (_s, _p, rows) in hits)
+        if tx is not None:
+            cnt = int(self._run_select(ast.Select(
+                items=[ast.SelectItem(
+                    ast.FuncCall("count", (), star=True), "c")],
+                relation=ast.TableRef(stmt.table),
+                where=stmt.where), snap).to_pandas().iloc[0, 0])
+            if n != cnt:
+                raise QueryError(
+                    "DELETE of rows inserted in the same transaction is "
+                    "not supported yet (commit the insert first)")
+            handles = table.stage_deletes(hits, tx.tx_id)
+            if handles:
+                tx.note_self_bump(table)
+                tx.col_deletes.append((table, handles))
+        elif hits:
+            with self._commit_step() as version:
+                table.apply_deletes(hits, version)
+        self.last_rows_affected = n
+        return _unit_block()
+
+    def _column_delete_hits(self, table, where, snap=None) -> list:
+        """Matching rows per portion at the snapshot: [(shard, portion,
+        row indices)] — the input of the MVCC delete-mark path (the r3
+        portion-rewrite delete destroyed time travel; marks preserve it)."""
+        keys = table.key_columns
+        pks = self._run_select(ast.Select(
+            items=[ast.SelectItem(ast.Name((k,)), k) for k in keys],
+            relation=ast.TableRef(table.name),
+            where=where), snap).to_pandas().drop_duplicates()
+        if pks.empty:
+            return []
+        with self.tracer.span("column-delete-hits", keys=len(pks)):
+            # inserts → portions first: marks attach to portions (staged
+            # inserts are transient; indexation makes them markable)
+            table.indexate(self._maintenance_watermark(),
+                           compact=self.config.flag(
+                               "enable_auto_compaction"))
+            snap = snap or self.snapshot()
+            hits = []
+            for shard in table.shards:
+                for p in shard.portions:
+                    if not snap.includes(p.version):
+                        continue
+                    kdf = p.block.select(keys).to_pandas()
+                    kdf["__pos"] = np.arange(len(kdf))
+                    hit = kdf.merge(pks, on=keys, how="inner")["__pos"] \
+                             .to_numpy()
+                    dead = p.visible_dead(snap)
+                    if dead is not None:
+                        hit = np.setdiff1d(hit, dead)
+                    if len(hit):
+                        hits.append((shard, p, hit))
+        return hits
+
+    def _insert_select(self, stmt: ast.Insert, table, snap=None,
+                       tx=None) -> HostBlock:
+        block = self._run_select(stmt.query, snap)
+        df = block.to_pandas()
+        self.last_rows_affected = len(df)
+        names = stmt.columns or table.schema.names
+        if len(df.columns) != len(names):
+            raise QueryError("INSERT ... SELECT arity mismatch")
+        df.columns = names
+        # SERIAL columns draw from the sequence here too (the VALUES path
+        # does the same); explicit values advance the counter
+        serial = getattr(table, "serial_next", None)
+        if serial:
+            changed = False
+            for c, nxt in list(serial.items()):
+                if c not in df.columns:
+                    df[c] = range(nxt, nxt + len(df))
+                    names = list(names) + [c]
+                    serial[c] = nxt + len(df)
+                    changed = True
+                else:
+                    vals = [int(v) for v in df[c] if v is not None]
+                    mx = max(vals, default=0)
+                    if mx >= serial[c]:
+                        serial[c] = mx + 1
+                        changed = True
+            if changed and self.catalog.store is not None:
+                self.catalog.store.save_catalog(self.catalog)
+        if getattr(table, "store_kind", "column") == "row":
+            # ops carry only the named columns — "upsert" must keep the
+            # unmentioned ones, so no null-filling here (apply() enforces
+            # NOT NULL for genuinely absent values)
+            ops = [(stmt.mode, {c: _native(v) for c, v in row.items()})
+                   for row in df.to_dict("records")]
+            try:
+                self._apply_row_ops(table, ops, tx)
+            except ValueError as e:
+                raise QueryError(str(e)) from e
+            return _unit_block()
+        # null-fill unspecified columns (the VALUES path's semantics)
+        for c in table.schema:
+            if c.name not in df.columns:
+                if not c.dtype.nullable:
+                    raise QueryError(f"missing NOT NULL column {c.name}")
+                df[c.name] = None
+        df = df[list(table.schema.names)]
+        if tx is not None and len(df):
+            from ydb_tpu_torch.core.block import HostBlock as _HB
+            blk = _HB.from_pandas(df, schema=table.schema,
+                                  dictionaries=table.dictionaries)
+            writes = table.write(blk, tx=tx.tx_id)
+            tx.col_writes.append((table, writes))
+            tx.note_self_bump(table)   # staged write bumps data_version
+            return _unit_block()
+        if len(df):
+            with self._commit_step() as version:
+                table.bulk_upsert(df, version)
+        return _unit_block()
+
+
+def _native(v):
+    """pandas cell → python native (None for NA; unwrap numpy scalars)."""
+    import pandas as pd
+    if v is None or (isinstance(v, float) and v != v):
+        return None
+    try:
+        if pd.isna(v):
+            return None
+    except (TypeError, ValueError):
+        pass
+    return v.item() if hasattr(v, "item") else v
 
 
 def _unit_block() -> HostBlock:

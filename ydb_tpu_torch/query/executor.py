@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -301,8 +302,10 @@ class Executor:
 
         storage_names = [s for (s, _i) in pipe.scan.columns]
         rename = {s: i for (s, i) in pipe.scan.columns}
+        t_src = time.perf_counter()
         sources, src_ids = enumerate_scan_sources(table, snapshot,
                                                   pipe.scan.prune or None)
+        src_attrs = _sources_attrs(src_ids, t_src)
         Kb = shape_buckets.bucket_sources(len(sources))
         if sources and estimate_scan_bytes(sources, storage_names,
                                            pad_to=Kb) \
@@ -310,11 +313,12 @@ class Executor:
             return self._execute_fused_tiled(
                 plan, params, pipe, sources, scan_cols, builds, join_metas,
                 dicts, partial_schema)
-        with self._span("superblock-upload"):
+        with self._span("superblock-upload", **src_attrs) as sp:
             sb = self.device_cache.superblock(table, storage_names, rename,
                                               snapshot,
                                               pipe.scan.prune or None,
-                                              sources, src_ids, pad_to=Kb)
+                                              sources, src_ids, pad_to=Kb,
+                                              note=sp.attrs)
         if sb is None:
             return builds or None          # empty scan → portioned path
         arrays, valids, lengths, K, CAP, sb_dicts = sb
@@ -484,16 +488,19 @@ class Executor:
 
         storage_names = [s for (s, _i) in pipe.scan.columns]
         rename = {s: i for (s, i) in pipe.scan.columns}
+        t_src = time.perf_counter()
         sources, src_ids = enumerate_scan_sources(table, snapshot, None)
+        src_attrs = _sources_attrs(src_ids, t_src)
         Kb = shape_buckets.bucket_sources(len(sources))
         if not sources or estimate_scan_bytes(sources, storage_names,
                                               pad_to=Kb) \
                 > self.fused_scan_budget_bytes:
             return None                  # empty / tiled-class scan
-        with self._span("superblock-upload"):
+        with self._span("superblock-upload", **src_attrs) as sp:
             sb = self.device_cache.superblock(table, storage_names, rename,
                                               snapshot, None, sources,
-                                              src_ids, pad_to=Kb)
+                                              src_ids, pad_to=Kb,
+                                              note=sp.attrs)
         if sb is None:
             return None
         arrays, valids, lengths, K, CAP, sb_dicts = sb
@@ -1900,6 +1907,15 @@ def _tile_done(device):
     ev = torch.cuda.Event()
     ev.record()
     return ev
+
+
+def _sources_attrs(src_ids, t0: float) -> dict:
+    """The superblock span's account of the scan sources before it: the
+    host ms since `t0` of listing them (a portion with delete marks
+    visible at the snapshot is read through a filtered copy of its live
+    rows, made on its first read) and the count of such portions."""
+    return {"sources_ms": round((time.perf_counter() - t0) * 1e3, 3),
+            "marked": sum(i[0] == "pv" for i in src_ids)}
 
 
 def _stamp_card_time(span, clock) -> None:

@@ -38,8 +38,9 @@ class Catalog:
         if name in self.tables:
             raise ValueError(f"table {name!r} already exists")
         if store_kind == "row":
-            from ydb_tpu_torch.errors import NotPorted
-            raise NotPorted("row tables (storage/rowtable.py)")
+            from ydb_tpu_torch.storage.rowtable import RowTable
+            t = RowTable(name, schema, key_columns, shards, portion_rows,
+                         partition_by)
         else:
             t = ColumnTable(name, schema, key_columns, shards, portion_rows,
                             partition_by)

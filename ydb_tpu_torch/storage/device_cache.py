@@ -50,6 +50,12 @@ def enumerate_scan_sources(table, snapshot, prune):
     return sources, src_ids
 
 
+def _note(note, upload_bytes: int, stacked: int = 1) -> None:
+    if note is not None:
+        note["stacked"] = note.get("stacked", 0) + stacked
+        note["upload_bytes"] = note.get("upload_bytes", 0) + upload_bytes
+
+
 def _device_source(b):
     """The still-on-device view of a stage-spine scan source (a landed
     `DeviceStageBlock` channel table), or None for plain host blocks.
@@ -99,7 +105,8 @@ class DeviceColumnCache:
         import threading
         self.device = device
         self.budget = budget_bytes
-        self._entries: OrderedDict = OrderedDict()  # key -> (data, valid, nbytes)
+        # key -> (data, valid, nbytes, host source | None)
+        self._entries: OrderedDict = OrderedDict()
         self.bytes = 0
         # device bytes held by OTHER long-lived caches sharing this
         # budget (the cross-query BuildCache registers here)
@@ -111,8 +118,8 @@ class DeviceColumnCache:
     def _evict(self):
         while self.bytes + self.foreign_bytes > self.budget \
                 and self._entries:
-            _key, (_d, _v, nbytes) = self._entries.popitem(last=False)
-            self.bytes -= nbytes
+            _key, ent = self._entries.popitem(last=False)
+            self.bytes -= ent[2]
 
     def acquire_foreign(self, nbytes: int) -> None:
         with self._mu:
@@ -130,12 +137,19 @@ class DeviceColumnCache:
         with self._mu:
             while self.bytes + self.foreign_bytes + nbytes > self.budget \
                     and self._entries:
-                _key, (_d, _v, nb) = self._entries.popitem(last=False)
-                self.bytes -= nb
+                _key, ent = self._entries.popitem(last=False)
+                self.bytes -= ent[2]
 
-    def _lookup(self, key):
+    def _lookup(self, key, src=None):
+        """The entry under `key`, or None. `src`: the host column the
+        entry must have been uploaded from; an entry of another source
+        (a column replaced in place) is dropped and misses."""
         with self._mu:
             hit = self._entries.get(key)
+            if hit is not None and src is not None and hit[3] is not src:
+                del self._entries[key]
+                self.bytes -= hit[2]
+                hit = None
             if hit is not None:
                 self._entries.move_to_end(key)
                 self.hits += 1
@@ -143,12 +157,14 @@ class DeviceColumnCache:
                 self.misses += 1
             return hit
 
-    def _insert(self, key, data, valid, nbytes):
+    def _insert(self, key, data, valid, nbytes, src=None):
         with self._mu:
             hit = self._entries.get(key)
-            if hit is not None:
+            if hit is not None and (src is None or hit[3] is src):
                 return hit[0], hit[1]
-            self._entries[key] = (data, valid, nbytes)
+            if hit is not None:
+                self.bytes -= hit[2]
+            self._entries[key] = (data, valid, nbytes, src)
             self.bytes += nbytes
             self._evict()
             return data, valid
@@ -160,8 +176,13 @@ class DeviceColumnCache:
         dev = torch.device(self.device if device is None else device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        # ALTER TABLE rewrites a portion's block in place and keeps its
+        # id, so an entry also holds the host column it was uploaded
+        # from: DROP then ADD of one name must not serve the dropped
+        # column's bytes
+        cd = portion.block.columns[col]
         key = (portion.id, col, str(dev))
-        hit = self._lookup(key)
+        hit = self._lookup(key, src=cd)
         if hit is not None:
             # the query's working set includes cache-resident columns —
             # the ledger accounts residency per query, not per upload
@@ -169,7 +190,6 @@ class DeviceColumnCache:
                 "portion_column", "scan_columns", portion.num_rows,
                 hit[0].shape[0], hit[0], hit[1])
             return hit[0], hit[1]
-        cd = portion.block.columns[col]
         cap = bucket_capacity(max(portion.num_rows, 1))
         pad = cap - portion.num_rows
         data = to_tensor(np.pad(cd.data, (0, pad)) if pad else cd.data, dev)
@@ -182,7 +202,7 @@ class DeviceColumnCache:
         memledger.record_padded_buffers(
             "portion_column", "scan_columns", portion.num_rows, cap,
             data, valid)
-        return self._insert(key, data, valid, nbytes)
+        return self._insert(key, data, valid, nbytes, src=cd)
 
     def device_block(self, portion, columns: list, rename=None,
                      device=None):
@@ -210,12 +230,15 @@ class DeviceColumnCache:
 
     def superblock(self, table, storage_names: list, rename: dict,
                    snapshot, prune, sources=None, src_ids=None,
-                   pad_to: int = 0):
+                   pad_to: int = 0, note: dict = None):
         """Stacked (K, CAP) tensors on the cache's device covering every
         visible scan source of `table` — the input of the fused query
         (`ops/fused.py`), one upload per column per data version. Rows
         beyond the real source count (`pad_to`, the shape bucket) are
         zero-filled with length 0, masked out like a short source.
+        `note` (the caller's span attrs): counts the columns stacked on
+        a miss (`stacked`) and the bytes uploaded from the host
+        (`upload_bytes`).
 
         Returns (arrays {internal: (K,CAP)}, valids {internal: (K,CAP)},
         lengths (K,) int32, K, CAP, dicts) or None when the table has no
@@ -246,6 +269,7 @@ class DeviceColumnCache:
                 # length, so the stack equals what the host path builds.
                 d, v = self._stack_device(sources, s, K, CAP)
                 nbytes = d.nbytes + (v.nbytes if v is not None else 0)
+                _note(note, 0)
                 d, v = self._insert(key, d, v, nbytes)
                 arrays[out] = d
                 if v is not None:
@@ -266,6 +290,7 @@ class DeviceColumnCache:
                 v = to_tensor(vstack, self.device) \
                     if vstack is not None else None
                 nbytes = d.nbytes + (v.nbytes if v is not None else 0)
+                _note(note, nbytes)
                 d, v = self._insert(key, d, v, nbytes)
                 arrays[out] = d
                 if v is not None:
@@ -280,6 +305,7 @@ class DeviceColumnCache:
         lhit = self._lookup(lkey)
         if lhit is None:
             lengths = to_tensor(lengths_np, self.device)
+            _note(note, lengths.nbytes, stacked=0)
             lengths, _ = self._insert(lkey, lengths, None, lengths.nbytes)
         else:
             lengths = lhit[0]

@@ -112,11 +112,16 @@ class Portion:
             return self.block
         sig = self.delete_sig(snapshot)
         cached = getattr(self, "_vb_cache", None)
-        if cached is not None and cached[0] == sig:
-            return cached[1]
+        # ALTER TABLE replaces `block` in place: a view of the block it
+        # replaced would lack an added column, or hold a dropped one's
+        # bytes under a re-added name
+        if cached is not None and cached[0] == sig \
+                and cached[1] is self.block:
+            return cached[2]
         keep = np.setdiff1d(np.arange(self.num_rows, dtype=np.int64), dead)
         blk = self.block.take(keep)
-        self._vb_cache = (sig, blk)      # one filtered view per mark set
+        # one filtered view per mark set and block
+        self._vb_cache = (sig, self.block, blk)
         return blk
 
     @staticmethod
